@@ -1,0 +1,177 @@
+"""Weights carried across from the JAX package: its ``{params, batch_stats}``
+trees (nested dicts of numpy arrays) -> the port's torch state dicts.
+
+The port's own copy of the reverse converter in ``recnext_tpu/convert.py``
+(``_flatten_tree``, ``_inv_path``, ``_inv_leaf``, ``_inv_transform``,
+``flax_to_torch``, ``flax_fused_to_torch``), restricted to the M family: flax
+HWIO kernels become OIHW, Dense (in, out) kernels become Linear (out, in), and
+paths are renamed to the reference module tree the port's models share.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from recnext_tpu_torch.fusion import EPS
+
+_STEM_INV = {"conv1": "0", "conv2": "2"}
+_BLOCK_RE = re.compile(r"stage(\d+)_block(\d+)")
+_DS_RE = re.compile(r"downsample_(\d+)")
+_CONVK_RE = re.compile(r"conv(\d+)_(kernel|bias)")
+_DOWNKB_RE = re.compile(r"down_(kernel|bias)")
+_NORM_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def _flatten_tree(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    out: Dict[Tuple[str, ...], np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten_tree(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _inv_path(path: Tuple[str, ...]) -> Tuple[list, str]:
+    """flax path tuple -> torch dotted tokens, plus the transform for the leaves
+    the token rewrite itself resolves (RecConv ``convK_`` and ``down_`` leaves)."""
+    toks: list = []
+    tr = "id"
+    for i, t in enumerate(path):
+        prev = path[i - 1] if i else ""
+        m = _BLOCK_RE.fullmatch(t)
+        if m:
+            toks += ["stages", m.group(1), "blocks", m.group(2)]
+            continue
+        m = _DS_RE.fullmatch(t)
+        if m:
+            toks += ["stages", m.group(1), "downsample"]
+            continue
+        if t == "stem" and i == 0:
+            toks += ["stem", "stem"]
+            continue
+        if prev == "stem" and i == 1 and t in _STEM_INV:
+            toks.append(_STEM_INV[t])
+            continue
+        if prev == "channel_mixer" and t in ("fc1", "fc2"):
+            toks.append("0" if t == "fc1" else "2")
+            continue
+        m = _CONVK_RE.fullmatch(t)
+        if m:
+            toks += ["convs", m.group(1), "weight" if m.group(2) == "kernel" else "bias"]
+            tr = "conv" if m.group(2) == "kernel" else "id"
+            continue
+        m = _DOWNKB_RE.fullmatch(t)
+        if m:
+            toks += ["down", "weight" if m.group(1) == "kernel" else "bias"]
+            tr = "conv" if m.group(1) == "kernel" else "id"
+            continue
+        toks.append(t)
+    return toks, tr
+
+
+def _inv_leaf(path: Tuple[str, ...], fused: bool) -> Tuple[str, str]:
+    """flax leaf path -> (torch key, transform)."""
+    toks, tr = _inv_path(path)
+    leaf, parent = path[-1], path[-2] if len(path) >= 2 else ""
+    if _CONVK_RE.fullmatch(leaf) or _DOWNKB_RE.fullmatch(leaf):
+        return ".".join(toks), tr
+    if parent == "norm" and leaf in _NORM_LEAF:
+        toks[-1] = _NORM_LEAF[leaf]
+        return ".".join(toks), "id"
+    if parent == "conv" and leaf in ("kernel", "bias"):
+        name = "weight" if leaf == "kernel" else "bias"
+        if fused:  # ConvNorm -> plain Conv2d: no inner .conv module
+            toks[-2:] = [name]
+        else:
+            toks[-1] = name
+        return ".".join(toks), "conv" if leaf == "kernel" else "id"
+    if parent == "linear" and leaf in ("kernel", "bias"):
+        name = "weight" if leaf == "kernel" else "bias"
+        if fused and path[0] == "head":
+            # fused single averaged classifier head -> plain Linear "head"
+            return f"head.{name}", "linear" if leaf == "kernel" else "id"
+        toks[-1] = name
+        return ".".join(toks), "linear" if leaf == "kernel" else "id"
+    if parent == "token_mixer" and leaf in ("kernel", "bias"):
+        # Downsample's raw depthwise conv token mixer
+        toks[-1] = "weight" if leaf == "kernel" else "bias"
+        return ".".join(toks), "conv" if leaf == "kernel" else "id"
+    raise KeyError(f"unmapped flax path: {'/'.join(path)}")
+
+
+def _inv_transform(v: np.ndarray, tr: str) -> np.ndarray:
+    if tr == "conv":
+        return np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
+    if tr == "linear":
+        return np.transpose(v, (1, 0))
+    return v
+
+
+def _to_torch(out: Dict[str, np.ndarray], model: torch.nn.Module | None) -> Dict[str, torch.Tensor]:
+    state = {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+    if model is not None:
+        want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in state.items()}
+        if want != got:
+            missing = sorted(set(want) - set(got))
+            extra = sorted(set(got) - set(want))
+            shapes = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+            raise ValueError(f"state dict does not match the model: missing={missing[:5]} "
+                             f"extra={extra[:5]} shape mismatch={shapes[:5]}")
+    return state
+
+
+def jax_to_torch(variables: Mapping[str, Any], model: torch.nn.Module | None = None
+                 ) -> Dict[str, torch.Tensor]:
+    """JAX ``{params, batch_stats}`` -> unfused torch state dict (fp32). With
+    ``model``, check that keys and shapes are exactly its ``state_dict()``'s."""
+    params = dict(variables.get("params", {}))
+    stats = dict(variables.get("batch_stats", {}))
+    if not params:
+        raise ValueError("jax_to_torch expects {'params': ..., 'batch_stats': ...} "
+                         "(got no 'params' collection)")
+    out: Dict[str, np.ndarray] = {}
+    for path, v in _flatten_tree(params).items():
+        key, tr = _inv_leaf(path, fused=False)
+        out[key] = _inv_transform(v.astype(np.float32), tr)
+    for path, v in _flatten_tree(stats).items():
+        key, _ = _inv_leaf(path, fused=False)
+        out[key] = v.astype(np.float32)
+        if path[-1] == "mean":  # torch BN buffers include num_batches_tracked
+            out[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = np.zeros((), np.int64)
+    return _to_torch(out, model)
+
+
+def jax_fused_to_torch(params: Mapping[str, Any], model: torch.nn.Module | None = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Fused JAX params (``recnext_tpu.fusion.fuse_params`` output) -> the fused
+    torch state dict: plain convs and Linear, one classifier head, and each
+    FusedAffine(scale, shift) as a standalone BN with weight=scale, bias=shift,
+    running_mean=0, running_var=1-eps (exact under torch's eps=1e-5)."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    if not params:
+        raise ValueError("jax_fused_to_torch got an empty params tree")
+    flat = _flatten_tree(dict(params))
+    out: Dict[str, np.ndarray] = {}
+    for path, v in flat.items():
+        if path[-2:] == ("norm", "shift"):
+            continue  # handled with its scale sibling
+        if path[-2:] == ("norm", "scale"):
+            prefix = ".".join(_inv_path(path[:-1])[0])
+            scale = v.astype(np.float32)
+            out[f"{prefix}.weight"] = scale
+            out[f"{prefix}.bias"] = flat[path[:-1] + ("shift",)].astype(np.float32)
+            out[f"{prefix}.running_mean"] = np.zeros_like(scale)
+            out[f"{prefix}.running_var"] = np.full_like(scale, 1.0 - EPS)
+            out[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+            continue
+        key, tr = _inv_leaf(path, fused=True)
+        out[key] = _inv_transform(v.astype(np.float32), tr)
+    return _to_torch(out, model)

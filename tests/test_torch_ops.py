@@ -1,0 +1,98 @@
+"""The port's operators against the JAX package's: resize, depthwise conv and the
+RecConv2d pyramid (plain version and the CPU path of the fused entry point).
+Inputs are made with numpy and handed to both; NHWC <-> NCHW is explicit."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recnext_tpu.ops.conv import depthwise_conv2d as jax_depthwise_conv2d
+from recnext_tpu.ops.pallas.recconv import pallas_rec_conv2d
+from recnext_tpu.ops.recconv import rec_conv2d as jax_rec_conv2d
+from recnext_tpu.ops.resize import resize as jax_resize
+from recnext_tpu_torch.ops.conv import depthwise_conv2d
+from recnext_tpu_torch.ops.recconv import rec_conv2d, rec_conv2d_fused
+from recnext_tpu_torch.ops.resize import resize
+
+
+def _nchw(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+
+
+def _nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.detach().numpy().transpose(0, 2, 3, 1)
+
+
+def _oihw(w: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("src,dst", [((4, 4), (7, 7)), ((8, 5), (15, 9)),
+                                     ((7, 7), (14, 13)), ((6, 6), (6, 6))])
+def test_resize_matches_jax(mode, src, dst):
+    x = np.random.default_rng(0).normal(size=(2, *src, 3)).astype(np.float32)
+    want = np.asarray(jax_resize(jnp.asarray(x), dst, mode=mode))
+    got = _nhwc(resize(_nchw(x), dst, mode=mode))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("stride,k,h", [(1, 5, 14), (2, 5, 15), (2, 7, 14), (1, 3, 7)])
+def test_depthwise_conv2d_matches_jax(stride, k, h):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, h, h, 8)).astype(np.float32)
+    w = rng.normal(size=(k, k, 1, 8)).astype(np.float32)
+    want = np.asarray(jax_depthwise_conv2d(jnp.asarray(x), jnp.asarray(w),
+                                           stride=stride, padding=k // 2))
+    got = _nhwc(depthwise_conv2d(_nchw(x), _oihw(w), stride=stride, padding=k // 2))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def _recconv_inputs(h, c, level, seed=0):
+    """tests/test_pallas.py's inputs: x (4,h,h,c), k=5 kernels, all NHWC/HWIO."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(4, h, h, c)).astype(np.float32)
+    dw = rng.normal(size=(5, 5, 1, c)).astype(np.float32)
+    cws = [rng.normal(size=(5, 5, 1, c)).astype(np.float32) for _ in range(level + 1)]
+    return x, dw, cws
+
+
+# the shapes of tests/test_pallas.py:12, its tolerance (rtol 2e-5, atol 2e-5 max|want|)
+RECCONV_SHAPES = [(14, 192, 2), (15, 32, 2), (7, 64, 1), (28, 48, 3)]
+
+
+@pytest.mark.parametrize("h,c,level", RECCONV_SHAPES)
+def test_rec_conv2d_matches_jax_and_pallas(h, c, level):
+    x, dw, cws = _recconv_inputs(h, c, level)
+    got = _nhwc(rec_conv2d(_nchw(x), _oihw(dw), [_oihw(w) for w in cws], level=level))
+    jx, jdw, jcws = jnp.asarray(x), jnp.asarray(dw), tuple(jnp.asarray(w) for w in cws)
+    want = np.asarray(jax_rec_conv2d(jx, jdw, jcws, level=level, mode="bilinear"))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
+    pallas = np.asarray(pallas_rec_conv2d(jx, jdw, jcws, level=level, interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=2e-5, atol=2e-5 * np.abs(pallas).max())
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+def test_rec_conv2d_with_bias_and_mode_matches_jax(mode):
+    rng = np.random.default_rng(2)
+    x, dw, cws = _recconv_inputs(11, 8, 2, seed=3)
+    db = rng.normal(size=(8,)).astype(np.float32)
+    cbs = [rng.normal(size=(8,)).astype(np.float32) for _ in cws]
+    got = _nhwc(rec_conv2d(_nchw(x), _oihw(dw), [_oihw(w) for w in cws],
+                           torch.from_numpy(db), [torch.from_numpy(b) for b in cbs],
+                           level=2, mode=mode))
+    want = np.asarray(jax_rec_conv2d(
+        jnp.asarray(x), jnp.asarray(dw), tuple(jnp.asarray(w) for w in cws),
+        jnp.asarray(db), tuple(jnp.asarray(b) for b in cbs), level=2, mode=mode))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("h,c,level", RECCONV_SHAPES[:2])
+def test_rec_conv2d_fused_on_cpu_is_the_plain_version(h, c, level):
+    x, dw, cws = _recconv_inputs(h, c, level)
+    args = (_nchw(x), _oihw(dw), [_oihw(w) for w in cws])
+    before = rec_conv2d_fused.launches
+    got = rec_conv2d_fused(*args, level=level)
+    assert rec_conv2d_fused.launches == before  # no kernel ran
+    torch.testing.assert_close(got, rec_conv2d(*args, level=level), rtol=0, atol=0)
