@@ -3,30 +3,47 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, then:
+Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
+source, started together), then drives two paths, each with every kernel launch
+count set to 0 just before its serving phase and read just after:
 
-1. env        card name and power limit, torch/CUDA versions, kernel build time;
+1. env        card name and power limit, torch/CUDA versions, kernel build times;
+   recnext_m1 (the M family, kernel K1 = RecConv2d):
 2. kernel     the RecConv2d kernel against its plain PyTorch version at recnext_m1's
               four mixer shapes (224^2), an odd 15^2 plane and a 96^2 plane, in f32
               (cuDNN TF32 off; tolerance 2e-5 max|ref|) and in bf16 (against the
               plain version in f32 on the same bf16 values; tolerance 1e-2 max|ref|,
-              bf16 keeps 8 bits); times kernel and plain version at batch 256 bf16;
+              bf16 keeps 8 bits); times kernel and plain version at batch 256 bf16
+              (device time from a torch.profiler trace, and call time from CUDA
+              events, which includes the host's time between launches);
 3. model      recnext_m1 from a seeded generator, BN statistics calibrated on a
               random batch, fused with fuse_params; the fused model's logits through
               the kernel against the plain path (f32 and bf16), and exactly 23
-              kernel launches per forward;
+              RecConv2d and 0 linear-attention launches per forward;
 4. serving    publish_fused -> ServingModel(max_batch=8) -> HTTP server: /ping,
               /models/recnext_m1, then >= 16 requests from several threads through
               the micro-batcher (the path a POST takes after decoding), each equal
               to a direct predict; the main path whose kernel launches are counted;
 5. throughput fused bf16 m1 at batch 256 and batch 1, timed with CUDA events, through
-              the kernel and (for scale) with the mixers on the plain version.
+              the kernel and (for scale) with the mixers on the plain version; a
+              profiler trace of the kernel path: device busy time and idle share,
+              the kernel's time in the forward, the kernels by device time;
+   recnext_a1 (the A family, kernel K2 = linear attention):
+6. attention  the linear-attention kernel against its plain version (kv-first) at
+              tests/test_pallas.py's four shapes (odd n, odd d, dv != d) and at
+              recnext_a1's four attention shapes, through the (BH, N, D) entry and
+              the model's NCHW head entry: f32 within 1e-3 + 1e-3 |ref|
+              (tests/test_pallas.py:44's bound), bf16 against the plain version in
+              f32 on the same bf16 values within 1e-2 max|ref|; times kernel and plain
+              version at a1's shapes at batch 256 bf16, as phase 2 does;
+7-10.         phases 3-5 for recnext_a1: exactly 23 linear-attention and 0 RecConv2d
+              launches per forward, and 23 per batch served.
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
-In the kernel record, "launches" counts the serving phase's launches; "ms",
-"plain_ms" and "bound_ms" are the sums over the 23 launches of one m1 forward at
-batch 256 in bf16.
-The last lines are the kernel record, the card's name and power limit, and
+In the kernel record, "launches" counts the launches of the kernel's serving
+phase; "ms", "plain_ms" (device times) and "bound_ms" are the sums over the 23
+launches of one forward of its model (m1 for rec_conv2d, a1 for linear_attention)
+at batch 256 in bf16. The last lines are the kernel record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -40,14 +57,23 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from recnext_tpu_torch.export import publish_fused
 from recnext_tpu_torch.fusion import fuse_params
 from recnext_tpu_torch.models.registry import create_model
+from recnext_tpu_torch.ops.attention import (
+    linear_attention_fused,
+    linear_attention_kv_first,
+    linear_attention_nchw,
+    linear_attention_nchw_plain,
+)
+from recnext_tpu_torch.ops.cuda import linear_attention as attention_cuda
 from recnext_tpu_torch.ops.cuda import recconv as recconv_cuda
 from recnext_tpu_torch.ops.recconv import rec_conv2d, rec_conv2d_fused
 from recnext_tpu_torch.serve import ServingModel, make_server
@@ -58,6 +84,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 M1_MIXERS = {  # level -> (channels, plane side, launches per m1 forward) at 224^2
     4: (48, 56, 3), 3: (96, 28, 3), 2: (192, 14, 15), 1: (384, 7, 2)}
+# stage -> (heads, side of the attention map, launches per a1 forward, variant) at
+# 224^2; the head width is 24 at every stage
+A1_ATTENTION = {0: (2, 28, 3, 1), 1: (4, 14, 3, 1), 2: (8, 7, 15, 1), 3: (16, 4, 2, 2)}
+A1_HEAD_DIM = 24
+# every launch count; each path's serving phase sets them all to 0 before it runs
+COUNTERS = {"rec_conv2d": rec_conv2d_fused, "linear_attention": linear_attention_fused}
+EXPECTED = {"recnext_m1": {"rec_conv2d": 23, "linear_attention": 0},
+            "recnext_a1": {"rec_conv2d": 0, "linear_attention": 23}}
 
 
 def emit(obj) -> None:
@@ -82,6 +116,39 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def trace(fn, iters: int = 20, warmup: int = 3):
+    """The device kernels of ``iters`` calls, from a torch.profiler trace: a list of
+    {name, launches, ms} per call, most device time first."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [{"name": e.key[:100], "launches": e.count / iters,
+                "ms": e.self_device_time_total / 1e3 / iters}
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        raise RuntimeError("the profiler saw no device time")
+    return sorted(kernels, key=lambda k: k["ms"], reverse=True)
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call: the kernels' times summed. Unlike ``cuda_ms`` it leaves
+    out the host's time between launches, which bounds a call at small shapes."""
+    return sum(k["ms"] for k in trace(fn, iters))
+
+
+def time_pair(kernel, plain):
+    """Device ms per call of the kernel and of its plain version, and each one's
+    ms per call from CUDA events (host time between launches included)."""
+    return {"kernel_ms": device_ms(kernel), "plain_ms": device_ms(plain, iters=5),
+            "kernel_call_ms": cuda_ms(kernel), "plain_call_ms": cuda_ms(plain, iters=5)}
 
 
 def recconv_work(n, c, h, w, level, k, elem_bytes):
@@ -142,22 +209,98 @@ def phase_kernel():
             max_abs_err = max(max_abs_err, err16)
             # timing at the main path's size: batch 256, bf16
             xt, wst = inputs(256, c, s, level, torch.bfloat16)
-            kms = cuda_ms(lambda: rec_conv2d_fused(xt, wst[0], wst[1:], level=level))
-            pms = cuda_ms(lambda: rec_conv2d(xt, wst[0], wst[1:], level=level), iters=5)
+            times = time_pair(lambda: rec_conv2d_fused(xt, wst[0], wst[1:], level=level),
+                              lambda: rec_conv2d(xt, wst[0], wst[1:], level=level))
             nbytes, flops = recconv_work(256, c, s, s, level, 5, 2)
             bms, by = bound(nbytes, flops)
-            per_shape[level] = dict(kernel_ms=kms, plain_ms=pms, bytes=nbytes, flops=flops)
-            rec.update(batch_256_bf16={"kernel_ms": kms, "plain_ms": pms, "bound_ms": bms,
-                                       "bound_by": by, "bytes": nbytes, "flops": flops})
+            per_shape[level] = dict(times, bytes=nbytes, flops=flops)
+            rec.update(batch_256_bf16=dict(times, bound_ms=bms, bound_by=by, bytes=nbytes,
+                                           flops=flops))
         emit(rec)
     return per_shape, max_abs_err
 
 
-def calibrated_m1():
-    """recnext_m1 with seeded weights and non-trivial BN: affine drawn from the
+def attention_work(b, heads, n, d, dv, elem_bytes):
+    """(bytes, flops) the linear-attention function needs: q, k, v read and out
+    written once; per head 2*N*D*DV for k^T v and as many for q kv, N*D for ksum,
+    2*N*D for q.ksum and N*DV divisions."""
+    nbytes = elem_bytes * b * heads * n * (2 * d + 2 * dv)
+    flops = b * heads * (4 * n * d * dv + 3 * n * d + n * dv)
+    return nbytes, flops
+
+
+def phase_attention():
+    """K2 against its plain version through both entries; times at a1's shapes."""
+    gen = torch.Generator().manual_seed(5)
+
+    def inputs(b, heads, side, d, dv, dtype):
+        # elu(x)+1 features are positive, as tests/test_pallas.py draws q and k
+        qk = torch.randn(b, 2 * heads * d, side, side, generator=gen).abs() + 0.1
+        v = torch.randn(b, heads * dv, side, side, generator=gen)
+        return qk.to("cuda", dtype), v.to("cuda", dtype)
+
+    def heads_of(x, heads):  # (B, nh*D, H, W) -> contiguous (B*nh, N, D)
+        b, c, h, w = x.shape
+        return x.reshape(b * heads, c // heads, h * w).transpose(1, 2).contiguous()
+
+    # tests/test_pallas.py:29-34's (BH, N, D, DV) as (batch, heads, side, D, DV), then
+    # a1's four attention shapes at batch 8 (checked) and 256 (timed)
+    cases = [(1, 2, 4, 32, 32, 1), (2, 2, 8, 64, 64, 1), (1, 2, 7, 20, 20, 1),
+             (1, 2, 14, 20, 40, 1)]
+    cases += [(8, nh, side, A1_HEAD_DIM, A1_HEAD_DIM, var)
+              for nh, side, _, var in A1_ATTENTION.values()]
+    per_stage, max_abs_err = {}, 0.0
+    for b, nh, side, d, dv, variant in cases:
+        qk, v = inputs(b, nh, side, d, dv, torch.float32)
+        q, k = qk[:, : nh * d], qk[:, nh * d:]
+        rec = {"phase": "attention", "batch": b, "heads": nh, "n": side * side, "d": d,
+               "dv": dv}
+        for dtype in (torch.float32, torch.bfloat16):
+            qkx, vx = qk.to(dtype), v.to(dtype)
+            qx, kx = q.to(dtype), k.to(dtype)
+            # the plain version in f32 on the same (rounded) values
+            want = linear_attention_nchw_plain(qkx.float(), vx.float(), nh)
+            want_bh = linear_attention_kv_first(*(heads_of(t.float(), nh) for t in (qx, kx, vx)))
+            got = linear_attention_nchw(qkx, vx, nh, variant=variant).float()
+            got_bh = linear_attention_fused(*(heads_of(t, nh) for t in (qx, kx, vx))).float()
+            torch.cuda.synchronize()
+            for entry, g, w in (("nchw", got, want), ("bh", got_bh, want_bh)):
+                err = (g - w).abs().max().item()
+                scale = w.abs().max().item()
+                if dtype == torch.float32:
+                    ok = bool(((g - w).abs() <= 1e-3 + 1e-3 * w.abs()).all())
+                else:
+                    ok = err <= 1e-2 * scale
+                key = f"{'f32' if dtype == torch.float32 else 'bf16'}_{entry}"
+                rec[f"{key}_max_abs_err"], rec[f"{key}_max_abs_ref"] = err, scale
+                if not ok:
+                    raise AssertionError(f"{key} attention kernel mismatch at "
+                                         f"{(b, nh, side, d, dv)}: {err} (max|ref| {scale})")
+        stage = next((st for st, (h, sd, _, _) in A1_ATTENTION.items()
+                      if (h, sd, d) == (nh, side, A1_HEAD_DIM) and b == 8), None)
+        if stage is not None:
+            max_abs_err = max(max_abs_err, rec["bf16_nchw_max_abs_err"],
+                              rec["bf16_bh_max_abs_err"])
+            # timing at the main path's size: batch 256, bf16, the model's entry
+            qkt, vt = inputs(256, nh, side, d, dv, torch.bfloat16)
+            times = time_pair(
+                lambda: linear_attention_nchw(qkt, vt, nh, variant=variant),
+                lambda: linear_attention_nchw_plain(qkt, vt, nh, variant=variant))
+            nbytes, flops = attention_work(256, nh, side * side, d, dv, 2)
+            bms, by = bound(nbytes, flops)
+            per_stage[stage] = dict(times, bytes=nbytes, flops=flops)
+            rec.update(stage=stage, variant=variant,
+                       batch_256_bf16=dict(times, bound_ms=bms, bound_by=by, bytes=nbytes,
+                                           flops=flops))
+        emit(rec)
+    return per_stage, max_abs_err
+
+
+def calibrated(name):
+    """``name`` with seeded weights and non-trivial BN: affine drawn from the
     generator, running statistics those of one random batch."""
     gen = torch.Generator().manual_seed(1)
-    model = create_model("recnext_m1", device="cuda", generator=gen)
+    model = create_model(name, device="cuda", generator=gen)
     bns = [m for m in model.modules()
            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d))]
     with torch.no_grad():
@@ -172,63 +315,69 @@ def calibrated_m1():
 
 
 def plain_path(model):
-    """Route every RecConv2d mixer through its plain version (until restored)."""
+    """Route every mixer that has a kernel through its plain version (until restored)."""
     mixers = [m for m in model.modules() if hasattr(m, "forward_plain")]
     for m in mixers:
         m.forward = m.forward_plain
     return lambda: [m.__dict__.pop("forward") for m in mixers]
 
 
-def phase_model():
-    unfused = calibrated_m1()
+def counts():
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def phase_model(name):
+    unfused = calibrated(name)
     fused_sd = fuse_params(unfused.state_dict())
     x = torch.randn(8, 3, 224, 224, generator=torch.Generator().manual_seed(2)).cuda()
-    out = {"phase": "model", "model": "recnext_m1", "input": [8, 3, 224, 224]}
+    out = {"phase": "model", "model": name, "input": [8, 3, 224, 224]}
     with torch.inference_mode():
         restore = plain_path(unfused)
         ref = unfused(x).float()  # unfused f32, plain path: the reference
         restore()
-        for name, dtype, tol_ref, tol_plain in (
+        for label, dtype, tol_ref, tol_plain in (
                 ("f32", torch.float32, 1e-3, 1e-4),
                 # bf16 keeps 8 bits: ~100 layers each rounding at 2^-9 drift by a
                 # few percent of the logits' scale, and the max over 8k logits more
                 ("bf16", torch.bfloat16, 1e-1, 1e-1)):
-            model = create_model("recnext_m1", fused=True, device="cuda", dtype=dtype)
+            model = create_model(name, fused=True, device="cuda", dtype=dtype)
             model.load_state_dict(fused_sd, strict=True)
             xin = x.to(dtype)
-            before = rec_conv2d_fused.launches
+            before = counts()
             got = model(xin).float()
             torch.cuda.synchronize()
-            launches = rec_conv2d_fused.launches - before
-            if launches != 23:
-                raise AssertionError(f"{name}: {launches} kernel launches per m1 forward, "
-                                     "expected 23")
+            launches = {k: v - before[k] for k, v in counts().items()}
+            if launches != EXPECTED[name]:
+                raise AssertionError(f"{label}: kernel launches per {name} forward "
+                                     f"{launches}, expected {EXPECTED[name]}")
             restore = plain_path(model)
             plain = model(xin).float()
             restore()
             if got.shape != (8, 1000) or not torch.isfinite(got).all():
-                raise AssertionError(f"{name}: bad logits {tuple(got.shape)}")
+                raise AssertionError(f"{label}: bad logits {tuple(got.shape)}")
             scale = ref.abs().max().item()
             e_ref = (got - ref).abs().max().item()
             e_plain = (got - plain).abs().max().item()
             top1 = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-            out[name] = {"launches_per_forward": launches, "max_abs_err_vs_unfused_f32":
-                         e_ref, "max_abs_err_vs_plain_path": e_plain,
-                         "max_abs_logit": scale, "top1_agree_vs_unfused_f32": top1,
-                         "tol_vs_unfused_f32": tol_ref * scale,
-                         "tol_vs_plain_path": tol_plain * scale}
+            top1_plain = (got.argmax(-1) == plain.argmax(-1)).float().mean().item()
+            out[label] = {"launches_per_forward": launches, "max_abs_err_vs_unfused_f32":
+                          e_ref, "max_abs_err_vs_plain_path": e_plain,
+                          "max_abs_logit": scale, "top1_agree_vs_unfused_f32": top1,
+                          "top1_agree_vs_plain_path": top1_plain,
+                          "tol_vs_unfused_f32": tol_ref * scale,
+                          "tol_vs_plain_path": tol_plain * scale}
             if not (e_ref <= tol_ref * scale and e_plain <= tol_plain * scale):
-                raise AssertionError(f"{name} logits disagree: {out[name]}")
+                raise AssertionError(f"{label} logits disagree: {out[label]}")
     emit(out)
     return unfused
 
 
-def phase_serving(unfused):
+def phase_serving(name, unfused):
     build = Path(__file__).resolve().parent / "recnext_tpu_torch" / "_build"
     build.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as archive:
-        publish_fused("recnext_m1", unfused.state_dict(), archive)
-        serving = ServingModel(archive, "recnext_m1", max_batch=8)
+        publish_fused(name, unfused.state_dict(), archive)
+        serving = ServingModel(archive, name, max_batch=8)
     serving.warmup()
     srv = make_server(serving, port=0, window_ms=5.0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -237,9 +386,9 @@ def phase_serving(unfused):
         base = f"http://127.0.0.1:{srv.server_address[1]}"
         with urllib.request.urlopen(f"{base}/ping", timeout=30) as r:
             ping = json.loads(r.read())
-        with urllib.request.urlopen(f"{base}/models/recnext_m1", timeout=30) as r:
+        with urllib.request.urlopen(f"{base}/models/{name}", timeout=30) as r:
             info = json.loads(r.read())
-        if ping != {"status": "Healthy"} or info["model"] != "recnext_m1":
+        if ping != {"status": "Healthy"} or info["model"] != name:
             raise AssertionError(f"bad /ping or /models answer: {ping} {info}")
 
         rng = np.random.default_rng(3)
@@ -256,19 +405,22 @@ def phase_serving(unfused):
                 latency[i] = time.perf_counter() - t0
 
         batches0 = serving.batches_run
-        rec_conv2d_fused.launches = 0  # the main path starts here
+        for fn in COUNTERS.values():  # the main path starts here
+            fn.launches = 0
         clients = [threading.Thread(target=client, args=(range(j, 24, 6),))
                    for j in range(6)]
         for t in clients:
             t.start()
         for t in clients:
             t.join(timeout=600)
-        launches = rec_conv2d_fused.launches  # ... and ends here
+        launches = counts()  # ... and ends here
         batches = serving.batches_run - batches0
         if errors or len(results) != 24 or any(t.is_alive() for t in clients):
             raise AssertionError(f"serving failed: {len(results)}/24 answered, {errors[:3]}")
-        if launches != 23 * batches:
-            raise AssertionError(f"{launches} kernel launches for {batches} batches")
+        want = {k: n * batches for k, n in EXPECTED[name].items()}
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches} for {batches} batches, "
+                                 f"expected {want}")
         worst = 0.0
         for i, arr in enumerate(requests):
             direct = serving.predict(arr[None])[0]
@@ -282,31 +434,64 @@ def phase_serving(unfused):
         srv.batcher.close()
         srv.server_close()
     lat = sorted(latency.values())
-    emit({"phase": "serving", "requests_served": len(results), "batches_run": batches,
-          "kernel_launches": launches, "p50_latency_ms": 1e3 * statistics.median(lat),
+    emit({"phase": "serving", "model": name, "requests_served": len(results),
+          "batches_run": batches, "kernel_launches": launches,
+          "p50_latency_ms": 1e3 * statistics.median(lat),
           "max_latency_ms": 1e3 * lat[-1], "max_abs_prob_diff_vs_predict": worst,
           "model_info": info})
     return serving, launches
 
 
-def phase_throughput(model):
-    """Fused m1 at batch 256 and batch 1: the kernel path, then (for scale only)
-    the same model with its mixers on the plain version."""
+def phase_throughput(name, model, kernel, kernel_sum_ms):
+    """Fused ``name`` at batch 256 and batch 1: the kernel path, then (for scale only)
+    the same model with its mixers on the plain version. For the kernel path, a
+    profiler trace gives the device's busy time per forward (its idle share is the
+    rest), the time of ``kernel`` (a CUDA function name) in it, and the kernels
+    that take the most device time."""
     gen = torch.Generator().manual_seed(4)
     dtype = next(model.parameters()).dtype
     x256 = torch.randn(256, 3, 224, 224, generator=gen).to("cuda", dtype)
     x1 = x256[:1].contiguous()
-    out = {"phase": "throughput", "model": "recnext_m1", "dtype": str(dtype), "fused": True}
+    out = {"phase": "throughput", "model": name, "dtype": str(dtype), "fused": True}
     with torch.inference_mode():
         for path in ("kernel_path", "plain_path"):
             restore = plain_path(model) if path == "plain_path" else None
             ms256 = cuda_ms(lambda: model(x256), iters=10, warmup=3)
             ms1 = cuda_ms(lambda: model(x1), iters=50, warmup=5)
-            if restore:
-                restore()
             out[path] = {"batch_256_ms": ms256, "images_per_s": 256 * 1e3 / ms256,
                          "batch_1_latency_ms": ms1}
+            if restore:
+                restore()
+                continue
+            for batch, x, ms in ((256, x256, ms256), (1, x1, ms1)):
+                kernels = trace(lambda: model(x), iters=5 if batch == 256 else 20)
+                busy = sum(k["ms"] for k in kernels)
+                ours = sum(k["ms"] for k in kernels if kernel in k["name"])
+                out[path][f"batch_{batch}_trace"] = {
+                    "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / ms),
+                    "kernel_ms": ours, "kernel_share_of_busy": ours / busy,
+                    "top_kernels": kernels[:8]}
+    # the kernel's 23 launches, each timed alone at its shape (device time), against
+    # the forward
+    out["kernel_sum_ms"] = kernel_sum_ms
+    out["kernel_share"] = kernel_sum_ms / out["kernel_path"]["batch_256_ms"]
     emit(out)
+
+
+def forward_totals(per_shape, table):
+    """Sums over one forward's launches (launch counts from ``table``)."""
+    total = {key: sum(table[s][2] * per_shape[s][key] for s in table)
+             for key in ("kernel_ms", "plain_ms", "kernel_call_ms", "plain_call_ms",
+                         "bytes", "flops")}
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["flops"])
+    return total
+
+
+def kernel_record(name, source, replaces, launches, max_abs_err, total):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": total["kernel_ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": total["bound_by"], "library_ms": None}
 
 
 def main() -> int:
@@ -315,28 +500,39 @@ def main() -> int:
         return 2
     card = nvidia_smi()
     t0 = time.perf_counter()
-    recconv_cuda.load_library()
+    libraries = (recconv_cuda.LIBRARY, attention_cuda.LIBRARY)
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
+        list(pool.map(lambda lib: lib.load(), libraries))
     emit({"phase": "env", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "kernel_build_s": recconv_cuda.build_seconds,
+          "kernel_build_s": {lib.name: lib.build_seconds for lib in libraries},
           "kernel_load_s": time.perf_counter() - t0,
           "cudnn_allow_tf32": False})
     torch.backends.cudnn.allow_tf32 = False  # f32 references in full fp32
 
-    per_shape, max_abs_err = phase_kernel()
-    unfused = phase_model()
-    serving, launches = phase_serving(unfused)
-    phase_throughput(serving.model)
+    # recnext_m1: kernel K1
+    per_shape, k1_err = phase_kernel()
+    m1_total = forward_totals(per_shape, M1_MIXERS)
+    unfused = phase_model("recnext_m1")
+    serving, m1_launches = phase_serving("recnext_m1", unfused)
+    phase_throughput("recnext_m1", serving.model, "recconv_kernel", m1_total["kernel_ms"])
+    del unfused, serving
 
-    # one m1 forward at batch 256 runs the kernel 3+3+15+2 times at these shapes
-    total = {key: sum(M1_MIXERS[lv][2] * per_shape[lv][key] for lv in M1_MIXERS)
-             for key in ("kernel_ms", "plain_ms", "bytes", "flops")}
-    bms, by = bound(total["bytes"], total["flops"])
-    emit({"kernels": [{
-        "name": "rec_conv2d", "route": "cuda", "source": "recnext_tpu_torch/csrc/recconv.cu",
-        "replaces": "recnext_tpu/ops/pallas/recconv.py:135", "launches": launches,
-        "max_abs_err": max_abs_err, "ms": total["kernel_ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": bms, "bound_by": by, "library_ms": None}]})
+    # recnext_a1: kernel K2
+    per_stage, k2_err = phase_attention()
+    a1_total = forward_totals(per_stage, A1_ATTENTION)
+    unfused = phase_model("recnext_a1")
+    serving, a1_launches = phase_serving("recnext_a1", unfused)
+    phase_throughput("recnext_a1", serving.model, "linear_attention_kernel",
+                     a1_total["kernel_ms"])
+
+    emit({"kernels": [
+        kernel_record("rec_conv2d", "recnext_tpu_torch/csrc/recconv.cu",
+                      "recnext_tpu/ops/pallas/recconv.py:135",
+                      m1_launches["rec_conv2d"], k1_err, m1_total),
+        kernel_record("linear_attention", "recnext_tpu_torch/csrc/linear_attention.cu",
+                      "recnext_tpu/ops/pallas/linear_attention.py:53",
+                      a1_launches["linear_attention"], k2_err, a1_total)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,7 +4,7 @@ The JAX package ``recnext_tpu`` stays the reference; this package imports none o
 it. Layout is NCHW. Entry points run on the GPU unless ``device="cpu"`` is passed.
 
 Public API:
-    create_model, get_config, list_models   model registry (M family so far)
+    create_model, get_config, list_models   model registry (M and A families so far)
     fuse_params                             BN fusion of a torch state dict
     jax_to_torch, jax_fused_to_torch        weights from the JAX package
     publish_fused, load_published           the fused archive the server loads

@@ -3,7 +3,7 @@ trees (nested dicts of numpy arrays) -> the port's torch state dicts.
 
 The port's own copy of the reverse converter in ``recnext_tpu/convert.py``
 (``_flatten_tree``, ``_inv_path``, ``_inv_leaf``, ``_inv_transform``,
-``flax_to_torch``, ``flax_fused_to_torch``), restricted to the M family: flax
+``flax_to_torch``, ``flax_fused_to_torch``), for the M and A families: flax
 HWIO kernels become OIHW, Dense (in, out) kernels become Linear (out, in), and
 paths are renamed to the reference module tree the port's models share.
 """
@@ -70,6 +70,15 @@ def _inv_path(path: Tuple[str, ...]) -> Tuple[list, str]:
         if m:
             toks += ["down", "weight" if m.group(1) == "kernel" else "bias"]
             tr = "conv" if m.group(1) == "kernel" else "id"
+            continue
+        if t == "attn":
+            # block-scope attn = L-series PartialChannelOperation(attn);
+            # nested attn = LinearAttention at RecAttn2d down.1
+            toks += (["token_mixer", "attn"] if _BLOCK_RE.fullmatch(prev)
+                     else ["down", "1"])
+            continue
+        if t == "down":  # RecAttn2d's stride-2 ConvNorm
+            toks += ["down", "0"]
             continue
         toks.append(t)
     return toks, tr

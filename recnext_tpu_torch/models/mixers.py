@@ -1,5 +1,10 @@
-"""Token mixers. This slice ports the M family's ``RecConv2dMixer``
-(``recnext_tpu/models/mixers.py:32-71``); the attention mixers come with the A family.
+"""Token mixers: the M family's ``RecConv2dMixer`` and the A family's
+``LinearAttention`` (variants 1 and 2) and ``RecAttn2d``.
+
+Counterparts of ``recnext_tpu/models/mixers.py`` in NCHW. Variant 3 (the L
+family's) comes with the L family. Each mixer with a kernel has a
+``forward_plain`` that runs the plain PyTorch version on any device: the
+reference the kernel path is held against.
 """
 
 from __future__ import annotations
@@ -7,7 +12,14 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from recnext_tpu_torch.models.layers import conv_norm
+from recnext_tpu_torch.ops.attention import (
+    feature_map,
+    linear_attention_nchw,
+    linear_attention_nchw_plain,
+)
 from recnext_tpu_torch.ops.recconv import rec_conv2d, rec_conv2d_fused
+from recnext_tpu_torch.ops.resize import resize
 
 
 class RecConv2dMixer(nn.Module):
@@ -42,3 +54,54 @@ class RecConv2dMixer(nn.Module):
         is held against."""
         down_w, conv_ws = self._weights()
         return rec_conv2d(x, down_w, conv_ws, level=self.level, mode=self.mode)
+
+
+class LinearAttention(nn.Module):
+    """Mean-normalised linear attention with a depthwise positional term:
+    ``attn(feature_map(qk(x)), x) + pe(x)``, v = x. Variant 1 is the kv-first form,
+    variant 2 the qk-first one (the same function); on a CUDA tensor both are one
+    launch of the linear-attention kernel. Submodules ``qk`` (1x1, 2C outputs, 2
+    groups) and ``pe`` (3x3 depthwise), each a ConvNorm."""
+
+    def __init__(self, dim: int, num_heads: int, variant: int = 1, kernel: str = "elu",
+                 *, fused: bool = False):
+        super().__init__()
+        if variant not in (1, 2):
+            raise NotImplementedError(f"LinearAttention variant {variant} comes with the L "
+                                      "family (ROADMAP.md Queue 1 item 8)")
+        self.num_heads = num_heads
+        self.variant = variant
+        self.kernel = kernel
+        self.qk = conv_norm(dim, dim * 2, 1, groups=2, fused=fused)
+        self.pe = conv_norm(dim, dim, 3, padding=1, groups=dim, fused=fused)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        qk = feature_map(self.qk(x), self.kernel)
+        return linear_attention_nchw(qk, x, self.num_heads, variant=self.variant) + self.pe(x)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch version on any device."""
+        qk = feature_map(self.qk(x), self.kernel)
+        return (linear_attention_nchw_plain(qk, x, self.num_heads, variant=self.variant)
+                + self.pe(x))
+
+
+class RecAttn2d(nn.Module):
+    """A one-level RecConv whose coarse body is linear attention:
+    ``conv(x + nearest_up(attn(down(x))))``. ``down`` is a Sequential of the
+    stride-2 depthwise ConvNorm and the LinearAttention (torch keys ``down.0.*``,
+    ``down.1.{qk,pe}.*``), ``conv`` the full-resolution depthwise ConvNorm."""
+
+    def __init__(self, dim: int, num_heads: int, kernel_size: int = 5, la_variant: int = 1,
+                 kernel: str = "elu", mode: str = "nearest", *, fused: bool = False):
+        super().__init__()
+        self.mode = mode
+        pad = kernel_size // 2
+        self.down = nn.Sequential(
+            conv_norm(dim, dim, kernel_size, 2, pad, groups=dim, fused=fused),
+            LinearAttention(dim, num_heads, la_variant, kernel, fused=fused))
+        self.conv = conv_norm(dim, dim, kernel_size, 1, pad, groups=dim, fused=fused)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = resize(self.down(x), (int(x.shape[2]), int(x.shape[3])), mode=self.mode)
+        return self.conv(x + y)

@@ -1,12 +1,12 @@
-"""RecNext backbone, M family: stem -> 4 stages of MetaNeXtBlockM (a Downsample
-between stages) -> fp32 global mean pool -> classifier.
+"""RecNext backbone, M and A families: stem -> 4 stages of MetaNeXtBlockM or
+MetaNeXtBlockA (a Downsample between stages) -> fp32 global mean pool -> classifier.
 
 Counterpart of ``recnext_tpu/models/recnext.py`` in NCHW. The module tree is the
 reference PyTorch model's, so the state dicts that ``recnext_tpu/convert.py`` emits
 (and ``convert.py`` here) load with ``strict=True``: ``stem.stem.{0,2}``,
 ``stages.{i}.downsample``, ``stages.{i}.blocks.{j}``, and ``head.head``/
-``head.head_dist`` (unfused) or a single ``head`` Linear (fused). The A and L
-families come in later slices.
+``head.head_dist`` (unfused) or a single ``head`` Linear (fused). The L family
+comes in a later slice.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from recnext_tpu_torch.models.layers import (
     conv_norm,
     mlp,
 )
-from recnext_tpu_torch.models.mixers import RecConv2dMixer
+from recnext_tpu_torch.models.mixers import RecAttn2d, RecConv2dMixer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +49,8 @@ class RecNextConfig:
     # RecConv ablation knobs (the reference's rec_{3x3,5x5,7x7} and *_nearest runs)
     recconv_kernel_size: int = 5
     recconv_mode: str = "bilinear"  # "bilinear" | "nearest"
+    # linear-attention feature map (A family): "elu" | "softplus" | "relu"
+    attn_kernel: str = "elu"
 
     @property
     def num_features(self) -> int:
@@ -84,6 +86,23 @@ class MetaNeXtBlockM(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.channel_mixer(self.norm(self.token_mixer(x)))
         return x + self.drop_path(y)
+
+
+class MetaNeXtBlockA(nn.Module):
+    """x + drop_path(mlp(RecAttn2d(x))): heads 2**(stage+1), the qk-first variant 2
+    at stage 3; no standalone norm."""
+
+    def __init__(self, dim: int, mlp_ratio: float, stage: int, drop_path: float = 0.0,
+                 attn_kernel: str = "elu", *, fused: bool = False):
+        super().__init__()
+        self.token_mixer = RecAttn2d(dim, num_heads=2 ** (stage + 1),
+                                     la_variant=2 if stage >= 3 else 1, kernel=attn_kernel,
+                                     fused=fused)
+        self.channel_mixer = mlp(dim, int(dim * mlp_ratio), fused=fused)
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.drop_path(self.channel_mixer(self.token_mixer(x)))
 
 
 class Downsample(nn.Module):
@@ -136,7 +155,6 @@ class RecNextClassifier(nn.Module):
 
 # where each family not yet ported stands in ROADMAP.md
 _NOT_PORTED = {
-    "a": "ROADMAP.md Queue 1 item 5 (A family, with kernel K2)",
     "l": "ROADMAP.md Queue 1 item 8 (L family)",
 }
 
@@ -156,10 +174,15 @@ class RecNext(nn.Module):
         for i, (dim, depth) in enumerate(zip(cfg.embed_dim, cfg.depth)):
             ratio = cfg.mlp_ratio[i]
             ds = None if i == 0 else Downsample(cfg.embed_dim[i - 1], ratio, fused=fused)
-            blocks = [MetaNeXtBlockM(dim, ratio, stage=i, drop_path=cfg.drop_path,
-                                     kernel_size=cfg.recconv_kernel_size,
-                                     mode=cfg.recconv_mode, fused=fused)
-                      for _ in range(depth)]
+            if cfg.family == "m":
+                blocks = [MetaNeXtBlockM(dim, ratio, stage=i, drop_path=cfg.drop_path,
+                                         kernel_size=cfg.recconv_kernel_size,
+                                         mode=cfg.recconv_mode, fused=fused)
+                          for _ in range(depth)]
+            else:
+                blocks = [MetaNeXtBlockA(dim, ratio, stage=i, drop_path=cfg.drop_path,
+                                         attn_kernel=cfg.attn_kernel, fused=fused)
+                          for _ in range(depth)]
             stages.append(Stage(ds, blocks))
         self.stages = nn.ModuleList(stages)
         if cfg.num_classes <= 0:

@@ -1,8 +1,8 @@
 """Model registry: named variants -> RecNextConfig, and create_model().
 
 The table is a copy of ``recnext_tpu/models/registry.py:MODEL_CONFIGS``. Drop-path
-defaults apply only without distillation. Only the M family builds in this port
-so far; the A and L families raise until their slices land.
+defaults apply only without distillation. The M and A families build in this
+port; the L family raises until its slice lands.
 """
 
 from __future__ import annotations

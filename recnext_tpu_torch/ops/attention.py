@@ -1,0 +1,161 @@
+"""Linear attention (positive feature map, mean-normalised), the A family's core.
+
+Counterpart of ``recnext_tpu/ops/attention.py``. With q, k = feature_map(qk) and v:
+
+* kv-first (O(n d^2)):  out = q @ ((k*s)^T (v*s)) / (q @ mean_n(k) + eps)
+* qk-first (O(n^2 d)):  A = q k^T;  out = (A / (mean_row(A) + eps) * s) @ (v * s)
+
+with s = n^-0.5. The two are the same function; the normaliser is computed in
+fp32 (it is unstable in bf16). ``linear_attention_kv_first`` and ``_qk_first`` are
+the plain versions in the JAX package's (BH, N, D) layout.
+
+Two entry points launch the CUDA kernel (``ops/cuda/linear_attention.py``) on a
+CUDA tensor and run the plain version on a CPU one:
+
+* ``linear_attention_fused(q, k, v)``: the (BH, N, D) layout;
+* ``linear_attention_nchw(qk, v, num_heads)``: the model's NCHW layout, qk
+  (B, 2*nh*D, H, W) with q in the first half and k in the second, head h at
+  channels [h*D, (h+1)*D) of each (the channel order of the JAX package's
+  ``_split_qk_nhwc``), v (B, nh*DV, H, W), giving (B, nh*DV, H, W). The kernel
+  reads these tensors in place.
+
+``linear_attention_fused.launches`` counts the kernel's launches through either.
+``linear_attention_blockdiag`` (a TPU formulation of the same function) is not
+ported.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+import torch.nn.functional as F
+
+EPS = 1e-6
+
+
+def linear_attention_kv_first(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              eps: float = EPS) -> torch.Tensor:
+    """q, k: (B, n, d); v: (B, n, dv) -> (B, n, dv). B folds batch*heads. Products
+    accumulate in fp32; kv is rounded to q's dtype for the second product."""
+    n = q.shape[-2]
+    s = float(n) ** -0.5
+    kv = torch.einsum("bnd,bne->bde", (k * s).float(), (v * s).float())
+    k_mean = k.float().mean(dim=-2)  # (B, d)
+    denom = torch.einsum("bnd,bd->bn", q.float(), k_mean) + eps
+    num = torch.einsum("bnd,bde->bne", q.float(), kv.to(q.dtype).float())
+    return (num / denom[..., None]).to(v.dtype)
+
+
+def linear_attention_qk_first(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              eps: float = EPS) -> torch.Tensor:
+    """The quadratic-in-n form (the A family's last stage, where n is tiny)."""
+    n = q.shape[-2]
+    s = float(n) ** -0.5
+    a = torch.einsum("bnd,bmd->bnm", q.float(), k.float())
+    a = a / (a.mean(dim=-1, keepdim=True) + eps)
+    out = torch.einsum("bnm,bme->bne", (a * s).to(v.dtype).float(), (v * s).float())
+    return out.to(v.dtype)
+
+
+def feature_map(x: torch.Tensor, kind: str = "elu") -> torch.Tensor:
+    """Positive feature maps: elu(x)+1, softplus(beta=3.5), relu."""
+    if kind == "elu":
+        return F.elu(x) + 1.0
+    if kind == "softplus":
+        beta = 3.5
+        return F.softplus(x * beta) / beta
+    if kind == "relu":
+        return F.relu(x)
+    raise ValueError(f"unknown feature map {kind!r}")
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, nh*D, H, W) -> (B*nh, N, D), a copy-free view where x's planes allow."""
+    b, c, h, w = x.shape
+    return x.reshape(b * num_heads, c // num_heads, h * w).transpose(1, 2)
+
+
+def _split_qk(qk: torch.Tensor, v: torch.Tensor, num_heads: int):
+    c2, cv = int(qk.shape[1]), int(v.shape[1])
+    if qk.dim() != 4 or v.dim() != 4 or c2 % (2 * num_heads) or cv % num_heads:
+        raise ValueError(f"qk {tuple(qk.shape)} and v {tuple(v.shape)} do not split into "
+                         f"{num_heads} heads")
+    if qk.shape[0] != v.shape[0] or qk.shape[2:] != v.shape[2:]:
+        raise ValueError(f"qk {tuple(qk.shape)} and v {tuple(v.shape)} differ in batch or size")
+    return qk[:, : c2 // 2], qk[:, c2 // 2:]
+
+
+def linear_attention_nchw_plain(qk: torch.Tensor, v: torch.Tensor, num_heads: int, *,
+                                variant: int = 1, eps: float = EPS) -> torch.Tensor:
+    """The plain version of the NCHW entry, on any device: variant 1 runs the
+    kv-first form, variant 2 the qk-first form, as the JAX mixer does."""
+    q, k = _split_qk(qk, v, num_heads)
+    if variant not in (1, 2):
+        raise ValueError(f"linear attention variant {variant} is not ported (1, 2)")
+    fn = linear_attention_kv_first if variant == 1 else linear_attention_qk_first
+    o = fn(_heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads), eps)
+    return o.transpose(1, 2).reshape(v.shape)
+
+
+_launch_lock = threading.Lock()
+
+
+def _launch(q4, k4, v4, out4, eps):
+    from recnext_tpu_torch.ops.cuda.linear_attention import linear_attention_cuda
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q4, k4, v4)):
+        raise ValueError("the linear-attention kernel is forward-only: run the plain "
+                         "version (the mixers' forward_plain) where a gradient is needed")
+    linear_attention_cuda(q4, k4, v4, out4, eps=eps)
+    with _launch_lock:
+        linear_attention_fused.launches += 1
+
+
+def _check_device(x: torch.Tensor, name: str) -> bool:
+    """True for a CPU tensor (plain version), False for a CUDA one (kernel)."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return False
+
+
+def linear_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           eps: float = EPS) -> torch.Tensor:
+    """q, k: (BH, N, D); v: (BH, N, DV) -> (BH, N, DV). On a CUDA tensor one launch
+    of the kernel (or a raise: there is no fallback); on a CPU tensor the plain
+    kv-first version."""
+    if _check_device(q, "linear_attention_fused"):
+        return linear_attention_kv_first(q, k, v, eps)
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("linear_attention_fused: q, k, v must be (BH, N, D)")
+    out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch(q[:, None], k[:, None], v[:, None], out[:, None], eps)
+    return out
+
+
+linear_attention_fused.launches = 0
+
+
+def linear_attention_nchw(qk: torch.Tensor, v: torch.Tensor, num_heads: int, *,
+                          variant: int = 1, eps: float = EPS) -> torch.Tensor:
+    """qk: (B, 2*nh*D, H, W) after the feature map; v: (B, nh*DV, H, W) ->
+    (B, nh*DV, H, W). On a CUDA tensor both variants are one launch of the kernel,
+    which reads q, k and v in place (each plane must be contiguous) and writes a
+    contiguous output; on a CPU tensor the plain version of ``variant``."""
+    if _check_device(qk, "linear_attention_nchw"):
+        return linear_attention_nchw_plain(qk, v, num_heads, variant=variant, eps=eps)
+    if variant not in (1, 2):
+        raise ValueError(f"linear attention variant {variant} is not ported (1, 2)")
+    q, k = _split_qk(qk, v, num_heads)
+    b, _, h, w = v.shape
+    out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+
+    def view(x):  # (B, nh*D, H, W) -> (B, nh, N, D), never a copy
+        if x.stride(3) != 1 or x.stride(2) != w:
+            raise ValueError("linear_attention_nchw: each (H, W) plane must be contiguous")
+        return x.view(b, num_heads, x.shape[1] // num_heads, h * w).transpose(2, 3)
+
+    _launch(view(q), view(k), view(v), view(out), eps)
+    return out

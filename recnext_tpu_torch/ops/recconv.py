@@ -88,6 +88,9 @@ def rec_conv2d_fused(
         raise ValueError("rec_conv2d_fused: the CUDA kernel is bias-free")
     if mode != "bilinear":
         raise ValueError(f"rec_conv2d_fused: the CUDA kernel is bilinear only, got {mode!r}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, down_w, *conv_ws)):
+        raise ValueError("rec_conv2d_fused: the CUDA kernel is forward-only: run the plain "
+                         "version (the mixer's forward_plain) where a gradient is needed")
     from recnext_tpu_torch.ops.cuda.recconv import recconv_cuda
 
     y = recconv_cuda(x, down_w, conv_ws, level=level)

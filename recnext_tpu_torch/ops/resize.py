@@ -8,7 +8,9 @@ stride-2 downsample. The semantics are those of ``recnext_tpu/ops/resize.py``:
 * nearest (not nearest-exact): source index ``floor(i * in_size / out_size)``.
 
 Both are written as per-axis plans (gather indices and lerp weights computed once
-per shape on the host), so the arithmetic is the reference's step for step. The
+per shape on the host), so the arithmetic is the reference's step for step. Each
+plan is copied to a device once and cached there per (shape, device, dtype), so a
+resize on a CUDA tensor makes no host-to-device copy after its first call. The
 RecConv CUDA kernel computes the same bilinear plan on the device
 (``csrc/recconv.cu``, ``build_plan``).
 """
@@ -41,20 +43,38 @@ def _nearest_axis_plan(in_size: int, out_size: int) -> np.ndarray:
     return ((i * in_size) // out_size).astype(np.int32)
 
 
-def _index(plan: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(plan.astype(np.int64)).to(device)
+def _device_tensor(a: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    # a normal tensor even when first built under inference_mode, so that autograd
+    # may save it (index_select keeps its index for the backward pass)
+    with torch.inference_mode(False):
+        return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
-def _lerp_axis(x: torch.Tensor, dim: int, plan) -> torch.Tensor:
-    idx0, idx1, w1 = plan
-    x0 = x.index_select(dim, _index(idx0, x.device))
+@functools.lru_cache(maxsize=None)
+def _bilinear_device_plan(in_size: int, out_size: int, device: torch.device,
+                          dtype: torch.dtype) -> tuple:
+    """(idx0, idx1, w1) on ``device``; idx1 and w1 are None where the lerp is a gather."""
+    idx0, idx1, w1 = _bilinear_axis_plan(in_size, out_size)
+    i0 = _device_tensor(idx0, device, torch.int64)
     if np.all(w1 == 0.0) and np.array_equal(idx0, idx1):
+        return i0, None, None
+    return i0, _device_tensor(idx1, device, torch.int64), _device_tensor(w1, device, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_device_index(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    return _device_tensor(_nearest_axis_plan(in_size, out_size), device, torch.int64)
+
+
+def _lerp_axis(x: torch.Tensor, dim: int, in_size: int, out_size: int) -> torch.Tensor:
+    idx0, idx1, w1 = _bilinear_device_plan(in_size, out_size, x.device, x.dtype)
+    x0 = x.index_select(dim, idx0)
+    if idx1 is None:
         return x0
-    x1 = x.index_select(dim, _index(idx1, x.device))
+    x1 = x.index_select(dim, idx1)
     shape = [1] * x.dim()
     shape[dim] = -1
-    w = torch.from_numpy(w1).to(device=x.device, dtype=x.dtype).reshape(shape)
-    return x0 + (x1 - x0) * w
+    return x0 + (x1 - x0) * w1.reshape(shape)
 
 
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -62,9 +82,9 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     h, w = int(x.shape[2]), int(x.shape[3])
     oh, ow = int(size[0]), int(size[1])
     if h != oh:
-        x = _lerp_axis(x, 2, _bilinear_axis_plan(h, oh))
+        x = _lerp_axis(x, 2, h, oh)
     if w != ow:
-        x = _lerp_axis(x, 3, _bilinear_axis_plan(w, ow))
+        x = _lerp_axis(x, 3, w, ow)
     return x
 
 
@@ -73,9 +93,9 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     h, w = int(x.shape[2]), int(x.shape[3])
     oh, ow = int(size[0]), int(size[1])
     if h != oh:
-        x = x.index_select(2, _index(_nearest_axis_plan(h, oh), x.device))
+        x = x.index_select(2, _nearest_device_index(h, oh, x.device))
     if w != ow:
-        x = x.index_select(3, _index(_nearest_axis_plan(w, ow), x.device))
+        x = x.index_select(3, _nearest_device_index(w, ow, x.device))
     return x
 
 

@@ -8,9 +8,11 @@ Counterpart of ``recnext_tpu/serve.py`` with the same HTTP surface
     POST /predictions/<name>   -> body = JPEG/PNG bytes -> top-k JSON
 
 Requests are queued, and one worker thread coalesces them into batches padded to
-``max_batch``, so every forward has the same shape. The model is the BN-fused M
-family in bf16; each RecConv2d mixer is one launch of the CUDA kernel, which is
-built before the first request.
+``max_batch``, so every forward has the same shape. The model is BN-fused, in
+bf16, of the M family (each RecConv2d mixer one launch of the RecConv2d kernel)
+or the A family (each RecAttn2d mixer one launch of the linear-attention
+kernel); the kernel library its family launches is built before the first
+request.
 
 CLI:
     python -m recnext_tpu_torch.serve --archive published/ --model recnext_m1 --port 8080
@@ -62,9 +64,12 @@ class ServingModel:
                                   **(cfg_overrides or {}))
         self.model.load_state_dict(load_published(model_name, archive), strict=True)
         if self.device.type == "cuda":
-            from recnext_tpu_torch.ops.cuda.recconv import load_library
-
-            load_library()  # build the kernel now, not inside the first request
+            # build the family's kernel now, not inside the first request
+            if self.cfg.family == "m":
+                from recnext_tpu_torch.ops.cuda.recconv import load_library
+            else:
+                from recnext_tpu_torch.ops.cuda.linear_attention import load_library
+            load_library()
         self._lock = threading.Lock()
         self.requests_served = 0
         self.batches_run = 0

@@ -1,6 +1,7 @@
-"""The RecConv2d CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (RecConv2d, linear attention) against their plain PyTorch
+versions, on the card.
 
-Every test here needs an NVIDIA GPU with nvcc (the kernel is built at first use)
+Every test here needs an NVIDIA GPU with nvcc (the kernels are built at first use)
 and skips without one. On the card: python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
@@ -9,6 +10,12 @@ import pytest
 import torch
 
 from recnext_tpu_torch.models.registry import create_model
+from recnext_tpu_torch.ops.attention import (
+    linear_attention_fused,
+    linear_attention_kv_first,
+    linear_attention_nchw,
+    linear_attention_nchw_plain,
+)
 from recnext_tpu_torch.ops.recconv import rec_conv2d, rec_conv2d_fused
 
 pytestmark = pytest.mark.cuda
@@ -69,6 +76,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     big, bws = _inputs(1, 1, 400, 400, 1)
     with pytest.raises(ValueError, match="shared memory"):
         rec_conv2d_fused(big, bws[0], bws[1:], level=1)
+    with pytest.raises(ValueError, match="forward-only"):
+        rec_conv2d_fused(x.requires_grad_(), ws[0], ws[1:], level=2)
 
 
 def test_model_kernel_path_matches_plain_path(cuda):
@@ -80,6 +89,81 @@ def test_model_kernel_path_matches_plain_path(cuda):
         before = rec_conv2d_fused.launches
         got = model(x)
         assert rec_conv2d_fused.launches == before + len(mixers) == before + 5
+        for m in mixers:
+            m.forward = m.forward_plain
+        want = model(x)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+
+
+def _positive(shape, g):
+    # elu(x)+1 features are positive, as tests/test_pallas.py draws q and k
+    return torch.randn(*shape, generator=g).abs() + 0.1
+
+
+# tests/test_pallas.py:29-34's shapes (odd n, odd d, dv != d) and a1's stage-0 head
+@pytest.mark.parametrize("bh,n,d,dv", [(2, 16, 32, 32), (4, 64, 64, 64), (2, 49, 20, 20),
+                                       (2, 196, 20, 40), (8, 784, 24, 24)])
+def test_attention_kernel_matches_plain(cuda, bh, n, d, dv):
+    g = torch.Generator().manual_seed(2)
+    q, k = _positive((bh, n, d), g).cuda(), _positive((bh, n, d), g).cuda()
+    v = torch.randn(bh, n, dv, generator=g).cuda()
+    want = linear_attention_kv_first(q, k, v)
+    before = linear_attention_fused.launches
+    got = linear_attention_fused(q, k, v)
+    torch.cuda.synchronize()
+    assert linear_attention_fused.launches == before + 1
+    # tests/test_pallas.py:44's bound
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    # bf16: against the plain version in f32 on the same bf16 values
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got16 = linear_attention_fused(qb, kb, vb)
+    assert got16.dtype == torch.bfloat16
+    want16 = linear_attention_kv_first(qb.float(), kb.float(), vb.float())
+    torch.testing.assert_close(got16.float(), want16, rtol=0,
+                               atol=1e-2 * want16.abs().max().item())
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+def test_attention_nchw_entry_reads_noncontiguous_halves(cuda, variant):
+    g = torch.Generator().manual_seed(3)
+    qk = _positive((2, 2 * 32, 7, 7), g).cuda()  # its q and k halves are not contiguous
+    v = torch.randn(2, 48, 7, 7, generator=g).cuda()[:, 8:40]  # nor is this slice
+    assert not qk[:, :32].is_contiguous() and not v.is_contiguous()
+    before = linear_attention_fused.launches
+    got = linear_attention_nchw(qk, v, 4, variant=variant)
+    torch.cuda.synchronize()
+    assert linear_attention_fused.launches == before + 1 and got.is_contiguous()
+    want = linear_attention_nchw_plain(qk, v, 4, variant=variant)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+def test_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.rand(2, 16, 8, device="cuda") + 0.1
+    with pytest.raises(ValueError, match="dtype"):
+        linear_attention_fused(q.half(), q.half(), q.half())
+    big = torch.rand(2, 16, 129, device="cuda")
+    with pytest.raises(ValueError, match="D=129"):
+        linear_attention_fused(big, big, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        linear_attention_fused(q, q.cpu(), q)
+    qk = torch.rand(1, 16, 4, 4, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        linear_attention_nchw(qk.transpose(2, 3), qk[:, :8].transpose(2, 3), 2)
+    with pytest.raises(ValueError, match="forward-only"):
+        linear_attention_fused(q.requires_grad_(), q, q)
+
+
+def test_a_model_kernel_path_matches_plain_path(cuda):
+    model = create_model("recnext_a0", device="cuda", embed_dim=(16, 32, 64, 128),
+                         depth=(1, 1, 2, 1), num_classes=11)
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1)).cuda()
+    mixers = [m for m in model.modules() if hasattr(m, "forward_plain")]
+    with torch.inference_mode():
+        before, before_k1 = linear_attention_fused.launches, rec_conv2d_fused.launches
+        got = model(x)
+        assert linear_attention_fused.launches == before + len(mixers) == before + 5
+        assert rec_conv2d_fused.launches == before_k1
         for m in mixers:
             m.forward = m.forward_plain
         want = model(x)

@@ -96,3 +96,40 @@ def test_rec_conv2d_fused_on_cpu_is_the_plain_version(h, c, level):
     got = rec_conv2d_fused(*args, level=level)
     assert rec_conv2d_fused.launches == before  # no kernel ran
     torch.testing.assert_close(got, rec_conv2d(*args, level=level), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("src,dst", [((7, 7), (14, 13)), ((4, 5), (7, 9))])
+def test_resize_device_plans_are_cached_and_exact(src, dst):
+    """The cached device plans give exactly what a plan built anew from numpy gives,
+    and a second call reuses them (no new host-to-device copy)."""
+    from recnext_tpu_torch.ops import resize as rs
+
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 3, *src)).astype(np.float32))
+    (h, w), (oh, ow) = src, dst
+    # nearest, with index tensors made from the numpy plans on every call
+    want = x.index_select(2, torch.from_numpy(rs._nearest_axis_plan(h, oh).astype(np.int64)))
+    want = want.index_select(3, torch.from_numpy(rs._nearest_axis_plan(w, ow).astype(np.int64)))
+    rs._nearest_device_index.cache_clear()
+    with torch.inference_mode():  # the serving path fills the cache here
+        got = resize(x, dst, mode="nearest")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # bilinear likewise, one axis at a time
+    want = x
+    for dim, (i, o) in ((2, (h, oh)), (3, (w, ow))):
+        idx0, idx1, w1 = rs._bilinear_axis_plan(i, o)
+        x0 = want.index_select(dim, torch.from_numpy(idx0.astype(np.int64)))
+        x1 = want.index_select(dim, torch.from_numpy(idx1.astype(np.int64)))
+        shape = [1, 1, 1, 1]
+        shape[dim] = -1
+        want = x0 + (x1 - x0) * torch.from_numpy(w1).reshape(shape)
+    torch.testing.assert_close(resize(x, dst, mode="bilinear"), want, rtol=0, atol=0)
+    idx = rs._nearest_device_index(h, oh, x.device)
+    assert rs._nearest_device_index(h, oh, x.device) is idx
+    assert rs._bilinear_device_plan(h, oh, x.device, x.dtype)[0] is \
+        rs._bilinear_device_plan(h, oh, x.device, x.dtype)[0]
+    # made under inference_mode, the cached index is still a normal tensor, so a
+    # resize that autograd records may save it for the backward pass
+    assert not idx.is_inference()
+    xg = x.clone().requires_grad_(True)
+    resize(xg, dst, mode="nearest").sum().backward()
+    assert xg.grad.shape == x.shape

@@ -27,11 +27,10 @@ OVR = dict(embed_dim=(16, 32, 64, 128), depth=(1, 1, 2, 1), num_classes=11)
 SIZE = 32
 
 
-@pytest.fixture(scope="module")
-def unfused_state():
-    model = create_model("recnext_m0", device="cpu",
-                         generator=torch.Generator().manual_seed(7), **OVR)
-    g = torch.Generator().manual_seed(8)
+def _unfused_state(name, seed):
+    model = create_model(name, device="cpu",
+                         generator=torch.Generator().manual_seed(seed), **OVR)
+    g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():  # non-trivial BN statistics so fusion does something
         for m in model.modules():
             if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
@@ -40,6 +39,11 @@ def unfused_state():
                 m.weight.copy_(1 + 0.1 * torch.randn(m.num_features, generator=g))
                 m.bias.copy_(0.1 * torch.randn(m.num_features, generator=g))
     return model.state_dict()
+
+
+@pytest.fixture(scope="module")
+def unfused_state():
+    return _unfused_state("recnext_m0", 7)
 
 
 @pytest.fixture(scope="module")
@@ -162,3 +166,32 @@ def test_bad_image_is_400(server):
     with pytest.raises(urllib.error.HTTPError) as ei:
         urllib.request.urlopen(req, timeout=30)
     assert ei.value.code == 400
+
+
+def test_a_family_round_trip(tmp_path):
+    """An A model: archive -> ServingModel -> HTTP server; direct inference matches
+    the JAX package's fused A model on the same weights, and the server matches
+    direct inference."""
+    state = _unfused_state("recnext_a0", 11)
+    publish_fused("recnext_a0", state, str(tmp_path))
+    serving = ServingModel(str(tmp_path), "recnext_a0", max_batch=4, input_size=SIZE,
+                           dtype=torch.float32, device="cpu", cfg_overrides=OVR)
+    x = np.random.default_rng(12).normal(size=(3, 3, SIZE, SIZE)).astype(np.float32)
+    got = serving.predict(x)
+    assert got.shape == (3, 11)
+    variables = torch_to_flax({k: v.numpy() for k, v in state.items()})
+    fused = jax_create_model("recnext_a0", fused=True, **OVR)
+    want = jax.nn.softmax(fused.apply(jax_fuse_params(variables),
+                                      jnp.asarray(x.transpose(0, 2, 3, 1))), axis=-1)
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+    srv = make_server(serving, port=0, window_ms=20.0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        img = tmp_path / "img.jpg"
+        img.write_bytes(_jpeg_bytes(3))
+        assert check_server(f"http://127.0.0.1:{srv.server_address[1]}", serving, str(img))
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+        srv.server_close()
