@@ -10,12 +10,16 @@ count set to 0 just before its serving phase and read just after:
 1. env        card name and power limit, torch/CUDA versions, kernel build times;
    recnext_m1 (the M family, kernel K1 = RecConv2d):
 2. kernel     the RecConv2d kernel against its plain PyTorch version at recnext_m1's
-              four mixer shapes (224^2), an odd 15^2 plane and a 96^2 plane, in f32
-              (cuDNN TF32 off; tolerance 2e-5 max|ref|) and in bf16 (against the
-              plain version in f32 on the same bf16 values; tolerance 1e-2 max|ref|,
-              bf16 keeps 8 bits); times kernel and plain version at batch 256 bf16
-              (device time from a torch.profiler trace, and call time from CUDA
-              events, which includes the host's time between launches);
+              four mixer shapes (224^2), an odd 15^2 plane, a 96^2 plane, two shapes
+              whose N*C leaves the last block ragged and a non-square plane at each
+              team size, in f32 (cuDNN TF32 off; tolerance 2e-5 max|ref|) and in bf16
+              (against the plain version in f32 on the same bf16 values; tolerance
+              1e-2 max|ref|, bf16 keeps 8 bits); prints each shape's launch
+              configuration (team, planes per block, shared bytes) and the kernel's
+              registers and local bytes per thread; times kernel and plain version
+              at batch 256 bf16 (device time from a torch.profiler trace, and call
+              time from CUDA events, which includes the host's time between
+              launches);
 3. model      recnext_m1 from a seeded generator, BN statistics calibrated on a
               random batch, fused with fuse_params; the fused model's logits through
               the kernel against the plain path (f32 and bf16), and exactly 23
@@ -118,24 +122,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def trace(fn, iters: int = 20, warmup: int = 3):
+def trace(fn, iters: int = 20, warmup: int = 3, attempts: int = 3):
     """The device kernels of ``iters`` calls, from a torch.profiler trace: a list of
-    {name, launches, ms} per call, most device time first."""
+    {name, launches, ms} per call, most device time first. A trace that saw no
+    device activity at all is taken again (at most ``attempts`` times)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [{"name": e.key[:100], "launches": e.count / iters,
-                "ms": e.self_device_time_total / 1e3 / iters}
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    if not kernels:
-        raise RuntimeError("the profiler saw no device time")
-    return sorted(kernels, key=lambda k: k["ms"], reverse=True)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [{"name": e.key[:100], "launches": e.count / iters,
+                    "ms": e.self_device_time_total / 1e3 / iters}
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        if kernels:
+            return sorted(kernels, key=lambda k: k["ms"], reverse=True)
+    raise RuntimeError(f"the profiler saw no device time in {attempts} traces")
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -174,24 +180,28 @@ def bound(nbytes, flops):
 def phase_kernel():
     gen = torch.Generator().manual_seed(0)
 
-    def inputs(n, c, s, level, dtype):
-        x = torch.randn(n, c, s, s, generator=gen)
+    def inputs(n, c, h, w, level, dtype):
+        x = torch.randn(n, c, h, w, generator=gen)
         ws = [torch.randn(c, 1, 5, 5, generator=gen) / 5 for _ in range(level + 2)]
         return x.to("cuda", dtype), [t.to("cuda", dtype) for t in ws]
 
-    cases = [(64, c, s, level) for level, (c, s, _) in M1_MIXERS.items()]
-    cases += [(64, 32, 15, 2), (8, 48, 96, 4)]
+    cases = [(64, c, s, s, level) for level, (c, s, _) in M1_MIXERS.items()]
+    cases += [(64, 32, 15, 15, 2), (8, 48, 96, 96, 4)]
+    # N*C not a multiple of the planes per block, then a non-square plane at each team
+    # size that k = 5 planes take (8, 32, 32, 128, 256 threads per plane)
+    cases += [(3, 5, 7, 7, 1), (1, 13, 14, 14, 2), (2, 11, 9, 14, 2), (2, 6, 20, 23, 3),
+              (1, 5, 27, 30, 3), (1, 3, 45, 47, 2), (1, 2, 60, 75, 2)]
     per_shape = {}
     max_abs_err = 0.0
-    for n, c, s, level in cases:
-        x, ws = inputs(n, c, s, level, torch.float32)
+    for n, c, h, w, level in cases:
+        x, ws = inputs(n, c, h, w, level, torch.float32)
         want = rec_conv2d(x, ws[0], ws[1:], level=level)
         got = rec_conv2d_fused(x, ws[0], ws[1:], level=level)
         torch.cuda.synchronize()
         scale = want.abs().max().item()
         err32 = (got - want).abs().max().item()
         if not err32 <= 2e-5 * scale:
-            raise AssertionError(f"f32 kernel mismatch at {(n, c, s, level)}: "
+            raise AssertionError(f"f32 kernel mismatch at {(n, c, h, w, level)}: "
                                  f"{err32} > 2e-5 * {scale}")
         xb, wsb = x.bfloat16(), [t.bfloat16() for t in ws]
         got16 = rec_conv2d_fused(xb, wsb[0], wsb[1:], level=level).float()
@@ -200,18 +210,23 @@ def phase_kernel():
         scale16 = want16.abs().max().item()
         err16 = (got16 - want16).abs().max().item()
         if not err16 <= 1e-2 * scale16:
-            raise AssertionError(f"bf16 kernel mismatch at {(n, c, s, level)}: "
+            raise AssertionError(f"bf16 kernel mismatch at {(n, c, h, w, level)}: "
                                  f"{err16} > 1e-2 * {scale16}")
-        rec = {"phase": "kernel", "shape": [n, c, s, s], "level": level,
+        cfg = recconv_cuda.launch_config(h, w, level, 5, 2)
+        rec = {"phase": "kernel", "shape": [n, c, h, w], "level": level,
                "f32_max_abs_err": err32, "f32_max_abs_ref": scale,
-               "bf16_max_abs_err": err16, "bf16_max_abs_ref": scale16}
-        if level in M1_MIXERS and (c, s) == M1_MIXERS[level][:2]:
+               "bf16_max_abs_err": err16, "bf16_max_abs_ref": scale16,
+               "launch": {"team": cfg.team, "planes_per_block": cfg.planes_per_block,
+                          "shared_bytes": cfg.smem_bytes,
+                          **recconv_cuda.kernel_attributes(5, torch.bfloat16)}}
+        m1 = M1_MIXERS.get(level)
+        if m1 and (c, h, w) == (m1[0], m1[1], m1[1]):
             max_abs_err = max(max_abs_err, err16)
             # timing at the main path's size: batch 256, bf16
-            xt, wst = inputs(256, c, s, level, torch.bfloat16)
+            xt, wst = inputs(256, c, h, w, level, torch.bfloat16)
             times = time_pair(lambda: rec_conv2d_fused(xt, wst[0], wst[1:], level=level),
                               lambda: rec_conv2d(xt, wst[0], wst[1:], level=level))
-            nbytes, flops = recconv_work(256, c, s, s, level, 5, 2)
+            nbytes, flops = recconv_work(256, c, h, w, level, 5, 2)
             bms, by = bound(nbytes, flops)
             per_shape[level] = dict(times, bytes=nbytes, flops=flops)
             rec.update(batch_256_bf16=dict(times, bound_ms=bms, bound_by=by, bytes=nbytes,

@@ -11,8 +11,8 @@ Both are written as per-axis plans (gather indices and lerp weights computed onc
 per shape on the host), so the arithmetic is the reference's step for step. Each
 plan is copied to a device once and cached there per (shape, device, dtype), so a
 resize on a CUDA tensor makes no host-to-device copy after its first call. The
-RecConv CUDA kernel computes the same bilinear plan on the device
-(``csrc/recconv.cu``, ``build_plan``).
+RecConv CUDA kernel reads these same bilinear plans, packed into one table per
+pyramid by ``ops/cuda/recconv.py:lerp_plan_table`` and cached on each device.
 """
 
 from __future__ import annotations

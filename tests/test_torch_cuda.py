@@ -38,11 +38,20 @@ def _inputs(n, c, h, w, level, k=5, dtype=torch.float32, seed=0):
     return x.to("cuda", dtype), [t.to("cuda", dtype) for t in ws]
 
 
-# tests/test_pallas.py:12's shapes, odd planes, k 3 and 7, a 96^2 plane (> 48 KB)
+# tests/test_pallas.py:12's shapes, odd planes, k 3 and 7, a 96^2 plane (> 48 KB);
+# N*C not a multiple of the planes per block (the last block is ragged); a
+# non-square plane at each team size (8, 16, 32, 64, 128, 256 threads; ops/cuda/
+# recconv.py:launch_config), with odd and even widths (staged and direct stores);
+# levels 1-4 at k 3 and 7
 @pytest.mark.parametrize("n,c,h,w,level,k", [
     (4, 192, 14, 14, 2, 5), (4, 32, 15, 15, 2, 5), (4, 64, 7, 7, 1, 5),
     (4, 48, 28, 28, 3, 5), (2, 16, 13, 9, 4, 5), (2, 8, 20, 20, 2, 3),
-    (2, 8, 20, 20, 2, 7), (2, 4, 96, 96, 4, 5)])
+    (2, 8, 20, 20, 2, 7), (2, 4, 96, 96, 4, 5),
+    (3, 5, 7, 7, 1, 5), (1, 13, 14, 14, 2, 5),
+    (2, 11, 9, 14, 2, 5), (2, 3, 1, 65, 4, 7), (2, 6, 20, 23, 3, 5), (1, 3, 91, 11, 4, 7),
+    (1, 5, 27, 30, 3, 5), (1, 3, 45, 47, 2, 3), (1, 2, 60, 75, 2, 5),
+    (2, 6, 17, 17, 1, 3), (2, 6, 17, 17, 3, 3), (2, 6, 17, 17, 4, 3),
+    (2, 6, 17, 17, 1, 7), (2, 6, 17, 17, 3, 7), (2, 6, 17, 17, 4, 7)])
 def test_kernel_matches_plain_f32(cuda, n, c, h, w, level, k):
     x, ws = _inputs(n, c, h, w, level, k)
     want = rec_conv2d(x, ws[0], ws[1:], level=level)
@@ -54,11 +63,15 @@ def test_kernel_matches_plain_f32(cuda, n, c, h, w, level, k):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=atol)
 
 
-def test_kernel_matches_plain_bf16(cuda):
-    x, ws = _inputs(8, 48, 56, 56, 4, dtype=torch.bfloat16)
-    got = rec_conv2d_fused(x, ws[0], ws[1:], level=4).float()
+# one shape per team size that bf16 planes take: 128, 32, 32, 8, 256 and 16 threads
+@pytest.mark.parametrize("n,c,h,w,level,k", [
+    (8, 48, 56, 56, 4, 5), (8, 96, 28, 28, 3, 5), (4, 10, 20, 23, 3, 5),
+    (8, 192, 14, 14, 2, 5), (2, 4, 96, 96, 4, 5), (2, 3, 1, 65, 4, 7)])
+def test_kernel_matches_plain_bf16(cuda, n, c, h, w, level, k):
+    x, ws = _inputs(n, c, h, w, level, k, dtype=torch.bfloat16)
+    got = rec_conv2d_fused(x, ws[0], ws[1:], level=level).float()
     # the plain version in f32 on the same bf16 values; the kernel rounds only its output
-    want = rec_conv2d(x.float(), ws[0].float(), [t.float() for t in ws[1:]], level=4)
+    want = rec_conv2d(x.float(), ws[0].float(), [t.float() for t in ws[1:]], level=level)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-2 * want.abs().max().item())
 
 
