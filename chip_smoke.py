@@ -177,53 +177,65 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _check_recconv(x, ws, level, mode):
+    """K1 against its plain version on x (f32) and on x rounded to bf16: the max
+    errors and max |ref|; raises beyond 2e-5 max|ref| (f32) or 1e-2 max|ref| (bf16)."""
+    want = rec_conv2d(x, ws[0], ws[1:], level=level, mode=mode)
+    got = rec_conv2d_fused(x, ws[0], ws[1:], level=level, mode=mode)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err32 = (got - want).abs().max().item()
+    if not err32 <= 2e-5 * scale:
+        raise AssertionError(f"f32 {mode} kernel mismatch at {tuple(x.shape)} L{level}: "
+                             f"{err32} > 2e-5 * {scale}")
+    xb, wsb = x.bfloat16(), [t.bfloat16() for t in ws]
+    got16 = rec_conv2d_fused(xb, wsb[0], wsb[1:], level=level, mode=mode).float()
+    want16 = rec_conv2d(xb.float(), wsb[0].float(), [t.float() for t in wsb[1:]],
+                        level=level, mode=mode)
+    scale16 = want16.abs().max().item()
+    err16 = (got16 - want16).abs().max().item()
+    if not err16 <= 1e-2 * scale16:
+        raise AssertionError(f"bf16 {mode} kernel mismatch at {tuple(x.shape)} L{level}: "
+                             f"{err16} > 1e-2 * {scale16}")
+    return {"f32_max_abs_err": err32, "f32_max_abs_ref": scale,
+            "bf16_max_abs_err": err16, "bf16_max_abs_ref": scale16}
+
+
+def _recconv_inputs(gen, n, c, h, w, level, dtype):
+    x = torch.randn(n, c, h, w, generator=gen)
+    ws = [torch.randn(c, 1, 5, 5, generator=gen) / 5 for _ in range(level + 2)]
+    return x.to("cuda", dtype), [t.to("cuda", dtype) for t in ws]
+
+
 def phase_kernel():
     gen = torch.Generator().manual_seed(0)
-
-    def inputs(n, c, h, w, level, dtype):
-        x = torch.randn(n, c, h, w, generator=gen)
-        ws = [torch.randn(c, 1, 5, 5, generator=gen) / 5 for _ in range(level + 2)]
-        return x.to("cuda", dtype), [t.to("cuda", dtype) for t in ws]
-
-    cases = [(64, c, s, s, level) for level, (c, s, _) in M1_MIXERS.items()]
-    cases += [(64, 32, 15, 15, 2), (8, 48, 96, 96, 4)]
+    cases = [(64, c, s, s, level, "bilinear") for level, (c, s, _) in M1_MIXERS.items()]
+    cases += [(64, 32, 15, 15, 2, "bilinear"), (8, 48, 96, 96, 4, "bilinear")]
     # N*C not a multiple of the planes per block, then a non-square plane at each team
     # size that k = 5 planes take (8, 32, 32, 128, 256 threads per plane)
-    cases += [(3, 5, 7, 7, 1), (1, 13, 14, 14, 2), (2, 11, 9, 14, 2), (2, 6, 20, 23, 3),
-              (1, 5, 27, 30, 3), (1, 3, 45, 47, 2), (1, 2, 60, 75, 2)]
+    cases += [(n, c, h, w, level, "bilinear") for n, c, h, w, level in (
+        (3, 5, 7, 7, 1), (1, 13, 14, 14, 2), (2, 11, 9, 14, 2), (2, 6, 20, 23, 3),
+        (1, 5, 27, 30, 3), (1, 3, 45, 47, 2), (1, 2, 60, 75, 2))]
+    # nearest plans: m1's four planes, 15^2 and 13x9 at level 4
+    cases += [(64, c, s, s, level, "nearest") for level, (c, s, _) in M1_MIXERS.items()]
+    cases += [(64, 32, 15, 15, 2, "nearest"), (16, 16, 13, 9, 4, "nearest")]
     per_shape = {}
     max_abs_err = 0.0
-    for n, c, h, w, level in cases:
-        x, ws = inputs(n, c, h, w, level, torch.float32)
-        want = rec_conv2d(x, ws[0], ws[1:], level=level)
-        got = rec_conv2d_fused(x, ws[0], ws[1:], level=level)
-        torch.cuda.synchronize()
-        scale = want.abs().max().item()
-        err32 = (got - want).abs().max().item()
-        if not err32 <= 2e-5 * scale:
-            raise AssertionError(f"f32 kernel mismatch at {(n, c, h, w, level)}: "
-                                 f"{err32} > 2e-5 * {scale}")
-        xb, wsb = x.bfloat16(), [t.bfloat16() for t in ws]
-        got16 = rec_conv2d_fused(xb, wsb[0], wsb[1:], level=level).float()
-        want16 = rec_conv2d(xb.float(), wsb[0].float(), [t.float() for t in wsb[1:]],
-                            level=level)
-        scale16 = want16.abs().max().item()
-        err16 = (got16 - want16).abs().max().item()
-        if not err16 <= 1e-2 * scale16:
-            raise AssertionError(f"bf16 kernel mismatch at {(n, c, h, w, level)}: "
-                                 f"{err16} > 1e-2 * {scale16}")
+    for n, c, h, w, level, mode in cases:
+        x, ws = _recconv_inputs(gen, n, c, h, w, level, torch.float32)
+        errs = _check_recconv(x, ws, level, mode)
         cfg = recconv_cuda.launch_config(h, w, level, 5, 2)
-        rec = {"phase": "kernel", "shape": [n, c, h, w], "level": level,
-               "f32_max_abs_err": err32, "f32_max_abs_ref": scale,
-               "bf16_max_abs_err": err16, "bf16_max_abs_ref": scale16,
+        rec = {"phase": "kernel", "shape": [n, c, h, w], "level": level, "mode": mode,
+               **errs,
                "launch": {"team": cfg.team, "planes_per_block": cfg.planes_per_block,
                           "shared_bytes": cfg.smem_bytes,
                           **recconv_cuda.kernel_attributes(5, torch.bfloat16)}}
         m1 = M1_MIXERS.get(level)
         if m1 and (c, h, w) == (m1[0], m1[1], m1[1]):
-            max_abs_err = max(max_abs_err, err16)
+            max_abs_err = max(max_abs_err, errs["bf16_max_abs_err"])
+        if m1 and (c, h, w) == (m1[0], m1[1], m1[1]) and mode == "bilinear":
             # timing at the main path's size: batch 256, bf16
-            xt, wst = inputs(256, c, h, w, level, torch.bfloat16)
+            xt, wst = _recconv_inputs(gen, 256, c, h, w, level, torch.bfloat16)
             times = time_pair(lambda: rec_conv2d_fused(xt, wst[0], wst[1:], level=level),
                               lambda: rec_conv2d(xt, wst[0], wst[1:], level=level))
             nbytes, flops = recconv_work(256, c, h, w, level, 5, 2)
@@ -233,6 +245,22 @@ def phase_kernel():
                                            flops=flops))
         emit(rec)
     return per_shape, max_abs_err
+
+
+def phase_large_planes():
+    """Planes too large for K1's shared memory: 640^2's stage-0 plane (160^2 L4) and
+    COCO 1333x800's (200x334 L4), batch 2, C = 48, at the kernel phase's bounds, with
+    the launches and peels each made."""
+    gen = torch.Generator().manual_seed(6)
+    for h, w, level in ((160, 160, 4), (200, 334, 4)):
+        x, ws = _recconv_inputs(gen, 2, 48, h, w, level, torch.float32)
+        before = rec_conv2d_fused.launches, rec_conv2d_fused.peeled
+        errs = _check_recconv(x, ws, level, "bilinear")
+        emit({"phase": "large_plane", "shape": [2, 48, h, w], "level": level, **errs,
+              "levels_peeled": [recconv_cuda.levels_to_peel(h, w, level, 5, eb)
+                                for eb in (4, 2)],
+              "launches": rec_conv2d_fused.launches - before[0],
+              "peeled": rec_conv2d_fused.peeled - before[1]})
 
 
 def attention_work(b, heads, n, d, dv, elem_bytes):
@@ -311,11 +339,11 @@ def phase_attention():
     return per_stage, max_abs_err
 
 
-def calibrated(name):
+def calibrated(name, **overrides):
     """``name`` with seeded weights and non-trivial BN: affine drawn from the
     generator, running statistics those of one random batch."""
     gen = torch.Generator().manual_seed(1)
-    model = create_model(name, device="cuda", generator=gen)
+    model = create_model(name, device="cuda", generator=gen, **overrides)
     bns = [m for m in model.modules()
            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d))]
     with torch.no_grad():
@@ -341,11 +369,14 @@ def counts():
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
-def phase_model(name):
-    unfused = calibrated(name)
+def phase_model(name, *, side=224, batch=8, peeled=0, **overrides):
+    """Fused ``name`` (with ``overrides``) at ``batch`` x ``side``^2 against the unfused
+    f32 plain path: its logits, and its kernel launches (and K1's peels) per forward."""
+    unfused = calibrated(name, **overrides)
     fused_sd = fuse_params(unfused.state_dict())
-    x = torch.randn(8, 3, 224, 224, generator=torch.Generator().manual_seed(2)).cuda()
-    out = {"phase": "model", "model": name, "input": [8, 3, 224, 224]}
+    x = torch.randn(batch, 3, side, side, generator=torch.Generator().manual_seed(2)).cuda()
+    out = {"phase": "model", "model": name, "overrides": overrides,
+           "input": [batch, 3, side, side]}
     with torch.inference_mode():
         restore = plain_path(unfused)
         ref = unfused(x).float()  # unfused f32, plain path: the reference
@@ -355,28 +386,31 @@ def phase_model(name):
                 # bf16 keeps 8 bits: ~100 layers each rounding at 2^-9 drift by a
                 # few percent of the logits' scale, and the max over 8k logits more
                 ("bf16", torch.bfloat16, 1e-1, 1e-1)):
-            model = create_model(name, fused=True, device="cuda", dtype=dtype)
+            model = create_model(name, fused=True, device="cuda", dtype=dtype, **overrides)
             model.load_state_dict(fused_sd, strict=True)
             xin = x.to(dtype)
-            before = counts()
+            before, peels = counts(), rec_conv2d_fused.peeled
             got = model(xin).float()
             torch.cuda.synchronize()
             launches = {k: v - before[k] for k, v in counts().items()}
-            if launches != EXPECTED[name]:
+            peels = rec_conv2d_fused.peeled - peels
+            if launches != EXPECTED[name] or peels != peeled:
                 raise AssertionError(f"{label}: kernel launches per {name} forward "
-                                     f"{launches}, expected {EXPECTED[name]}")
+                                     f"{launches} and {peels} peeled, expected "
+                                     f"{EXPECTED[name]} and {peeled}")
             restore = plain_path(model)
             plain = model(xin).float()
             restore()
-            if got.shape != (8, 1000) or not torch.isfinite(got).all():
+            if got.shape != (batch, 1000) or not torch.isfinite(got).all():
                 raise AssertionError(f"{label}: bad logits {tuple(got.shape)}")
             scale = ref.abs().max().item()
             e_ref = (got - ref).abs().max().item()
             e_plain = (got - plain).abs().max().item()
             top1 = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
             top1_plain = (got.argmax(-1) == plain.argmax(-1)).float().mean().item()
-            out[label] = {"launches_per_forward": launches, "max_abs_err_vs_unfused_f32":
-                          e_ref, "max_abs_err_vs_plain_path": e_plain,
+            out[label] = {"launches_per_forward": launches, "peeled_per_forward": peels,
+                          "max_abs_err_vs_unfused_f32": e_ref,
+                          "max_abs_err_vs_plain_path": e_plain,
                           "max_abs_logit": scale, "top1_agree_vs_unfused_f32": top1,
                           "top1_agree_vs_plain_path": top1_plain,
                           "tol_vs_unfused_f32": tol_ref * scale,
@@ -528,6 +562,9 @@ def main() -> int:
     # recnext_m1: kernel K1
     per_shape, k1_err = phase_kernel()
     m1_total = forward_totals(per_shape, M1_MIXERS)
+    phase_large_planes()
+    phase_model("recnext_m1", side=640, batch=2, peeled=3)  # stage 0 peels one level
+    phase_model("recnext_m1", recconv_mode="nearest")
     unfused = phase_model("recnext_m1")
     serving, m1_launches = phase_serving("recnext_m1", unfused)
     phase_throughput("recnext_m1", serving.model, "recconv_kernel", m1_total["kernel_ms"])

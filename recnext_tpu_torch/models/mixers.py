@@ -26,7 +26,8 @@ class RecConv2dMixer(nn.Module):
     """Recursive multi-frequency depthwise conv: a shared stride-2 ``down`` kernel
     plus level+1 per-level kernels, bias-free. Parameters ``down.weight`` and
     ``convs.{i}.weight``, each (C, 1, k, k). On a CUDA tensor the whole pyramid is
-    one launch of the fused kernel."""
+    one launch of the fused kernel, in either mode (planes too large for its shared
+    memory peel their outer levels first: ``ops/recconv.py:rec_conv2d_fused``)."""
 
     def __init__(self, channels: int, level: int, kernel_size: int = 5,
                  mode: str = "bilinear"):

@@ -8,8 +8,11 @@ The host side lays the kernel out, once per plane shape: ``launch_config`` picks
 the team size (threads per (n, c) plane), the planes per block and the shared
 memory of one block, and carries the geometry (level sizes, row pitches and
 offsets) that the kernel reads as a struct. ``lerp_plan_table`` packs the
-bilinear plans of every up-step from ``ops/resize.py:_bilinear_axis_plan``; a copy
-of it is cached on each device. Both are plain Python, so the CPU tests reach them.
+plans of every up-step, bilinear from ``ops/resize.py:_bilinear_axis_plan`` or
+nearest from ``_nearest_axis_plan``; a copy of it is cached on each device.
+``levels_to_peel`` says how many outer levels a plane too large for shared memory
+must leave to ``ops/recconv.py:rec_conv2d_peeled``. All are plain Python, so the CPU
+tests reach them.
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ import numpy as np
 import torch
 
 from recnext_tpu_torch.ops.cuda.build import PKG, CudaLibrary
-from recnext_tpu_torch.ops.resize import _bilinear_axis_plan
+from recnext_tpu_torch.ops.resize import _bilinear_axis_plan, _nearest_axis_plan
 
 SOURCE = PKG / "csrc" / "recconv.cu"
 MAX_LEVEL = 4
 KERNEL_SIZES = (3, 5, 7)
+MODES = ("bilinear", "nearest")
 # the most dynamic shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232448
 BLOCK_THREADS = 256
@@ -79,16 +83,27 @@ def _ceil_to(a: int, m: int) -> int:
     return -(-a // m) * m
 
 
-def lerp_plan_table(h: int, w: int, level: int) -> tuple[np.ndarray, list[int], list[int]]:
-    """The bilinear plans of the up-steps l -> l-1 (l = 1..level) packed in one
-    (n, 4) int32 table of rows (idx0, idx1, w1 as fp32 bits, 0), one 16-byte load
-    each, and the row offsets of each up-step's row plan and column plan (index l;
-    0 at l = 0)."""
+def _axis_plan(in_size: int, out_size: int, mode: str) -> tuple:
+    """(idx0, idx1, w1) of one axis; nearest is the lerp (idx, idx, 0), which the
+    kernel's ``t0 + (t1 - t0) * w`` turns into the source value exactly."""
+    if mode == "bilinear":
+        return _bilinear_axis_plan(in_size, out_size)
+    if mode == "nearest":
+        idx = _nearest_axis_plan(in_size, out_size)
+        return idx, idx, np.zeros(len(idx), np.float32)
+    raise ValueError(f"recconv_cuda: mode {mode!r} not in {MODES}")
+
+
+def lerp_plan_table(h: int, w: int, level: int,
+                    mode: str = "bilinear") -> tuple[np.ndarray, list[int], list[int]]:
+    """The plans of the up-steps l -> l-1 (l = 1..level) packed in one (n, 4) int32
+    table of rows (idx0, idx1, w1 as fp32 bits, 0), one 16-byte load each, and the
+    row offsets of each up-step's row plan and column plan (index l; 0 at l = 0)."""
     sizes = pyramid_sizes(h, w, level)
     parts, rows, cols, off = [], [0], [0], 0
     for l in range(1, level + 1):
         for axis, offsets in ((0, rows), (1, cols)):
-            idx0, idx1, w1 = _bilinear_axis_plan(sizes[l][axis], sizes[l - 1][axis])
+            idx0, idx1, w1 = _axis_plan(sizes[l][axis], sizes[l - 1][axis], mode)
             parts.append(np.stack([idx0.astype(np.int32), idx1.astype(np.int32),
                                    w1.astype(np.float32).view(np.int32),
                                    np.zeros_like(idx0, dtype=np.int32)], axis=1))
@@ -98,8 +113,9 @@ def lerp_plan_table(h: int, w: int, level: int) -> tuple[np.ndarray, list[int], 
 
 
 @functools.lru_cache(maxsize=None)
-def _device_plan_table(h: int, w: int, level: int, device: torch.device) -> torch.Tensor:
-    table = lerp_plan_table(h, w, level)[0]
+def _device_plan_table(h: int, w: int, level: int, mode: str,
+                       device: torch.device) -> torch.Tensor:
+    table = lerp_plan_table(h, w, level, mode)[0]
     with torch.inference_mode(False):
         return torch.from_numpy(np.ascontiguousarray(table)).to(device)
 
@@ -158,51 +174,78 @@ def _staged_span_words(planes: int, h: int, w: int, elem_bytes: int) -> int:
     return _ceil_to(15 + planes * h * w * elem_bytes, 16) // 4
 
 
-@functools.lru_cache(maxsize=None)
-def launch_config(h: int, w: int, level: int, k: int, elem_bytes: int) -> LaunchConfig:
-    """Team size, planes per block, shared bytes and geometry of an h x w plane whose
-    elements take ``elem_bytes``. Raises ValueError when one plane's pyramid does not
-    fit in shared memory."""
+def _check(level: int, k: int) -> None:
     if not 1 <= level <= MAX_LEVEL:
         raise ValueError(f"recconv_cuda: level {level} not in 1..{MAX_LEVEL}")
     if k not in KERNEL_SIZES:
         raise ValueError(f"recconv_cuda: kernel size {k} not in {KERNEL_SIZES}")
+
+
+def _layout(h: int, w: int, level: int, k: int, elem_bytes: int) -> LaunchConfig:
+    """``launch_config`` without its check that the block fits in shared memory."""
     sizes, pitch, buf, tmp, tmp_pitch, out, out_pitch, words = _team_layout(h, w, level, k)
-    table, rows, cols = lerp_plan_table(h, w, level)
+    table, rows, cols = lerp_plan_table(h, w, level)  # the same rows in either mode
+    plan_rows = len(table)
 
     def layout(team):  # the teams, the staged spans of x and of y, the plan table
         per_block = BLOCK_THREADS // team
         xraw = _ceil_to(_team_stride(words, team) * per_block, 4)
         yraw = xraw + _staged_span_words(per_block, h, w, elem_bytes)
         plan = yraw + (_staged_span_words(per_block, h, w, elem_bytes) if out_pitch else 0)
-        return per_block, xraw, yraw, plan, plan + 4 * len(table)
+        return per_block, xraw, yraw, plan, plan + 4 * plan_rows
 
     team = team_size(h, w)
     while team < BLOCK_THREADS and layout(team)[-1] * 4 > MAX_SMEM_BYTES:
         team *= 2  # fewer planes per block
     per_block, xraw, yraw, plan, end = layout(team)
-    stride, smem = _team_stride(words, team), end * 4
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"recconv_cuda: a {h}x{w} plane at level {level} needs {smem} "
-                         f"bytes of shared memory, more than {MAX_SMEM_BYTES}")
+    stride = _team_stride(words, team)
     pad = [0] * (MAX_LEVEL + 1 - len(sizes))
     geometry = ((level,) + tuple(s[0] for s in sizes) + tuple(pad)
                 + tuple(s[1] for s in sizes) + tuple(pad) + tuple(pitch) + tuple(buf)
                 + tuple(rows) + tuple(pad) + tuple(cols) + tuple(pad)
-                + (tmp, tmp_pitch, out, out_pitch, 0, stride, xraw, yraw, plan, len(table)))
-    return LaunchConfig(team, per_block, smem, geometry)
+                + (tmp, tmp_pitch, out, out_pitch, 0, stride, xraw, yraw, plan, plan_rows))
+    return LaunchConfig(team, per_block, end * 4, geometry)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(h: int, w: int, level: int, k: int, elem_bytes: int) -> LaunchConfig:
+    """Team size, planes per block, shared bytes and geometry of an h x w plane whose
+    elements take ``elem_bytes``. Raises ValueError when one plane's pyramid does not
+    fit in shared memory (``levels_to_peel`` says how many levels to take off)."""
+    _check(level, k)
+    cfg = _layout(h, w, level, k, elem_bytes)
+    if cfg.smem_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"recconv_cuda: a {h}x{w} plane at level {level} needs "
+                         f"{cfg.smem_bytes} bytes of shared memory, more than {MAX_SMEM_BYTES}")
+    return cfg
+
+
+@functools.lru_cache(maxsize=None)
+def levels_to_peel(h: int, w: int, level: int, k: int, elem_bytes: int) -> int:
+    """The fewest outer levels of an h x w plane's pyramid to compute outside the
+    kernel so that the kernel's plane (``pyramid_sizes(h, w, level)[p]`` at level
+    ``level - p``) fits in shared memory: 0 where the plane fits as it is, ``level``
+    where only the plain depthwise conv at the coarsest level is left."""
+    _check(level, k)
+    for p, (ph, pw) in enumerate(pyramid_sizes(h, w, level)[:level]):
+        if _layout(ph, pw, level - p, k, elem_bytes).smem_bytes <= MAX_SMEM_BYTES:
+            return p
+    return level
 
 
 def recconv_cuda(x: torch.Tensor, down_w: torch.Tensor, conv_ws: Sequence[torch.Tensor],
-                 *, level: int) -> torch.Tensor:
+                 *, level: int, mode: str = "bilinear") -> torch.Tensor:
     """Launch the fused pyramid on x's current stream. x: contiguous NCHW f32/bf16;
-    weights (C, 1, k, k) in x's dtype, on x's device. Raises on anything else."""
+    weights (C, 1, k, k) in x's dtype, on x's device; ``mode`` of the up-steps
+    bilinear or nearest. Raises on anything else."""
     if not x.is_cuda:
         raise ValueError("recconv_cuda: x must be a CUDA tensor")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"recconv_cuda: dtype {x.dtype} not supported (f32, bf16)")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("recconv_cuda: x must be a contiguous NCHW tensor")
+    if mode not in MODES:
+        raise ValueError(f"recconv_cuda: mode {mode!r} not in {MODES}")
     if len(conv_ws) != level + 1:
         raise ValueError(f"recconv_cuda: expected {level + 1} conv kernels, got {len(conv_ws)}")
     n, c, h, w = x.shape
@@ -215,7 +258,7 @@ def recconv_cuda(x: torch.Tensor, down_w: torch.Tensor, conv_ws: Sequence[torch.
                              f"on {wt.device}")
     cfg = launch_config(h, w, level, k, x.element_size())
     lib = load_library()
-    plans = _device_plan_table(h, w, level, x.device)
+    plans = _device_plan_table(h, w, level, mode, x.device)
     geometry = (ctypes.c_int * len(cfg.geometry))(*cfg.geometry)
     y = torch.empty_like(x)
     ptrs = [wt.data_ptr() for wt in conv_ws] + [None] * (MAX_LEVEL + 1 - len(conv_ws))

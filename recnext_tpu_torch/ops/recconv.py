@@ -9,13 +9,15 @@ The receptive field grows as k * 2^level while parameters grow only (level+2)x.
 PyTorch-exact resize of ``ops/resize.py``): the CPU path and the reference that
 the CUDA kernel is held against. ``rec_conv2d_fused`` is the entry point the model
 calls: on a CPU tensor it runs the plain version, on a CUDA tensor it launches the
-hand-written kernel (``ops/cuda/recconv.py``) or raises.
+hand-written kernel (``ops/cuda/recconv.py``) or raises. Where a plane's pyramid
+does not fit in the kernel's shared memory, it peels outer levels first
+(``rec_conv2d_peeled``), chosen by shape before any launch.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -61,7 +63,51 @@ def rec_conv2d(
     return depthwise_conv2d(out, conv_ws[level], conv_bs[level], stride=1, padding=pad)
 
 
+def rec_conv2d_peeled(
+    x: torch.Tensor,
+    down_w: torch.Tensor,
+    conv_ws: Sequence[torch.Tensor],
+    *,
+    level: int,
+    peel: int,
+    mode: str = "bilinear",
+    inner: Callable[..., torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Bias-free RecConv2d with its ``peel`` outer levels unrolled, by the recursion
+
+        RecConv_L(x) = conv_L(x + up(RecConv_{L-1}(down(x)), size(x)))
+
+    where RecConv_{L-1} takes convs[0 .. L-1] and RecConv_0 is conv_0 alone. Each
+    peeled level is a stride-2 depthwise conv, the inner step, the resize and the
+    level's conv; the inner step at level ``level - peel`` is ``inner`` (the plain
+    ``rec_conv2d`` by default, the kernel on the GPU) while that level is > 0.
+    The same function as ``rec_conv2d``, in the same order of operations."""
+    if len(conv_ws) != level + 1:
+        raise ValueError(f"expected {level + 1} conv kernels, got {len(conv_ws)}")
+    if not 0 <= peel <= level:
+        raise ValueError(f"peel {peel} not in 0..{level}")
+    pad = int(down_w.shape[-1]) // 2
+    if level == 0:
+        return depthwise_conv2d(x, conv_ws[0], stride=1, padding=pad)
+    if peel == 0:
+        return (inner or rec_conv2d)(x, down_w, conv_ws, level=level, mode=mode)
+    d = depthwise_conv2d(x, down_w, stride=2, padding=pad)
+    y = rec_conv2d_peeled(d, down_w, conv_ws[:level], level=level - 1, peel=peel - 1,
+                          mode=mode, inner=inner)
+    y = resize(y, (int(x.shape[2]), int(x.shape[3])), mode=mode)
+    return depthwise_conv2d(x + y, conv_ws[level], stride=1, padding=pad)
+
+
 _launch_lock = threading.Lock()
+
+
+def _launch(x, down_w, conv_ws, *, level, mode):
+    from recnext_tpu_torch.ops.cuda.recconv import recconv_cuda
+
+    y = recconv_cuda(x, down_w, conv_ws, level=level, mode=mode)
+    with _launch_lock:
+        rec_conv2d_fused.launches += 1
+    return y
 
 
 def rec_conv2d_fused(
@@ -76,9 +122,13 @@ def rec_conv2d_fused(
 ) -> torch.Tensor:
     """RecConv2d in one kernel launch on the GPU; the plain version on the CPU.
 
-    The kernel takes the M-family form only: bias-free, bilinear, f32 or bf16,
-    contiguous NCHW. On a CUDA tensor anything else raises; there is no fallback.
-    ``rec_conv2d_fused.launches`` counts kernel launches (and nothing else).
+    The kernel takes the M-family form: bias-free, bilinear or nearest, f32 or bf16,
+    contiguous NCHW. On a CUDA tensor anything else raises; there is no fallback. A
+    plane whose pyramid does not fit in shared memory runs ``rec_conv2d_peeled``
+    with the fewest peeled levels that let the kernel take the rest
+    (``ops/cuda/recconv.py:levels_to_peel``). ``rec_conv2d_fused.launches`` counts
+    kernel launches (and nothing else), ``rec_conv2d_fused.peeled`` the calls that
+    peeled levels.
     """
     if x.device.type == "cpu":
         return rec_conv2d(x, down_w, conv_ws, down_b, conv_bs, level=level, mode=mode)
@@ -86,17 +136,23 @@ def rec_conv2d_fused(
         raise ValueError(f"rec_conv2d_fused: unsupported device {x.device}")
     if down_b is not None or any(b is not None for b in (conv_bs or ())):
         raise ValueError("rec_conv2d_fused: the CUDA kernel is bias-free")
-    if mode != "bilinear":
-        raise ValueError(f"rec_conv2d_fused: the CUDA kernel is bilinear only, got {mode!r}")
+    if mode not in ("bilinear", "nearest"):
+        raise ValueError(f"rec_conv2d_fused: the CUDA kernel is bilinear or nearest, "
+                         f"got {mode!r}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, down_w, *conv_ws)):
         raise ValueError("rec_conv2d_fused: the CUDA kernel is forward-only: run the plain "
                          "version (the mixer's forward_plain) where a gradient is needed")
-    from recnext_tpu_torch.ops.cuda.recconv import recconv_cuda
+    from recnext_tpu_torch.ops.cuda.recconv import levels_to_peel
 
-    y = recconv_cuda(x, down_w, conv_ws, level=level)
+    peel = levels_to_peel(int(x.shape[2]), int(x.shape[3]), level, int(down_w.shape[-1]),
+                          x.element_size())
+    if peel == 0:
+        return _launch(x, down_w, conv_ws, level=level, mode=mode)
     with _launch_lock:
-        rec_conv2d_fused.launches += 1
-    return y
+        rec_conv2d_fused.peeled += 1
+    return rec_conv2d_peeled(x, down_w, conv_ws, level=level, peel=peel, mode=mode,
+                             inner=_launch)
 
 
 rec_conv2d_fused.launches = 0
+rec_conv2d_fused.peeled = 0

@@ -75,20 +75,55 @@ def test_kernel_matches_plain_bf16(cuda, n, c, h, w, level, k):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-2 * want.abs().max().item())
 
 
+# m1's four planes, odd and non-square pyramids, k 3 and 7, in both dtypes
+@pytest.mark.parametrize("n,c,h,w,level,k", [
+    (4, 48, 56, 56, 4, 5), (4, 96, 28, 28, 3, 5), (4, 192, 14, 14, 2, 5), (4, 64, 7, 7, 1, 5),
+    (4, 32, 15, 15, 2, 5), (2, 16, 13, 9, 4, 5), (2, 6, 20, 23, 3, 3), (1, 3, 91, 11, 4, 7)])
+def test_kernel_nearest_matches_plain(cuda, n, c, h, w, level, k):
+    x, ws = _inputs(n, c, h, w, level, k)
+    want = rec_conv2d(x, ws[0], ws[1:], level=level, mode="nearest")
+    before = rec_conv2d_fused.launches
+    got = rec_conv2d_fused(x, ws[0], ws[1:], level=level, mode="nearest")
+    torch.cuda.synchronize()
+    assert rec_conv2d_fused.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * want.abs().max().item())
+    xb, wsb = x.bfloat16(), [t.bfloat16() for t in ws]
+    got16 = rec_conv2d_fused(xb, wsb[0], wsb[1:], level=level, mode="nearest").float()
+    want16 = rec_conv2d(xb.float(), wsb[0].float(), [t.float() for t in wsb[1:]],
+                        level=level, mode="nearest")
+    torch.testing.assert_close(got16, want16, rtol=0, atol=1e-2 * want16.abs().max().item())
+
+
+# planes too large for the kernel's shared memory: 640^2's stage-0 plane (1 level
+# peeled), COCO's stage-0 plane (2), a level-1 plane whose peel leaves the plain conv
+@pytest.mark.parametrize("n,c,h,w,level,mode,peel,launches", [
+    (2, 4, 160, 160, 4, "bilinear", 1, 1), (1, 3, 200, 334, 4, "nearest", 2, 1),
+    (1, 2, 400, 400, 1, "bilinear", 1, 0)])
+def test_large_plane_peels_levels(cuda, n, c, h, w, level, mode, peel, launches):
+    from recnext_tpu_torch.ops.cuda.recconv import levels_to_peel
+
+    assert levels_to_peel(h, w, level, 5, 4) == peel
+    x, ws = _inputs(n, c, h, w, level)
+    want = rec_conv2d(x, ws[0], ws[1:], level=level, mode=mode)
+    before = rec_conv2d_fused.launches, rec_conv2d_fused.peeled
+    got = rec_conv2d_fused(x, ws[0], ws[1:], level=level, mode=mode)
+    torch.cuda.synchronize()
+    assert (rec_conv2d_fused.launches, rec_conv2d_fused.peeled) == (
+        before[0] + launches, before[1] + 1)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * want.abs().max().item())
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     x, ws = _inputs(1, 4, 14, 14, 2)
     bias = torch.zeros(4, device="cuda")
     with pytest.raises(ValueError, match="bias"):
         rec_conv2d_fused(x, ws[0], ws[1:], bias, level=2)
-    with pytest.raises(ValueError, match="bilinear"):
-        rec_conv2d_fused(x, ws[0], ws[1:], level=2, mode="nearest")
+    with pytest.raises(ValueError, match="bilinear or nearest"):
+        rec_conv2d_fused(x, ws[0], ws[1:], level=2, mode="bicubic")
     with pytest.raises(ValueError, match="dtype"):
         rec_conv2d_fused(x.half(), ws[0].half(), [t.half() for t in ws[1:]], level=2)
     with pytest.raises(ValueError, match="contiguous"):
         rec_conv2d_fused(x.transpose(2, 3), ws[0], ws[1:], level=2)
-    big, bws = _inputs(1, 1, 400, 400, 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        rec_conv2d_fused(big, bws[0], bws[1:], level=1)
     with pytest.raises(ValueError, match="forward-only"):
         rec_conv2d_fused(x.requires_grad_(), ws[0], ws[1:], level=2)
 
@@ -165,6 +200,23 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
         linear_attention_nchw(qk.transpose(2, 3), qk[:, :8].transpose(2, 3), 2)
     with pytest.raises(ValueError, match="forward-only"):
         linear_attention_fused(q.requires_grad_(), q, q)
+
+
+def test_nearest_model_runs_through_the_kernel(cuda):
+    model = create_model("recnext_m0", device="cuda", embed_dim=(16, 32, 64, 128),
+                         depth=(1, 1, 2, 1), num_classes=11, recconv_mode="nearest")
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1)).cuda()
+    mixers = [m for m in model.modules() if hasattr(m, "forward_plain")]
+    assert all(m.mode == "nearest" for m in mixers)
+    with torch.inference_mode():
+        before = rec_conv2d_fused.launches
+        got = model(x)
+        assert rec_conv2d_fused.launches == before + 5
+        for m in mixers:
+            m.forward = m.forward_plain
+        want = model(x)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
 
 
 def test_a_model_kernel_path_matches_plain_path(cuda):

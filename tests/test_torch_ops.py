@@ -1,5 +1,6 @@
 """The port's operators against the JAX package's: resize, depthwise conv and the
-RecConv2d pyramid (plain version and the CPU path of the fused entry point).
+RecConv2d pyramid (plain version, the peeled composition that large planes take on
+the GPU, and the CPU path of the fused entry point).
 Inputs are made with numpy and handed to both; NHWC <-> NCHW is explicit."""
 
 import jax.numpy as jnp
@@ -12,7 +13,7 @@ from recnext_tpu.ops.pallas.recconv import pallas_rec_conv2d
 from recnext_tpu.ops.recconv import rec_conv2d as jax_rec_conv2d
 from recnext_tpu.ops.resize import resize as jax_resize
 from recnext_tpu_torch.ops.conv import depthwise_conv2d
-from recnext_tpu_torch.ops.recconv import rec_conv2d, rec_conv2d_fused
+from recnext_tpu_torch.ops.recconv import rec_conv2d, rec_conv2d_fused, rec_conv2d_peeled
 from recnext_tpu_torch.ops.resize import resize
 
 
@@ -86,6 +87,39 @@ def test_rec_conv2d_with_bias_and_mode_matches_jax(mode):
         jnp.asarray(x), jnp.asarray(dw), tuple(jnp.asarray(w) for w in cws),
         jnp.asarray(db), tuple(jnp.asarray(b) for b in cbs), level=2, mode=mode))
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
+
+
+# (level, k, levels peeled, mode) on an odd 37x29 plane: levels 1-4, k 3, 5 and 7,
+# one and two levels peeled and the peel that reaches the coarsest conv
+PEELED = [(1, 5, 1, "bilinear"), (1, 3, 1, "nearest"), (2, 7, 1, "bilinear"),
+          (2, 5, 2, "nearest"), (3, 3, 1, "nearest"), (3, 5, 2, "bilinear"),
+          (3, 7, 2, "nearest"), (4, 5, 1, "bilinear"), (4, 3, 2, "bilinear"),
+          (4, 7, 1, "nearest"), (4, 5, 2, "nearest"), (4, 5, 4, "bilinear")]
+
+
+@pytest.mark.parametrize("level,k,peel,mode", PEELED)
+def test_rec_conv2d_peeled_matches_jax(level, k, peel, mode):
+    rng = np.random.default_rng(level * 10 + k)
+    x = rng.normal(size=(2, 37, 29, 6)).astype(np.float32)
+    dw = rng.normal(size=(k, k, 1, 6)).astype(np.float32)
+    cws = [rng.normal(size=(k, k, 1, 6)).astype(np.float32) for _ in range(level + 1)]
+    inner_levels = []
+
+    def inner(xi, down_w, conv_ws, *, level, mode):  # the kernel's place on the GPU
+        inner_levels.append((tuple(xi.shape[2:]), level))
+        return rec_conv2d(xi, down_w, conv_ws, level=level, mode=mode)
+
+    got = _nhwc(rec_conv2d_peeled(_nchw(x), _oihw(dw), [_oihw(w) for w in cws],
+                                  level=level, peel=peel, mode=mode, inner=inner))
+    want = np.asarray(jax_rec_conv2d(jnp.asarray(x), jnp.asarray(dw),
+                                     tuple(jnp.asarray(w) for w in cws), level=level,
+                                     mode=mode))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
+    # the inner step runs once on the plane left after the peel, unless none is left
+    size = (37, 29)
+    for _ in range(peel):
+        size = ((size[0] + 1) // 2, (size[1] + 1) // 2)
+    assert inner_levels == ([(size, level - peel)] if peel < level else [])
 
 
 @pytest.mark.parametrize("h,c,level", RECCONV_SHAPES[:2])
