@@ -3,11 +3,21 @@
 The counterpart of ``recnext_tpu/ops/pallas/linear_attention.py:pallas_linear_attention``.
 The source is built with ``nvcc`` for ``sm_90a`` at first use and loaded with
 ``ctypes`` (``ops/cuda/build.py``). Nothing is built or loaded at import.
+
+The host side lays the kernel out, once per shape: ``launch_config`` picks the team
+size (threads per (batch, head)), the heads per block, the tile of positions that
+one staging buffer holds, and each team's shared-memory layout, which the kernel
+reads as its ``Geometry`` struct. It is plain Python, so the CPU tests reach it.
+Each head's q, k, v and out must each be one contiguous span of memory, in one of
+two orders: n-fastest (``"n"``: D rows of N positions, the model's NCHW planes) or
+d-fastest (``"d"``: N rows of D values, the JAX package's (BH, N, D) layout).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -15,13 +25,27 @@ from recnext_tpu_torch.ops.cuda.build import PKG, CudaLibrary
 
 SOURCE = PKG / "csrc" / "linear_attention.cu"
 MAX_DIM = 128  # the largest D and DV the kernel takes
+# the most dynamic shared memory one block may use on an H100 (227 KB), and the share
+# a block aims at, so that four blocks stay resident on an SM
+MAX_SMEM_BYTES = 232448
+BLOCK_SMEM_BYTES = MAX_SMEM_BYTES // 4
+BLOCK_THREADS = 128  # threads of a block of teams of at most a warp
+TEAM_SIZES = (16, 32, 64, 128, 256)
+LAYOUTS = ("n", "d")
+KV_BLOCK = 8  # kv rows and columns of one pass-1 item (csrc: kBD, kBE)
+OUT_ROWS = 4  # positions of one pass-2 item (csrc: kBN)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.linear_attention_forward.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 2
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.linear_attention_forward.restype = ctypes.c_int
+    lib.linear_attention_kernel_attributes.argtypes = [ctypes.c_int,
+                                                       ctypes.POINTER(ctypes.c_int),
+                                                       ctypes.POINTER(ctypes.c_int)]
+    lib.linear_attention_kernel_attributes.restype = ctypes.c_int
     lib.linear_attention_error_string.argtypes = [ctypes.c_int]
     lib.linear_attention_error_string.restype = ctypes.c_char_p
 
@@ -34,11 +58,145 @@ def load_library() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
+def kernel_attributes(dtype: torch.dtype) -> dict:
+    """Registers per thread and local (spill and stack) bytes per thread of the
+    kernel built for ``dtype``, as the CUDA runtime reports them."""
+    lib = load_library()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = lib.linear_attention_kernel_attributes(int(dtype == torch.bfloat16),
+                                                 ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"linear attention kernel attributes: "
+                           f"{lib.linear_attention_error_string(err).decode()} ({err})")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def _ceil_to(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+class LaunchConfig(NamedTuple):
+    team: int             # threads that own one (batch, head)
+    heads_per_block: int  # teams in one block
+    tile: int             # positions of one staging buffer (the last tile may be shorter)
+    tiles: int            # tiles per head
+    smem_bytes: int       # dynamic shared memory of one block
+    geometry: tuple       # csrc/linear_attention.cu:Geometry, field by field
+
+
+def team_size(n: int) -> int:
+    """Threads per head, from the number of positions: 16 up to 16 positions, 32 up
+    to 64, 64 up to 256, 128 up to 1024, else 256."""
+    return next(t for t, most in ((16, 16), (32, 64), (64, 256), (128, 1024), (256, None))
+                if most is None or n <= most)
+
+
+def span_bytes(elems: int, elem_bytes: int) -> int:
+    """Bytes of the 16-byte chunks that hold a span of ``elems`` at any alignment."""
+    return _ceil_to(15 + elems * elem_bytes, 16)
+
+
+def piece_pitch(n: int, tile: int, elem_bytes: int) -> int:
+    """Bytes from one row piece of an n-fastest tile to the next: room for a piece's
+    chunks at any alignment, and congruent to a row's bytes (N * elem_bytes) modulo
+    16, so every row lands at the same offset within its chunk."""
+    p = tile * elem_bytes + 30
+    return p + (n * elem_bytes - p) % 16
+
+
+def _team_layout(n, d, dv, elem_bytes, layout, tile):
+    """(pitch, v_off, buf0, buf1, kv, ks, kv_pitch, team_bytes) of one team in bytes,
+    with tiles of ``tile`` positions; pitch 0 where a tile is one span."""
+    tiles = -(-n // tile)
+    pitch = piece_pitch(n, tile, elem_bytes) if layout == "n" and tiles > 1 else 0
+
+    def footprint(rows):  # one operand's tile in a staging buffer
+        if pitch:
+            return rows * pitch
+        return span_bytes(rows * (n if layout == "n" else tile), elem_bytes)
+
+    v_off = _ceil_to(footprint(d), 16)
+    kv_tile, q_tile = v_off + _ceil_to(footprint(dv), 16), _ceil_to(footprint(d), 16)
+    buf0 = 0
+    buf1 = kv_tile  # pass 1 fills buffer 0; buffer 1 takes q, and k and v tiles too
+    kv = buf1 + (q_tile if tiles == 1 else kv_tile)
+    kv_pitch = _ceil_to(dv, KV_BLOCK)
+    ks = kv + 4 * d * kv_pitch
+    team_bytes = _ceil_to(ks + 4 * d, 16)
+    return pitch, v_off, buf0, buf1, kv, ks, kv_pitch, team_bytes
+
+
+def _tile_lengths(n):
+    """Tile lengths to try, longest first: all of N, then N split evenly into 2, 3, ...
+    tiles of a multiple of 8 positions, down to 8."""
+    yield n
+    last, tiles = n, 2
+    while last > 8:
+        tile = _ceil_to(-(-n // tiles), 8)
+        if tile < last:
+            yield tile
+            last = tile
+        tiles += 1
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(n: int, d: int, dv: int, elem_bytes: int, layout: str) -> LaunchConfig:
+    """Team size, heads per block, tile, shared bytes and geometry for heads of N
+    positions with D-wide q and k and DV-wide v and out, ``elem_bytes`` per element,
+    in ``layout`` ("n" or "d"). The longest tile that keeps a block within its share
+    of shared memory (a quarter of the SM's; all of it where no tile fits a quarter),
+    with fewer heads per block before shorter tiles. Raises ValueError where the
+    kernel cannot run."""
+    if not (1 <= d <= MAX_DIM and 1 <= dv <= MAX_DIM) or n < 1:
+        raise ValueError(f"linear_attention_cuda: D={d}, DV={dv} and N={n}: the kernel "
+                         f"takes 1 <= D, DV <= {MAX_DIM} and N >= 1")
+    if layout not in LAYOUTS:
+        raise ValueError(f"linear_attention_cuda: layout {layout!r} not in {LAYOUTS}")
+    team = team_size(n)
+    blocks = -(-d // KV_BLOCK) * -(-(dv + 1) // KV_BLOCK)  # pass-1 kv blocks (+ ksum)
+    splits = max(1, team // blocks)
+    most = max(1, BLOCK_THREADS // team)
+    for budget in (BLOCK_SMEM_BYTES, MAX_SMEM_BYTES):
+        for tile in _tile_lengths(n):
+            lay = _team_layout(n, d, dv, elem_bytes, layout, tile)
+            heads = most
+            while heads > 1 and heads * lay[-1] > budget:
+                heads //= 2
+            if heads * lay[-1] <= budget:
+                pitch, v_off, buf0, buf1, kv, ks, kv_pitch, team_bytes = lay
+                tiles = -(-n // tile)
+                geometry = (n, d, dv, int(layout == "n"), team, heads, tile, tiles, pitch,
+                            v_off, buf0, buf1, kv, ks, kv_pitch, team_bytes, splits)
+                return LaunchConfig(team, heads, tile, tiles, heads * team_bytes, geometry)
+    raise ValueError(f"linear_attention_cuda: N={n}, D={d}, DV={dv} does not fit in "
+                     f"{MAX_SMEM_BYTES} bytes of shared memory")
+
+
+def head_layout(*ts: torch.Tensor) -> str:
+    """The order in which each (batch, head) of every (B, H, N, R) view is one
+    contiguous span: "n" (n-fastest) or "d" (d-fastest), "n" where both hold.
+    Raises ValueError ("contiguous") where neither holds for all."""
+    ok = set(LAYOUTS)
+    for t in ts:
+        _, _, n, r = t.shape
+        sn, sr = t.stride(2), t.stride(3)
+        if not ((n == 1 or sn == 1) and (r == 1 or sr == n)):
+            ok.discard("n")
+        if not ((r == 1 or sr == 1) and (n == 1 or sn == r)):
+            ok.discard("d")
+    if not ok:
+        raise ValueError("linear_attention_cuda: each head of q, k, v and out must be one "
+                         "contiguous span, n-fastest (NCHW planes) or d-fastest "
+                         "((BH, N, D) rows), all in the same order")
+    return "n" if "n" in ok else "d"
+
+
 def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           out: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """Launch the kernel on q's current stream, writing ``out``. Every operand is a
-    (B, H, N, D) view with any strides: q and k (B, H, N, D), v and out
-    (B, H, N, DV), all f32 or all bf16, on one CUDA device. Raises on anything else."""
+    (B, H, N, D) view whose heads are each one contiguous span (``head_layout``): q
+    and k (B, H, N, D), v and out (B, H, N, DV), all f32 or all bf16, on one CUDA
+    device. Raises on anything else."""
     ts = (q, k, v, out)
     if not all(t.is_cuda for t in ts):
         raise ValueError("linear_attention_cuda: every operand must be a CUDA tensor")
@@ -55,16 +213,16 @@ def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or out.shape != v.shape):
         raise ValueError(f"linear_attention_cuda: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, out {tuple(out.shape)}")
-    if not (0 < d <= MAX_DIM and 0 < dv <= MAX_DIM) or n == 0:
-        raise ValueError(f"linear_attention_cuda: D={d}, DV={dv} and N={n}: the kernel "
-                         f"takes 1 <= D, DV <= {MAX_DIM} and N >= 1")
+    cfg = launch_config(n, d, dv, q.element_size(), head_layout(*ts))
     lib = load_library()
-    strides = (ctypes.c_longlong * 16)(*(s for t in ts for s in t.stride()))
+    strides = (ctypes.c_longlong * 8)(*(s for t in ts for s in t.stride()[:2]))
+    geometry = (ctypes.c_int * len(cfg.geometry))(*cfg.geometry)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.linear_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            b, h, n, d, dv, eps, int(q.dtype == torch.bfloat16), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b * h, h,
+            geometry, len(cfg.geometry), cfg.smem_bytes, eps, int(q.dtype == torch.bfloat16),
+            stream)
     if err != 0:
         raise RuntimeError(f"linear attention kernel launch failed: "
                            f"{lib.linear_attention_error_string(err).decode()} ({err})")
