@@ -12,7 +12,8 @@ count set to 0 just before its serving phase and read just after:
 2. kernel     the RecConv2d kernel against its plain PyTorch version at recnext_m1's
               four mixer shapes (224^2), an odd 15^2 plane, a 96^2 plane, two shapes
               whose N*C leaves the last block ragged and a non-square plane at each
-              team size, in f32 (cuDNN TF32 off; tolerance 2e-5 max|ref|) and in bf16
+              team size, bilinear, and nearest at m1's four shapes, 15^2 and 13x9 at
+              level 4; in f32 (cuDNN TF32 off; tolerance 2e-5 max|ref|) and in bf16
               (against the plain version in f32 on the same bf16 values; tolerance
               1e-2 max|ref|, bf16 keeps 8 bits); prints each shape's launch
               configuration (team, planes per block, shared bytes) and the kernel's
@@ -20,28 +21,34 @@ count set to 0 just before its serving phase and read just after:
               at batch 256 bf16 (device time from a torch.profiler trace, and call
               time from CUDA events, which includes the host's time between
               launches);
-3. model      recnext_m1 from a seeded generator, BN statistics calibrated on a
+3. large_plane planes too large for the kernel's shared memory (160^2 and 200x334 at
+              level 4, batch 2, C = 48), which peel outer levels: against the plain
+              version at phase 2's bounds, with the launches and peels made;
+4. model      recnext_m1 from a seeded generator, BN statistics calibrated on a
               random batch, fused with fuse_params; the fused model's logits through
               the kernel against the plain path (f32 and bf16), and exactly 23
-              RecConv2d and 0 linear-attention launches per forward;
-4. serving    publish_fused -> ServingModel(max_batch=8) -> HTTP server: /ping,
+              RecConv2d and 0 linear-attention launches per forward: at 640^2
+              (batch 2; 3 calls a forward peel a level), in nearest mode, and at 224^2;
+5. serving    publish_fused -> ServingModel(max_batch=8) -> HTTP server: /ping,
               /models/recnext_m1, then >= 16 requests from several threads through
               the micro-batcher (the path a POST takes after decoding), each equal
               to a direct predict; the main path whose kernel launches are counted;
-5. throughput fused bf16 m1 at batch 256 and batch 1, timed with CUDA events, through
+6. throughput fused bf16 m1 at batch 256 and batch 1, timed with CUDA events, through
               the kernel and (for scale) with the mixers on the plain version; a
               profiler trace of the kernel path: device busy time and idle share,
               the kernel's time in the forward, the kernels by device time;
    recnext_a1 (the A family, kernel K2 = linear attention):
-6. attention  the linear-attention kernel against its plain version (kv-first) at
-              tests/test_pallas.py's four shapes (odd n, odd d, dv != d) and at
-              recnext_a1's four attention shapes, through the (BH, N, D) entry and
-              the model's NCHW head entry: f32 within 1e-3 + 1e-3 |ref|
-              (tests/test_pallas.py:44's bound), bf16 against the plain version in
-              f32 on the same bf16 values within 1e-2 max|ref|; times kernel and plain
-              version at a1's shapes at batch 256 bf16, as phase 2 does;
-7-10.         phases 3-5 for recnext_a1: exactly 23 linear-attention and 0 RecConv2d
-              launches per forward, and 23 per batch served.
+7. attention  the linear-attention kernel against its plain version (kv-first) at
+              tests/test_pallas.py's four shapes (odd n, odd d, dv != d), at
+              recnext_a1's four attention shapes, at heads that start off 16-byte
+              alignment and at N = 1, through the (BH, N, D) entry and the model's
+              NCHW head entry: f32 within 1e-3 + 1e-3 |ref| (tests/test_pallas.py:44's
+              bound), bf16 against the plain version in f32 on the same bf16 values
+              within 1e-2 max|ref|; prints each shape's launch configuration and the
+              kernel's registers and local bytes; times kernel and plain version at
+              a1's shapes at batch 256 bf16, as phase 2 does;
+8-10.         phases 4-6 for recnext_a1 (at 224^2): exactly 23 linear-attention and
+              0 RecConv2d launches per forward, and 23 per batch served.
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
 In the kernel record, "launches" counts the launches of the kernel's serving
@@ -276,36 +283,51 @@ def phase_attention():
     """K2 against its plain version through both entries; times at a1's shapes."""
     gen = torch.Generator().manual_seed(5)
 
-    def inputs(b, heads, side, d, dv, dtype):
-        # elu(x)+1 features are positive, as tests/test_pallas.py draws q and k
-        qk = torch.randn(b, 2 * heads * d, side, side, generator=gen).abs() + 0.1
-        v = torch.randn(b, heads * dv, side, side, generator=gen)
-        return qk.to("cuda", dtype), v.to("cuda", dtype)
+    def inputs(b, heads, side, d, dv, dtype, shift=0):
+        # elu(x)+1 features are positive, as tests/test_pallas.py draws q and k; with
+        # a shift, every head starts `shift` planes past a tensor's start
+        qk = torch.randn(b, shift + 2 * heads * d, side, side, generator=gen).abs() + 0.1
+        v = torch.randn(b, shift + heads * dv, side, side, generator=gen)
+        return qk.to("cuda", dtype)[:, shift:], v.to("cuda", dtype)[:, shift:]
 
-    def heads_of(x, heads):  # (B, nh*D, H, W) -> contiguous (B*nh, N, D)
+    def heads_of(x, heads, shift=0):  # (B, nh*D, H, W) -> (B*nh, N, D), one span per head
         b, c, h, w = x.shape
-        return x.reshape(b * heads, c // heads, h * w).transpose(1, 2).contiguous()
+        rows = x.reshape(b * heads, c // heads, h * w).transpose(1, 2)
+        flat = torch.empty(shift + rows.numel(), dtype=x.dtype, device=x.device)
+        return flat[shift:].view(rows.shape).copy_(rows)  # `shift` elements off alignment
 
     # tests/test_pallas.py:29-34's (BH, N, D, DV) as (batch, heads, side, D, DV), then
-    # a1's four attention shapes at batch 8 (checked) and 256 (timed)
-    cases = [(1, 2, 4, 32, 32, 1), (2, 2, 8, 64, 64, 1), (1, 2, 7, 20, 20, 1),
-             (1, 2, 14, 20, 40, 1)]
-    cases += [(8, nh, side, A1_HEAD_DIM, A1_HEAD_DIM, var)
+    # a1's four attention shapes at batch 8 (checked) and 256 (timed), then heads that
+    # start off 16-byte alignment (one plane of 49 positions; 3 elements) and N = 1
+    cases = [(1, 2, 4, 32, 32, 1, 0), (2, 2, 8, 64, 64, 1, 0), (1, 2, 7, 20, 20, 1, 0),
+             (1, 2, 14, 20, 40, 1, 0)]
+    cases += [(8, nh, side, A1_HEAD_DIM, A1_HEAD_DIM, var, 0)
               for nh, side, _, var in A1_ATTENTION.values()]
+    cases += [(4, 8, 7, A1_HEAD_DIM, A1_HEAD_DIM, 1, 1), (4, 3, 1, A1_HEAD_DIM, 40, 1, 0)]
     per_stage, max_abs_err = {}, 0.0
-    for b, nh, side, d, dv, variant in cases:
-        qk, v = inputs(b, nh, side, d, dv, torch.float32)
+    for b, nh, side, d, dv, variant, shift in cases:
+        qk, v = inputs(b, nh, side, d, dv, torch.float32, shift)
         q, k = qk[:, : nh * d], qk[:, nh * d:]
-        rec = {"phase": "attention", "batch": b, "heads": nh, "n": side * side, "d": d,
-               "dv": dv}
+        n = side * side
+        rec = {"phase": "attention", "batch": b, "heads": nh, "n": n, "d": d, "dv": dv,
+               "head_shift": shift,
+               "launch": {f"{dt}_{lay}": attention_cuda.launch_config(n, d, dv, eb, lay)._asdict()
+                          for dt, eb in (("bf16", 2), ("f32", 4)) for lay in ("n", "d")}}
+        for cfg in rec["launch"].values():
+            del cfg["geometry"]
         for dtype in (torch.float32, torch.bfloat16):
             qkx, vx = qk.to(dtype), v.to(dtype)
             qx, kx = q.to(dtype), k.to(dtype)
+            if shift:  # the casts copied: keep every head off alignment
+                qkx = inputs(b, nh, side, d, dv, dtype, shift)[0].copy_(qkx)
+                vx = inputs(b, nh, side, d, dv, dtype, shift)[1].copy_(vx)
+                qx, kx = qkx[:, : nh * d], qkx[:, nh * d:]
             # the plain version in f32 on the same (rounded) values
             want = linear_attention_nchw_plain(qkx.float(), vx.float(), nh)
             want_bh = linear_attention_kv_first(*(heads_of(t.float(), nh) for t in (qx, kx, vx)))
             got = linear_attention_nchw(qkx, vx, nh, variant=variant).float()
-            got_bh = linear_attention_fused(*(heads_of(t, nh) for t in (qx, kx, vx))).float()
+            got_bh = linear_attention_fused(
+                *(heads_of(t, nh, 3 * (shift > 0)) for t in (qx, kx, vx))).float()
             torch.cuda.synchronize()
             for entry, g, w in (("nchw", got, want), ("bh", got_bh, want_bh)):
                 err = (g - w).abs().max().item()
@@ -318,9 +340,10 @@ def phase_attention():
                 rec[f"{key}_max_abs_err"], rec[f"{key}_max_abs_ref"] = err, scale
                 if not ok:
                     raise AssertionError(f"{key} attention kernel mismatch at "
-                                         f"{(b, nh, side, d, dv)}: {err} (max|ref| {scale})")
+                                         f"{(b, nh, side, d, dv, shift)}: {err} (max|ref| {scale})")
         stage = next((st for st, (h, sd, _, _) in A1_ATTENTION.items()
-                      if (h, sd, d) == (nh, side, A1_HEAD_DIM) and b == 8), None)
+                      if (h, sd, d, dv) == (nh, side, A1_HEAD_DIM, A1_HEAD_DIM) and b == 8),
+                     None)
         if stage is not None:
             max_abs_err = max(max_abs_err, rec["bf16_nchw_max_abs_err"],
                               rec["bf16_bh_max_abs_err"])
@@ -336,6 +359,9 @@ def phase_attention():
                        batch_256_bf16=dict(times, bound_ms=bms, bound_by=by, bytes=nbytes,
                                            flops=flops))
         emit(rec)
+    emit({"phase": "attention_kernel", **{
+        str(dt).removeprefix("torch."): attention_cuda.kernel_attributes(dt)
+        for dt in (torch.float32, torch.bfloat16)}})
     return per_stage, max_abs_err
 
 

@@ -19,6 +19,9 @@ CUDA tensor and run the plain version on a CPU one:
   ``_split_qk_nhwc``), v (B, nh*DV, H, W), giving (B, nh*DV, H, W). The kernel
   reads these tensors in place.
 
+The kernel takes each head's q, k, v and out as one contiguous span (a head's
+channels of contiguous planes, or a (BH, N, D) head's rows) and raises on others.
+
 ``linear_attention_fused.launches`` counts the kernel's launches through either.
 ``linear_attention_blockdiag`` (a TPU formulation of the same function) is not
 ported.
@@ -125,7 +128,7 @@ def linear_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            eps: float = EPS) -> torch.Tensor:
     """q, k: (BH, N, D); v: (BH, N, DV) -> (BH, N, DV). On a CUDA tensor one launch
     of the kernel (or a raise: there is no fallback); on a CPU tensor the plain
-    kv-first version."""
+    kv-first version. Each head's rows must be one contiguous span."""
     if _check_device(q, "linear_attention_fused"):
         return linear_attention_kv_first(q, k, v, eps)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -142,8 +145,9 @@ def linear_attention_nchw(qk: torch.Tensor, v: torch.Tensor, num_heads: int, *,
                           variant: int = 1, eps: float = EPS) -> torch.Tensor:
     """qk: (B, 2*nh*D, H, W) after the feature map; v: (B, nh*DV, H, W) ->
     (B, nh*DV, H, W). On a CUDA tensor both variants are one launch of the kernel,
-    which reads q, k and v in place (each plane must be contiguous) and writes a
-    contiguous output; on a CPU tensor the plain version of ``variant``."""
+    which reads q, k and v in place (each head's channels must be one contiguous
+    span of planes) and writes a contiguous output; on a CPU tensor the plain version
+    of ``variant``."""
     if _check_device(qk, "linear_attention_nchw"):
         return linear_attention_nchw_plain(qk, v, num_heads, variant=variant, eps=eps)
     if variant not in (1, 2):

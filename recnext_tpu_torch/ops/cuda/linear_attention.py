@@ -115,8 +115,11 @@ def _team_layout(n, d, dv, elem_bytes, layout, tile):
             return rows * pitch
         return span_bytes(rows * (n if layout == "n" else tile), elem_bytes)
 
-    v_off = _ceil_to(footprint(d), 16)
-    kv_tile, q_tile = v_off + _ceil_to(footprint(dv), 16), _ceil_to(footprint(d), 16)
+    # pass 1 reads whole 8-row blocks of k and of v with its column of ones (rows past
+    # D or DV + 1 are read and dropped), so their tiles take whole blocks of rows
+    v_off = _ceil_to(footprint(_ceil_to(d, KV_BLOCK)), 16)
+    kv_tile = v_off + _ceil_to(footprint(_ceil_to(dv + 1, KV_BLOCK)), 16)
+    q_tile = _ceil_to(footprint(d), 16)
     buf0 = 0
     buf1 = kv_tile  # pass 1 fills buffer 0; buffer 1 takes q, and k and v tiles too
     kv = buf1 + (q_tile if tiles == 1 else kv_tile)
@@ -153,9 +156,13 @@ def launch_config(n: int, d: int, dv: int, elem_bytes: int, layout: str) -> Laun
     if layout not in LAYOUTS:
         raise ValueError(f"linear_attention_cuda: layout {layout!r} not in {LAYOUTS}")
     team = team_size(n)
-    blocks = -(-d // KV_BLOCK) * -(-(dv + 1) // KV_BLOCK)  # pass-1 kv blocks (+ ksum)
-    splits = max(1, team // blocks)
-    most = max(1, BLOCK_THREADS // team)
+    # pass 1's kv blocks (with ksum), and the lanes that share one: a power of two
+    # of at most a warp, so that shuffles sum their blocks
+    blocks = -(-d // KV_BLOCK) * -(-(dv + 1) // KV_BLOCK)
+    splits = 1
+    while splits < 32 and 2 * splits * blocks <= team:
+        splits *= 2
+    most = BLOCK_THREADS // team if team <= 32 else 1  # a larger team is the block
     for budget in (BLOCK_SMEM_BYTES, MAX_SMEM_BYTES):
         for tile in _tile_lengths(n):
             lay = _team_layout(n, d, dv, elem_bytes, layout, tile)
@@ -172,14 +179,9 @@ def launch_config(n: int, d: int, dv: int, elem_bytes: int, layout: str) -> Laun
                      f"{MAX_SMEM_BYTES} bytes of shared memory")
 
 
-def head_layout(*ts: torch.Tensor) -> str:
-    """The order in which each (batch, head) of every (B, H, N, R) view is one
-    contiguous span: "n" (n-fastest) or "d" (d-fastest), "n" where both hold.
-    Raises ValueError ("contiguous") where neither holds for all."""
+def _layout_of(specs: tuple) -> str:
     ok = set(LAYOUTS)
-    for t in ts:
-        _, _, n, r = t.shape
-        sn, sr = t.stride(2), t.stride(3)
+    for (_, _, n, r), (_, _, sn, sr) in specs:
         if not ((n == 1 or sn == 1) and (r == 1 or sr == n)):
             ok.discard("n")
         if not ((r == 1 or sr == 1) and (n == 1 or sn == r)):
@@ -189,6 +191,25 @@ def head_layout(*ts: torch.Tensor) -> str:
                          "contiguous span, n-fastest (NCHW planes) or d-fastest "
                          "((BH, N, D) rows), all in the same order")
     return "n" if "n" in ok else "d"
+
+
+def head_layout(*ts: torch.Tensor) -> str:
+    """The order in which each (batch, head) of every (B, H, N, R) view is one
+    contiguous span: "n" (n-fastest) or "d" (d-fastest), "n" where both hold.
+    Raises ValueError ("contiguous") where neither holds for all."""
+    return _layout_of(tuple((tuple(t.shape), t.stride()) for t in ts))
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_args(specs: tuple, elem_bytes: int):
+    """The launch configuration and the C entry's stride and geometry arrays for
+    operands of these (shape, stride) pairs: built once, as the host's time per
+    launch bounds small shapes."""
+    (_, _, n, d), _ = specs[0]
+    cfg = launch_config(n, d, specs[2][0][3], elem_bytes, _layout_of(specs))
+    strides = (ctypes.c_longlong * 8)(*(x for _, st in specs for x in st[:2]))
+    geometry = (ctypes.c_int * len(cfg.geometry))(*cfg.geometry)
+    return cfg, strides, geometry
 
 
 def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -213,10 +234,9 @@ def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or out.shape != v.shape):
         raise ValueError(f"linear_attention_cuda: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, out {tuple(out.shape)}")
-    cfg = launch_config(n, d, dv, q.element_size(), head_layout(*ts))
+    cfg, strides, geometry = _launch_args(tuple((tuple(t.shape), t.stride()) for t in ts),
+                                          q.element_size())
     lib = load_library()
-    strides = (ctypes.c_longlong * 8)(*(s for t in ts for s in t.stride()[:2]))
-    geometry = (ctypes.c_int * len(cfg.geometry))(*cfg.geometry)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.linear_attention_forward(

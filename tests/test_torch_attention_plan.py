@@ -15,7 +15,7 @@ from recnext_tpu_torch.ops.cuda import linear_attention as la
 
 # recnext_a1's four attention shapes (N, D, DV), then the edges the kernel takes
 A1 = [(784, 24, 24), (196, 24, 24), (49, 24, 24), (16, 24, 24)]
-SHAPES = A1 + [(1, 1, 1), (50, 20, 40), (4096, 128, 128), (16, 16, 32)]
+SHAPES = A1 + [(1, 1, 1), (50, 20, 40), (4096, 128, 128), (16, 16, 32), (196, 20, 20)]
 
 
 class Geometry(NamedTuple):  # csrc/linear_attention.cu:Geometry, field by field
@@ -65,17 +65,19 @@ def test_launch_config_fits_a_block(n, d, dv, eb, layout):
     assert g.kv_pitch % la.KV_BLOCK == 0 and g.kv_pitch >= dv
     assert g.ks - g.kv == 4 * d * g.kv_pitch and g.team_bytes >= g.ks + 4 * d
     assert g.pitch == 0 if g.tiles == 1 or layout == "d" else g.pitch % 16 == (n * eb) % 16
-    # pass 1 keeps every thread on at most one (kv block, split) where it can
+    # pass 1 keeps every thread on at most one (kv block, split) where it can; the
+    # lanes of a block are a power of two within one warp (csrc: the shuffle sum)
     blocks = -(-d // 8) * -(-(dv + 1) // 8)
-    assert g.splits == max(1, g.team // blocks)
+    assert g.splits in (1, 2, 4, 8, 16, 32) and g.splits <= g.team
+    assert g.splits * blocks <= g.team or g.splits == 1
+    assert 2 * g.splits * blocks > g.team or g.splits == 32
 
 
-@pytest.mark.parametrize("n,team,heads", [(784, 128, 1), (196, 64, 1), (49, 32, 4),
-                                          (16, 16, 8)])
-def test_launch_config_of_the_a1_shapes(n, team, heads):
+@pytest.mark.parametrize("n,team,heads,tiles", [(784, 128, 1, 4), (196, 64, 1, 1),
+                                                (49, 32, 4, 1), (16, 16, 8, 1)])
+def test_launch_config_of_the_a1_shapes(n, team, heads, tiles):
     cfg = la.launch_config(n, 24, 24, 2, "n")
-    assert (cfg.team, cfg.heads_per_block) == (team, heads)
-    assert cfg.tiles == (1 if n < 784 else 3)  # stage 0's head takes 3 tiles
+    assert (cfg.team, cfg.heads_per_block, cfg.tiles) == (team, heads, tiles)
 
 
 @pytest.mark.parametrize("n,d,dv,match", [(16, 129, 16, "D=129"), (16, 16, 129, "DV=129"),
@@ -137,10 +139,11 @@ def fetch_tile(dst, src, rows, n0, length, g, eb):
     return [(dst + 16 * i, s0 - sh + 16 * i) for i in range(chunks)]
 
 
-def _replay_operand(g, eb, rows, offset, tiles, region, rng):
+def _replay_operand(g, eb, rows, offset, tiles, region, rng, read_rows):
     """Copy one head's operand (``rows`` rows, at ``offset`` elements past a 16-byte
     boundary) tile by tile as the kernel does, and read every element back through
-    tile_of. ``region(t)`` gives the shared bytes [lo, hi) that tile t may fill."""
+    tile_of. ``region(t)`` gives the shared bytes [lo, hi) that tile t may fill, and
+    every read of ``read_rows`` rows (pass 1 reads whole 8-row blocks) stays in it."""
     n = g.n
     src = 16 * 3 + offset * eb
     mem = rng.integers(0, 256, size=src + rows * n * eb + 64, dtype=np.uint8)
@@ -160,6 +163,7 @@ def _replay_operand(g, eb, rows, offset, tiles, region, rng):
         smem = np.zeros(hi, dtype=np.uint8)
         smem[(dst[:, None] + np.arange(16)).ravel()] = mem[(dev[:, None] + np.arange(16)).ravel()]
         at, rs, ns = tile_of(lo, src, rows, n0, g, eb)
+        assert at >= lo and at + (read_rows - 1) * rs + (length - 1) * ns + eb <= hi
         r, p = np.meshgrid(np.arange(rows), np.arange(length), indexing="ij")
         got = at + r * rs + p * ns
         pos = n0 + p
@@ -172,7 +176,7 @@ def _replay_operand(g, eb, rows, offset, tiles, region, rng):
 @pytest.mark.parametrize("layout", la.LAYOUTS)
 @pytest.mark.parametrize("eb", [2, 4])
 @pytest.mark.parametrize("n,d,dv", [(49, 24, 24), (784, 24, 24), (3000, 24, 40),
-                                    (16, 16, 32), (1, 1, 1)])
+                                    (16, 16, 32), (1, 1, 1), (196, 20, 20)])
 def test_transcription_copies_every_element(n, d, dv, eb, layout, offset):
     cfg, g = _geometry(n, d, dv, eb, layout)
     rng = np.random.default_rng(offset)
@@ -181,11 +185,12 @@ def test_transcription_copies_every_element(n, d, dv, eb, layout, offset):
         return (g.buf0, g.buf1) if i % 2 == 0 else (g.buf1, g.kv)
 
     # pass 1: k and v tile t in buffer t; pass 2: q tile t in buffer tiles + t
+    blocks = lambda r: -(-r // la.KV_BLOCK) * la.KV_BLOCK  # noqa: E731
     _replay_operand(g, eb, d, offset, g.tiles,
-                    lambda t: (buffer(t)[0], buffer(t)[0] + g.v_off), rng)
+                    lambda t: (buffer(t)[0], buffer(t)[0] + g.v_off), rng, blocks(d))
     _replay_operand(g, eb, dv, offset, g.tiles,
-                    lambda t: (buffer(t)[0] + g.v_off, buffer(t)[1]), rng)
-    _replay_operand(g, eb, d, offset, g.tiles, lambda t: buffer(g.tiles + t), rng)
+                    lambda t: (buffer(t)[0] + g.v_off, buffer(t)[1]), rng, blocks(dv + 1))
+    _replay_operand(g, eb, d, offset, g.tiles, lambda t: buffer(g.tiles + t), rng, d)
 
 
 @pytest.mark.parametrize("n,d,dv", SHAPES + [(3000, 24, 40)])

@@ -186,6 +186,63 @@ def test_attention_nchw_entry_reads_noncontiguous_halves(cuda, variant):
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
 
 
+# one shape per team size that ops/cuda/linear_attention.py:launch_config chooses
+# (16, 32, 64, 128, 256 threads a head), D != DV, several tiles a head (784, 3000,
+# 4096 positions), D = DV = 128; in both layouts
+@pytest.mark.parametrize("layout", ["n", "d"])
+@pytest.mark.parametrize("b,nh,h,w,d,dv,team,tiles", [
+    (3, 2, 3, 3, 24, 24, 16, 1), (2, 3, 7, 7, 24, 40, 32, 1), (2, 2, 14, 14, 20, 20, 64, 1),
+    (2, 2, 28, 28, 24, 24, 128, 6), (1, 2, 50, 60, 24, 40, 256, 29),
+    (1, 1, 64, 64, 128, 128, 256, 52)])
+def test_attention_kernel_at_every_team_size(cuda, layout, b, nh, h, w, d, dv, team, tiles):
+    from recnext_tpu_torch.ops.cuda.linear_attention import launch_config
+
+    cfg = launch_config(h * w, d, dv, 4, layout)
+    assert (cfg.team, cfg.tiles > 1) == (team, tiles > 1)
+    g = torch.Generator().manual_seed(team)
+    qk = _positive((b, 2 * nh * d, h, w), g).cuda()
+    v = torch.randn(b, nh * dv, h, w, generator=g).cuda()
+
+    def run(qk, v, kernel):
+        if layout == "n":
+            return (linear_attention_nchw if kernel else linear_attention_nchw_plain)(qk, v, nh)
+        q, k, vv = (x.reshape(b * nh, x.shape[1] // nh, h * w).transpose(1, 2).contiguous()
+                    for x in (qk[:, : nh * d], qk[:, nh * d:], v))
+        return (linear_attention_fused if kernel else linear_attention_kv_first)(q, k, vv)
+
+    before = linear_attention_fused.launches
+    got = run(qk, v, True)
+    torch.cuda.synchronize()
+    assert linear_attention_fused.launches == before + 1
+    torch.testing.assert_close(got, run(qk, v, False), rtol=1e-3, atol=1e-3)
+    got16 = run(qk.bfloat16(), v.bfloat16(), True).float()
+    want16 = run(qk.bfloat16().float(), v.bfloat16().float(), False)
+    torch.testing.assert_close(got16, want16, rtol=0, atol=1e-2 * want16.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [1, 3, 7])
+def test_attention_kernel_reads_misaligned_heads(cuda, shift, dtype):
+    """Heads that start `shift` elements (the BH entry) or planes (the NCHW entry)
+    past a tensor's start: off 16-byte alignment with 49 positions."""
+    g = torch.Generator().manual_seed(shift)
+    qk = _positive((2, shift + 2 * 3 * 24, 7, 7), g).to("cuda", dtype)[:, shift:]
+    v = torch.randn(2, shift + 3 * 40, 7, 7, generator=g).to("cuda", dtype)[:, shift:]
+    want = linear_attention_nchw_plain(qk.float(), v.float(), 3)
+    tol = dict(rtol=1e-3, atol=1e-3) if dtype == torch.float32 else dict(
+        rtol=0, atol=1e-2 * want.abs().max().item())
+    torch.testing.assert_close(linear_attention_nchw(qk, v, 3).float(), want, **tol)
+
+    def heads(x):  # (B*nh, N, D), each head `shift` elements past 16-byte alignment
+        rows = x.reshape(6, x.shape[1] // 3, 49).transpose(1, 2)
+        flat = torch.empty(shift + rows.numel(), dtype=dtype, device="cuda")
+        return flat[shift:].view(rows.shape).copy_(rows)
+
+    q, k, vv = heads(qk[:, :72]), heads(qk[:, 72:]), heads(v)
+    want_bh = linear_attention_kv_first(q.float(), k.float(), vv.float())
+    torch.testing.assert_close(linear_attention_fused(q, k, vv).float(), want_bh, **tol)
+
+
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.rand(2, 16, 8, device="cuda") + 0.1
     with pytest.raises(ValueError, match="dtype"):
@@ -198,6 +255,8 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     qk = torch.rand(1, 16, 4, 4, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         linear_attention_nchw(qk.transpose(2, 3), qk[:, :8].transpose(2, 3), 2)
+    with pytest.raises(ValueError, match="contiguous"):  # a head's rows are not one span
+        linear_attention_fused(q[:, ::2], q[:, ::2], q[:, ::2])
     with pytest.raises(ValueError, match="forward-only"):
         linear_attention_fused(q.requires_grad_(), q, q)
 
