@@ -24,16 +24,17 @@
 //     tile (and, after the last k/v tile, q's first) is in flight while this one is
 //     computed. A d-fastest tile is one span; an n-fastest tile is D row pieces, one
 //     span each, laid so that every row keeps the same offset within its chunk;
-//   - pass 1: each thread owns an 8 x 8 block of kv (with ksum as the column DV, v's
-//     column of ones) for every splits-th position of the tile, reading 16 values per
-//     64 multiply-adds from rows a fixed stride apart (the tiles hold whole blocks of
-//     rows; those past D and DV + 1 are read and dropped); the threads of one block
-//     (consecutive lanes) sum theirs by warp shuffles, and one adds the sum into kv in
-//     shared memory;
-//   - pass 2: each thread takes 4 positions (a stride apart, so a warp's stores fall on
+//   - pass 1: each thread owns an 8 x 8 block of kv for every splits-th position of
+//     the tile, reading 16 values per 64 multiply-adds from rows a fixed stride apart
+//     (the tiles hold whole blocks of rows; those past D and DV are read and dropped);
+//     the threads of one block (consecutive lanes) sum theirs by warp shuffles, and
+//     one adds the sum into kv in shared memory. The lanes left over sum k's rows
+//     into ksum;
+//   - pass 2: each thread takes 2 positions (a stride apart, so a warp's stores fall on
 //     consecutive addresses in the NCHW order) by 8 output columns, with q . ksum for
-//     the normaliser: 4 scalar and 3 broadcast loads per 36 multiply-adds; it divides
-//     by the fp32 normaliser and stores out in its dtype.
+//     the normaliser: 2 scalar and 3 broadcast loads per 18 multiply-adds (2 positions
+//     share the load better over a team's lanes than 4: measured, PERF.md); it
+//     scales by the fp32 normaliser's inverse and stores out in its dtype.
 // Device memory sees q, k and v read once and out written once.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
@@ -52,7 +53,7 @@ namespace {
 constexpr int kMaxDim = 128;  // D and DV
 constexpr int kBD = 8;        // kv rows of one pass-1 item (ops/cuda/linear_attention.py: KV_BLOCK)
 constexpr int kBE = 8;        // kv columns of one pass-1 item, out columns of a pass-2 item
-constexpr int kBN = 4;        // positions of one pass-2 item (OUT_ROWS)
+constexpr int kBN = 2;        // positions of one pass-2 item (OUT_ROWS)
 
 // One launch's layout, as ops/cuda/linear_attention.py:launch_config builds it (the
 // field order is the Python tuple's). Offsets are bytes within a team's region.
@@ -68,6 +69,7 @@ struct Geometry {
   int team_bytes;         // bytes of one team's region (a multiple of 16)
   int splits;             // pass-1 lanes per kv block, each on every splits-th position
                           // (a power of two, at most 32)
+  int ks_parts;           // pass-1 lanes per row of ksum
 };
 
 // Element strides of batch and head of q, k, v and out, in that order.
@@ -182,10 +184,12 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < D * g.kv_pitch; i += T_) kv[i] = 0.f;
   for (int i = tid; i < D; i += T_) ks[i] = 0.f;
 
-  // 1. kv and ksum. Item = (kv block, split): rows d0.., columns e0.. (column DV is
-  //    ksum: v's column of ones), positions sp, sp + splits, ... of the tile.
-  const int nbe = (DV + kBE) / kBE;  // ceil((DV + 1) / kBE)
-  const int items = (D + kBD - 1) / kBD * nbe * g.splits;
+  // 1. kv and ksum. A kv item = (kv block, split): rows d0.. of k by rows e0.. of v,
+  //    positions sp, sp + splits, ... of the tile. A ksum item = (row, part): one row
+  //    of k summed over positions part, part + ks_parts, ... (the lanes left over).
+  const int nbe = (DV + kBE - 1) / kBE;
+  const int kv_items = (D + kBD - 1) / kBD * nbe * g.splits;
+  const int items = kv_items + D * g.ks_parts;
   for (int t = 0; t < g.tiles; ++t) {
     const int n0 = t * g.tile, len = min(g.tile, N - n0);
     if (t + 1 < g.tiles) {
@@ -201,6 +205,19 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const Tile kt = tile_of<T>(buf(t), kh, D, n0, g);
     const Tile vt = tile_of<T>(buf(t) + g.v_off, vh, DV, n0, g);
     for (int it = tid; it < items; it += T_) {
+      if (it >= kv_items) {
+        const int i = it - kv_items, d = i / g.ks_parts, part = i - d * g.ks_parts;
+        const char* kp = smem + kt.at + d * kt.rs + part * kt.ns;
+        const int step = g.ks_parts * kt.ns;
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};  // four chains in flight
+        int n = part;
+        for (; n + 3 * g.ks_parts < len; n += 4 * g.ks_parts, kp += 4 * step)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) sum[u] += ld(kp + u * step, T());
+        for (; n < len; n += g.ks_parts, kp += step) sum[0] += ld(kp, T());
+        atomicAdd(ks + d, (sum[0] + sum[1]) + (sum[2] + sum[3]));
+        continue;
+      }
       const int blk = it / g.splits, sp = it - blk * g.splits;
       const int db = blk / nbe, d0 = db * kBD, e0 = (blk - db * nbe) * kBE;
       // rows d0.. of k and e0.. of v: whole blocks of rows lie in the staging buffer
@@ -209,7 +226,6 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const char* kp = smem + kt.at + d0 * rs + sp * kt.ns;
       const char* vp = smem + vt.at + e0 * rs + sp * vt.ns;
       const int kstep = g.splits * kt.ns, vstep = g.splits * vt.ns;
-      const int ones = DV - e0;  // the column of ones, where it falls in this block
       float acc[kBD][kBE];
 #pragma unroll
       for (int i = 0; i < kBD; ++i)
@@ -218,10 +234,7 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = sp; n < len; n += g.splits, kp += kstep, vp += vstep) {
         float vx[kBE];
 #pragma unroll
-        for (int j = 0; j < kBE; ++j) {
-          const float x = ld(vp + j * rs, T());
-          vx[j] = j == ones ? 1.f : x;
-        }
+        for (int j = 0; j < kBE; ++j) vx[j] = ld(vp + j * rs, T());
 #pragma unroll
         for (int i = 0; i < kBD; ++i) {
           const float kx = ld(kp + i * rs, T());
@@ -243,17 +256,15 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < kBD; ++i) {
         if (d0 + i >= D) break;
 #pragma unroll
-        for (int j = 0; j < kBE; ++j) {
-          if (j < ones) kv[(d0 + i) * g.kv_pitch + e0 + j] += acc[i][j];
-          else if (j == ones) ks[d0 + i] += acc[i][j];
-        }
+        for (int j = 0; j < kBE; ++j)
+          if (e0 + j < DV) kv[(d0 + i) * g.kv_pitch + e0 + j] += acc[i][j];
       }
     }
     team_sync(T_, mask);  // buffer t is free, and after the last tile kv is whole
   }
 
   // 2. out = (q kv) / (N * (q . ksum / N + eps)). Item = (column block, position
-  //    group): positions ns, ns + S, ns + 2S, ns + 3S of the tile by kBE columns.
+  //    group): kBN positions ns, ns + S, ... of the tile by kBE columns.
   const int nbe2 = (DV + kBE - 1) / kBE;
   const long long on = g.n_fastest ? 1 : DV, oe = g.n_fastest ? N : 1;
   for (int t = 0; t < g.tiles; ++t) {
@@ -343,7 +354,7 @@ int linear_attention_forward(const void* q, const void* k, const void* v, void* 
       g.dv > kMaxDim || g.team < 16 || g.team > 256 || (g.team & (g.team - 1)) ||
       g.heads_per_block < 1 || g.team * g.heads_per_block > 256 ||
       (g.team > 32 && g.heads_per_block != 1) || g.tile < 1 || g.splits < 1 ||
-      g.splits > 32 || (g.splits & (g.splits - 1)) || g.splits > g.team ||
+      g.splits > 32 || (g.splits & (g.splits - 1)) || g.splits > g.team || g.ks_parts < 1 ||
       (long long)(g.tiles - 1) * g.tile >= g.n || (long long)g.tiles * g.tile < g.n ||
       g.kv_pitch % kBE || g.team_bytes % 16 || smem < g.team_bytes * g.heads_per_block)
     return (int)cudaErrorInvalidValue;

@@ -33,7 +33,7 @@ BLOCK_THREADS = 128  # threads of a block of teams of at most a warp
 TEAM_SIZES = (16, 32, 64, 128, 256)
 LAYOUTS = ("n", "d")
 KV_BLOCK = 8  # kv rows and columns of one pass-1 item (csrc: kBD, kBE)
-OUT_ROWS = 4  # positions of one pass-2 item (csrc: kBN)
+OUT_ROWS = 2  # positions of one pass-2 item (csrc: kBN)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -86,17 +86,18 @@ class LaunchConfig(NamedTuple):
 
 def team_size(n: int) -> int:
     """Threads per head, from the number of positions: 16 up to 16 positions, 32 up
-    to 64, 64 up to 256, 128 up to 1024, else 256."""
-    return next(t for t, most in ((16, 16), (32, 64), (64, 256), (128, 1024), (256, None))
+    to 64, 128 up to 1024, else 256 (measured at recnext_a1's shapes: PERF.md,
+    section 6)."""
+    return next(t for t, most in ((16, 16), (32, 64), (128, 1024), (256, None))
                 if most is None or n <= most)
 
 
-def span_bytes(elems: int, elem_bytes: int) -> int:
+def _span_bytes(elems: int, elem_bytes: int) -> int:
     """Bytes of the 16-byte chunks that hold a span of ``elems`` at any alignment."""
     return _ceil_to(15 + elems * elem_bytes, 16)
 
 
-def piece_pitch(n: int, tile: int, elem_bytes: int) -> int:
+def _piece_pitch(n: int, tile: int, elem_bytes: int) -> int:
     """Bytes from one row piece of an n-fastest tile to the next: room for a piece's
     chunks at any alignment, and congruent to a row's bytes (N * elem_bytes) modulo
     16, so every row lands at the same offset within its chunk."""
@@ -108,17 +109,17 @@ def _team_layout(n, d, dv, elem_bytes, layout, tile):
     """(pitch, v_off, buf0, buf1, kv, ks, kv_pitch, team_bytes) of one team in bytes,
     with tiles of ``tile`` positions; pitch 0 where a tile is one span."""
     tiles = -(-n // tile)
-    pitch = piece_pitch(n, tile, elem_bytes) if layout == "n" and tiles > 1 else 0
+    pitch = _piece_pitch(n, tile, elem_bytes) if layout == "n" and tiles > 1 else 0
 
     def footprint(rows):  # one operand's tile in a staging buffer
         if pitch:
             return rows * pitch
-        return span_bytes(rows * (n if layout == "n" else tile), elem_bytes)
+        return _span_bytes(rows * (n if layout == "n" else tile), elem_bytes)
 
-    # pass 1 reads whole 8-row blocks of k and of v with its column of ones (rows past
-    # D or DV + 1 are read and dropped), so their tiles take whole blocks of rows
+    # pass 1 reads whole 8-row blocks of k and of v (rows past D or DV are read and
+    # dropped), so their tiles take whole blocks of rows
     v_off = _ceil_to(footprint(_ceil_to(d, KV_BLOCK)), 16)
-    kv_tile = v_off + _ceil_to(footprint(_ceil_to(dv + 1, KV_BLOCK)), 16)
+    kv_tile = v_off + _ceil_to(footprint(_ceil_to(dv, KV_BLOCK)), 16)
     q_tile = _ceil_to(footprint(d), 16)
     buf0 = 0
     buf1 = kv_tile  # pass 1 fills buffer 0; buffer 1 takes q, and k and v tiles too
@@ -156,25 +157,39 @@ def launch_config(n: int, d: int, dv: int, elem_bytes: int, layout: str) -> Laun
     if layout not in LAYOUTS:
         raise ValueError(f"linear_attention_cuda: layout {layout!r} not in {LAYOUTS}")
     team = team_size(n)
-    # pass 1's kv blocks (with ksum), and the lanes that share one: a power of two
-    # of at most a warp, so that shuffles sum their blocks
-    blocks = -(-d // KV_BLOCK) * -(-(dv + 1) // KV_BLOCK)
+    # pass 1's kv blocks and the lanes that share one (a power of two of at most a
+    # warp, so that shuffles sum their blocks); the lanes left over sum k's rows
+    blocks = -(-d // KV_BLOCK) * -(-dv // KV_BLOCK)
     splits = 1
     while splits < 32 and 2 * splits * blocks <= team:
         splits *= 2
+    ks_parts = max(1, (team - splits * blocks) // d)
     most = BLOCK_THREADS // team if team <= 32 else 1  # a larger team is the block
+
+    def rounds_filled(tile):  # the share of pass 2's lanes that a tile keeps busy
+        items = -(-dv // KV_BLOCK) * -(-tile // OUT_ROWS)
+        return items / (-(-items // team) * team)
+
     for budget in (BLOCK_SMEM_BYTES, MAX_SMEM_BYTES):
+        fits = []
         for tile in _tile_lengths(n):
             lay = _team_layout(n, d, dv, elem_bytes, layout, tile)
             heads = most
             while heads > 1 and heads * lay[-1] > budget:
                 heads //= 2
             if heads * lay[-1] <= budget:
-                pitch, v_off, buf0, buf1, kv, ks, kv_pitch, team_bytes = lay
-                tiles = -(-n // tile)
-                geometry = (n, d, dv, int(layout == "n"), team, heads, tile, tiles, pitch,
-                            v_off, buf0, buf1, kv, ks, kv_pitch, team_bytes, splits)
-                return LaunchConfig(team, heads, tile, tiles, heads * team_bytes, geometry)
+                fits.append((tile, heads, lay))
+            if fits and (tile == n or 2 * tile <= fits[0][0]):
+                break
+        if fits:
+            # a head that fits is one tile; else, of the tiles down to half the longest
+            # that fits, the one whose pass 2 fills its rounds best (measured: PERF.md)
+            tile, heads, lay = max(fits, key=lambda f: (rounds_filled(f[0]), f[0]))
+            pitch, v_off, buf0, buf1, kv, ks, kv_pitch, team_bytes = lay
+            tiles = -(-n // tile)
+            geometry = (n, d, dv, int(layout == "n"), team, heads, tile, tiles, pitch,
+                        v_off, buf0, buf1, kv, ks, kv_pitch, team_bytes, splits, ks_parts)
+            return LaunchConfig(team, heads, tile, tiles, heads * team_bytes, geometry)
     raise ValueError(f"linear_attention_cuda: N={n}, D={d}, DV={dv} does not fit in "
                      f"{MAX_SMEM_BYTES} bytes of shared memory")
 

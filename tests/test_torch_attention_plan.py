@@ -36,6 +36,7 @@ class Geometry(NamedTuple):  # csrc/linear_attention.cu:Geometry, field by field
     kv_pitch: int
     team_bytes: int
     splits: int
+    ks_parts: int
 
 
 def _geometry(n, d, dv, eb, layout):
@@ -66,14 +67,16 @@ def test_launch_config_fits_a_block(n, d, dv, eb, layout):
     assert g.ks - g.kv == 4 * d * g.kv_pitch and g.team_bytes >= g.ks + 4 * d
     assert g.pitch == 0 if g.tiles == 1 or layout == "d" else g.pitch % 16 == (n * eb) % 16
     # pass 1 keeps every thread on at most one (kv block, split) where it can; the
-    # lanes of a block are a power of two within one warp (csrc: the shuffle sum)
-    blocks = -(-d // 8) * -(-(dv + 1) // 8)
+    # lanes of a block are a power of two within one warp (csrc: the shuffle sum),
+    # and the lanes left over sum k's rows
+    blocks = -(-d // 8) * -(-dv // 8)
     assert g.splits in (1, 2, 4, 8, 16, 32) and g.splits <= g.team
     assert g.splits * blocks <= g.team or g.splits == 1
     assert 2 * g.splits * blocks > g.team or g.splits == 32
+    assert g.ks_parts == max(1, (g.team - g.splits * blocks) // d)
 
 
-@pytest.mark.parametrize("n,team,heads,tiles", [(784, 128, 1, 4), (196, 64, 1, 1),
+@pytest.mark.parametrize("n,team,heads,tiles", [(784, 128, 1, 5), (196, 128, 1, 1),
                                                 (49, 32, 4, 1), (16, 16, 8, 1)])
 def test_launch_config_of_the_a1_shapes(n, team, heads, tiles):
     cfg = la.launch_config(n, 24, 24, 2, "n")
@@ -189,33 +192,38 @@ def test_transcription_copies_every_element(n, d, dv, eb, layout, offset):
     _replay_operand(g, eb, d, offset, g.tiles,
                     lambda t: (buffer(t)[0], buffer(t)[0] + g.v_off), rng, blocks(d))
     _replay_operand(g, eb, dv, offset, g.tiles,
-                    lambda t: (buffer(t)[0] + g.v_off, buffer(t)[1]), rng, blocks(dv + 1))
+                    lambda t: (buffer(t)[0] + g.v_off, buffer(t)[1]), rng, blocks(dv))
     _replay_operand(g, eb, d, offset, g.tiles, lambda t: buffer(g.tiles + t), rng, d)
 
 
 @pytest.mark.parametrize("n,d,dv", SHAPES + [(3000, 24, 40)])
 def test_items_cover_kv_and_out_once(n, d, dv):
-    """Pass 1's (kv block, split) items cover every kv entry and ksum (column DV)
-    of every position of a tile once; pass 2's (column block, position group) items
-    cover every output of a tile once."""
+    """Pass 1's (kv block, split) items cover every kv entry of every position of a
+    tile once and its (row, part) items every ksum entry; pass 2's (column block,
+    position group) items cover every output of a tile once."""
     _, g = _geometry(n, d, dv, 2, "n")
-    nbe = (dv + 8) // 8
+    nbe = -(-dv // 8)
+    kv_items = -(-d // 8) * nbe * g.splits
     for t in range(g.tiles):
         length = min(g.tile, n - t * g.tile)
-        count = np.zeros((d, dv + 1, length), dtype=np.int64)
-        for it in range(-(-d // 8) * nbe * g.splits):
+        count = np.zeros((d, dv + 1, length), dtype=np.int64)  # column dv: ksum
+        for it in range(kv_items + d * g.ks_parts):
+            if it >= kv_items:
+                row, part = divmod(it - kv_items, g.ks_parts)
+                count[row, dv, part:length:g.ks_parts] += 1
+                continue
             blk, sp = divmod(it, g.splits)
             db, eb = divmod(blk, nbe)
             d0, e0 = 8 * db, 8 * eb
             rows = [d0 + i for i in range(8) if d0 + i < d]
-            cols = [e0 + j for j in range(8) if e0 + j <= dv]
+            cols = [e0 + j for j in range(8) if e0 + j < dv]
             count[np.ix_(rows, cols, list(range(sp, length, g.splits)))] += 1
         assert (count == 1).all()
         out = np.zeros((length, dv), dtype=np.int64)
-        s = -(-length // 4)
+        s = -(-length // la.OUT_ROWS)
         for it in range(-(-dv // 8) * s):
             eb, ns = divmod(it, s)
-            for j in range(4):
+            for j in range(la.OUT_ROWS):
                 if ns + j * s < length:
                     out[ns + j * s, 8 * eb: min(8 * eb + 8, dv)] += 1
         assert (out == 1).all()

@@ -187,11 +187,11 @@ def test_attention_nchw_entry_reads_noncontiguous_halves(cuda, variant):
 
 
 # one shape per team size that ops/cuda/linear_attention.py:launch_config chooses
-# (16, 32, 64, 128, 256 threads a head), D != DV, several tiles a head (784, 3000,
-# 4096 positions), D = DV = 128; in both layouts
+# (16, 32, 128, 256 threads a head), D != DV, several tiles a head (784, 3000, 4096
+# positions), D = DV = 128; in both layouts
 @pytest.mark.parametrize("layout", ["n", "d"])
 @pytest.mark.parametrize("b,nh,h,w,d,dv,team,tiles", [
-    (3, 2, 3, 3, 24, 24, 16, 1), (2, 3, 7, 7, 24, 40, 32, 1), (2, 2, 14, 14, 20, 20, 64, 1),
+    (3, 2, 3, 3, 24, 24, 16, 1), (2, 3, 7, 7, 24, 40, 32, 1), (2, 2, 14, 14, 20, 20, 128, 1),
     (2, 2, 28, 28, 24, 24, 128, 6), (1, 2, 50, 60, 24, 40, 256, 29),
     (1, 1, 64, 64, 128, 128, 256, 52)])
 def test_attention_kernel_at_every_team_size(cuda, layout, b, nh, h, w, d, dv, team, tiles):
