@@ -22,13 +22,19 @@ count set to 0 just before its serving phase and read just after:
               time from CUDA events, which includes the host's time between
               launches);
 3. large_plane planes too large for the kernel's shared memory (160^2 and 200x334 at
-              level 4, batch 2, C = 48), which peel outer levels: against the plain
-              version at phase 2's bounds, with the launches and peels made;
+              level 4, batch 2, C = 48), which peel outer levels, each peeled level
+              two launches of the level kernel (csrc/recconv.cu:recconv_level_kernel):
+              against the plain version at phase 2's bounds, with the launches and
+              peels made; then the level kernel alone at the two shapes of m1's 640^2
+              path (the 160^2 down conv and the 80^2 -> 160^2 upsample-add-conv, bf16,
+              batch 2) against its plain version, timed as phase 2 does, and its
+              registers;
 4. model      recnext_m1 from a seeded generator, BN statistics calibrated on a
               random batch, fused with fuse_params; the fused model's logits through
               the kernel against the plain path (f32 and bf16), and exactly 23
               RecConv2d and 0 linear-attention launches per forward: at 640^2
-              (batch 2; 3 calls a forward peel a level), in nearest mode, and at 224^2;
+              (batch 2; 3 calls a forward peel a level: 6 level-kernel launches), in
+              nearest mode, and at 224^2 (0 level-kernel launches);
 5. serving    publish_fused -> ServingModel(max_batch=8) -> HTTP server: /ping,
               /models/recnext_m1, then >= 16 requests from several threads through
               the micro-batcher (the path a POST takes after decoding), each equal
@@ -54,7 +60,9 @@ Every phase prints one JSON line. Any failure raises and the exit code is not 0.
 In the kernel record, "launches" counts the launches of the kernel's serving
 phase; "ms", "plain_ms" (device times) and "bound_ms" are the sums over the 23
 launches of one forward of its model (m1 for rec_conv2d, a1 for linear_attention)
-at batch 256 in bf16. The last lines are the kernel record, the card's name and power limit, and
+at batch 256 in bf16. The level kernel (rec_conv2d_level) runs only where a plane
+is too large for K1: its record's launches are those of one m1 forward at 640^2,
+and its times the sums over that forward's 6 launches at batch 2 in bf16. The last lines are the kernel record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -86,7 +94,12 @@ from recnext_tpu_torch.ops.attention import (
 )
 from recnext_tpu_torch.ops.cuda import linear_attention as attention_cuda
 from recnext_tpu_torch.ops.cuda import recconv as recconv_cuda
-from recnext_tpu_torch.ops.recconv import rec_conv2d, rec_conv2d_fused
+from recnext_tpu_torch.ops.recconv import (
+    rec_conv2d,
+    rec_conv2d_fused,
+    rec_conv2d_level,
+    rec_conv2d_level_plain,
+)
 from recnext_tpu_torch.serve import ServingModel, make_server
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s outside
@@ -100,9 +113,12 @@ M1_MIXERS = {  # level -> (channels, plane side, launches per m1 forward) at 224
 A1_ATTENTION = {0: (2, 28, 3, 1), 1: (4, 14, 3, 1), 2: (8, 7, 15, 1), 3: (16, 4, 2, 2)}
 A1_HEAD_DIM = 24
 # every launch count; each path's serving phase sets them all to 0 before it runs
-COUNTERS = {"rec_conv2d": rec_conv2d_fused, "linear_attention": linear_attention_fused}
-EXPECTED = {"recnext_m1": {"rec_conv2d": 23, "linear_attention": 0},
-            "recnext_a1": {"rec_conv2d": 0, "linear_attention": 23}}
+COUNTERS = {"rec_conv2d": rec_conv2d_fused, "rec_conv2d_level": rec_conv2d_level,
+            "linear_attention": linear_attention_fused}
+EXPECTED = {"recnext_m1": {"rec_conv2d": 23, "rec_conv2d_level": 0, "linear_attention": 0},
+            "recnext_a1": {"rec_conv2d": 0, "rec_conv2d_level": 0, "linear_attention": 23}}
+# m1 at 640^2: its 3 stage-0 mixers (160^2, level 4) each peel one level
+M1_640_LEVEL_LAUNCHES = 6
 
 
 def emit(obj) -> None:
@@ -254,20 +270,77 @@ def phase_kernel():
     return per_shape, max_abs_err
 
 
+def level_work(n, c, h, w, k, stride, up, in_bytes, out_bytes):
+    """(bytes, flops) of one level of a peeled pyramid: x (and the fp32 inner plane)
+    read and y written once, and the fp32 weights; 2k^2 flops per output, and 10 per
+    upsampled input where ``up``."""
+    oh, ow = (h, w) if stride == 1 else ((h + 1) // 2, (w + 1) // 2)
+    nbytes = n * c * (in_bytes * h * w + out_bytes * oh * ow + 4 * k * k)
+    if up:
+        nbytes += 4 * n * c * ((h + 1) // 2) * ((w + 1) // 2)
+    return nbytes, n * c * (2 * k * k * oh * ow + (10 * h * w if up else 0))
+
+
 def phase_large_planes():
     """Planes too large for K1's shared memory: 640^2's stage-0 plane (160^2 L4) and
     COCO 1333x800's (200x334 L4), batch 2, C = 48, at the kernel phase's bounds, with
-    the launches and peels each made."""
+    the launches and peels each made. Then the level kernel alone at the shapes of
+    m1's 640^2 path, against its plain version on the same inputs, and timed."""
     gen = torch.Generator().manual_seed(6)
     for h, w, level in ((160, 160, 4), (200, 334, 4)):
         x, ws = _recconv_inputs(gen, 2, 48, h, w, level, torch.float32)
-        before = rec_conv2d_fused.launches, rec_conv2d_fused.peeled
+        before = counts(), rec_conv2d_fused.peeled
         errs = _check_recconv(x, ws, level, "bilinear")
         emit({"phase": "large_plane", "shape": [2, 48, h, w], "level": level, **errs,
               "levels_peeled": [recconv_cuda.levels_to_peel(h, w, level, 5, eb)
                                 for eb in (4, 2)],
-              "launches": rec_conv2d_fused.launches - before[0],
+              "launches": {k: v - before[0][k] for k, v in counts().items()},
               "peeled": rec_conv2d_fused.peeled - before[1]})
+
+    # m1 at 640^2: each stage-0 mixer peels level 4 of a 160^2 plane (C = 48, k = 5):
+    # the down conv (bf16 -> f32 80^2) and, after K1's inner pyramid, the
+    # upsample-add-conv (bf16 160^2 + f32 80^2 -> bf16); batch 2 as in the model phase
+    x = torch.randn(2, 48, 160, 160, generator=gen).to("cuda", torch.bfloat16)
+    w = (torch.randn(48, 1, 5, 5, generator=gen) / 5).cuda()
+    inner = torch.randn(2, 48, 80, 80, generator=gen).cuda()
+    total, max_abs_err = {"kernel_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0}, 0.0
+    for step, stride, up, out_dtype in (("down", 2, None, torch.float32),
+                                        ("up_add_conv", 1, inner, torch.bfloat16)):
+        for mode in ("bilinear", "nearest") if up is not None else ("bilinear",):
+            kw = dict(stride=stride, up=up, mode=mode, dtype=out_dtype)
+            got = rec_conv2d_level(x, w, **kw).float()
+            want = rec_conv2d_level_plain(x, w, **kw).float()
+            # the plain version in fp32 before its one rounding, as the kernel
+            want32 = rec_conv2d_level_plain(x, w, **dict(kw, dtype=torch.float32))
+            torch.cuda.synchronize()
+            scale = want32.abs().max().item()
+            err = (got - want32).abs().max().item()
+            tol = (2e-5 if out_dtype == torch.float32 else 1e-2) * scale
+            if not err <= tol:
+                raise AssertionError(f"level kernel {step} {mode} mismatch: {err} > {tol}")
+            rec = {"phase": "level_kernel", "step": step, "mode": mode if up is not None else None,
+                   "x": [2, 48, 160, 160], "x_dtype": "bf16", "out": list(got.shape),
+                   "out_dtype": str(out_dtype).removeprefix("torch."),
+                   "max_abs_err": err, "max_abs_ref": scale, "tol": tol,
+                   "max_abs_diff_vs_plain_rounded": (got - want).abs().max().item(),
+                   "registers": recconv_cuda.level_kernel_attributes(
+                       5, stride, torch.bfloat16, out_dtype)}
+            if mode == "bilinear":  # the 640^2 model's mode: its time and bound
+                max_abs_err = max(max_abs_err, err)
+                times = time_pair(lambda: rec_conv2d_level(x, w, **kw),
+                                  lambda: rec_conv2d_level_plain(x, w, **kw))
+                nbytes, flops = level_work(2, 48, 160, 160, 5, stride, up is not None, 2,
+                                           out_dtype.itemsize)
+                bms, by = bound(nbytes, flops)
+                rec.update(batch_2_bf16=dict(times, bound_ms=bms, bound_by=by, bytes=nbytes,
+                                             flops=flops))
+                for key, val in (("kernel_ms", times["kernel_ms"]),
+                                 ("plain_ms", times["plain_ms"]), ("bytes", nbytes),
+                                 ("flops", flops)):
+                    total[key] += 3 * val  # 3 peeled mixers a forward
+            emit(rec)
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["flops"])
+    return total, max_abs_err
 
 
 def attention_work(b, heads, n, d, dv, elem_bytes):
@@ -289,6 +362,11 @@ def phase_attention():
         qk = torch.randn(b, shift + 2 * heads * d, side, side, generator=gen).abs() + 0.1
         v = torch.randn(b, shift + heads * dv, side, side, generator=gen)
         return qk.to("cuda", dtype)[:, shift:], v.to("cuda", dtype)[:, shift:]
+
+    def shifted(t, shift):  # t's values in a buffer whose planes start `shift` earlier
+        b, c, h, w = t.shape
+        buf = torch.empty(b, shift + c, h, w, dtype=t.dtype, device=t.device)
+        return buf[:, shift:].copy_(t)
 
     def heads_of(x, heads, shift=0):  # (B, nh*D, H, W) -> (B*nh, N, D), one span per head
         b, c, h, w = x.shape
@@ -319,8 +397,7 @@ def phase_attention():
             qkx, vx = qk.to(dtype), v.to(dtype)
             qx, kx = q.to(dtype), k.to(dtype)
             if shift:  # the casts copied: keep every head off alignment
-                qkx = inputs(b, nh, side, d, dv, dtype, shift)[0].copy_(qkx)
-                vx = inputs(b, nh, side, d, dv, dtype, shift)[1].copy_(vx)
+                qkx, vx = (shifted(t, shift) for t in (qkx, vx))
                 qx, kx = qkx[:, : nh * d], qkx[:, nh * d:]
             # the plain version in f32 on the same (rounded) values
             want = linear_attention_nchw_plain(qkx.float(), vx.float(), nh)
@@ -395,9 +472,10 @@ def counts():
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
-def phase_model(name, *, side=224, batch=8, peeled=0, **overrides):
+def phase_model(name, *, side=224, batch=8, peeled=0, level_launches=0, **overrides):
     """Fused ``name`` (with ``overrides``) at ``batch`` x ``side``^2 against the unfused
     f32 plain path: its logits, and its kernel launches (and K1's peels) per forward."""
+    expected = dict(EXPECTED[name], rec_conv2d_level=level_launches)
     unfused = calibrated(name, **overrides)
     fused_sd = fuse_params(unfused.state_dict())
     x = torch.randn(batch, 3, side, side, generator=torch.Generator().manual_seed(2)).cuda()
@@ -420,10 +498,10 @@ def phase_model(name, *, side=224, batch=8, peeled=0, **overrides):
             torch.cuda.synchronize()
             launches = {k: v - before[k] for k, v in counts().items()}
             peels = rec_conv2d_fused.peeled - peels
-            if launches != EXPECTED[name] or peels != peeled:
+            if launches != expected or peels != peeled:
                 raise AssertionError(f"{label}: kernel launches per {name} forward "
                                      f"{launches} and {peels} peeled, expected "
-                                     f"{EXPECTED[name]} and {peeled}")
+                                     f"{expected} and {peeled}")
             restore = plain_path(model)
             plain = model(xin).float()
             restore()
@@ -444,7 +522,7 @@ def phase_model(name, *, side=224, batch=8, peeled=0, **overrides):
             if not (e_ref <= tol_ref * scale and e_plain <= tol_plain * scale):
                 raise AssertionError(f"{label} logits disagree: {out[label]}")
     emit(out)
-    return unfused
+    return unfused, out["bf16"]["launches_per_forward"]
 
 
 def phase_serving(name, unfused):
@@ -588,10 +666,11 @@ def main() -> int:
     # recnext_m1: kernel K1
     per_shape, k1_err = phase_kernel()
     m1_total = forward_totals(per_shape, M1_MIXERS)
-    phase_large_planes()
-    phase_model("recnext_m1", side=640, batch=2, peeled=3)  # stage 0 peels one level
+    level_total, level_err = phase_large_planes()
+    _, m1_640 = phase_model("recnext_m1", side=640, batch=2, peeled=3,  # stage 0 peels
+                            level_launches=M1_640_LEVEL_LAUNCHES)
     phase_model("recnext_m1", recconv_mode="nearest")
-    unfused = phase_model("recnext_m1")
+    unfused, _ = phase_model("recnext_m1")
     serving, m1_launches = phase_serving("recnext_m1", unfused)
     phase_throughput("recnext_m1", serving.model, "recconv_kernel", m1_total["kernel_ms"])
     del unfused, serving
@@ -599,7 +678,7 @@ def main() -> int:
     # recnext_a1: kernel K2
     per_stage, k2_err = phase_attention()
     a1_total = forward_totals(per_stage, A1_ATTENTION)
-    unfused = phase_model("recnext_a1")
+    unfused, _ = phase_model("recnext_a1")
     serving, a1_launches = phase_serving("recnext_a1", unfused)
     phase_throughput("recnext_a1", serving.model, "linear_attention_kernel",
                      a1_total["kernel_ms"])
@@ -608,6 +687,9 @@ def main() -> int:
         kernel_record("rec_conv2d", "recnext_tpu_torch/csrc/recconv.cu",
                       "recnext_tpu/ops/pallas/recconv.py:135",
                       m1_launches["rec_conv2d"], k1_err, m1_total),
+        kernel_record("rec_conv2d_level", "recnext_tpu_torch/csrc/recconv.cu",
+                      "recnext_tpu/ops/pallas/recconv.py:135",
+                      m1_640["rec_conv2d_level"], level_err, level_total),
         kernel_record("linear_attention", "recnext_tpu_torch/csrc/linear_attention.cu",
                       "recnext_tpu/ops/pallas/linear_attention.py:53",
                       a1_launches["linear_attention"], k2_err, a1_total)]})

@@ -12,7 +12,8 @@ plans of every up-step, bilinear from ``ops/resize.py:_bilinear_axis_plan`` or
 nearest from ``_nearest_axis_plan``; a copy of it is cached on each device.
 ``levels_to_peel`` says how many outer levels a plane too large for shared memory
 must leave to ``ops/recconv.py:rec_conv2d_peeled``. All are plain Python, so the CPU
-tests reach them.
+tests reach them. ``recconv_level_cuda`` launches the second kernel of the source,
+which computes one such outer level at any plane size.
 """
 
 from __future__ import annotations
@@ -46,6 +47,11 @@ def _declare(lib: ctypes.CDLL) -> None:
                                               ctypes.POINTER(ctypes.c_int),
                                               ctypes.POINTER(ctypes.c_int)]
     lib.recconv_kernel_attributes.restype = ctypes.c_int
+    lib.recconv_level_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    lib.recconv_level_forward.restype = ctypes.c_int
+    lib.recconv_level_attributes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.recconv_level_attributes.restype = ctypes.c_int
     lib.recconv_error_string.argtypes = [ctypes.c_int]
     lib.recconv_error_string.restype = ctypes.c_char_p
 
@@ -67,6 +73,20 @@ def kernel_attributes(k: int, dtype: torch.dtype) -> dict:
                                         ctypes.byref(local))
     if err != 0:
         raise RuntimeError(f"recconv kernel attributes: "
+                           f"{lib.recconv_error_string(err).decode()} ({err})")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def level_kernel_attributes(k: int, stride: int, dtype: torch.dtype,
+                            out_dtype: torch.dtype) -> dict:
+    """``kernel_attributes`` of the level kernel (``recconv_level_cuda``)."""
+    lib = load_library()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = lib.recconv_level_attributes(k, stride, int(dtype == torch.bfloat16),
+                                       int(out_dtype == torch.bfloat16), ctypes.byref(regs),
+                                       ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"recconv level kernel attributes: "
                            f"{lib.recconv_error_string(err).decode()} ({err})")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -225,7 +245,9 @@ def levels_to_peel(h: int, w: int, level: int, k: int, elem_bytes: int) -> int:
     """The fewest outer levels of an h x w plane's pyramid to compute outside the
     kernel so that the kernel's plane (``pyramid_sizes(h, w, level)[p]`` at level
     ``level - p``) fits in shared memory: 0 where the plane fits as it is, ``level``
-    where only the plain depthwise conv at the coarsest level is left."""
+    where only the conv at the coarsest level is left. The peeled route keeps its
+    inner plane in fp32, so ``rec_conv2d_fused`` asks again with ``elem_bytes`` 4
+    where the plane does not fit in its own dtype."""
     _check(level, k)
     for p, (ph, pw) in enumerate(pyramid_sizes(h, w, level)[:level]):
         if _layout(ph, pw, level - p, k, elem_bytes).smem_bytes <= MAX_SMEM_BYTES:
@@ -271,5 +293,57 @@ def recconv_cuda(x: torch.Tensor, down_w: torch.Tensor, conv_ws: Sequence[torch.
                                   int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"recconv kernel launch failed: "
+                           f"{lib.recconv_error_string(err).decode()} ({err})")
+    return y
+
+
+def recconv_level_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                       up: torch.Tensor | None = None, mode: str = "bilinear",
+                       dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Launch one level of a peeled pyramid (``recconv_level_kernel``) on x's current
+    stream: ``conv(x + resize(up, size(x)), w)`` at ``stride`` with zero padding k/2,
+    in fp32, rounded once to ``dtype``. x: contiguous NCHW f32/bf16; w: contiguous
+    (C, 1, k, k) f32 on x's device; up: None, or (stride 1) contiguous f32
+    (N, C, ceil(H/2), ceil(W/2)). ``dtype`` is f32 at stride 2 and x's dtype at
+    stride 1 (its default). Raises on anything else."""
+    if not x.is_cuda:
+        raise ValueError("recconv_level_cuda: x must be a CUDA tensor")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"recconv_level_cuda: dtype {x.dtype} not supported (f32, bf16)")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("recconv_level_cuda: x must be a contiguous NCHW tensor")
+    n, c, h, wd = x.shape
+    k = int(w.shape[-1])
+    if k not in KERNEL_SIZES:
+        raise ValueError(f"recconv_level_cuda: kernel size {k} not in {KERNEL_SIZES}")
+    if (tuple(w.shape) != (c, 1, k, k) or w.dtype != torch.float32 or w.device != x.device
+            or not w.is_contiguous()):
+        raise ValueError(f"recconv_level_cuda: weights must be contiguous ({c}, 1, {k}, {k}) "
+                         f"float32 on {x.device}, got {tuple(w.shape)} {w.dtype} on {w.device}")
+    out_dtype = dtype or (torch.float32 if stride == 2 else x.dtype)
+    if (stride, out_dtype) not in ((2, torch.float32), (1, x.dtype)):
+        raise ValueError(f"recconv_level_cuda: stride {stride} writes float32 (stride 2) or "
+                         f"x's dtype (stride 1), not {out_dtype}")
+    plans = None
+    if up is not None:
+        uh, uw = pyramid_sizes(h, wd, 1)[1]
+        if (stride != 1 or tuple(up.shape) != (n, c, uh, uw) or up.dtype != torch.float32
+                or up.device != x.device or not up.is_contiguous()):
+            raise ValueError(f"recconv_level_cuda: up must be a contiguous float32 "
+                             f"({n}, {c}, {uh}, {uw}) on {x.device} at stride 1")
+        if mode not in MODES:
+            raise ValueError(f"recconv_level_cuda: mode {mode!r} not in {MODES}")
+        plans = _device_plan_table(h, wd, 1, mode, x.device)
+    oh, ow = (h, wd) if stride == 1 else pyramid_sizes(h, wd, 1)[1]
+    y = torch.empty(n, c, oh, ow, dtype=out_dtype, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.recconv_level_forward(
+            x.data_ptr(), w.data_ptr(), None if up is None else up.data_ptr(),
+            None if plans is None else plans.data_ptr(), y.data_ptr(), n * c, c, h, wd, k,
+            stride, int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"recconv level kernel launch failed: "
                            f"{lib.recconv_error_string(err).decode()} ({err})")
     return y

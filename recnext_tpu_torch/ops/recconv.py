@@ -11,7 +11,8 @@ the CUDA kernel is held against. ``rec_conv2d_fused`` is the entry point the mod
 calls: on a CPU tensor it runs the plain version, on a CUDA tensor it launches the
 hand-written kernel (``ops/cuda/recconv.py``) or raises. Where a plane's pyramid
 does not fit in the kernel's shared memory, it peels outer levels first
-(``rec_conv2d_peeled``), chosen by shape before any launch.
+(``rec_conv2d_peeled``), chosen by shape before any launch; each peeled level runs
+through the source's second kernel (``rec_conv2d_level``).
 """
 
 from __future__ import annotations
@@ -63,6 +64,48 @@ def rec_conv2d(
     return depthwise_conv2d(out, conv_ws[level], conv_bs[level], stride=1, padding=pad)
 
 
+def rec_conv2d_level_plain(x, w, *, stride=1, up=None, mode="bilinear", dtype=None):
+    """``rec_conv2d_level``'s plain version, on any device."""
+    z = x.float()
+    if up is not None:
+        z = z + resize(up.float(), (int(x.shape[2]), int(x.shape[3])), mode=mode)
+    pad = int(w.shape[-1]) // 2
+    return depthwise_conv2d(z, w.float(), stride=stride, padding=pad).to(dtype or x.dtype)
+
+
+_launch_lock = threading.Lock()
+
+
+def rec_conv2d_level(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: int = 1,
+    up: torch.Tensor | None = None,
+    mode: str = "bilinear",
+    dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """One level of a peeled pyramid: ``conv(x + resize(up, size(x)), w)`` at
+    ``stride`` (depthwise, bias-free, zero padding k/2), in fp32, rounded once to
+    ``dtype`` (x's by default). On a CUDA tensor it launches the level kernel
+    (``ops/cuda/recconv.py:recconv_level_cuda``; f32 at stride 2, x's dtype at
+    stride 1; ``rec_conv2d_level.launches`` counts it) or raises; on a CPU tensor it
+    runs the plain ops."""
+    if x.device.type == "cpu":
+        return rec_conv2d_level_plain(x, w, stride=stride, up=up, mode=mode, dtype=dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"rec_conv2d_level: unsupported device {x.device}")
+    from recnext_tpu_torch.ops.cuda.recconv import recconv_level_cuda
+
+    y = recconv_level_cuda(x, w, stride=stride, up=up, mode=mode, dtype=dtype)
+    with _launch_lock:
+        rec_conv2d_level.launches += 1
+    return y
+
+
+rec_conv2d_level.launches = 0
+
+
 def rec_conv2d_peeled(
     x: torch.Tensor,
     down_w: torch.Tensor,
@@ -78,27 +121,23 @@ def rec_conv2d_peeled(
         RecConv_L(x) = conv_L(x + up(RecConv_{L-1}(down(x)), size(x)))
 
     where RecConv_{L-1} takes convs[0 .. L-1] and RecConv_0 is conv_0 alone. Each
-    peeled level is a stride-2 depthwise conv, the inner step, the resize and the
-    level's conv; the inner step at level ``level - peel`` is ``inner`` (the plain
-    ``rec_conv2d`` by default, the kernel on the GPU) while that level is > 0.
-    The same function as ``rec_conv2d``, in the same order of operations."""
+    peeled level is two ``rec_conv2d_level`` calls: the stride-2 conv into fp32, and,
+    after the inner step, the resize, add and the level's conv, rounded once to x's
+    dtype. The inner step at level ``level - peel`` is ``inner`` (the plain
+    ``rec_conv2d`` by default, the kernel on the GPU) while that level is > 0. The
+    same function as ``rec_conv2d``, in the same order of operations."""
     if len(conv_ws) != level + 1:
         raise ValueError(f"expected {level + 1} conv kernels, got {len(conv_ws)}")
     if not 0 <= peel <= level:
         raise ValueError(f"peel {peel} not in 0..{level}")
-    pad = int(down_w.shape[-1]) // 2
     if level == 0:
-        return depthwise_conv2d(x, conv_ws[0], stride=1, padding=pad)
+        return rec_conv2d_level(x, conv_ws[0])
     if peel == 0:
         return (inner or rec_conv2d)(x, down_w, conv_ws, level=level, mode=mode)
-    d = depthwise_conv2d(x, down_w, stride=2, padding=pad)
+    d = rec_conv2d_level(x, down_w, stride=2, dtype=torch.float32)
     y = rec_conv2d_peeled(d, down_w, conv_ws[:level], level=level - 1, peel=peel - 1,
                           mode=mode, inner=inner)
-    y = resize(y, (int(x.shape[2]), int(x.shape[3])), mode=mode)
-    return depthwise_conv2d(x + y, conv_ws[level], stride=1, padding=pad)
-
-
-_launch_lock = threading.Lock()
+    return rec_conv2d_level(x, conv_ws[level], up=y, mode=mode)
 
 
 def _launch(x, down_w, conv_ws, *, level, mode):
@@ -126,9 +165,10 @@ def rec_conv2d_fused(
     contiguous NCHW. On a CUDA tensor anything else raises; there is no fallback. A
     plane whose pyramid does not fit in shared memory runs ``rec_conv2d_peeled``
     with the fewest peeled levels that let the kernel take the rest
-    (``ops/cuda/recconv.py:levels_to_peel``). ``rec_conv2d_fused.launches`` counts
-    kernel launches (and nothing else), ``rec_conv2d_fused.peeled`` the calls that
-    peeled levels.
+    (``ops/cuda/recconv.py:levels_to_peel``), each peeled level two launches of the
+    level kernel (``rec_conv2d_level``). ``rec_conv2d_fused.launches`` counts the
+    pyramid kernel's launches (and nothing else), ``rec_conv2d_fused.peeled`` the
+    calls that peeled levels.
     """
     if x.device.type == "cpu":
         return rec_conv2d(x, down_w, conv_ws, down_b, conv_bs, level=level, mode=mode)
@@ -144,14 +184,15 @@ def rec_conv2d_fused(
                          "version (the mixer's forward_plain) where a gradient is needed")
     from recnext_tpu_torch.ops.cuda.recconv import levels_to_peel
 
-    peel = levels_to_peel(int(x.shape[2]), int(x.shape[3]), level, int(down_w.shape[-1]),
-                          x.element_size())
-    if peel == 0:
+    h, w, k = int(x.shape[2]), int(x.shape[3]), int(down_w.shape[-1])
+    if levels_to_peel(h, w, level, k, x.element_size()) == 0:
         return _launch(x, down_w, conv_ws, level=level, mode=mode)
+    # the peeled route computes in fp32 (the kernel's inner plane too) and rounds once
+    peel = levels_to_peel(h, w, level, k, 4)
     with _launch_lock:
         rec_conv2d_fused.peeled += 1
-    return rec_conv2d_peeled(x, down_w, conv_ws, level=level, peel=peel, mode=mode,
-                             inner=_launch)
+    return rec_conv2d_peeled(x, down_w.float(), [c.float() for c in conv_ws], level=level,
+                             peel=peel, mode=mode, inner=_launch)
 
 
 rec_conv2d_fused.launches = 0

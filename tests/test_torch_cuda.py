@@ -16,7 +16,12 @@ from recnext_tpu_torch.ops.attention import (
     linear_attention_nchw,
     linear_attention_nchw_plain,
 )
-from recnext_tpu_torch.ops.recconv import rec_conv2d, rec_conv2d_fused
+from recnext_tpu_torch.ops.recconv import (
+    rec_conv2d,
+    rec_conv2d_fused,
+    rec_conv2d_level,
+    rec_conv2d_level_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -95,22 +100,78 @@ def test_kernel_nearest_matches_plain(cuda, n, c, h, w, level, k):
 
 
 # planes too large for the kernel's shared memory: 640^2's stage-0 plane (1 level
-# peeled), COCO's stage-0 plane (2), a level-1 plane whose peel leaves the plain conv
-@pytest.mark.parametrize("n,c,h,w,level,mode,peel,launches", [
-    (2, 4, 160, 160, 4, "bilinear", 1, 1), (1, 3, 200, 334, 4, "nearest", 2, 1),
-    (1, 2, 400, 400, 1, "bilinear", 1, 0)])
-def test_large_plane_peels_levels(cuda, n, c, h, w, level, mode, peel, launches):
+# peeled), COCO's stage-0 plane (2), a level-1 plane whose peel leaves the coarsest
+# conv; each peeled level is two level-kernel launches (three where the peel leaves
+# the coarsest conv), and the pyramid kernel takes the rest
+@pytest.mark.parametrize("n,c,h,w,level,mode,peel,launches,level_launches", [
+    (2, 4, 160, 160, 4, "bilinear", 1, 1, 2), (1, 3, 200, 334, 4, "nearest", 2, 1, 4),
+    (1, 2, 400, 400, 1, "bilinear", 1, 0, 3)])
+def test_large_plane_peels_levels(cuda, n, c, h, w, level, mode, peel, launches,
+                                  level_launches):
     from recnext_tpu_torch.ops.cuda.recconv import levels_to_peel
 
     assert levels_to_peel(h, w, level, 5, 4) == peel
     x, ws = _inputs(n, c, h, w, level)
     want = rec_conv2d(x, ws[0], ws[1:], level=level, mode=mode)
-    before = rec_conv2d_fused.launches, rec_conv2d_fused.peeled
+    before = rec_conv2d_fused.launches, rec_conv2d_level.launches, rec_conv2d_fused.peeled
     got = rec_conv2d_fused(x, ws[0], ws[1:], level=level, mode=mode)
     torch.cuda.synchronize()
-    assert (rec_conv2d_fused.launches, rec_conv2d_fused.peeled) == (
-        before[0] + launches, before[1] + 1)
+    assert (rec_conv2d_fused.launches, rec_conv2d_level.launches, rec_conv2d_fused.peeled) == (
+        before[0] + launches, before[1] + level_launches, before[2] + 1)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * want.abs().max().item())
+    # bf16: fp32 inside, one rounding at the end, as for planes the kernel takes whole
+    xb, wsb = x.bfloat16(), [t.bfloat16() for t in ws]
+    got16 = rec_conv2d_fused(xb, wsb[0], wsb[1:], level=level, mode=mode).float()
+    want16 = rec_conv2d(xb.float(), wsb[0].float(), [t.float() for t in wsb[1:]],
+                        level=level, mode=mode)
+    torch.testing.assert_close(got16, want16, rtol=0, atol=1e-2 * want16.abs().max().item())
+
+
+# the level kernel alone: the down conv (f32 out), the upsample-add-conv (out in x's
+# dtype) and the plain conv; planes of one and of many 32 x 32 tiles, odd sizes
+@pytest.mark.parametrize("shape,k,stride,mode,dtype", [
+    ((2, 3, 37, 29), 5, 2, None, torch.float32), ((2, 3, 70, 45), 7, 2, None, torch.bfloat16),
+    ((1, 4, 9, 200), 3, 2, None, torch.float32),
+    ((2, 3, 37, 29), 5, 1, "bilinear", torch.float32),
+    ((2, 3, 70, 45), 3, 1, "nearest", torch.float32),
+    ((1, 4, 65, 64), 7, 1, "bilinear", torch.bfloat16),
+    ((2, 3, 33, 100), 5, 1, "nearest", torch.bfloat16),
+    ((2, 3, 70, 45), 5, 1, None, torch.float32)])
+def test_level_kernel_matches_plain(cuda, shape, k, stride, mode, dtype):
+    g = torch.Generator().manual_seed(k + stride)
+    n, c, h, w = shape
+    x = torch.randn(*shape, generator=g).to("cuda", dtype)
+    wt = torch.randn(c, 1, k, k, generator=g).cuda()
+    up = (torch.randn(n, c, (h + 1) // 2, (w + 1) // 2, generator=g).cuda()
+          if mode else None)
+    kw = dict(stride=stride, up=up, mode=mode or "bilinear")
+    before = rec_conv2d_level.launches
+    got = rec_conv2d_level(x, wt, **kw)
+    torch.cuda.synchronize()
+    assert rec_conv2d_level.launches == before + 1
+    assert got.dtype == (torch.float32 if stride == 2 else dtype)
+    want = rec_conv2d_level_plain(x, wt, **kw, dtype=torch.float32)  # before rounding
+    scale = want.abs().max().item()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * scale)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=1e-2 * scale)
+
+
+def test_level_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.randn(1, 4, 20, 20, device="cuda")
+    wt = torch.randn(4, 1, 5, 5, device="cuda")
+    up = torch.randn(1, 4, 10, 10, device="cuda")
+    with pytest.raises(ValueError, match="weights"):
+        rec_conv2d_level(x, wt.bfloat16())
+    with pytest.raises(ValueError, match="stride"):
+        rec_conv2d_level(x.bfloat16(), wt, stride=2, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up must be"):
+        rec_conv2d_level(x, wt, stride=2, up=up)
+    with pytest.raises(ValueError, match="up must be"):
+        rec_conv2d_level(x, wt, up=up[..., :9])
+    with pytest.raises(ValueError, match="mode"):
+        rec_conv2d_level(x, wt, up=up, mode="bicubic")
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

@@ -13,7 +13,12 @@ from recnext_tpu.ops.pallas.recconv import pallas_rec_conv2d
 from recnext_tpu.ops.recconv import rec_conv2d as jax_rec_conv2d
 from recnext_tpu.ops.resize import resize as jax_resize
 from recnext_tpu_torch.ops.conv import depthwise_conv2d
-from recnext_tpu_torch.ops.recconv import rec_conv2d, rec_conv2d_fused, rec_conv2d_peeled
+from recnext_tpu_torch.ops.recconv import (
+    rec_conv2d,
+    rec_conv2d_fused,
+    rec_conv2d_level,
+    rec_conv2d_peeled,
+)
 from recnext_tpu_torch.ops.resize import resize
 
 
@@ -120,6 +125,45 @@ def test_rec_conv2d_peeled_matches_jax(level, k, peel, mode):
     for _ in range(peel):
         size = ((size[0] + 1) // 2, (size[1] + 1) // 2)
     assert inner_levels == ([(size, level - peel)] if peel < level else [])
+
+
+# (stride, k, mode of the upsampled inner plane or None, plane): one level of a
+# peeled pyramid, the down conv and the upsample-add-conv, on odd and even planes
+LEVELS = [(2, 5, None, (37, 29)), (2, 3, None, (16, 16)), (2, 7, None, (9, 40)),
+          (1, 5, "bilinear", (37, 29)), (1, 3, "nearest", (37, 29)),
+          (1, 7, "bilinear", (16, 16)), (1, 5, "nearest", (9, 40)), (1, 5, None, (19, 19))]
+
+
+@pytest.mark.parametrize("stride,k,mode,plane", LEVELS)
+def test_rec_conv2d_level_matches_jax(stride, k, mode, plane):
+    rng = np.random.default_rng(stride * 100 + k)
+    h, w = plane
+    x = rng.normal(size=(2, h, w, 6)).astype(np.float32)
+    wt = rng.normal(size=(k, k, 1, 6)).astype(np.float32)
+    jx = jnp.asarray(x)
+    up = None
+    if mode:  # the inner plane, ceil(h/2) x ceil(w/2), upsampled and added to x
+        up = rng.normal(size=(2, (h + 1) // 2, (w + 1) // 2, 6)).astype(np.float32)
+        jx = jx + jax_resize(jnp.asarray(up), (h, w), mode=mode)
+    want = np.asarray(jax_depthwise_conv2d(jx, jnp.asarray(wt), stride=stride,
+                                           padding=k // 2))
+    got = _nhwc(rec_conv2d_level(_nchw(x), _oihw(wt), stride=stride,
+                                 up=None if up is None else _nchw(up), mode=mode or "bilinear"))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("level,peel,mode", [(4, 1, "bilinear"), (4, 2, "nearest"),
+                                             (2, 2, "bilinear")])
+def test_rec_conv2d_peeled_bf16_rounds_once(level, peel, mode):
+    # bf16 x with the fp32 weights the GPU route passes: every level in fp32, the
+    # output rounded once, so it equals the fp32 pyramid of the same values rounded
+    g = torch.Generator().manual_seed(level + peel)
+    x = torch.randn(2, 5, 37, 29, generator=g).bfloat16()
+    ws = [torch.randn(5, 1, 5, 5, generator=g) / 5 for _ in range(level + 2)]
+    got = rec_conv2d_peeled(x, ws[0], ws[1:], level=level, peel=peel, mode=mode)
+    assert got.dtype == torch.bfloat16
+    want = rec_conv2d(x.float(), ws[0], ws[1:], level=level, mode=mode)
+    torch.testing.assert_close(got, want.bfloat16(), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("h,c,level", RECCONV_SHAPES[:2])
