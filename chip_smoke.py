@@ -304,14 +304,14 @@ def phase_large_planes():
     w = (torch.randn(48, 1, 5, 5, generator=gen) / 5).cuda()
     inner = torch.randn(2, 48, 80, 80, generator=gen).cuda()
     total, max_abs_err = {"kernel_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0}, 0.0
-    for step, stride, up, out_dtype in (("down", 2, None, torch.float32),
-                                        ("up_add_conv", 1, inner, torch.bfloat16)):
+    for step, stride, up in (("down", 2, None), ("up_add_conv", 1, inner)):
         for mode in ("bilinear", "nearest") if up is not None else ("bilinear",):
-            kw = dict(stride=stride, up=up, mode=mode, dtype=out_dtype)
-            got = rec_conv2d_level(x, w, **kw).float()
-            want = rec_conv2d_level_plain(x, w, **kw).float()
+            kw = dict(stride=stride, up=up, mode=mode)
+            got = rec_conv2d_level(x, w, **kw)
+            out_dtype = got.dtype
+            got, want = got.float(), rec_conv2d_level_plain(x, w, **kw).float()
             # the plain version in fp32 before its one rounding, as the kernel
-            want32 = rec_conv2d_level_plain(x, w, **dict(kw, dtype=torch.float32))
+            want32 = rec_conv2d_level_plain(x.float(), w, **kw)
             torch.cuda.synchronize()
             scale = want32.abs().max().item()
             err = (got - want32).abs().max().item()
@@ -323,8 +323,8 @@ def phase_large_planes():
                    "out_dtype": str(out_dtype).removeprefix("torch."),
                    "max_abs_err": err, "max_abs_ref": scale, "tol": tol,
                    "max_abs_diff_vs_plain_rounded": (got - want).abs().max().item(),
-                   "registers": recconv_cuda.level_kernel_attributes(
-                       5, stride, torch.bfloat16, out_dtype)}
+                   "registers": recconv_cuda.level_kernel_attributes(5, stride,
+                                                                     torch.bfloat16)}
             if mode == "bilinear":  # the 640^2 model's mode: its time and bound
                 max_abs_err = max(max_abs_err, err)
                 times = time_pair(lambda: rec_conv2d_level(x, w, **kw),

@@ -77,14 +77,14 @@ def kernel_attributes(k: int, dtype: torch.dtype) -> dict:
     return {"registers": regs.value, "local_bytes": local.value}
 
 
-def level_kernel_attributes(k: int, stride: int, dtype: torch.dtype,
-                            out_dtype: torch.dtype) -> dict:
-    """``kernel_attributes`` of the level kernel (``recconv_level_cuda``)."""
+def level_kernel_attributes(k: int, stride: int, dtype: torch.dtype) -> dict:
+    """``kernel_attributes`` of the level kernel (``recconv_level_cuda``) for an
+    input of ``dtype``."""
     lib = load_library()
     regs, local = ctypes.c_int(), ctypes.c_int()
-    err = lib.recconv_level_attributes(k, stride, int(dtype == torch.bfloat16),
-                                       int(out_dtype == torch.bfloat16), ctypes.byref(regs),
-                                       ctypes.byref(local))
+    bf16 = int(dtype == torch.bfloat16)
+    err = lib.recconv_level_attributes(k, stride, bf16, bf16 if stride == 1 else 0,
+                                       ctypes.byref(regs), ctypes.byref(local))
     if err != 0:
         raise RuntimeError(f"recconv level kernel attributes: "
                            f"{lib.recconv_error_string(err).decode()} ({err})")
@@ -298,14 +298,13 @@ def recconv_cuda(x: torch.Tensor, down_w: torch.Tensor, conv_ws: Sequence[torch.
 
 
 def recconv_level_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
-                       up: torch.Tensor | None = None, mode: str = "bilinear",
-                       dtype: torch.dtype | None = None) -> torch.Tensor:
+                       up: torch.Tensor | None = None,
+                       mode: str = "bilinear") -> torch.Tensor:
     """Launch one level of a peeled pyramid (``recconv_level_kernel``) on x's current
-    stream: ``conv(x + resize(up, size(x)), w)`` at ``stride`` with zero padding k/2,
-    in fp32, rounded once to ``dtype``. x: contiguous NCHW f32/bf16; w: contiguous
-    (C, 1, k, k) f32 on x's device; up: None, or (stride 1) contiguous f32
-    (N, C, ceil(H/2), ceil(W/2)). ``dtype`` is f32 at stride 2 and x's dtype at
-    stride 1 (its default). Raises on anything else."""
+    stream: ``conv(x + resize(up, size(x)), w)`` at ``stride`` (1 or 2) with zero
+    padding k/2, in fp32; f32 out at stride 2, x's dtype at stride 1. x: contiguous
+    NCHW f32/bf16; w: contiguous (C, 1, k, k) f32 on x's device; up: None, or
+    (stride 1) contiguous f32 (N, C, ceil(H/2), ceil(W/2)). Raises on anything else."""
     if not x.is_cuda:
         raise ValueError("recconv_level_cuda: x must be a CUDA tensor")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -320,10 +319,9 @@ def recconv_level_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
             or not w.is_contiguous()):
         raise ValueError(f"recconv_level_cuda: weights must be contiguous ({c}, 1, {k}, {k}) "
                          f"float32 on {x.device}, got {tuple(w.shape)} {w.dtype} on {w.device}")
-    out_dtype = dtype or (torch.float32 if stride == 2 else x.dtype)
-    if (stride, out_dtype) not in ((2, torch.float32), (1, x.dtype)):
-        raise ValueError(f"recconv_level_cuda: stride {stride} writes float32 (stride 2) or "
-                         f"x's dtype (stride 1), not {out_dtype}")
+    if stride not in (1, 2):
+        raise ValueError(f"recconv_level_cuda: stride {stride} not in (1, 2)")
+    out_dtype = torch.float32 if stride == 2 else x.dtype
     plans = None
     if up is not None:
         uh, uw = pyramid_sizes(h, wd, 1)[1]

@@ -64,13 +64,14 @@ def rec_conv2d(
     return depthwise_conv2d(out, conv_ws[level], conv_bs[level], stride=1, padding=pad)
 
 
-def rec_conv2d_level_plain(x, w, *, stride=1, up=None, mode="bilinear", dtype=None):
+def rec_conv2d_level_plain(x, w, *, stride=1, up=None, mode="bilinear"):
     """``rec_conv2d_level``'s plain version, on any device."""
     z = x.float()
     if up is not None:
         z = z + resize(up.float(), (int(x.shape[2]), int(x.shape[3])), mode=mode)
     pad = int(w.shape[-1]) // 2
-    return depthwise_conv2d(z, w.float(), stride=stride, padding=pad).to(dtype or x.dtype)
+    y = depthwise_conv2d(z, w.float(), stride=stride, padding=pad)
+    return y if stride == 2 else y.to(x.dtype)
 
 
 _launch_lock = threading.Lock()
@@ -83,21 +84,20 @@ def rec_conv2d_level(
     stride: int = 1,
     up: torch.Tensor | None = None,
     mode: str = "bilinear",
-    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """One level of a peeled pyramid: ``conv(x + resize(up, size(x)), w)`` at
-    ``stride`` (depthwise, bias-free, zero padding k/2), in fp32, rounded once to
-    ``dtype`` (x's by default). On a CUDA tensor it launches the level kernel
-    (``ops/cuda/recconv.py:recconv_level_cuda``; f32 at stride 2, x's dtype at
-    stride 1; ``rec_conv2d_level.launches`` counts it) or raises; on a CPU tensor it
-    runs the plain ops."""
+    ``stride`` (depthwise, bias-free, zero padding k/2), in fp32. Stride 2 (the down
+    conv, whose result feeds the inner pyramid) returns fp32; stride 1 rounds once
+    to x's dtype. On a CUDA tensor it launches the level kernel
+    (``ops/cuda/recconv.py:recconv_level_cuda``; ``rec_conv2d_level.launches``
+    counts it) or raises; on a CPU tensor it runs the plain ops."""
     if x.device.type == "cpu":
-        return rec_conv2d_level_plain(x, w, stride=stride, up=up, mode=mode, dtype=dtype)
+        return rec_conv2d_level_plain(x, w, stride=stride, up=up, mode=mode)
     if x.device.type != "cuda":
         raise ValueError(f"rec_conv2d_level: unsupported device {x.device}")
     from recnext_tpu_torch.ops.cuda.recconv import recconv_level_cuda
 
-    y = recconv_level_cuda(x, w, stride=stride, up=up, mode=mode, dtype=dtype)
+    y = recconv_level_cuda(x, w, stride=stride, up=up, mode=mode)
     with _launch_lock:
         rec_conv2d_level.launches += 1
     return y
@@ -134,7 +134,7 @@ def rec_conv2d_peeled(
         return rec_conv2d_level(x, conv_ws[0])
     if peel == 0:
         return (inner or rec_conv2d)(x, down_w, conv_ws, level=level, mode=mode)
-    d = rec_conv2d_level(x, down_w, stride=2, dtype=torch.float32)
+    d = rec_conv2d_level(x, down_w, stride=2)
     y = rec_conv2d_peeled(d, down_w, conv_ws[:level], level=level - 1, peel=peel - 1,
                           mode=mode, inner=inner)
     return rec_conv2d_level(x, conv_ws[level], up=y, mode=mode)

@@ -150,7 +150,7 @@ def test_level_kernel_matches_plain(cuda, shape, k, stride, mode, dtype):
     torch.cuda.synchronize()
     assert rec_conv2d_level.launches == before + 1
     assert got.dtype == (torch.float32 if stride == 2 else dtype)
-    want = rec_conv2d_level_plain(x, wt, **kw, dtype=torch.float32)  # before rounding
+    want = rec_conv2d_level_plain(x.float(), wt, **kw)  # in fp32: before rounding
     scale = want.abs().max().item()
     if got.dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * scale)
@@ -165,7 +165,7 @@ def test_level_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="weights"):
         rec_conv2d_level(x, wt.bfloat16())
     with pytest.raises(ValueError, match="stride"):
-        rec_conv2d_level(x.bfloat16(), wt, stride=2, dtype=torch.bfloat16)
+        rec_conv2d_level(x, wt, stride=3)
     with pytest.raises(ValueError, match="up must be"):
         rec_conv2d_level(x, wt, stride=2, up=up)
     with pytest.raises(ValueError, match="up must be"):
