@@ -1,1 +1,2 @@
-"""Host-side data handling: the evaluation transform."""
+"""Host-side data handling: the FAKE data set, the train and eval transforms, the
+loaders and mixup/cutmix."""
