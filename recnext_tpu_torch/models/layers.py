@@ -26,8 +26,30 @@ class GELU(nn.Module):
         return gelu(x)
 
 
+class _ParamDtypeNorm:
+    """BatchNorm in its parameters' dtype: in training (fp32 parameters, bf16
+    activations) the statistics and the normalisation run in fp32 and the output
+    takes x's dtype, as the JAX package's BatchNorm does; where x already has the
+    parameters' dtype (the inference models) it is the plain torch BatchNorm. In
+    train mode torch's BatchNorm is the JAX one: the batch's biased variance
+    normalises, the unbiased one enters the running statistics with momentum 0.1."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight is None or x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return super().forward(x.to(self.weight.dtype)).to(x.dtype)
+
+
+class BatchNorm2d(_ParamDtypeNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_ParamDtypeNorm, nn.BatchNorm1d):
+    pass
+
+
 def batch_norm2d(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS)
+    return BatchNorm2d(channels, eps=BN_EPS)
 
 
 class ConvNorm(nn.Module):
@@ -57,7 +79,7 @@ class NormLinear(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.norm = nn.BatchNorm1d(cin, eps=BN_EPS)
+        self.norm = BatchNorm1d(cin, eps=BN_EPS)
         self.linear = nn.Linear(cin, cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

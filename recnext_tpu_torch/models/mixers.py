@@ -27,7 +27,8 @@ class RecConv2dMixer(nn.Module):
     plus level+1 per-level kernels, bias-free. Parameters ``down.weight`` and
     ``convs.{i}.weight``, each (C, 1, k, k). On a CUDA tensor the whole pyramid is
     one launch of the fused kernel, in either mode (planes too large for its shared
-    memory peel their outer levels first: ``ops/recconv.py:rec_conv2d_fused``)."""
+    memory peel their outer levels first: ``ops/recconv.py:rec_conv2d_fused``); in
+    training, the backward is one launch of the backward kernel."""
 
     def __init__(self, channels: int, level: int, kernel_size: int = 5,
                  mode: str = "bilinear"):
@@ -43,17 +44,22 @@ class RecConv2dMixer(nn.Module):
         self.down = dw(2)
         self.convs = nn.ModuleList(dw(1) for _ in range(level + 1))
 
-    def _weights(self):
-        return self.down.weight, [c.weight for c in self.convs]
+    def _weights(self, dtype: torch.dtype):
+        """The weights in the compute dtype (x's), as the JAX mixer casts its fp32
+        parameters; a no-op where they already have it."""
+        return self.down.weight.to(dtype), [c.weight.to(dtype) for c in self.convs]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        down_w, conv_ws = self._weights()
+        """On a CUDA tensor: the fused kernel, and where a gradient is needed, the
+        kernel pair of ``ops/recconv.py:RecConv2dFunction`` (raises for planes the
+        backward kernel cannot take)."""
+        down_w, conv_ws = self._weights(x.dtype)
         return rec_conv2d_fused(x, down_w, conv_ws, level=self.level, mode=self.mode)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version on any device: the reference the kernel path
         is held against."""
-        down_w, conv_ws = self._weights()
+        down_w, conv_ws = self._weights(x.dtype)
         return rec_conv2d(x, down_w, conv_ws, level=self.level, mode=self.mode)
 
 

@@ -108,8 +108,10 @@ def _launch(q4, k4, v4, out4, eps):
     from recnext_tpu_torch.ops.cuda.linear_attention import linear_attention_cuda
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q4, k4, v4)):
-        raise ValueError("the linear-attention kernel is forward-only: run the plain "
-                         "version (the mixers' forward_plain) where a gradient is needed")
+        raise ValueError("the linear-attention kernel is forward-only: its backward (and "
+                         "A-family training on the GPU) is ROADMAP.md Queue 1 item 6; run "
+                         "the plain version (the mixers' forward_plain) where a gradient "
+                         "is needed")
     linear_attention_cuda(q4, k4, v4, out4, eps=eps)
     with _launch_lock:
         linear_attention_fused.launches += 1

@@ -13,6 +13,11 @@ hand-written kernel (``ops/cuda/recconv.py``) or raises. Where a plane's pyramid
 does not fit in the kernel's shared memory, it peels outer levels first
 (``rec_conv2d_peeled``), chosen by shape before any launch; each peeled level runs
 through the source's second kernel (``rec_conv2d_level``).
+
+Training goes through ``RecConv2dFunction``: its forward is ``rec_conv2d_fused``,
+its backward ``rec_conv2d_backward`` (the backward kernel, ``ops/cuda/
+recconv_bwd.py``, on a CUDA tensor; ``rec_conv2d_backward_plain``, autograd over
+``rec_conv2d`` in fp32, on a CPU tensor).
 """
 
 from __future__ import annotations
@@ -162,7 +167,9 @@ def rec_conv2d_fused(
     """RecConv2d in one kernel launch on the GPU; the plain version on the CPU.
 
     The kernel takes the M-family form: bias-free, bilinear or nearest, f32 or bf16,
-    contiguous NCHW. On a CUDA tensor anything else raises; there is no fallback. A
+    contiguous NCHW. On a CUDA tensor anything else raises; there is no fallback.
+    Where a gradient is needed, the call goes through ``RecConv2dFunction`` (this
+    kernel forward, the backward kernel's gradient). A
     plane whose pyramid does not fit in shared memory runs ``rec_conv2d_peeled``
     with the fewest peeled levels that let the kernel take the rest
     (``ops/cuda/recconv.py:levels_to_peel``), each peeled level two launches of the
@@ -180,8 +187,7 @@ def rec_conv2d_fused(
         raise ValueError(f"rec_conv2d_fused: the CUDA kernel is bilinear or nearest, "
                          f"got {mode!r}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, down_w, *conv_ws)):
-        raise ValueError("rec_conv2d_fused: the CUDA kernel is forward-only: run the plain "
-                         "version (the mixer's forward_plain) where a gradient is needed")
+        return RecConv2dFunction.apply(level, mode, x, down_w, *conv_ws)
     from recnext_tpu_torch.ops.cuda.recconv import levels_to_peel
 
     h, w, k = int(x.shape[2]), int(x.shape[3]), int(down_w.shape[-1])
@@ -197,3 +203,66 @@ def rec_conv2d_fused(
 
 rec_conv2d_fused.launches = 0
 rec_conv2d_fused.peeled = 0
+
+
+def rec_conv2d_backward_plain(x, down_w, conv_ws, g, *, level, mode="bilinear"):
+    """``rec_conv2d_backward``'s plain version, on any device: ``torch.autograd.grad``
+    over the plain ``rec_conv2d`` in fp32. Returns (dx in x's dtype, d down_w fp32,
+    [d conv_ws[i] fp32])."""
+    with torch.enable_grad():
+        xf = x.detach().float().requires_grad_()
+        ws = [w.detach().float().requires_grad_() for w in (down_w, *conv_ws)]
+        y = rec_conv2d(xf, ws[0], ws[1:], level=level, mode=mode)
+        grads = torch.autograd.grad(y, [xf, *ws], g.float())
+    return grads[0].to(x.dtype), grads[1], list(grads[2:])
+
+
+def rec_conv2d_backward(x, down_w, conv_ws, g, *, level, mode="bilinear"):
+    """The gradient of bias-free ``rec_conv2d`` at x: given g = dL/dy, returns (dx in
+    x's dtype, d down_w fp32, [d conv_ws[i] fp32]). On a CUDA tensor it launches the
+    backward kernel (``ops/cuda/recconv_bwd.py``; ``rec_conv2d_backward.launches``
+    counts its calls) or raises, also for planes too large for its shared memory;
+    on a CPU tensor it runs the plain version."""
+    if x.device.type == "cpu":
+        return rec_conv2d_backward_plain(x, down_w, conv_ws, g, level=level, mode=mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"rec_conv2d_backward: unsupported device {x.device}")
+    from recnext_tpu_torch.ops.cuda.recconv_bwd import recconv_backward_cuda
+
+    out = recconv_backward_cuda(x, down_w, conv_ws, g.contiguous(), level=level, mode=mode)
+    with _launch_lock:
+        rec_conv2d_backward.launches += 1
+    return out
+
+
+rec_conv2d_backward.launches = 0
+
+
+class RecConv2dFunction(torch.autograd.Function):
+    """Bias-free RecConv2d with the kernels on both passes: the forward is
+    ``rec_conv2d_fused`` (K1), the backward ``rec_conv2d_backward``. It saves only x
+    and the weights; the backward recomputes the pyramid. The weights come in x's
+    dtype (the caller casts them, as the JAX model casts its fp32 parameters to the
+    compute dtype); their gradients, computed in fp32, are rounded to that dtype,
+    so they flow back through the caller's cast as JAX's autodiff does.
+
+    ``apply(level, mode, x, down_w, *conv_ws)``."""
+
+    @staticmethod
+    def forward(ctx, level, mode, x, down_w, *conv_ws):
+        if x.device.type == "cuda":
+            from recnext_tpu_torch.ops.cuda.recconv_bwd import check_fits
+
+            # a plane the backward cannot take raises before any launch
+            check_fits(int(x.shape[2]), int(x.shape[3]), level, int(down_w.shape[-1]))
+        ctx.level, ctx.mode = level, mode
+        ctx.save_for_backward(x, down_w, *conv_ws)
+        return rec_conv2d_fused(x, down_w, list(conv_ws), level=level, mode=mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, down_w, *conv_ws = ctx.saved_tensors
+        dx, dd, dcs = rec_conv2d_backward(x, down_w, conv_ws, g, level=ctx.level,
+                                          mode=ctx.mode)
+        return (None, None, dx, dd.to(down_w.dtype),
+                *(d.to(w.dtype) for d, w in zip(dcs, conv_ws)))
