@@ -83,6 +83,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from recnext_tpu_torch import bench
 from recnext_tpu_torch.export import publish_fused
 from recnext_tpu_torch.fusion import fuse_params
 from recnext_tpu_torch.models.registry import create_model
@@ -94,13 +95,18 @@ from recnext_tpu_torch.ops.attention import (
 )
 from recnext_tpu_torch.ops.cuda import linear_attention as attention_cuda
 from recnext_tpu_torch.ops.cuda import recconv as recconv_cuda
+from recnext_tpu_torch.ops.cuda import recconv_bwd as recconv_bwd_cuda
 from recnext_tpu_torch.ops.recconv import (
     rec_conv2d,
+    rec_conv2d_backward,
+    rec_conv2d_backward_plain,
     rec_conv2d_fused,
     rec_conv2d_level,
     rec_conv2d_level_plain,
 )
 from recnext_tpu_torch.serve import ServingModel, make_server
+from recnext_tpu_torch.train import main as train_main
+from recnext_tpu_torch.train.step import train_loss
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s outside
 # the tensor cores, which is what the kernel's arithmetic runs on
@@ -114,9 +120,18 @@ A1_ATTENTION = {0: (2, 28, 3, 1), 1: (4, 14, 3, 1), 2: (8, 7, 15, 1), 3: (16, 4,
 A1_HEAD_DIM = 24
 # every launch count; each path's serving phase sets them all to 0 before it runs
 COUNTERS = {"rec_conv2d": rec_conv2d_fused, "rec_conv2d_level": rec_conv2d_level,
-            "linear_attention": linear_attention_fused}
-EXPECTED = {"recnext_m1": {"rec_conv2d": 23, "rec_conv2d_level": 0, "linear_attention": 0},
-            "recnext_a1": {"rec_conv2d": 0, "rec_conv2d_level": 0, "linear_attention": 23}}
+            "linear_attention": linear_attention_fused,
+            "rec_conv2d_backward": rec_conv2d_backward}
+EXPECTED = {"recnext_m1": {"rec_conv2d": 23, "rec_conv2d_level": 0, "linear_attention": 0,
+                           "rec_conv2d_backward": 0},
+            "recnext_a1": {"rec_conv2d": 0, "rec_conv2d_level": 0, "linear_attention": 23,
+                           "rec_conv2d_backward": 0}}
+# the train phase's run: recnext_m1, FAKE, 224^2, batch 64, 2 epochs of 3 steps; each
+# epoch's eval scores 3 batches (capped by --steps-per-epoch) with the model and the EMA
+TRAIN_ARGS = ["--model", "recnext_m1", "--data-set", "FAKE", "--simple-aug",
+              "--input-size", "224", "--batch-size", "64", "--steps-per-epoch", "3",
+              "--log-every", "1", "--seed", "0"]
+TRAIN_STEPS_PER_EPOCH, EVAL_FORWARDS_PER_EPOCH = 3, 2 * 3
 # m1 at 640^2: its 3 stage-0 mixers (160^2, level 4) each peel one level
 M1_640_LEVEL_LAUNCHES = 6
 
@@ -631,6 +646,214 @@ def phase_throughput(name, model, kernel, kernel_sum_ms):
     emit(out)
 
 
+def recconv_bwd_work(n, c, h, w, level, k, elem_bytes):
+    """(bytes, flops) RecConv2d's gradient needs from x, the weights and g: x and g
+    read and dx written once, the weights read and their gradients written once
+    (fp32); and the fp32 operations: the forward's sums h recomputed from x (K1's
+    work less its final conv), at level 0 the final conv's weight gradient and input
+    gradient, at every level below the level conv's two and the down conv's two
+    (2k^2 a output each), and 10 a fine output for each resize adjoint."""
+    sizes = recconv_cuda.pyramid_sizes(h, w, level)
+    area = [a * b for a, b in sizes]
+    recompute = 2 * k * k * 2 * sum(area[1:]) + 10 * sum(area[:-1])
+    backward = 4 * k * k * area[0] + 8 * k * k * sum(area[1:]) + 10 * sum(area[:-1])
+    flops = n * c * (recompute + backward)
+    nbytes = elem_bytes * 3 * n * c * h * w + 4 * 2 * (level + 2) * k * k * c
+    return nbytes, flops
+
+
+def _check_backward(x, ws, g, level, mode):
+    """The backward kernel against its plain version (autograd over rec_conv2d in
+    fp32, cuDNN TF32 off) on the same values: f32 dx within 2e-5 max|ref| and dW
+    within 1e-4 max|ref| (a sum over N*H*W terms); bf16 within 1e-2 max|ref|."""
+    got = rec_conv2d_backward(x, ws[0], ws[1:], g, level=level, mode=mode)
+    want = rec_conv2d_backward_plain(x.float(), ws[0].float(), [t.float() for t in ws[1:]],
+                                     g.float(), level=level, mode=mode)
+    torch.cuda.synchronize()
+    f32 = x.dtype == torch.float32
+    out, worst = {}, 0.0
+    for i, (a, b) in enumerate(zip([got[0], got[1], *got[2]], [want[0], want[1], *want[2]])):
+        name = "dx" if i == 0 else f"dW{i - 1}"
+        tol = (2e-5 if i == 0 else 1e-4) if f32 else 1e-2
+        scale = b.abs().max().item()
+        err = (a.float() - b).abs().max().item()
+        if not err <= tol * scale:
+            raise AssertionError(f"backward kernel {name} mismatch at {tuple(x.shape)} "
+                                 f"L{level} {mode} {x.dtype}: {err} > {tol} * {scale}")
+        out[name] = err / scale
+        worst = max(worst, err)
+    return out, worst
+
+
+def phase_backward():
+    """The backward kernel at m1's four training shapes (batch 128), f32 and bf16,
+    bilinear and nearest, against its plain version; device times at bf16 bilinear
+    (the train step's), each shape's bound and the kernel's registers."""
+    gen = torch.Generator().manual_seed(7)
+    per_shape, max_abs_err = {}, 0.0
+    for level, (c, side, _) in M1_MIXERS.items():
+        rec = {"phase": "backward", "shape": [128, c, side, side], "level": level,
+               "launch": recconv_bwd_cuda.launch_config(side, side, level, 5)._asdict()}
+        del rec["launch"]["geometry"]
+        x = torch.randn(128, c, side, side, generator=gen)
+        g = torch.randn(128, c, side, side, generator=gen)
+        ws = [torch.randn(c, 1, 5, 5, generator=gen) / 5 for _ in range(level + 2)]
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, gd = x.to("cuda", dtype), g.to("cuda", dtype)
+            wd = [t.to("cuda", dtype) for t in ws]
+            for mode in ("bilinear", "nearest"):
+                errs, worst = _check_backward(xd, wd, gd, level, mode)
+                key = f"{'f32' if dtype == torch.float32 else 'bf16'}_{mode}"
+                rec[f"{key}_err_over_max_ref"] = errs
+                if dtype == torch.bfloat16:
+                    max_abs_err = max(max_abs_err, worst)
+            if dtype == torch.bfloat16:
+                times = {"kernel_ms": device_ms(
+                             lambda: rec_conv2d_backward(xd, wd[0], wd[1:], gd, level=level),
+                             iters=10),
+                         "plain_ms": device_ms(
+                             lambda: rec_conv2d_backward_plain(xd, wd[0], wd[1:], gd,
+                                                               level=level), iters=3)}
+                nbytes, flops = recconv_bwd_work(128, c, side, side, level, 5, 2)
+                bms, by = bound(nbytes, flops)
+                per_shape[level] = dict(times, bytes=nbytes, flops=flops)
+                rec["batch_128_bf16"] = dict(times, bound_ms=bms, bound_by=by, bytes=nbytes,
+                                             flops=flops, library_ms=None)
+        rec["registers"] = {str(dt).removeprefix("torch."): recconv_bwd_cuda.kernel_attributes(
+            5, dt) for dt in (torch.float32, torch.bfloat16)}
+        emit(rec)
+    total = {key: sum(M1_MIXERS[lv][2] * per_shape[lv][key] for lv in per_shape)
+             for key in ("kernel_ms", "plain_ms", "bytes", "flops")}
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["flops"])
+    return total, max_abs_err
+
+
+def phase_train_grad():
+    """recnext_m1 at full width and depth, 224^2, batch 8, f32, in train mode: every
+    parameter's gradient of the loss through the kernel path (K1 and the backward
+    kernel in every mixer) against the plain path (autograd over forward_plain).
+    Tolerance 1e-3 max|ref| of each tensor: fp32 sums in another order, carried
+    back through ~100 train-mode BatchNorms. A tensor whose exact gradient is 0 (a
+    shift that a BatchNorm follows) holds rounding noise on both paths: its
+    reference max is under 1e-6, and the kernel path's is held under 1e-5."""
+    import copy
+
+    gen = torch.Generator().manual_seed(8)
+    model = create_model("recnext_m1", device="cuda", generator=gen).train()
+    x = torch.randn(8, 3, 224, 224, generator=gen).cuda()
+    y = torch.randint(0, 1000, (8,), generator=gen).cuda()
+    out = {"phase": "train_grad", "model": "recnext_m1", "input": [8, 3, 224, 224]}
+    grads = {}
+    for path in ("kernel_path", "plain_path"):
+        m = copy.deepcopy(model)
+        restore = plain_path(m) if path == "plain_path" else None
+        before = counts()
+        loss = train_loss(m, x, y, dtype=torch.float32)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in counts().items()}
+        if restore:
+            restore()
+        want = ({"rec_conv2d": 23, "rec_conv2d_backward": 23} if path == "kernel_path"
+                else {"rec_conv2d": 0, "rec_conv2d_backward": 0})
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"{path}: launches {launches}, expected {want}")
+        grads[path] = {n: p.grad for n, p in m.named_parameters()}
+        out[path] = {"loss": loss.item(), "launches": launches}
+    if not abs(out["kernel_path"]["loss"] - out["plain_path"]["loss"]) <= \
+            1e-5 * abs(out["plain_path"]["loss"]):
+        raise AssertionError(f"losses differ: {out}")
+    worst, zero = (0.0, ""), 0
+    for name, want in grads["plain_path"].items():
+        got = grads["kernel_path"][name]
+        scale = want.abs().max().item()
+        if scale < 1e-6:
+            zero += 1
+            if not got.abs().max().item() < 1e-5:
+                raise AssertionError(f"{name}: gradient {got.abs().max().item()} where the "
+                                     f"plain path's is 0 ({scale})")
+            continue
+        ratio = (got - want).abs().max().item() / scale
+        worst = max(worst, (ratio, name))
+        if not ratio <= 1e-3:
+            raise AssertionError(f"{name}: kernel-path gradient off by {ratio} max|ref|")
+    out.update(parameters=len(grads["plain_path"]), zero_gradient_tensors=zero,
+               worst_err_over_max_ref=worst[0], worst_parameter=worst[1], tol=1e-3)
+    emit(out)
+
+
+def phase_train():
+    """The trainer, ``recnext_tpu_torch.train.main.main``, on the card: recnext_m1,
+    FAKE, --simple-aug, 224^2, batch 64, 2 epochs of 3 steps, then a rerun to 3 epochs
+    that resumes. Every count set to 0 just before the first run and read just after:
+    23 K1 launches and 23 backward-kernel calls per train step, 23 K1 launches per
+    fused eval forward, nothing else."""
+    import contextlib
+    import io
+
+    build = Path(__file__).resolve().parent / "recnext_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    rec = {"phase": "train"}
+    with tempfile.TemporaryDirectory(dir=build) as run_dir:
+        runs = []
+        for epochs in (2, 3):
+            for fn in COUNTERS.values():  # the main path starts here
+                fn.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                train_main.main(TRAIN_ARGS + ["--epochs", str(epochs), "--output-dir", run_dir])
+            torch.cuda.synchronize()
+            launches = counts()  # ... and ends here
+            text = buf.getvalue()
+            ran = epochs - (2 if epochs == 3 else 0)
+            steps = TRAIN_STEPS_PER_EPOCH * ran
+            evals = EVAL_FORWARDS_PER_EPOCH * ran
+            losses = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                      if ": loss " in line]
+            stats = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+            per_step = {"rec_conv2d": (launches["rec_conv2d"] - 23 * evals) / steps,
+                        "rec_conv2d_backward": launches["rec_conv2d_backward"] / steps}
+            run = {"epochs": epochs, "seconds": time.perf_counter() - t0, "losses": losses,
+                   "epoch_lines": stats, "launches": launches,
+                   "launches_per_train_step": per_step,
+                   "resumed": "auto-resumed at epoch 2" in text,
+                   "checkpoints": sorted(p.name for p in (Path(run_dir) / "ckpt").iterdir())}
+            runs.append(run)
+            if (len(losses) != steps or not all(np.isfinite(losses))
+                    or len(stats) != ran or not all(np.isfinite(s["train_loss"]) for s in stats)):
+                raise AssertionError(f"train run to {epochs} epochs: {run}")
+            if per_step != {"rec_conv2d": 23, "rec_conv2d_backward": 23} or \
+                    launches["rec_conv2d_level"] or launches["linear_attention"]:
+                raise AssertionError(f"train run to {epochs} epochs: launches {launches}")
+            if run["resumed"] != (epochs == 3):
+                raise AssertionError(f"train run to {epochs} epochs: resume {run['resumed']}")
+        rec["runs"] = runs
+    emit(rec)
+    return runs[0]["launches"]
+
+
+def phase_train_throughput():
+    """bench.train_throughput("recnext_m1", 128) with 3 repeats, then a profiler trace
+    of 3 steps of the same step: the top kernels, the backward kernel's share and
+    the device's idle share."""
+    ips, batch, spread = bench.train_throughput("recnext_m1", 128, repeats=3)
+    step_ms = batch / ips * 1e3
+    fn, _ = bench.train_bench_step("recnext_m1", 128)
+    kernels = trace(fn, iters=3, warmup=2)
+    busy = sum(k["ms"] for k in kernels)
+    ours = {name: sum(k["ms"] for k in kernels if name in k["name"])
+            for name in ("recconv_bwd_kernel", "recconv_bwd_sum_kernel", "recconv_kernel")}
+    emit({"phase": "train_throughput", "model": "recnext_m1", "batch": batch,
+          "dtype": "bf16 compute, fp32 parameters", "images_per_s_median": ips,
+          "spread": spread, "step_ms": step_ms, "device_busy_ms_per_step": busy,
+          "device_idle_share": max(0.0, 1 - busy / step_ms),
+          "kernel_ms_per_step": ours,
+          "backward_kernel_share_of_busy": (ours["recconv_bwd_kernel"]
+                                            + ours["recconv_bwd_sum_kernel"]) / busy,
+          "top_kernels": kernels[:8]})
+
+
 def forward_totals(per_shape, table):
     """Sums over one forward's launches (launch counts from ``table``)."""
     total = {key: sum(table[s][2] * per_shape[s][key] for s in table)
@@ -652,8 +875,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
         return 2
     card = nvidia_smi()
-    t0 = time.perf_counter()
-    libraries = (recconv_cuda.LIBRARY, attention_cuda.LIBRARY)
+    start = t0 = time.perf_counter()
+    libraries = (recconv_cuda.LIBRARY, attention_cuda.LIBRARY, recconv_bwd_cuda.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
         list(pool.map(lambda lib: lib.load(), libraries))
     emit({"phase": "env", "nvidia_smi": card, "torch": torch.__version__,
@@ -663,25 +886,42 @@ def main() -> int:
           "cudnn_allow_tf32": False})
     torch.backends.cudnn.allow_tf32 = False  # f32 references in full fp32
 
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return result
+
     # recnext_m1: kernel K1
-    per_shape, k1_err = phase_kernel()
+    per_shape, k1_err = timed("kernel", phase_kernel)
     m1_total = forward_totals(per_shape, M1_MIXERS)
-    level_total, level_err = phase_large_planes()
-    _, m1_640 = phase_model("recnext_m1", side=640, batch=2, peeled=3,  # stage 0 peels
-                            level_launches=M1_640_LEVEL_LAUNCHES)
-    phase_model("recnext_m1", recconv_mode="nearest")
-    unfused, _ = phase_model("recnext_m1")
-    serving, m1_launches = phase_serving("recnext_m1", unfused)
-    phase_throughput("recnext_m1", serving.model, "recconv_kernel", m1_total["kernel_ms"])
+    level_total, level_err = timed("large_plane", phase_large_planes)
+    _, m1_640 = timed("model", phase_model, "recnext_m1", side=640, batch=2,
+                      peeled=3, level_launches=M1_640_LEVEL_LAUNCHES)  # stage 0 peels
+    timed("model", phase_model, "recnext_m1", recconv_mode="nearest")
+    unfused, _ = timed("model", phase_model, "recnext_m1")
+    serving, m1_launches = timed("serving", phase_serving, "recnext_m1", unfused)
+    timed("throughput", phase_throughput, "recnext_m1", serving.model, "recconv_kernel",
+          m1_total["kernel_ms"])
     del unfused, serving
 
     # recnext_a1: kernel K2
-    per_stage, k2_err = phase_attention()
+    per_stage, k2_err = timed("attention", phase_attention)
     a1_total = forward_totals(per_stage, A1_ATTENTION)
-    unfused, _ = phase_model("recnext_a1")
-    serving, a1_launches = phase_serving("recnext_a1", unfused)
-    phase_throughput("recnext_a1", serving.model, "linear_attention_kernel",
-                     a1_total["kernel_ms"])
+    unfused, _ = timed("model", phase_model, "recnext_a1")
+    serving, a1_launches = timed("serving", phase_serving, "recnext_a1", unfused)
+    timed("throughput", phase_throughput, "recnext_a1", serving.model,
+          "linear_attention_kernel", a1_total["kernel_ms"])
+    del unfused, serving
+
+    # recnext_m1 training: K1 and the backward kernel
+    bwd_total, bwd_err = timed("backward", phase_backward)
+    timed("train_grad", phase_train_grad)
+    train_launches = timed("train", phase_train)
+    timed("train_throughput", phase_train_throughput)
+    emit({"phase": "seconds", **seconds, "script": time.perf_counter() - start})
 
     emit({"kernels": [
         kernel_record("rec_conv2d", "recnext_tpu_torch/csrc/recconv.cu",
@@ -692,7 +932,10 @@ def main() -> int:
                       m1_640["rec_conv2d_level"], level_err, level_total),
         kernel_record("linear_attention", "recnext_tpu_torch/csrc/linear_attention.cu",
                       "recnext_tpu/ops/pallas/linear_attention.py:53",
-                      a1_launches["linear_attention"], k2_err, a1_total)]})
+                      a1_launches["linear_attention"], k2_err, a1_total),
+        kernel_record("rec_conv2d_backward", "recnext_tpu_torch/csrc/recconv_bwd.cu",
+                      "gradient of recnext_tpu/ops/recconv.py:rec_conv2d; no Pallas backward",
+                      train_launches["rec_conv2d_backward"], bwd_err, bwd_total)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,12 +1,18 @@
-"""Evaluation image transform: short-side resize (bicubic), center crop, ImageNet
-normalization. Counterpart of the eval part of ``recnext_tpu/data/transforms.py``
-with torchvision/timm-exact rounding; the output is CHW, the port's layout.
-PIL is imported where it is used, so the package imports without it.
+"""Image transforms: the evaluation transform (short-side resize, bicubic, center
+crop, ImageNet normalization) and the simple train transform (RandomResizedCrop,
+flip, normalization). Counterparts of ``recnext_tpu/data/transforms.py``'s
+``EvalTransform``, ``SimpleTrainTransform``, ``random_resized_crop`` and
+``rrc_rect``, with torchvision/timm-exact rounding and the same draws from an
+explicit numpy ``Generator``; the output is CHW, the port's layout. The full train
+transform (RandAugment, ThreeAugment, random erasing) comes with the data
+pipeline's slice. PIL is imported where it is used, so the package imports without
+it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 
@@ -63,3 +69,49 @@ class EvalTransform:
         img = img.convert("RGB")
         arr = normalize(resize_center_crop(img, self.size, self.crop_pct))
         return np.ascontiguousarray(arr.transpose(2, 0, 1), dtype=np.float32)
+
+
+def rrc_rect(rng: np.random.Generator, w: int, h: int,
+             scale: Tuple[float, float] = (0.08, 1.0),
+             ratio: Tuple[float, float] = (3 / 4, 4 / 3)) -> Tuple[int, int, int, int]:
+    """The RandomResizedCrop rectangle (x, y, cw, ch): torchvision/timm's sampling
+    loop, ten tries, then a centre crop."""
+    area = w * h
+    for _ in range(10):
+        target = rng.uniform(*scale) * area
+        ar = np.exp(rng.uniform(np.log(ratio[0]), np.log(ratio[1])))
+        cw = int(round(np.sqrt(target * ar)))
+        ch = int(round(np.sqrt(target / ar)))
+        if 0 < cw <= w and 0 < ch <= h:
+            x = int(rng.integers(0, w - cw + 1))
+            y = int(rng.integers(0, h - ch + 1))
+            return x, y, cw, ch
+    s = min(w, h)
+    return (w - s) // 2, (h - s) // 2, s, s
+
+
+def random_resized_crop(rng: np.random.Generator, img, size: int,
+                        scale: Tuple[float, float] = (0.08, 1.0),
+                        ratio: Tuple[float, float] = (3 / 4, 4 / 3)):
+    from PIL import Image
+
+    w, h = img.size
+    x, y, cw, ch = rrc_rect(rng, w, h, scale, ratio)
+    return img.resize((size, size), Image.BICUBIC, box=(x, y, x + cw, y + ch))
+
+
+@dataclasses.dataclass
+class SimpleTrainTransform:
+    """RandomResizedCrop (scale 0.6-1) + horizontal flip + normalize: smoke runs and
+    ablations. ``transform(rng, img)`` -> (3, size, size) float32."""
+
+    size: int = 224
+    rrc_scale: Tuple[float, float] = (0.6, 1.0)
+
+    def __call__(self, rng: np.random.Generator, img) -> np.ndarray:
+        from PIL import Image
+
+        img = random_resized_crop(rng, img.convert("RGB"), self.size, scale=self.rrc_scale)
+        if rng.random() < 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        return np.ascontiguousarray(normalize(img).transpose(2, 0, 1), dtype=np.float32)

@@ -89,3 +89,24 @@ def create_model(
 
 def list_models():
     return sorted(MODEL_CONFIGS)
+
+
+def parse_kv_overrides(spec: str) -> dict:
+    """CLI ``k=v,k2=v2`` RecNextConfig overrides (``recnext_tpu/models/registry.py``'s
+    rule: values coerced int -> float -> bool -> str), and tuples written with ``:``
+    (``embed_dim=16:32:64:128``). Unknown keys fail inside ``dataclasses.replace``."""
+    def coerce(v: str):
+        for cast in (int, float):
+            try:
+                return cast(v)
+            except ValueError:
+                continue
+        return {"true": True, "false": False}.get(v.lower(), v)
+
+    out: dict = {}
+    for pair in filter(None, (p.strip() for p in spec.split(","))):
+        if "=" not in pair:
+            raise ValueError(f"--model-kwargs entry {pair!r} is not key=value")
+        k, v = pair.split("=", 1)
+        out[k] = tuple(coerce(x) for x in v.split(":")) if ":" in v else coerce(v)
+    return out

@@ -39,6 +39,9 @@ from recnext_tpu_torch.ops.cuda.recconv import (
 
 SOURCE = PKG / "csrc" / "recconv_bwd.cu"
 MAX_FAN = 4  # fine indices that read one coarse index, per axis (bilinear 4, nearest 2)
+# the dynamic shared memory a block may take: the H100's 227 KB less the kernel's
+# static copy of its geometry (csrc/recconv_bwd.cu: Geometry, 55 ints), rounded up
+MAX_DYNAMIC_SMEM = MAX_SMEM_BYTES - 256
 TILED_ITEM = ("ROADMAP.md Queue 2 (a tiled or peeled RecConv2d backward for planes "
               "larger than shared memory)")
 
@@ -183,10 +186,10 @@ def launch_config(h: int, w: int, level: int, k: int) -> LaunchConfig:
     ValueError where one plane's backward does not fit in shared memory."""
     _check(level, k)
     cfg = _layout(h, w, level, k)
-    if cfg.smem_bytes > MAX_SMEM_BYTES:
+    if cfg.smem_bytes > MAX_DYNAMIC_SMEM:
         raise ValueError(f"recconv backward: a {h}x{w} plane at level {level} (k={k}) needs "
                          f"{cfg.smem_bytes} bytes of shared memory, more than "
-                         f"{MAX_SMEM_BYTES}; the backward has no route for such planes "
+                         f"{MAX_DYNAMIC_SMEM}; the backward has no route for such planes "
                          f"yet, see {TILED_ITEM}")
     return cfg
 

@@ -16,8 +16,11 @@ from recnext_tpu_torch.ops.attention import (
     linear_attention_nchw,
     linear_attention_nchw_plain,
 )
+from recnext_tpu_torch.models.mixers import RecConv2dMixer
 from recnext_tpu_torch.ops.recconv import (
     rec_conv2d,
+    rec_conv2d_backward,
+    rec_conv2d_backward_plain,
     rec_conv2d_fused,
     rec_conv2d_level,
     rec_conv2d_level_plain,
@@ -185,8 +188,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         rec_conv2d_fused(x.half(), ws[0].half(), [t.half() for t in ws[1:]], level=2)
     with pytest.raises(ValueError, match="contiguous"):
         rec_conv2d_fused(x.transpose(2, 3), ws[0], ws[1:], level=2)
-    with pytest.raises(ValueError, match="forward-only"):
-        rec_conv2d_fused(x.requires_grad_(), ws[0], ws[1:], level=2)
+    # under grad the call goes through the backward kernel's Function, which refuses,
+    # before any launch, a plane too large for the backward's shared memory
+    big, bws = _inputs(1, 2, 160, 160, 4)
+    before = rec_conv2d_fused.launches
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        rec_conv2d_fused(big.requires_grad_(), bws[0], bws[1:], level=4)
+    assert rec_conv2d_fused.launches == before
 
 
 def test_model_kernel_path_matches_plain_path(cuda):
@@ -354,3 +362,74 @@ def test_a_model_kernel_path_matches_plain_path(cuda):
         want = model(x)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
                                atol=1e-4 * want.abs().max().item())
+
+
+# recnext_m1's four mixer planes at 224^2: (channels, side, level)
+M1_PLANES = [(48, 56, 4), (96, 28, 3), (192, 14, 2), (384, 7, 1)]
+
+
+def _check_backward(x, ws, g, level, mode):
+    """The backward kernel against its plain version on the same values (in f32):
+    f32 dx within 2e-5 max|ref| and dW within 1e-4 max|ref| (a sum over N*H*W terms);
+    bf16 within 1e-2 max|ref| (8 bits)."""
+    got = rec_conv2d_backward(x, ws[0], ws[1:], g, level=level, mode=mode)
+    want = rec_conv2d_backward_plain(x.float(), ws[0].float(), [t.float() for t in ws[1:]],
+                                     g.float(), level=level, mode=mode)
+    torch.cuda.synchronize()
+    assert got[0].dtype == x.dtype and all(t.dtype == torch.float32 for t in got[2])
+    f32 = x.dtype == torch.float32
+    for name, a, b, tol in (("dx", got[0], want[0], 2e-5 if f32 else 1e-2),
+                            *((f"dW[{i}]", a, b, 1e-4 if f32 else 1e-2) for i, (a, b) in
+                              enumerate(zip([got[1], *got[2]], [want[1], *want[2]])))):
+        scale = b.abs().max().item()
+        err = (a.float() - b).abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,side,level", M1_PLANES)
+def test_backward_kernel_matches_plain(cuda, c, side, level, dtype, mode):
+    x, ws = _inputs(4, c, side, side, level, dtype=dtype, seed=level)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(9)).to("cuda", dtype)
+    before = rec_conv2d_backward.launches
+    _check_backward(x, [t / 5 for t in ws], g, level, mode)
+    assert rec_conv2d_backward.launches == before + 1
+
+
+# odd and non-square planes, k 3 and 7, and the 96^2 plane of a 384^2 input
+@pytest.mark.parametrize("n,c,h,w,level,k", [
+    (2, 5, 15, 13, 2, 5), (3, 3, 13, 9, 4, 3), (2, 4, 20, 23, 3, 7), (1, 2, 96, 96, 4, 5),
+    (2, 3, 1, 9, 2, 5)])
+def test_backward_kernel_at_odd_shapes(cuda, n, c, h, w, level, k):
+    x, ws = _inputs(n, c, h, w, level, k=k, seed=k)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)).cuda()
+    _check_backward(x, [t / k for t in ws], g, level, "bilinear")
+
+
+def test_backward_refuses_a_plane_too_large_for_shared_memory(cuda):
+    x, ws = _inputs(1, 2, 160, 160, 4)
+    before = rec_conv2d_backward.launches
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        rec_conv2d_backward(x, ws[0], ws[1:], x, level=4)
+    assert rec_conv2d_backward.launches == before
+
+
+def test_mixer_under_grad_launches_k1_and_the_backward_kernel_once(cuda):
+    """A bf16 forward of an fp32 mixer, as the train step runs it: one launch of each
+    kernel, and the fp32 parameters' gradients those of the plain path."""
+    torch.manual_seed(0)
+    mixer = RecConv2dMixer(48, level=4).cuda()
+    x = torch.randn(4, 48, 56, 56, device="cuda").bfloat16().requires_grad_()
+    g = torch.randn(4, 48, 56, 56, device="cuda").bfloat16()
+    k1, bw = rec_conv2d_fused.launches, rec_conv2d_backward.launches
+    (mixer(x).float() * g.float()).sum().backward()
+    assert (rec_conv2d_fused.launches, rec_conv2d_backward.launches) == (k1 + 1, bw + 1)
+    got = [p.grad.clone() for p in mixer.parameters()] + [x.grad.float()]
+    mixer.zero_grad()
+    x.grad = None
+    (mixer.forward_plain(x).float() * g.float()).sum().backward()
+    want = [p.grad for p in mixer.parameters()] + [x.grad.float()]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert (a - b).abs().max().item() <= 2e-2 * b.abs().max().item()

@@ -112,7 +112,7 @@ def test_launch_config_at_m1_shapes_and_refusal():
         cfg = bwd.launch_config(side, side, level, 5)
         assert cfg.threads == threads and cfg.smem_bytes <= 80_000
         assert len(cfg.geometry) == 55 and cfg.geometry[0] == level
-    assert bwd.launch_config(96, 96, 4, 5).smem_bytes <= bwd.MAX_SMEM_BYTES  # 384^2 finetune
+    assert bwd.launch_config(96, 96, 4, 5).smem_bytes <= bwd.MAX_DYNAMIC_SMEM  # 384^2 finetune
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
         bwd.check_fits(160, 160, 4, 5)
     with pytest.raises(ValueError, match="kernel size"):
