@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
-source, started together), then drives two paths, each with every kernel launch
-count set to 0 just before its serving phase and read just after:
+source, started together), then drives three paths, each with every kernel launch
+count set to 0 just before its main phase (serving; for training, the trainer)
+and read just after:
 
 1. env        card name and power limit, torch/CUDA versions, kernel build times;
    recnext_m1 (the M family, kernel K1 = RecConv2d):
@@ -54,7 +55,24 @@ count set to 0 just before its serving phase and read just after:
               kernel's registers and local bytes; times kernel and plain version at
               a1's shapes at batch 256 bf16, as phase 2 does;
 8-10.         phases 4-6 for recnext_a1 (at 224^2): exactly 23 linear-attention and
-              0 RecConv2d launches per forward, and 23 per batch served.
+              0 RecConv2d launches per forward, and 23 per batch served;
+   recnext_m1 training (K1 and the RecConv2d backward kernel, csrc/recconv_bwd.cu):
+11. backward  the backward kernel against its plain version (autograd over
+              rec_conv2d in fp32, cuDNN TF32 off) at m1's four training shapes, batch
+              128, f32 (dx within 2e-5 max|ref|, dW within 1e-4 max|ref|: sums over
+              N*H*W terms) and bf16 (1e-2 max|ref|), bilinear and nearest; device
+              times at bf16 bilinear, each shape's bound, registers;
+12. train_grad recnext_m1 at full size, 224^2, batch 8, f32, train mode: every
+              parameter's gradient through the kernels against the plain path;
+13. train     the trainer (train.main.main): m1, FAKE, --simple-aug, 224^2, batch
+              64, 2 epochs of 3 steps, then a rerun to 3 epochs that resumes: finite
+              losses, exactly 23 K1 launches and 23 backward calls per train step
+              (and 23 K1 launches per fused eval forward), the epoch lines and the
+              checkpoint files; the main path whose launches are counted;
+14. train_throughput  bench.train_throughput("recnext_m1", 128) with 3 repeats: the
+              median img/s, the spread and the step ms, and a profiler trace of 3
+              steps (top kernels, the backward kernel's share, the idle share).
+Then each phase's seconds.
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
 In the kernel record, "launches" counts the launches of the kernel's serving
@@ -62,7 +80,10 @@ phase; "ms", "plain_ms" (device times) and "bound_ms" are the sums over the 23
 launches of one forward of its model (m1 for rec_conv2d, a1 for linear_attention)
 at batch 256 in bf16. The level kernel (rec_conv2d_level) runs only where a plane
 is too large for K1: its record's launches are those of one m1 forward at 640^2,
-and its times the sums over that forward's 6 launches at batch 2 in bf16. The last lines are the kernel record, the card's name and power limit, and
+and its times the sums over that forward's 6 launches at batch 2 in bf16. The
+backward kernel's (rec_conv2d_backward) launches are its calls in the train phase's
+first run, and its times the sums over one m1 train step's 23 calls at batch 128 in
+bf16. The last lines are the kernel record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -162,8 +183,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def trace(fn, iters: int = 20, warmup: int = 3, attempts: int = 3):
     """The device kernels of ``iters`` calls, from a torch.profiler trace: a list of
-    {name, launches, ms} per call, most device time first. A trace that saw no
-    device activity at all is taken again (at most ``attempts`` times)."""
+    {name, launches, ms} per call, most device time first. User annotations (such as
+    ``Optimizer.step#AdamW.step``) are left out: on the device's timeline they span
+    kernels that are counted on their own. A trace that saw no device activity at
+    all is taken again (at most ``attempts`` times)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -176,7 +199,7 @@ def trace(fn, iters: int = 20, warmup: int = 3, attempts: int = 3):
                     "ms": e.self_device_time_total / 1e3 / iters}
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
+                   and e.self_device_time_total > 0 and not e.is_user_annotation]
         if kernels:
             return sorted(kernels, key=lambda k: k["ms"], reverse=True)
     raise RuntimeError(f"the profiler saw no device time in {attempts} traces")

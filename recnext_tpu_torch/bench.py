@@ -134,7 +134,7 @@ def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
     opt = make_optimizer(model.named_parameters(), cosine_schedule(1e-3, 1000))
     state = TrainState.create(model, opt)
     num_classes = model.cfg.num_classes
-    step = make_train_step(model, opt, num_classes=num_classes, mixup=True, dtype=dtype)
+    step = make_train_step(num_classes=num_classes, mixup=True, dtype=dtype)
     g = torch.Generator(dev).manual_seed(0)
     data = {"image": torch.randn(batch, 3, image_size, image_size, device=dev, generator=g),
             "label": torch.randint(0, num_classes, (batch,), device=dev, generator=g)}
@@ -174,35 +174,32 @@ def main(argv=None):
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--timed", type=float, default=10.0)
     p.add_argument("--warmup", type=float, default=5.0)
-    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--model-kwargs", default="",
                    help="RecNextConfig overrides, e.g. embed_dim=16:32:64:128,depth=1:1:2:1")
     p.add_argument("--device", default=None, help="default: the GPU (cuda)")
     args = p.parse_args(argv)
     kw = parse_kv_overrides(args.model_kwargs)
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    dt = "bf16" if dtype == torch.bfloat16 else "f32"
     size = args.image_size
     if args.latency:
-        ms = latency_ms(args.model, dtype=dtype, iters=args.latency_iters, image_size=size,
+        ms = latency_ms(args.model, iters=args.latency_iters, image_size=size,
                         device=args.device, **kw)
-        rec = {"metric": f"{args.model}_fused_{dt}_{size}_batch1_ms", "value": round(ms, 4),
+        rec = {"metric": f"{args.model}_fused_bf16_{size}_batch1_ms", "value": round(ms, 4),
                "unit": "ms", "vs_baseline": None}
     elif args.train:
-        ips, batch, spread = train_throughput(args.model, args.batch, dtype=dtype,
+        ips, batch, spread = train_throughput(args.model, args.batch,
                                               timed_s=args.timed, image_size=size,
                                               repeats=args.repeats, device=args.device,
                                               **kw)
-        rec = {"metric": f"{args.model}_train_{dt}_{size}_images_per_sec",
+        rec = {"metric": f"{args.model}_train_bf16_{size}_images_per_sec",
                "value": round(ips, 2), "unit": "images/sec", "vs_baseline": None,
                "batch": batch, "step_ms": round(batch / ips * 1e3, 3),
                "spread": {k: (round(v, 1) if not isinstance(v, list)
                               else [round(r, 1) for r in v]) for k, v in spread.items()}}
     else:
-        ips = throughput(args.model, args.batch, dtype=dtype, warmup_s=args.warmup,
+        ips = throughput(args.model, args.batch, warmup_s=args.warmup,
                          timed_s=args.timed, image_size=size, device=args.device, **kw)
         base = BASELINES.get(args.model) if size == 224 else None
-        rec = {"metric": f"{args.model}_fused_{dt}_{size}_images_per_sec",
+        rec = {"metric": f"{args.model}_fused_bf16_{size}_images_per_sec",
                "value": round(ips, 2), "unit": "images/sec",
                "vs_baseline": round(ips / base, 3) if base else None, "batch": args.batch}
     rec["device"] = _device_name(args.device)

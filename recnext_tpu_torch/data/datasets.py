@@ -11,7 +11,7 @@ from typing import Tuple
 
 import numpy as np
 
-DATA_ITEM = "ROADMAP.md Queue 1 item 5 (data pipeline)"
+DATA_ITEM = "ROADMAP.md Queue 1 item 7 (data pipeline)"
 
 
 class FakeData:

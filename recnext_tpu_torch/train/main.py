@@ -3,16 +3,17 @@
 Counterpart of ``recnext_tpu/train/main.py`` for the subset the port runs so far:
 one device (the GPU unless ``--device cpu``), the M and A families (the A family on
 the CPU only: its kernel has no backward yet), FAKE data with the simple train
-transform, mixup/cutmix and label smoothing, AGC + AdamW with the reference cosine
-schedule, EMA, bf16 compute with fp32 parameters (``--dtype``), a per-epoch eval
-(BN-fused by default, and of the EMA weights too), a checkpoint each epoch
-(``torch.save``; the last 3 and the best kept) and auto-resume from the newest.
-The per-epoch JSON line and ``log.txt`` keep the JAX CLI's key names.
+transform and the loader's seeded permutation, mixup/cutmix and label smoothing,
+AGC + AdamW with the reference cosine schedule, EMA, bf16 compute with fp32
+parameters (``--dtype``), a per-epoch BN-fused eval of the model and of its EMA, a
+checkpoint each epoch (``torch.save``; the last 3 and the best kept) and
+auto-resume from the newest. The per-epoch JSON line and ``log.txt`` keep the JAX
+CLI's key names.
 
-Options of the JAX CLI that are not ported raise, naming their ROADMAP item: other
-data sets, the full train transform (RandAugment, ThreeAugment, erasing), the
-repeated-augmentation sampler, distillation, MESA, JSD, ``--grad-accum``,
-``--remat``.
+Other data sets and the full train transform (RandAugment, ThreeAugment, erasing)
+raise, naming their ROADMAP item; the JAX CLI's other options (distillation, MESA,
+JSD, gradient accumulation, remat, the repeated-augmentation sampler, the unfused
+eval) are not flags here yet.
 
 Smoke run on the CPU (a small M config):
   python -m recnext_tpu_torch.train.main --device cpu --model recnext_m0 \\
@@ -34,7 +35,6 @@ import torch
 
 from recnext_tpu_torch.data.datasets import DATA_ITEM
 
-TRAIN_ITEM = "ROADMAP.md Queue 1 item 6 (training)"
 CKPT_KEEP = 3
 
 
@@ -50,7 +50,6 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--weight-decay", type=float, default=0.025)
     p.add_argument("--clip-grad", type=float, default=0.02)
-    p.add_argument("--clip-mode", default="agc", choices=["agc", "norm"])
     p.add_argument("--warmup-epochs", type=int, default=5)
     p.add_argument("--cooldown-epochs", type=int, default=0)
     p.add_argument("--warmup-lr", type=float, default=1e-6)
@@ -60,26 +59,14 @@ def parse_args(argv=None):
     p.add_argument("--cutmix", type=float, default=1.0)
     p.add_argument("--simple-aug", action="store_true",
                    help="RRC + flip + normalize (the only train transform ported so far)")
-    p.add_argument("--repeated-aug", action="store_true",
-                   help="the RA sampler (not ported yet; the loader's seeded permutation "
-                        "runs otherwise)")
     p.add_argument("--fake-classes", type=int, default=1000)
-    p.add_argument("--distillation-type", default="none", choices=["none", "hard", "soft"])
     p.add_argument("--model-ema-decay", type=float, default=0.99996)
     p.add_argument("--no-model-ema", action="store_true")
-    p.add_argument("--mesa", type=float, default=0.0)
-    p.add_argument("--jsd-loss", action="store_true")
-    p.add_argument("--grad-accum", type=int, default=1)
-    p.add_argument("--remat", action="store_true")
     p.add_argument("--data-set", default="IMNET",
                    choices=["IMNET", "CIFAR", "FOLDER", "FAKE", "IMNETEE", "FLOWERS", "INAT",
                             "INAT19"])
-    p.add_argument("--data-path", default="")
     p.add_argument("--output-dir", default="runs/default")
     p.add_argument("--eval", action="store_true", help="evaluate the newest checkpoint")
-    p.add_argument("--eval-ema", action="store_true")
-    p.add_argument("--no-fused-eval", action="store_true",
-                   help="evaluate the unfused model instead of the BN-fused one")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--steps-per-epoch", type=int, default=0,
@@ -94,13 +81,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError("the full train transform (RandAugment, ThreeAugment, "
                                   f"erasing) is not ported yet: pass --simple-aug; see "
                                   f"{DATA_ITEM}")
-    if args.repeated_aug:
-        raise NotImplementedError(f"the repeated-augmentation sampler is not ported yet; "
-                                  f"see {DATA_ITEM}")
-    if args.distillation_type != "none":
-        raise NotImplementedError(f"distillation is not ported yet; see {TRAIN_ITEM}")
-    if args.jsd_loss:
-        raise NotImplementedError(f"the JSD loss is not ported yet; see {TRAIN_ITEM}")
 
 
 class Checkpoints:
@@ -149,11 +129,7 @@ def main(argv=None):
     from recnext_tpu_torch.models.registry import create_model, get_config, parse_kv_overrides
     from recnext_tpu_torch.train.optim import cosine_schedule, make_optimizer, scaled_lr
     from recnext_tpu_torch.train.state import TrainState
-    from recnext_tpu_torch.train.step import (
-        make_eval_step,
-        make_fused_eval_step,
-        make_train_step,
-    )
+    from recnext_tpu_torch.train.step import make_fused_eval_step, make_train_step
 
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -166,10 +142,9 @@ def main(argv=None):
 
     log(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                if device.type == "cuda" else ""))
-    train_ds, nb_classes = build_dataset(True, args.data_set, args.data_path, args.input_size,
+    train_ds, nb_classes = build_dataset(True, args.data_set, "", args.input_size,
                                          args.fake_classes)
-    val_ds, _ = build_dataset(False, args.data_set, args.data_path, args.input_size,
-                              args.fake_classes)
+    val_ds, _ = build_dataset(False, args.data_set, "", args.input_size, args.fake_classes)
     overrides = dict(parse_kv_overrides(args.model_kwargs), num_classes=nb_classes)
     model = create_model(args.model, device=device,
                          generator=torch.Generator().manual_seed(args.seed), **overrides)
@@ -181,8 +156,7 @@ def main(argv=None):
                             args.warmup_epochs, args.cooldown_epochs, args.warmup_lr,
                             args.min_lr)
     optimizer = make_optimizer(model.named_parameters(), sched, args.weight_decay,
-                               args.clip_grad, grad_accum=args.grad_accum,
-                               clip_mode=args.clip_mode)
+                               args.clip_grad)
     state = TrainState.create(model, optimizer, ema=not args.no_model_ema)
 
     # either alpha 0 disables that branch alone; both 0 disable mixing
@@ -190,20 +164,15 @@ def main(argv=None):
     switch_prob = 0.5 if args.mixup > 0 and args.cutmix > 0 else (
         1.0 if args.cutmix > 0 else 0.0)
     train_step = make_train_step(
-        model, optimizer, num_classes=nb_classes, mixup=use_mix,
+        num_classes=nb_classes, mixup=use_mix,
         mixup_kwargs=dict(mixup_alpha=max(args.mixup, 1e-8),
                           cutmix_alpha=max(args.cutmix, 1e-8), switch_prob=switch_prob),
-        smoothing=args.smoothing, ema_decay=args.model_ema_decay, remat=args.remat,
-        grad_accum=args.grad_accum, mesa=args.mesa, dtype=dtype)
-    if args.no_fused_eval:
-        mk_eval = lambda ema: make_eval_step(model, ema=ema, dtype=dtype)  # noqa: E731
-    else:
-        cfg = get_config(args.model, **overrides)
-        mk_eval = lambda ema: make_fused_eval_step(cfg, ema=ema, dtype=dtype)  # noqa: E731
-    eval_step = mk_eval(args.eval_ema)
+        smoothing=args.smoothing, ema_decay=args.model_ema_decay, dtype=dtype)
+    cfg = get_config(args.model, **overrides)
+    eval_step = make_fused_eval_step(cfg, dtype=dtype)
     eval_ema = None
-    if not args.no_model_ema and not args.eval_ema and not args.eval:
-        eval_ema = mk_eval(True)
+    if not args.no_model_ema and not args.eval:
+        eval_ema = make_fused_eval_step(cfg, ema=True, dtype=dtype)
 
     ckpts = Checkpoints(out_dir.resolve() / "ckpt")
     start_epoch = 0

@@ -95,32 +95,19 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
 
 
-@torch.no_grad()
-def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> None:
-    """optax.clip_by_global_norm, in place on each parameter's ``.grad``."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = global_norm(grads)
-    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, scale)
-
-
 class Optimizer:
-    """Gradient clip, then AdamW with decay on >=2-D parameters only, the lr read
-    from ``schedule`` at the update count. ``step()`` uses and clips the
-    parameters' ``.grad`` in place."""
+    """AGC, then AdamW with decay on >=2-D parameters only, the lr read from
+    ``schedule`` at the update count. ``step()`` uses and clips the parameters'
+    ``.grad`` in place."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Callable[[int], float], weight_decay: float = 0.025,
-                 agc_clip: float = 0.02, betas: Tuple[float, float] = (0.9, 0.999),
-                 clip_mode: str = "agc"):
+                 agc_clip: float = 0.02, betas: Tuple[float, float] = (0.9, 0.999)):
         named = [(n, p) for n, p in named_params if p.requires_grad]
         labels = param_labels(named)
-        if clip_mode not in ("agc", "norm"):
-            raise ValueError(f"unknown clip_mode {clip_mode!r}")
         self.params = [p for _, p in named]
         self.schedule = schedule
         self.agc_clip = agc_clip
-        self.clip_mode = clip_mode
         self.count = 0
         groups = [{"params": [p for n, p in named if labels[n] == "decay"],
                    "weight_decay": weight_decay},
@@ -137,10 +124,7 @@ class Optimizer:
 
     def step(self) -> None:
         if self.agc_clip and self.agc_clip > 0:
-            if self.clip_mode == "agc":
-                adaptive_grad_clip_(self.params, self.agc_clip)
-            else:
-                clip_by_global_norm_(self.params, self.agc_clip)
+            adaptive_grad_clip_(self.params, self.agc_clip)
         lr = self.lr()
         for group in self.adamw.param_groups:
             group["lr"] = lr
@@ -157,11 +141,12 @@ class Optimizer:
 
 def make_optimizer(named_params, learning_rate: Callable[[int], float],
                    weight_decay: float = 0.025, agc_clip: float = 0.02,
-                   betas: Tuple[float, float] = (0.9, 0.999), grad_accum: int = 1,
-                   clip_mode: str = "agc") -> Optimizer:
-    """Gradient clip -> AdamW (decay on >=2-D parameters only). ``grad_accum`` > 1
-    (optax.MultiSteps in the JAX package) is not ported yet and raises."""
+                   betas: Tuple[float, float] = (0.9, 0.999),
+                   grad_accum: int = 1) -> Optimizer:
+    """AGC -> AdamW (decay on >=2-D parameters only), the RecNeXt recipe. The JAX
+    package's global-norm clip (the MLLA recipe) comes with the MLLA family;
+    ``grad_accum`` > 1 (optax.MultiSteps there) is not ported yet and raises."""
     if grad_accum > 1:
         raise NotImplementedError(f"gradient accumulation (grad_accum={grad_accum}) is not "
                                   f"ported yet; see {GRAD_ACCUM_ITEM}")
-    return Optimizer(named_params, learning_rate, weight_decay, agc_clip, betas, clip_mode)
+    return Optimizer(named_params, learning_rate, weight_decay, agc_clip, betas)

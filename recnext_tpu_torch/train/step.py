@@ -71,18 +71,19 @@ def train_loss(model: nn.Module, x: torch.Tensor, targets: torch.Tensor, *,
     return L.distillation_loss(outputs, targets, None, base_criterion=base, kind="none")
 
 
-def make_train_step(model: nn.Module, optimizer, *, num_classes: int = 1000,
-                    teacher_apply: Optional[Callable] = None, distillation: str = "none",
-                    alpha: float = 0.5, tau: float = 1.0, mixup: bool = True,
+def make_train_step(*, num_classes: int = 1000, mixup: bool = True,
                     mixup_kwargs: Optional[dict] = None, smoothing: float = 0.1,
-                    ema_decay: float = 0.99996, remat: bool = False, jsd_splits: int = 0,
-                    jsd_alpha: float = 12.0, grad_accum: int = 1, mesa: float = 0.0,
-                    mesa_start_step: int = 0, dtype: torch.dtype = torch.bfloat16):
-    """Returns ``train_step(state, batch, generator) -> {"loss", "grad_norm"}``.
+                    ema_decay: float = 0.99996, dtype: torch.dtype = torch.bfloat16,
+                    teacher_apply: Optional[Callable] = None, distillation: str = "none",
+                    remat: bool = False, jsd_splits: int = 0, grad_accum: int = 1,
+                    mesa: float = 0.0):
+    """Returns ``train_step(state, batch, generator) -> {"loss", "grad_norm"}``: the
+    state (``train/state.py``) carries the model and the optimizer.
 
     batch = {"image": NCHW float tensor, "label": integer tensor}, on the model's
-    device; ``generator`` (a CPU ``torch.Generator``) gives the mixup draws."""
-    del alpha, tau, jsd_alpha, mesa_start_step, optimizer
+    device; ``generator`` (a CPU ``torch.Generator``) gives the mixup draws. The
+    last five arguments are the JAX step's options that are not ported yet: any
+    but their default raises."""
     if mesa > 0:
         raise NotImplementedError(f"MESA self-distillation is not ported yet; see "
                                   f"{GRAD_ACCUM_ITEM}")
@@ -97,7 +98,6 @@ def make_train_step(model: nn.Module, optimizer, *, num_classes: int = 1000,
         raise NotImplementedError(f"distillation with a teacher is not ported yet; see "
                                   f"{TEACHER_ITEM}")
     mk = dict(num_classes=num_classes, smoothing=smoothing, **(mixup_kwargs or {}))
-    params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
         state.model.train()
@@ -108,7 +108,7 @@ def make_train_step(model: nn.Module, optimizer, *, num_classes: int = 1000,
         state.optimizer.zero_grad()
         loss = train_loss(state.model, x, targets, dtype=dtype, smoothing=smoothing)
         loss.backward()
-        gnorm = global_norm([p.grad for p in params if p.grad is not None])
+        gnorm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
         state.optimizer.step()
         if state.ema is not None:
             ema_update(state.ema, state.model, ema_decay)

@@ -20,6 +20,16 @@ from recnext_tpu_torch.train import main as tmain
 SMALL = "embed_dim=16:32:64:128,depth=1:1:2:1"
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Small models on one thread: the suite runs several test processes at once,
+    and torch's default of a thread per core would oversubscribe the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def test_fake_data_matches_jax():
     jd, jn = jds.build_dataset(True, "FAKE", "", 24, 7)
     td, tn = tds.build_dataset(True, "FAKE", "", 24, 7)
@@ -32,7 +42,7 @@ def test_fake_data_matches_jax():
 
 
 def test_other_data_sets_raise_naming_the_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
         tds.build_dataset(True, "IMNET", "/nonexistent")
 
 
@@ -60,7 +70,7 @@ def test_train_loader_matches_jax_for_two_epochs():
             assert t["image"].dtype == torch.float32 and t["label"].dtype == torch.int64
             np.testing.assert_array_equal(t["label"].numpy(), j["label"])
             np.testing.assert_array_equal(t["image"].numpy().transpose(0, 2, 3, 1), j["image"])
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tloader.train_loader(ds, ttf.SimpleTrainTransform(16), batch_size=4, epoch=0,
                              repeated_aug=True)
 
@@ -120,28 +130,22 @@ def test_train_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--device", "cpu", "--data-set", "FAKE", "--output-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tmain.main(base)  # the full train transform
-    for extra, item in ((["--repeated-aug"], "item 5"), (["--distillation-type", "hard"], "item 6"),
-                        (["--jsd-loss"], "item 6"), (["--grad-accum", "2"], "item 6"),
-                        (["--mesa", "1.0"], "item 6"), (["--remat"], "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            tmain.main(base + ["--simple-aug", "--model-kwargs", SMALL, "--input-size", "32",
-                               "--fake-classes", "11", *extra])
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tmain.main(["--device", "cpu", "--data-set", "IMNET", "--simple-aug",
                     "--output-dir", str(tmp_path)])
 
 
 def test_bench_train_mode_on_the_cpu(capsys):
     ips, batch, spread = bench.train_throughput(
-        "recnext_m0", 4, device="cpu", timed_s=0.2, image_size=32, repeats=3,
+        "recnext_m0", 4, device="cpu", timed_s=0.05, image_size=32, repeats=3,
         embed_dim=(16, 32, 64, 128), depth=(1, 1, 2, 1), num_classes=11)
     assert batch == 4 and ips > 0 and spread["min"] <= ips <= spread["max"]
     assert len(spread["runs"]) == 3
     rec = bench.main(["--train", "--device", "cpu", "--model", "recnext_m0",
                       "--model-kwargs", SMALL + ",num_classes=11", "--batch", "4",
-                      "--image-size", "32", "--timed", "0.2", "--repeats", "2"])
+                      "--image-size", "32", "--timed", "0.05", "--repeats", "2"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1 and json.loads(lines[0]) == rec
     assert rec["metric"] == "recnext_m0_train_bf16_32_images_per_sec" and rec["device"] == "cpu"
@@ -150,7 +154,7 @@ def test_bench_train_mode_on_the_cpu(capsys):
 
 def test_bench_default_and_latency_modes_on_the_cpu(capsys):
     rec = bench.main(["--device", "cpu", "--model", "recnext_m0", "--model-kwargs", SMALL,
-                      "--batch", "2", "--image-size", "32", "--timed", "0.1", "--warmup", "0"])
+                      "--batch", "2", "--image-size", "32", "--timed", "0.05", "--warmup", "0"])
     assert rec["metric"] == "recnext_m0_fused_bf16_32_images_per_sec" and rec["value"] > 0
     assert rec["vs_baseline"] is None  # baselines are at 224^2
     rec = bench.main(["--latency", "--latency-iters", "3", "--device", "cpu", "--model",

@@ -9,7 +9,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from recnext_tpu.ops.recconv import rec_conv2d as jax_rec_conv2d
 from recnext_tpu_torch.ops.cuda import recconv_bwd as bwd
