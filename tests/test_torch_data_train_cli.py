@@ -126,6 +126,26 @@ def test_train_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
             if line.startswith("{")] == [2]
     saved = torch.load(tmp_path / "ckpt" / "epoch_0002.pt", weights_only=True)
     assert saved["state"]["step"] == 6 and saved["state"]["optimizer"]["count"] == 6
+    # --eval scores the newest checkpoint and trains nothing
+    tmain.main(["--device", "cpu", "--model", "recnext_m0", "--model-kwargs", SMALL,
+                "--data-set", "FAKE", "--simple-aug", "--input-size", "32", "--batch-size", "4",
+                "--steps-per-epoch", "2", "--fake-classes", "11", "--dtype", "float32",
+                "--output-dir", str(tmp_path), "--eval"])
+    out = capsys.readouterr().out
+    assert "auto-resumed at epoch 3" in out
+    rec = json.loads(out.strip().splitlines()[-1])
+    assert set(rec) == {"test_loss", "test_acc1", "test_acc5"} and np.isfinite(rec["test_loss"])
+
+
+def test_checkpoints_keep_the_last_three_and_the_best(tmp_path):
+    ckpts = tmain.Checkpoints(tmp_path)
+    for epoch, acc in enumerate([1.0, 9.0, 2.0, 3.0, 4.0]):
+        ckpts.save(epoch, {"epoch": epoch}, acc)
+    assert ckpts.epochs() == [1, 2, 3, 4] and ckpts.latest() == 4
+    # a new manager reads the accuracies back: the best survives later saves
+    again = tmain.Checkpoints(tmp_path)
+    again.save(5, {"epoch": 5}, 0.5)
+    assert again.epochs() == [1, 3, 4, 5]
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):

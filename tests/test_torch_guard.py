@@ -55,3 +55,16 @@ def test_entry_points_raise_without_a_gpu(no_gpu, tmp_path):
         create_model("recnext_m0")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingModel(str(tmp_path), "recnext_m0")
+
+
+def test_training_and_bench_entry_points_raise_without_a_gpu(no_gpu, tmp_path):
+    from recnext_tpu_torch import bench
+    from recnext_tpu_torch.train import main as train_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main.main(["--data-set", "FAKE", "--simple-aug", "--output-dir", str(tmp_path)])
+    for fn in (bench.throughput, bench.train_throughput):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn("recnext_m0", 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.latency_ms("recnext_m0")
