@@ -181,3 +181,15 @@ def test_bench_default_and_latency_modes_on_the_cpu(capsys):
                       "recnext_m0", "--model-kwargs", SMALL, "--image-size", "32"])
     assert rec["unit"] == "ms" and rec["value"] > 0
     assert len(capsys.readouterr().out.strip().splitlines()) == 2
+
+
+def test_train_cli_runs_the_a_family_on_the_cpu(tmp_path, capsys):
+    """The A family trains on the CPU through autograd over its plain ops (its
+    attention kernel has no backward yet)."""
+    tmain.main(["--device", "cpu", "--model", "recnext_a0", "--model-kwargs", SMALL,
+                "--data-set", "FAKE", "--simple-aug", "--input-size", "32", "--batch-size", "4",
+                "--epochs", "1", "--steps-per-epoch", "2", "--fake-classes", "11",
+                "--dtype", "float32", "--output-dir", str(tmp_path)])
+    stats = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert len(stats) == 1 and np.isfinite(stats[0]["train_loss"])
