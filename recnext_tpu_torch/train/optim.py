@@ -28,7 +28,7 @@ from typing import Callable, Iterable, Tuple
 import numpy as np
 import torch
 
-GRAD_ACCUM_ITEM = "ROADMAP.md Queue 1 item 6 (training: grad_accum, MESA, JSD, remat)"
+TRAIN_ITEM = "ROADMAP.md Queue 1 item 6 (training: grad_accum, MESA, JSD, remat)"
 
 
 def scaled_lr(base_lr: float, global_batch: int) -> float:
@@ -148,5 +148,5 @@ def make_optimizer(named_params, learning_rate: Callable[[int], float],
     ``grad_accum`` > 1 (optax.MultiSteps there) is not ported yet and raises."""
     if grad_accum > 1:
         raise NotImplementedError(f"gradient accumulation (grad_accum={grad_accum}) is not "
-                                  f"ported yet; see {GRAD_ACCUM_ITEM}")
+                                  f"ported yet; see {TRAIN_ITEM}")
     return Optimizer(named_params, learning_rate, weight_decay, agc_clip, betas)

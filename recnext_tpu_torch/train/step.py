@@ -30,7 +30,7 @@ from recnext_tpu_torch.data.mixup import mixup_cutmix
 from recnext_tpu_torch.fusion import fuse_params
 from recnext_tpu_torch.models.recnext import RecNext, RecNextConfig
 from recnext_tpu_torch.train import losses as L
-from recnext_tpu_torch.train.optim import GRAD_ACCUM_ITEM, global_norm
+from recnext_tpu_torch.train.optim import TRAIN_ITEM, global_norm
 from recnext_tpu_torch.train.state import TrainState, ema_update
 
 TEACHER_ITEM = "ROADMAP.md Queue 1 item 6 (the RegNetY teacher, models/regnet.py)"
@@ -82,18 +82,18 @@ def make_train_step(*, num_classes: int = 1000, mixup: bool = True,
 
     batch = {"image": NCHW float tensor, "label": integer tensor}, on the model's
     device; ``generator`` (a CPU ``torch.Generator``) gives the mixup draws. The
-    last five arguments are the JAX step's options that are not ported yet: any
+    last six arguments are the JAX step's options that are not ported yet: any
     but their default raises."""
     if mesa > 0:
         raise NotImplementedError(f"MESA self-distillation is not ported yet; see "
-                                  f"{GRAD_ACCUM_ITEM}")
+                                  f"{TRAIN_ITEM}")
     if jsd_splits > 1:
-        raise NotImplementedError(f"the JSD loss is not ported yet; see {GRAD_ACCUM_ITEM}")
+        raise NotImplementedError(f"the JSD loss is not ported yet; see {TRAIN_ITEM}")
     if remat:
-        raise NotImplementedError(f"remat is not ported yet; see {GRAD_ACCUM_ITEM}")
+        raise NotImplementedError(f"remat is not ported yet; see {TRAIN_ITEM}")
     if grad_accum > 1:
         raise NotImplementedError(f"gradient accumulation is not ported yet; see "
-                                  f"{GRAD_ACCUM_ITEM}")
+                                  f"{TRAIN_ITEM}")
     if distillation != "none" or teacher_apply is not None:
         raise NotImplementedError(f"distillation with a teacher is not ported yet; see "
                                   f"{TEACHER_ITEM}")
