@@ -659,7 +659,7 @@ def phase_throughput(name, model, kernel, kernel_sum_ms):
                 busy = sum(k["ms"] for k in kernels)
                 ours = sum(k["ms"] for k in kernels if kernel in k["name"])
                 out[path][f"batch_{batch}_trace"] = {
-                    "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / ms),
+                    "device_busy_ms": busy, "device_idle_share": 1 - busy / ms,
                     "kernel_ms": ours, "kernel_share_of_busy": ours / busy,
                     "top_kernels": kernels[:8]}
     # the kernel's 23 launches, each timed alone at its shape (device time), against
@@ -865,12 +865,15 @@ def phase_train_throughput():
     fn, _ = bench.train_bench_step("recnext_m1", 128)
     kernels = trace(fn, iters=3, warmup=2)
     busy = sum(k["ms"] for k in kernels)
+    if busy > step_ms:  # the trace counts some device time twice: no idle share to give
+        raise AssertionError(f"train_throughput: device busy {busy} ms in a step of "
+                             f"{step_ms} ms")
     ours = {name: sum(k["ms"] for k in kernels if name in k["name"])
             for name in ("recconv_bwd_kernel", "recconv_bwd_sum_kernel", "recconv_kernel")}
     emit({"phase": "train_throughput", "model": "recnext_m1", "batch": batch,
           "dtype": "bf16 compute, fp32 parameters", "images_per_s_median": ips,
           "spread": spread, "step_ms": step_ms, "device_busy_ms_per_step": busy,
-          "device_idle_share": max(0.0, 1 - busy / step_ms),
+          "device_idle_share": 1 - busy / step_ms,
           "kernel_ms_per_step": ours,
           "backward_kernel_share_of_busy": (ours["recconv_bwd_kernel"]
                                             + ours["recconv_bwd_sum_kernel"]) / busy,

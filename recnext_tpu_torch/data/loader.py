@@ -88,34 +88,21 @@ class Prefetcher:
             t.join()
 
 
-def train_loader(dataset, transform, *, batch_size: int, epoch: int, rank: int = 0,
-                 num_replicas: int = 1, repeated_aug: bool = False, seed: int = 0,
-                 prefetch: int = 2) -> Prefetcher:
-    """The epoch's batches (drop_last): a permutation seeded by (seed, epoch), strided
-    by rank. ``repeated_aug=True`` (the RA sampler) is not ported yet and raises."""
+def train_loader(dataset, transform, *, batch_size: int, epoch: int,
+                 repeated_aug: bool = False, seed: int = 0) -> Prefetcher:
+    """The epoch's batches (drop_last), in a permutation seeded by (seed, epoch).
+    ``repeated_aug=True`` (the RA sampler) is not ported yet and raises."""
     if repeated_aug:
         raise NotImplementedError(f"the repeated-augmentation sampler is not ported yet; "
                                   f"see {DATA_ITEM}")
-    g = np.random.default_rng((seed, epoch))
-    indices = g.permutation(len(dataset))[rank::num_replicas]
+    indices = np.random.default_rng((seed, epoch)).permutation(len(dataset))
     return Prefetcher(lambda: _batches(dataset, transform, indices, batch_size,
-                                       seed=(seed, epoch), drop_last=True), depth=prefetch)
+                                       seed=(seed, epoch), drop_last=True))
 
 
-def distributed_eval_indices(n: int, rank: int = 0, num_replicas: int = 1) -> np.ndarray:
-    """Strided eval split, padded to divisibility (``recnext_tpu/data/samplers.py``)."""
-    num_samples = int(np.ceil(n / num_replicas))
-    total = num_samples * num_replicas
-    indices = np.arange(n)
-    if total > n:
-        indices = np.concatenate([indices, indices[: total - n]])
-    return indices[rank:total:num_replicas]
-
-
-def eval_loader(dataset, transform, *, batch_size: int, rank: int = 0, num_replicas: int = 1,
-                prefetch: int = 2) -> Prefetcher:
-    """Every sample of the rank's split, in order, the last batch short.
+def eval_loader(dataset, transform, *, batch_size: int) -> Prefetcher:
+    """Every sample, in order, the last batch short.
     ``transform(img)`` (the eval transform takes no rng)."""
-    indices = distributed_eval_indices(len(dataset), rank, num_replicas)
+    indices = np.arange(len(dataset))
     return Prefetcher(lambda: _batches(dataset, lambda rng, img: transform(img), indices,
-                                       batch_size, seed=(0,), drop_last=False), depth=prefetch)
+                                       batch_size, seed=(0,), drop_last=False))

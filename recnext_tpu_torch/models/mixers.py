@@ -44,23 +44,19 @@ class RecConv2dMixer(nn.Module):
         self.down = dw(2)
         self.convs = nn.ModuleList(dw(1) for _ in range(level + 1))
 
-    def _weights(self, dtype: torch.dtype):
-        """The weights in the compute dtype (x's), as the JAX mixer casts its fp32
-        parameters; a no-op where they already have it."""
-        return self.down.weight.to(dtype), [c.weight.to(dtype) for c in self.convs]
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """On a CUDA tensor: the fused kernel, and where a gradient is needed, the
         kernel pair of ``ops/recconv.py:RecConv2dFunction`` (raises for planes the
-        backward kernel cannot take)."""
-        down_w, conv_ws = self._weights(x.dtype)
-        return rec_conv2d_fused(x, down_w, conv_ws, level=self.level, mode=self.mode)
+        backward kernel cannot take). The weights must have x's dtype, as a Conv2d's
+        must; the train step casts them (``train/step.py:compute_params``)."""
+        return rec_conv2d_fused(x, self.down.weight, [c.weight for c in self.convs],
+                                level=self.level, mode=self.mode)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version on any device: the reference the kernel path
         is held against."""
-        down_w, conv_ws = self._weights(x.dtype)
-        return rec_conv2d(x, down_w, conv_ws, level=self.level, mode=self.mode)
+        return rec_conv2d(x, self.down.weight, [c.weight for c in self.convs],
+                          level=self.level, mode=self.mode)
 
 
 class LinearAttention(nn.Module):

@@ -242,8 +242,9 @@ class RecConv2dFunction(torch.autograd.Function):
     """Bias-free RecConv2d with the kernels on both passes: the forward is
     ``rec_conv2d_fused`` (K1), the backward ``rec_conv2d_backward``. It saves only x
     and the weights; the backward recomputes the pyramid. The weights come in x's
-    dtype (the caller casts them, as the JAX model casts its fp32 parameters to the
-    compute dtype); their gradients, computed in fp32, are rounded to that dtype,
+    dtype: the Function does not cast them. The train step casts the fp32
+    parameters to the compute dtype (``train/step.py:compute_params``), as the JAX
+    model does; their gradients, computed in fp32, are rounded to that dtype,
     so they flow back through the caller's cast as JAX's autodiff does.
 
     ``apply(level, mode, x, down_w, *conv_ws)``."""

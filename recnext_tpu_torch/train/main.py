@@ -15,11 +15,13 @@ raise, naming their ROADMAP item; the JAX CLI's other options (distillation, MES
 JSD, gradient accumulation, remat, the repeated-augmentation sampler, the unfused
 eval) are not flags here yet.
 
-Smoke run on the CPU (a small M config):
+Smoke run on the CPU (a small M config; it resumes from the checkpoints that
+--output-dir already holds, so empty it first):
+  rm -rf runs/smoke
   python -m recnext_tpu_torch.train.main --device cpu --model recnext_m0 \\
       --model-kwargs embed_dim=16:32:64:128,depth=1:1:2:1 --data-set FAKE \\
       --simple-aug --input-size 32 --batch-size 4 --epochs 2 --steps-per-epoch 2 \\
-      --fake-classes 11 --dtype float32 --output-dir /tmp/run
+      --fake-classes 11 --dtype float32 --output-dir runs/smoke
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ Precision is the JAX model's at ``dtype=bf16``: the parameters stay fp32, and th
 forward runs on the activations and the conv and linear weights (and their
 biases) cast to ``dtype`` (``compute_params``, through
 ``torch.func.functional_call``), so the gradient flows back through each cast to
-the fp32 parameter; BatchNorm computes its statistics and normalisation in fp32
+the fp32 parameter. This is the one place that casts weights: the modules use
+theirs as given. BatchNorm computes its statistics and normalisation in fp32
 (``models/layers.py``). The RecConv2d mixers run the forward kernel and the
 backward kernel on a CUDA tensor (``ops/recconv.py:RecConv2dFunction``).
 

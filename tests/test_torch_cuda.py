@@ -25,6 +25,7 @@ from recnext_tpu_torch.ops.recconv import (
     rec_conv2d_level,
     rec_conv2d_level_plain,
 )
+from recnext_tpu_torch.train.step import compute_params, forward_model
 
 pytestmark = pytest.mark.cuda
 
@@ -423,12 +424,15 @@ def test_mixer_under_grad_launches_k1_and_the_backward_kernel_once(cuda):
     x = torch.randn(4, 48, 56, 56, device="cuda").bfloat16().requires_grad_()
     g = torch.randn(4, 48, 56, 56, device="cuda").bfloat16()
     k1, bw = rec_conv2d_fused.launches, rec_conv2d_backward.launches
-    (mixer(x).float() * g.float()).sum().backward()
+    (forward_model(mixer, x, torch.bfloat16).float() * g.float()).sum().backward()
     assert (rec_conv2d_fused.launches, rec_conv2d_backward.launches) == (k1 + 1, bw + 1)
     got = [p.grad.clone() for p in mixer.parameters()] + [x.grad.float()]
     mixer.zero_grad()
     x.grad = None
-    (mixer.forward_plain(x).float() * g.float()).sum().backward()
+    cast = compute_params(mixer, torch.bfloat16)
+    plain = rec_conv2d(x, cast["down.weight"], [cast[f"convs.{i}.weight"] for i in range(5)],
+                       level=4)
+    (plain.float() * g.float()).sum().backward()
     want = [p.grad for p in mixer.parameters()] + [x.grad.float()]
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
