@@ -44,16 +44,18 @@ class _PrefetchError:
         self.exc = exc
 
 
-class Prefetcher:
-    """Runs the sample pipeline in a background thread, keeping ``depth`` batches
-    ready. A failure in the pipeline is raised on the consumer's side."""
+PREFETCH_DEPTH = 2  # batches kept ready
 
-    def __init__(self, gen_factory: Callable[[], Iterator], depth: int = 2):
+
+class Prefetcher:
+    """Runs the sample pipeline in a background thread, keeping ``PREFETCH_DEPTH``
+    batches ready. A failure in the pipeline is raised on the consumer's side."""
+
+    def __init__(self, gen_factory: Callable[[], Iterator]):
         self._factory = gen_factory
-        self._depth = depth
 
     def __iter__(self):
-        q: queue.Queue = queue.Queue(maxsize=self._depth)
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
         stop = object()
         done = threading.Event()
 
