@@ -174,6 +174,7 @@ __device__ __forceinline__ void down_t_add(const float* df, int dp, const float*
 template <int K>
 __device__ __forceinline__ void block_sum(float (&acc)[K * K], float* red, float* out) {
   constexpr int KK = K * K;
+  // phase sums
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
 #pragma unroll
   for (int t = 0; t < KK; ++t) {
@@ -189,6 +190,7 @@ __device__ __forceinline__ void block_sum(float (&acc)[K * K], float* red, float
     out[threadIdx.x] = s;
   }
   __syncthreads();
+  // end sums
 }
 
 template <typename T, int K>
@@ -215,6 +217,7 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
   const int h0 = G.h[0], w0 = G.w[0], p0 = G.pitch[0];
   float* const H0 = interior<K>(sm, G.hb[0], p0);
   float* const G0 = interior<K>(sm, G.gb[0], p0);
+  // phase load
   {
     float* f0 = interior<K>(sm, G.f[0], p0);
     const T* xp = x + plane * h0 * w0;
@@ -223,14 +226,16 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
       f0[r * p0 + i - r * w0] = to_f32(xp[i]);
     }
   }
+  // end load
   __syncthreads();
-  // the pyramid f_1 .. f_L
+  // phase pyramid: f_1 .. f_L
   for (int l = 1; l <= L; ++l) {
     conv<K, 2>(interior<K>(sm, G.f[l - 1], G.pitch[l - 1]), G.pitch[l - 1], wts,
                interior<K>(sm, G.f[l], G.pitch[l]), G.pitch[l], G.h[l], G.w[l]);
     __syncthreads();
   }
-  // the sums h_{L-1} .. h_0, the forward kernel's arithmetic: the level's conv into a
+  // end pyramid
+  // phase h: the sums h_{L-1} .. h_0, the forward kernel's arithmetic: the level's conv into a
   // dense plane (in G[j+1]), the lerp along H (into G[j]), the lerp along W and the add
   for (int j = L - 1; j >= 0; --j) {
     const int hj = G.h[j], wj = G.w[j], pj = G.pitch[j];
@@ -257,9 +262,11 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
     }
     __syncthreads();
   }
+  // end h
   // the gradient pyramid starts at zero (halos included); g into G[0]
   zero(sm + G.gb[0], G.s1 - G.gb[0]);
   __syncthreads();
+  // phase load
   {
     const T* gp = g + plane * h0 * w0;
     for (int i = tid; i < h0 * w0; i += nt) {
@@ -267,6 +274,7 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
       G0[r * p0 + i - r * w0] = to_f32(gp[i]);
     }
   }
+  // end load
   __syncthreads();
   float* const red = sm + G.red;
   float* const part = partial + plane * (L + 2) * KK;
@@ -274,9 +282,13 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
   // sweep 1: dW_L = corr(h_0, g); dh_0 = convT(g, W_L), into H[0] (h_0 is spent)
 #pragma unroll
   for (int t = 0; t < KK; ++t) acc[t] = 0.f;
+  // phase corr
   corr<K, 1>(H0, p0, G0, p0, h0, w0, acc);
+  // end corr
   block_sum<K>(acc, red, part + (L + 1) * KK);
+  // phase convt
   conv_t<K>(G0, p0, wts + (L + 1) * KK, H0, p0, h0, w0);
+  // end convt
   __syncthreads();
   for (int j = 1; j <= L; ++j) {
     const int hp = G.h[j - 1], hj = G.h[j], wj = G.w[j], pj = G.pitch[j];
@@ -286,6 +298,7 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
     // upT along W into a dense (h_{j-1}, w_j) plane: in G[0] (g is spent) at j = 1,
     // else in H[j-1] (h_{j-1} is spent)
     float* tw = sm + (j == 1 ? G.gb[0] : G.hb[j - 1]);
+    // phase upt
     for (int i = tid; i < hp * wj; i += nt) {
       const int r = i / wj, q = i - r * wj;
       const int2* e = bplans + G.bcols[j] + q * kMaxFan;
@@ -298,10 +311,12 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
       }
       tw[i] = v;
     }
+    // end upt
     zero(sm + G.s1, G.wts - G.s1);
     __syncthreads();
     // upT along H: dy_j, haloed in the scratch plane
     float* dy = interior<K>(sm, G.s1, pj);
+    // phase upt
     for (int i = tid; i < hj * wj; i += nt) {
       const int r = i / wj, q = i - r * wj;
       const int2* e = bplans + G.brows[j] + r * kMaxFan;
@@ -313,18 +328,24 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
       }
       dy[r * pj + q] = v;
     }
+    // end upt
     __syncthreads();
     const float* hsj = interior<K>(sm, j == L ? G.f[L] : G.hb[j], pj);
 #pragma unroll
     for (int t = 0; t < KK; ++t) acc[t] = 0.f;
+    // phase corr
     corr<K, 1>(hsj, pj, dy, pj, hj, wj, acc);
+    // end corr
     block_sum<K>(acc, red, part + (1 + L - j) * KK);
+    // phase convt
     conv_t<K>(dy, pj, wts + (1 + L - j) * KK, interior<K>(sm, G.gb[j], pj), pj, hj, wj);
+    // end convt
     __syncthreads();
   }
   // sweep 2: dW_d += corr_s2(f_{j-1}, df_j); df_{j-1} = dh_{j-1} + DT(df_j), in place
 #pragma unroll
   for (int t = 0; t < KK; ++t) acc[t] = 0.f;
+  // phase sweep2
   for (int j = L; j >= 1; --j) {
     const int pj = G.pitch[j], pp = G.pitch[j - 1];
     const float* df = interior<K>(sm, G.gb[j], pj);
@@ -333,6 +354,7 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
     down_t_add<K>(df, pj, wts, dst, pp, G.h[j - 1], G.w[j - 1]);
     __syncthreads();
   }
+  // end sweep2
   block_sum<K>(acc, red, part);
   T* dxp = dx + plane * h0 * w0;
   for (int i = tid; i < h0 * w0; i += nt) {
@@ -365,9 +387,11 @@ cudaError_t launch(const void* x, const void* g, void* dx, const float* weights,
       fplans, bplans, partial, geo, C);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  // phase batch_sum
   const int outputs = (geo.level + 2) * C * K * K;
   recconv_bwd_sum_kernel<<<(outputs + 255) / 256, 256, 0, s>>>(partial, dw, N, C,
                                                                geo.level + 2, K * K);
+  // end batch_sum
   return cudaGetLastError();
 }
 
