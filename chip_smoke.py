@@ -718,6 +718,8 @@ def phase_backward():
         rec = {"phase": "backward", "shape": [128, c, side, side], "level": level,
                "launch": recconv_bwd_cuda.launch_config(side, side, level, 5)._asdict()}
         del rec["launch"]["geometry"]
+        rec["launch"]["resident_blocks_per_sm"] = recconv_bwd_cuda.resident_blocks(
+            side, side, level, 5, torch.bfloat16)
         x = torch.randn(128, c, side, side, generator=gen)
         g = torch.randn(128, c, side, side, generator=gen)
         ws = [torch.randn(c, 1, 5, 5, generator=gen) / 5 for _ in range(level + 2)]

@@ -47,6 +47,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstring>
 
@@ -55,6 +56,7 @@ namespace {
 constexpr int kMaxLevel = 4;
 constexpr int kLevels = kMaxLevel + 1;
 constexpr int kMaxFan = 4;  // fine indices that read one coarse index, per axis
+constexpr int kBlockThreads = 256;
 
 // The block's shared-memory layout, in 4-byte words, as ops/cuda/recconv_bwd.py:
 // launch_config builds it (the field order is the Python tuple's). Buffers are haloed:
@@ -72,9 +74,12 @@ struct Geometry {
   int brows[kLevels];  // transposed table (int2 entries): up-step l's row plan
   int bcols[kLevels];  // ... and column plan
   int s1;              // dy scratch, level 1's haloed size
-  int wts;             // (level + 2) k*k weights: down, conv0 .. conv{level}
-  int red;             // one k*k row per warp for the block sums
   int zero_words;      // F, H, G and the scratch: zeroed first
+  int team_words;      // words from one team's region to the next
+  // block-wide, after the teams: the channel's (level + 2) k*k weights (down, conv0
+  // .. conv{level}), and one (level + 2) k*k row of weight-gradient sums for each
+  // fragment of a team (the lanes of a team within one warp)
+  int wts, slots;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -87,17 +92,31 @@ __device__ __forceinline__ float* interior(float* sm, int base, int pitch) {
   return sm + base + (K / 2) * pitch + K / 2;
 }
 
-__device__ __forceinline__ void zero(float* p, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = 0.f;
+__device__ __forceinline__ void zero(float* p, int n, int tid, int nt) {
+  for (int i = tid; i < n; i += nt) p[i] = 0.f;
 }
+
+// The threads of one team: a team of at most 32 threads lies within one warp; larger
+// teams wait at their own named barrier (1 + team; 0 is __syncthreads').
+struct Team {
+  int tid, nt, id;
+  __device__ __forceinline__ void sync() const {
+    if (nt <= 32)
+      __syncwarp();
+    else if (nt == (int)blockDim.x)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(id + 1), "r"(nt) : "memory");
+  }
+};
 
 // out(r, c) = sum_{u,v} w[u][v] in(S r + u - k/2, S c + v - k/2): in haloed (interior
 // pointer), out at out[r * op + c].
 template <int K, int S>
 __device__ __forceinline__ void conv(const float* in, int ip, const float* w, float* out,
-                                     int op, int oh, int ow) {
+                                     int op, int oh, int ow, const Team& tm) {
   constexpr int P = K / 2;
-  for (int i = threadIdx.x; i < oh * ow; i += blockDim.x) {
+  for (int i = tm.tid; i < oh * ow; i += tm.nt) {
     const int r = i / ow, c = i - r * ow;
     const float* s = in + (S * r - P) * ip + S * c - P;
     float acc = 0.f;
@@ -113,9 +132,9 @@ __device__ __forceinline__ void conv(const float* in, int ip, const float* w, fl
 // stride-1 conv, dy haloed.
 template <int K>
 __device__ __forceinline__ void conv_t(const float* dy, int dp, const float* w, float* out,
-                                       int op, int oh, int ow) {
+                                       int op, int oh, int ow, const Team& tm) {
   constexpr int P = K / 2;
-  for (int i = threadIdx.x; i < oh * ow; i += blockDim.x) {
+  for (int i = tm.tid; i < oh * ow; i += tm.nt) {
     const int a = i / ow, b = i - a * ow;
     const float* s = dy + (a + P) * dp + b + P;
     float acc = 0.f;
@@ -131,9 +150,9 @@ __device__ __forceinline__ void conv_t(const float* dy, int dp, const float* w, 
 // pixels: the weight gradient of a stride-S conv, in haloed.
 template <int K, int S>
 __device__ __forceinline__ void corr(const float* in, int ip, const float* dy, int dp,
-                                     int oh, int ow, float (&acc)[K * K]) {
+                                     int oh, int ow, float (&acc)[K * K], const Team& tm) {
   constexpr int P = K / 2;
-  for (int i = threadIdx.x; i < oh * ow; i += blockDim.x) {
+  for (int i = tm.tid; i < oh * ow; i += tm.nt) {
     const int r = i / ow, c = i - r * ow;
     const float d = dy[r * dp + c];
     const float* s = in + (S * r - P) * ip + S * c - P;
@@ -149,9 +168,10 @@ __device__ __forceinline__ void corr(const float* in, int ip, const float* dy, i
 // (the taps reach at most k/2 past its edge).
 template <int K>
 __device__ __forceinline__ void down_t_add(const float* df, int dp, const float* w,
-                                           float* out, int op, int oh, int ow) {
+                                           float* out, int op, int oh, int ow,
+                                           const Team& tm) {
   constexpr int P = K / 2;
-  for (int i = threadIdx.x; i < oh * ow; i += blockDim.x) {
+  for (int i = tm.tid; i < oh * ow; i += tm.nt) {
     const int a = i / ow, b = i - a * ow;
     const int pu = (a + P) & 1, pv = (b + P) & 1;
     float acc = 0.f;
@@ -169,27 +189,23 @@ __device__ __forceinline__ void down_t_add(const float* df, int dp, const float*
   }
 }
 
-// out[t] = the block's sum of acc[t], for t < k*k: warp shuffles, then one row per warp
-// in shared memory, added in warp order by the first k*k threads.
+// out[t] = the sum of acc[t] over the lanes of this thread's fragment (the lanes of
+// its team within one warp), for t < k*k: log2(lanes) shuffle stages, then the
+// fragment's first lane writes the k*k sums (zeros for a team past the last plane).
 template <int K>
-__device__ __forceinline__ void block_sum(float (&acc)[K * K], float* red, float* out) {
-  constexpr int KK = K * K;
+__device__ __forceinline__ void team_sum(float (&acc)[K * K], int lanes, bool active,
+                                         float* out) {
   // phase sums
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
 #pragma unroll
-  for (int t = 0; t < KK; ++t) {
+  for (int t = 0; t < K * K; ++t) {
     float v = acc[t];
+    for (int off = lanes >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    acc[t] = v;
+  }
+  if ((threadIdx.x & (lanes - 1)) == 0) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp * KK + t] = v;
+    for (int t = 0; t < K * K; ++t) out[t] = active ? acc[t] : 0.f;
   }
-  __syncthreads();
-  if (threadIdx.x < KK) {
-    float s = 0.f;
-    for (int wi = 0; wi < warps; ++wi) s += red[wi * KK + threadIdx.x];
-    out[threadIdx.x] = s;
-  }
-  __syncthreads();
   // end sums
 }
 
@@ -198,198 +214,244 @@ __global__ void __launch_bounds__(256)
 recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
                    const float* __restrict__ weights, const int4* __restrict__ fplans,
                    const int2* __restrict__ bplans, float* __restrict__ partial,
-                   const Geometry geo, const int C) {
+                   const Geometry geo, const int N, const int C, const int log2_team) {
   constexpr int KK = K * K;
-  extern __shared__ float sm[];
+  extern __shared__ float smem[];
   __shared__ Geometry G;  // indexed by level at run time: kept in shared memory
-  const size_t plane = blockIdx.x;
-  const int c = (int)(plane % C);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if (tid == 0) G = geo;
+  const int nt = 1 << log2_team;
+  const Team tm = {(int)threadIdx.x & (nt - 1), nt, (int)threadIdx.x >> log2_team};
+  const int tid = tm.tid;
+  const int per_block = blockDim.x >> log2_team;
+  const int lanes = nt < 32 ? nt : 32;  // a fragment: the lanes of a team in one warp
+  const int frags = blockDim.x / lanes, frag = threadIdx.x / lanes;
+  const int groups = (N + per_block - 1) / per_block;  // groups of n per channel
+  if (threadIdx.x == 0) G = geo;
   const int L = geo.level;
-  zero(sm, geo.zero_words);
-  float* wts = sm + geo.wts;
-  for (int i = tid; i < (L + 2) * KK; i += nt) {
-    const int j = i / KK;
-    wts[i] = weights[((size_t)j * C + c) * KK + (i - j * KK)];
-  }
-  __syncthreads();
-  const int h0 = G.h[0], w0 = G.w[0], p0 = G.pitch[0];
-  float* const H0 = interior<K>(sm, G.hb[0], p0);
-  float* const G0 = interior<K>(sm, G.gb[0], p0);
-  // phase load
-  {
-    float* f0 = interior<K>(sm, G.f[0], p0);
-    const T* xp = x + plane * h0 * w0;
-    for (int i = tid; i < h0 * w0; i += nt) {
-      const int r = i / w0;
-      f0[r * p0 + i - r * w0] = to_f32(xp[i]);
+  float* const sm = smem + tm.id * geo.team_words;
+  float* const wts = smem + geo.wts;
+  float* const slots = smem + geo.slots;
+  float* const slot = slots + frag * (L + 2) * KK;
+  // A block walks over items (c, group of per_block consecutive n): its teams take the
+  // planes (n, c) of one channel, whose weights the block loads once an item.
+  for (int item = blockIdx.x; item < C * groups; item += gridDim.x) {
+    const int c = item / groups;
+    const int n = (item - c * groups) * per_block + tm.id;
+    const bool active = n < N;  // a team past the last plane computes, unused
+    const size_t plane = (size_t)(active ? n : N - 1) * C + c;
+    __syncthreads();  // the previous item's weights and slots are read
+    for (int i = threadIdx.x; i < (L + 2) * KK; i += blockDim.x) {
+      const int j = i / KK;
+      wts[i] = weights[((size_t)j * C + c) * KK + (i - j * KK)];
     }
-  }
-  // end load
-  __syncthreads();
-  // phase pyramid: f_1 .. f_L
-  for (int l = 1; l <= L; ++l) {
-    conv<K, 2>(interior<K>(sm, G.f[l - 1], G.pitch[l - 1]), G.pitch[l - 1], wts,
-               interior<K>(sm, G.f[l], G.pitch[l]), G.pitch[l], G.h[l], G.w[l]);
+    zero(sm, geo.zero_words, tid, nt);
     __syncthreads();
-  }
-  // end pyramid
-  // phase h: the sums h_{L-1} .. h_0, the forward kernel's arithmetic: the level's conv into a
-  // dense plane (in G[j+1]), the lerp along H (into G[j]), the lerp along W and the add
-  for (int j = L - 1; j >= 0; --j) {
-    const int hj = G.h[j], wj = G.w[j], pj = G.pitch[j];
-    const int hn = G.h[j + 1], wn = G.w[j + 1], pn = G.pitch[j + 1];
-    const float* src = interior<K>(sm, j + 1 == L ? G.f[L] : G.hb[j + 1], pn);
-    float* y = sm + G.gb[j + 1];
-    conv<K, 1>(src, pn, wts + (L - j) * KK, y, wn, hn, wn);
-    __syncthreads();
-    float* tmp = sm + G.gb[j];
-    for (int i = tid; i < hj * wn; i += nt) {
-      const int r = i / wn, q = i - r * wn;
-      const int4 rp = __ldg(fplans + G.frows[j + 1] + r);
-      const float t0 = y[rp.x * wn + q], t1 = y[rp.y * wn + q];
-      tmp[i] = t0 + (t1 - t0) * __int_as_float(rp.z);
-    }
-    __syncthreads();
-    const float* fj = interior<K>(sm, G.f[j], pj);
-    float* hs = interior<K>(sm, G.hb[j], pj);
-    for (int i = tid; i < hj * wj; i += nt) {
-      const int r = i / wj, q = i - r * wj;
-      const int4 cp = __ldg(fplans + G.fcols[j + 1] + q);
-      const float* t = tmp + r * wn;
-      hs[r * pj + q] = fj[r * pj + q] + (t[cp.x] + (t[cp.y] - t[cp.x]) * __int_as_float(cp.z));
-    }
-    __syncthreads();
-  }
-  // end h
-  // the gradient pyramid starts at zero (halos included); g into G[0]
-  zero(sm + G.gb[0], G.s1 - G.gb[0]);
-  __syncthreads();
-  // phase load
-  {
-    const T* gp = g + plane * h0 * w0;
-    for (int i = tid; i < h0 * w0; i += nt) {
-      const int r = i / w0;
-      G0[r * p0 + i - r * w0] = to_f32(gp[i]);
-    }
-  }
-  // end load
-  __syncthreads();
-  float* const red = sm + G.red;
-  float* const part = partial + plane * (L + 2) * KK;
-  float acc[KK];
-  // sweep 1: dW_L = corr(h_0, g); dh_0 = convT(g, W_L), into H[0] (h_0 is spent)
-#pragma unroll
-  for (int t = 0; t < KK; ++t) acc[t] = 0.f;
-  // phase corr
-  corr<K, 1>(H0, p0, G0, p0, h0, w0, acc);
-  // end corr
-  block_sum<K>(acc, red, part + (L + 1) * KK);
-  // phase convt
-  conv_t<K>(G0, p0, wts + (L + 1) * KK, H0, p0, h0, w0);
-  // end convt
-  __syncthreads();
-  for (int j = 1; j <= L; ++j) {
-    const int hp = G.h[j - 1], hj = G.h[j], wj = G.w[j], pj = G.pitch[j];
-    // dh_{j-1}: in H[0] at j = 1, else in G[j-1]
-    const float* src = j == 1 ? H0 : interior<K>(sm, G.gb[j - 1], G.pitch[j - 1]);
-    const int sp = G.pitch[j - 1];
-    // upT along W into a dense (h_{j-1}, w_j) plane: in G[0] (g is spent) at j = 1,
-    // else in H[j-1] (h_{j-1} is spent)
-    float* tw = sm + (j == 1 ? G.gb[0] : G.hb[j - 1]);
-    // phase upt
-    for (int i = tid; i < hp * wj; i += nt) {
-      const int r = i / wj, q = i - r * wj;
-      const int2* e = bplans + G.bcols[j] + q * kMaxFan;
-      const float* row = src + r * sp;
-      float v = 0.f;
-#pragma unroll
-      for (int t = 0; t < kMaxFan; ++t) {
-        const int2 ent = __ldg(e + t);
-        v = fmaf(__int_as_float(ent.y), row[ent.x], v);
+    const int h0 = G.h[0], w0 = G.w[0], p0 = G.pitch[0];
+    float* const H0 = interior<K>(sm, G.hb[0], p0);
+    float* const G0 = interior<K>(sm, G.gb[0], p0);
+    // phase load
+    {
+      float* f0 = interior<K>(sm, G.f[0], p0);
+      const T* xp = x + plane * h0 * w0;
+      for (int i = tid; i < h0 * w0; i += nt) {
+        const int r = i / w0;
+        f0[r * p0 + i - r * w0] = to_f32(xp[i]);
       }
-      tw[i] = v;
     }
-    // end upt
-    zero(sm + G.s1, G.wts - G.s1);
-    __syncthreads();
-    // upT along H: dy_j, haloed in the scratch plane
-    float* dy = interior<K>(sm, G.s1, pj);
-    // phase upt
-    for (int i = tid; i < hj * wj; i += nt) {
-      const int r = i / wj, q = i - r * wj;
-      const int2* e = bplans + G.brows[j] + r * kMaxFan;
-      float v = 0.f;
-#pragma unroll
-      for (int t = 0; t < kMaxFan; ++t) {
-        const int2 ent = __ldg(e + t);
-        v = fmaf(__int_as_float(ent.y), tw[ent.x * wj + q], v);
+    // end load
+    tm.sync();
+    // phase pyramid: f_1 .. f_L
+    for (int l = 1; l <= L; ++l) {
+      conv<K, 2>(interior<K>(sm, G.f[l - 1], G.pitch[l - 1]), G.pitch[l - 1], wts,
+                 interior<K>(sm, G.f[l], G.pitch[l]), G.pitch[l], G.h[l], G.w[l], tm);
+      tm.sync();
+    }
+    // end pyramid
+    // phase h: the sums h_{L-1} .. h_0, the forward kernel's arithmetic: the level's
+    // conv into a dense plane (in G[j+1]), the lerp along H (into G[j]), the lerp
+    // along W and the add
+    for (int j = L - 1; j >= 0; --j) {
+      const int hj = G.h[j], wj = G.w[j], pj = G.pitch[j];
+      const int hn = G.h[j + 1], wn = G.w[j + 1], pn = G.pitch[j + 1];
+      const float* src = interior<K>(sm, j + 1 == L ? G.f[L] : G.hb[j + 1], pn);
+      float* y = sm + G.gb[j + 1];
+      conv<K, 1>(src, pn, wts + (L - j) * KK, y, wn, hn, wn, tm);
+      tm.sync();
+      float* tmp = sm + G.gb[j];
+      for (int i = tid; i < hj * wn; i += nt) {
+        const int r = i / wn, q = i - r * wn;
+        const int4 rp = __ldg(fplans + G.frows[j + 1] + r);
+        const float t0 = y[rp.x * wn + q], t1 = y[rp.y * wn + q];
+        tmp[i] = t0 + (t1 - t0) * __int_as_float(rp.z);
       }
-      dy[r * pj + q] = v;
+      tm.sync();
+      const float* fj = interior<K>(sm, G.f[j], pj);
+      float* hs = interior<K>(sm, G.hb[j], pj);
+      for (int i = tid; i < hj * wj; i += nt) {
+        const int r = i / wj, q = i - r * wj;
+        const int4 cp = __ldg(fplans + G.fcols[j + 1] + q);
+        const float* t = tmp + r * wn;
+        hs[r * pj + q] = fj[r * pj + q] + (t[cp.x] + (t[cp.y] - t[cp.x]) * __int_as_float(cp.z));
+      }
+      tm.sync();
     }
-    // end upt
-    __syncthreads();
-    const float* hsj = interior<K>(sm, j == L ? G.f[L] : G.hb[j], pj);
+    // end h
+    // the gradient pyramid starts at zero (halos included); g into G[0]
+    zero(sm + G.gb[0], G.s1 - G.gb[0], tid, nt);
+    tm.sync();
+    // phase load
+    {
+      const T* gp = g + plane * h0 * w0;
+      for (int i = tid; i < h0 * w0; i += nt) {
+        const int r = i / w0;
+        G0[r * p0 + i - r * w0] = to_f32(gp[i]);
+      }
+    }
+    // end load
+    tm.sync();
+    float acc[KK];
+    // sweep 1: dW_L = corr(h_0, g); dh_0 = convT(g, W_L), into H[0] (h_0 is spent)
 #pragma unroll
     for (int t = 0; t < KK; ++t) acc[t] = 0.f;
     // phase corr
-    corr<K, 1>(hsj, pj, dy, pj, hj, wj, acc);
+    corr<K, 1>(H0, p0, G0, p0, h0, w0, acc, tm);
     // end corr
-    block_sum<K>(acc, red, part + (1 + L - j) * KK);
+    team_sum<K>(acc, lanes, active, slot + (L + 1) * KK);
+    tm.sync();
     // phase convt
-    conv_t<K>(dy, pj, wts + (1 + L - j) * KK, interior<K>(sm, G.gb[j], pj), pj, hj, wj);
+    conv_t<K>(G0, p0, wts + (L + 1) * KK, H0, p0, h0, w0, tm);
     // end convt
-    __syncthreads();
-  }
-  // sweep 2: dW_d += corr_s2(f_{j-1}, df_j); df_{j-1} = dh_{j-1} + DT(df_j), in place
+    tm.sync();
+    for (int j = 1; j <= L; ++j) {
+      const int hp = G.h[j - 1], hj = G.h[j], wj = G.w[j], pj = G.pitch[j];
+      // dh_{j-1}: in H[0] at j = 1, else in G[j-1]
+      const float* src = j == 1 ? H0 : interior<K>(sm, G.gb[j - 1], G.pitch[j - 1]);
+      const int sp = G.pitch[j - 1];
+      // upT along W into a dense (h_{j-1}, w_j) plane: in G[0] (g is spent) at j = 1,
+      // else in H[j-1] (h_{j-1} is spent)
+      float* tw = sm + (j == 1 ? G.gb[0] : G.hb[j - 1]);
+      // phase upt
+      for (int i = tid; i < hp * wj; i += nt) {
+        const int r = i / wj, q = i - r * wj;
+        const int2* e = bplans + G.bcols[j] + q * kMaxFan;
+        const float* row = src + r * sp;
+        float v = 0.f;
 #pragma unroll
-  for (int t = 0; t < KK; ++t) acc[t] = 0.f;
-  // phase sweep2
-  for (int j = L; j >= 1; --j) {
-    const int pj = G.pitch[j], pp = G.pitch[j - 1];
-    const float* df = interior<K>(sm, G.gb[j], pj);
-    corr<K, 2>(interior<K>(sm, G.f[j - 1], pp), pp, df, pj, G.h[j], G.w[j], acc);
-    float* dst = j == 1 ? H0 : interior<K>(sm, G.gb[j - 1], pp);
-    down_t_add<K>(df, pj, wts, dst, pp, G.h[j - 1], G.w[j - 1]);
+        for (int t = 0; t < kMaxFan; ++t) {
+          const int2 ent = __ldg(e + t);
+          v = fmaf(__int_as_float(ent.y), row[ent.x], v);
+        }
+        tw[i] = v;
+      }
+      // end upt
+      zero(sm + G.s1, G.zero_words - G.s1, tid, nt);
+      tm.sync();
+      // upT along H: dy_j, haloed in the scratch plane
+      float* dy = interior<K>(sm, G.s1, pj);
+      // phase upt
+      for (int i = tid; i < hj * wj; i += nt) {
+        const int r = i / wj, q = i - r * wj;
+        const int2* e = bplans + G.brows[j] + r * kMaxFan;
+        float v = 0.f;
+#pragma unroll
+        for (int t = 0; t < kMaxFan; ++t) {
+          const int2 ent = __ldg(e + t);
+          v = fmaf(__int_as_float(ent.y), tw[ent.x * wj + q], v);
+        }
+        dy[r * pj + q] = v;
+      }
+      // end upt
+      tm.sync();
+      const float* hsj = interior<K>(sm, j == L ? G.f[L] : G.hb[j], pj);
+#pragma unroll
+      for (int t = 0; t < KK; ++t) acc[t] = 0.f;
+      // phase corr
+      corr<K, 1>(hsj, pj, dy, pj, hj, wj, acc, tm);
+      // end corr
+      team_sum<K>(acc, lanes, active, slot + (1 + L - j) * KK);
+      // phase convt
+      conv_t<K>(dy, pj, wts + (1 + L - j) * KK, interior<K>(sm, G.gb[j], pj), pj, hj, wj, tm);
+      // end convt
+      tm.sync();
+    }
+    // sweep 2: dW_d += corr_s2(f_{j-1}, df_j); df_{j-1} = dh_{j-1} + DT(df_j), in place
+#pragma unroll
+    for (int t = 0; t < KK; ++t) acc[t] = 0.f;
+    // phase sweep2
+    for (int j = L; j >= 1; --j) {
+      const int pj = G.pitch[j], pp = G.pitch[j - 1];
+      const float* df = interior<K>(sm, G.gb[j], pj);
+      corr<K, 2>(interior<K>(sm, G.f[j - 1], pp), pp, df, pj, G.h[j], G.w[j], acc, tm);
+      float* dst = j == 1 ? H0 : interior<K>(sm, G.gb[j - 1], pp);
+      down_t_add<K>(df, pj, wts, dst, pp, G.h[j - 1], G.w[j - 1], tm);
+      tm.sync();
+    }
+    // end sweep2
+    team_sum<K>(acc, lanes, active, slot);
+    if (active) {
+      T* dxp = dx + plane * h0 * w0;
+      for (int i = tid; i < h0 * w0; i += nt) {
+        const int r = i / w0;
+        store(dxp + i, H0[r * p0 + i - r * w0]);
+      }
+    }
     __syncthreads();
-  }
-  // end sweep2
-  block_sum<K>(acc, red, part);
-  T* dxp = dx + plane * h0 * w0;
-  for (int i = tid; i < h0 * w0; i += nt) {
-    const int r = i / w0;
-    store(dxp + i, H0[r * p0 + i - r * w0]);
+    // the item's weight-gradient sums: the fragments' rows added in order
+    float* const part = partial + (size_t)item * (L + 2) * KK;
+    for (int i = threadIdx.x; i < (L + 2) * KK; i += blockDim.x) {
+      float v = 0.f;
+      for (int f = 0; f < frags; ++f) v += slots[f * (L + 2) * KK + i];
+      part[i] = v;
+    }
   }
 }
 
-// dw[j][c][t] = sum over n of partial[n][c][j][t], n in order: one thread an output.
+// dw[j][c][t] = sum over the groups of channel c of partial[c][group][j][t], in
+// group order: one thread an output.
 __global__ void recconv_bwd_sum_kernel(const float* __restrict__ partial,
-                                       float* __restrict__ dw, int N, int C, int J, int KK) {
+                                       float* __restrict__ dw, int groups, int C, int J,
+                                       int KK) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= J * C * KK) return;
   const int t = i % KK, c = (i / KK) % C, j = i / (KK * C);
   float s = 0.f;
-  for (int n = 0; n < N; ++n) s += partial[(((size_t)n * C + c) * J + j) * KK + t];
+  for (int q = 0; q < groups; ++q) s += partial[(((size_t)c * groups + q) * J + j) * KK + t];
   dw[i] = s;
 }
 
 template <typename T, int K>
 cudaError_t launch(const void* x, const void* g, void* dx, const float* weights,
                    const int4* fplans, const int2* bplans, float* partial, float* dw,
-                   const Geometry& geo, int N, int C, int threads, int smem,
-                   cudaStream_t s) {
+                   const Geometry& geo, int N, int C, int team, int smem, cudaStream_t s) {
+  // all of the SM's shared memory (and the least L1): otherwise the runtime may keep
+  // a split that holds fewer blocks than the shared memory would
   cudaError_t e = cudaFuncSetAttribute(recconv_bwd_kernel<T, K>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(recconv_bwd_kernel<T, K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  recconv_bwd_kernel<T, K><<<N * C, threads, smem, s>>>(
+  int log2_team = 0;
+  while ((1 << log2_team) < team) ++log2_team;
+  const int per_block = kBlockThreads / team;
+  const int groups = (N + per_block - 1) / per_block;
+  // one wave of resident blocks, each walking over items
+  int device = 0, sms = 0, resident = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, recconv_bwd_kernel<T, K>,
+                                                         kBlockThreads, smem)) != cudaSuccess)
+    return e;
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  const int blocks = std::min(C * groups, sms * resident);
+  recconv_bwd_kernel<T, K><<<blocks, kBlockThreads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx), weights,
-      fplans, bplans, partial, geo, C);
+      fplans, bplans, partial, geo, N, C, log2_team);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // phase batch_sum
   const int outputs = (geo.level + 2) * C * K * K;
-  recconv_bwd_sum_kernel<<<(outputs + 255) / 256, 256, 0, s>>>(partial, dw, N, C,
+  recconv_bwd_sum_kernel<<<(outputs + 255) / 256, 256, 0, s>>>(partial, dw, groups, C,
                                                                geo.level + 2, K * K);
   // end batch_sum
   return cudaGetLastError();
@@ -398,22 +460,31 @@ cudaError_t launch(const void* x, const void* g, void* dx, const float* weights,
 template <typename T>
 cudaError_t launch_k(int k, const void* x, const void* g, void* dx, const float* weights,
                      const int4* fplans, const int2* bplans, float* partial, float* dw,
-                     const Geometry& geo, int N, int C, int threads, int smem,
+                     const Geometry& geo, int N, int C, int team, int smem,
                      cudaStream_t s) {
   switch (k) {
     case 3: return launch<T, 3>(x, g, dx, weights, fplans, bplans, partial, dw, geo, N, C,
-                                threads, smem, s);
+                                team, smem, s);
     case 5: return launch<T, 5>(x, g, dx, weights, fplans, bplans, partial, dw, geo, N, C,
-                                threads, smem, s);
+                                team, smem, s);
     case 7: return launch<T, 7>(x, g, dx, weights, fplans, bplans, partial, dw, geo, N, C,
-                                threads, smem, s);
+                                team, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int K>
-cudaError_t attributes(cudaFuncAttributes* a) {
-  return cudaFuncGetAttributes(a, recconv_bwd_kernel<T, K>);
+// The backward kernel instantiated for k and the dtype, or null.
+const void* kernel_for(int k, int is_bf16) {
+  using bf16 = __nv_bfloat16;
+  switch (k) {
+    case 3: return is_bf16 ? reinterpret_cast<const void*>(recconv_bwd_kernel<bf16, 3>)
+                           : reinterpret_cast<const void*>(recconv_bwd_kernel<float, 3>);
+    case 5: return is_bf16 ? reinterpret_cast<const void*>(recconv_bwd_kernel<bf16, 5>)
+                           : reinterpret_cast<const void*>(recconv_bwd_kernel<float, 5>);
+    case 7: return is_bf16 ? reinterpret_cast<const void*>(recconv_bwd_kernel<bf16, 7>)
+                           : reinterpret_cast<const void*>(recconv_bwd_kernel<float, 7>);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -423,18 +494,19 @@ extern "C" {
 // dx, dw = the gradient of RecConv2d at x for g = dL/dy. x, g, dx: contiguous
 // N x C x H x W, fp32 (is_bf16 = 0) or bf16; weights: (level + 2) x C x k x k fp32
 // (down, conv0 .. conv{level}); fplans: the forward kernel's lerp-plan table; bplans:
-// the transposed plan table; partial: N*C x (level + 2) x k x k fp32 scratch; dw:
-// (level + 2) x C x k x k fp32; geometry: `geom_len` ints in the field order of
+// the transposed plan table; partial: C x groups x (level + 2) x k x k fp32 scratch,
+// groups = ceil(N / (256 / team)); dw: (level + 2) x C x k x k fp32; team: threads per
+// plane, a power of two in 8 .. 256; geometry: `geom_len` ints in the field order of
 // Geometry (host memory). Launches on `stream` and returns cudaGetLastError().
 int recconv_backward(const void* x, const void* g, void* dx, const void* weights,
                      const void* fplans, const void* bplans, void* partial, void* dw,
-                     const int* geometry, int geom_len, int N, int C, int k, int threads,
+                     const int* geometry, int geom_len, int N, int C, int k, int team,
                      int smem, int is_bf16, void* stream) {
   Geometry geo;
   if (geom_len != (int)(sizeof(Geometry) / sizeof(int))) return (int)cudaErrorInvalidValue;
   std::memcpy(&geo, geometry, sizeof(Geometry));
   if (geo.level < 1 || geo.level > kMaxLevel || N <= 0 || C <= 0 ||
-      (threads != 64 && threads != 128 && threads != 256) || smem <= 0)
+      (team & (team - 1)) || team < 8 || team > kBlockThreads || smem <= 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)N * C > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -445,29 +517,36 @@ int recconv_backward(const void* x, const void* g, void* dx, const void* weights
   float* out = static_cast<float*>(dw);
   const cudaError_t e =
       is_bf16 ? launch_k<__nv_bfloat16>(k, x, g, dx, w, fp, bp, part, out, geo, N, C,
-                                        threads, smem, s)
-              : launch_k<float>(k, x, g, dx, w, fp, bp, part, out, geo, N, C, threads, smem, s);
+                                        team, smem, s)
+              : launch_k<float>(k, x, g, dx, w, fp, bp, part, out, geo, N, C, team, smem, s);
   return (int)e;
 }
 
 // Registers per thread and local (spill and stack) bytes per thread of the backward
 // kernel instantiated for k and the dtype.
 int recconv_backward_attributes(int k, int is_bf16, int* registers, int* local_bytes) {
+  const void* fn = kernel_for(k, is_bf16);
+  if (!fn) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  cudaError_t e = cudaErrorInvalidValue;
-  switch (k * 2 + (is_bf16 ? 1 : 0)) {
-    case 6: e = attributes<float, 3>(&a); break;
-    case 7: e = attributes<__nv_bfloat16, 3>(&a); break;
-    case 10: e = attributes<float, 5>(&a); break;
-    case 11: e = attributes<__nv_bfloat16, 5>(&a); break;
-    case 14: e = attributes<float, 7>(&a); break;
-    case 15: e = attributes<__nv_bfloat16, 7>(&a); break;
-    default: break;
-  }
+  const cudaError_t e = cudaFuncGetAttributes(&a, fn);
   if (e != cudaSuccess) return (int)e;
   *registers = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
   return 0;
+}
+
+// Blocks of the backward kernel (k, dtype) with `smem` bytes of dynamic shared memory
+// that one SM holds at once.
+int recconv_backward_resident(int k, int is_bf16, int smem, int* blocks) {
+  const void* fn = kernel_for(k, is_bf16);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kBlockThreads, smem);
+  return (int)e;
 }
 
 const char* recconv_backward_error_string(int err) {

@@ -7,9 +7,9 @@ library (``ops/cuda/build.py``), built with ``nvcc`` for ``sm_90a`` at first use
 nothing is built or loaded at import.
 
 The host side lays the kernel out, once per plane shape, in plain Python that the
-CPU tests reach: ``launch_config`` gives the block's threads, its shared memory
-and the geometry the kernel reads as a struct (level sizes, row pitches, buffer
-offsets, plan offsets); ``transposed_plan_table`` packs the adjoint of every
+CPU tests reach: ``launch_config`` gives the team size (threads per (n, c) plane),
+the teams in a block of 256 threads, the block's shared memory and the geometry the
+kernel reads as a struct (level sizes, row pitches, buffer offsets, plan offsets); ``transposed_plan_table`` packs the adjoint of every
 up-step as a gather: for each coarse index, the fine indices and weights that read
 it (at most ``MAX_FAN`` per axis), built from the same ``_axis_plan`` as the
 forward kernel's ``lerp_plan_table``. Planes whose backward does not fit in one
@@ -27,12 +27,15 @@ import torch
 
 from recnext_tpu_torch.ops.cuda.build import PKG, CudaLibrary
 from recnext_tpu_torch.ops.cuda.recconv import (
+    BLOCK_THREADS,
     KERNEL_SIZES,
     MAX_LEVEL,
     MAX_SMEM_BYTES,
     MODES,
+    TEAM_SIZES,
     _axis_plan,
     _device_plan_table,
+    _team_stride,
     lerp_plan_table,
     pyramid_sizes,
 )
@@ -40,7 +43,7 @@ from recnext_tpu_torch.ops.cuda.recconv import (
 SOURCE = PKG / "csrc" / "recconv_bwd.cu"
 MAX_FAN = 4  # fine indices that read one coarse index, per axis (bilinear 4, nearest 2)
 # the dynamic shared memory a block may take: the H100's 227 KB less the kernel's
-# static copy of its geometry (csrc/recconv_bwd.cu: Geometry, 55 ints), rounded up
+# static copy of its geometry (csrc/recconv_bwd.cu: Geometry, 56 ints), rounded up
 MAX_DYNAMIC_SMEM = MAX_SMEM_BYTES - 256
 TILED_ITEM = ("ROADMAP.md Queue 2 (a tiled or peeled RecConv2d backward for planes "
               "larger than shared memory)")
@@ -54,6 +57,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                                                 ctypes.POINTER(ctypes.c_int),
                                                 ctypes.POINTER(ctypes.c_int)]
     lib.recconv_backward_attributes.restype = ctypes.c_int
+    lib.recconv_backward_resident.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.recconv_backward_resident.restype = ctypes.c_int
     lib.recconv_backward_error_string.argtypes = [ctypes.c_int]
     lib.recconv_backward_error_string.restype = ctypes.c_char_p
 
@@ -77,6 +82,20 @@ def kernel_attributes(k: int, dtype: torch.dtype) -> dict:
         raise RuntimeError(f"recconv backward kernel attributes: "
                            f"{lib.recconv_backward_error_string(err).decode()} ({err})")
     return {"registers": regs.value, "local_bytes": local.value}
+
+
+def resident_blocks(h: int, w: int, level: int, k: int, dtype: torch.dtype) -> int:
+    """Blocks of the backward of an h x w plane that one SM of the current device
+    holds at once, as the CUDA runtime reports them."""
+    lib = load_library()
+    blocks = ctypes.c_int()
+    err = lib.recconv_backward_resident(k, int(dtype == torch.bfloat16),
+                                        launch_config(h, w, level, k).smem_bytes,
+                                        ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"recconv backward kernel occupancy: "
+                           f"{lib.recconv_backward_error_string(err).decode()} ({err})")
+    return blocks.value
 
 
 def transposed_axis_plan(coarse: int, fine: int, mode: str) -> tuple[np.ndarray, np.ndarray]:
@@ -128,25 +147,33 @@ def _device_transposed_table(h: int, w: int, level: int, mode: str,
 
 
 class LaunchConfig(NamedTuple):
-    threads: int     # one block of ``threads`` per (n, c) plane
-    smem_bytes: int  # dynamic shared memory of one block
-    geometry: tuple  # csrc/recconv_bwd.cu:Geometry, field by field
+    team: int              # threads that own one (n, c) plane
+    planes_per_block: int  # teams in one block of BLOCK_THREADS threads
+    smem_bytes: int        # dynamic shared memory of one block
+    geometry: tuple        # csrc/recconv_bwd.cu:Geometry, field by field
 
 
-def block_threads(h: int, w: int) -> int:
-    """Threads of the block that owns an h x w plane: 64 up to 16^2 (m1's 14^2 and
-    7^2), 128 up to 32^2 (28^2), 256 above (56^2)."""
-    return 64 if h * w <= 256 else 128 if h * w <= 1024 else 256
+def team_size(h: int, w: int) -> int:
+    """Threads per plane, from the plane's area: 16 up to 16^2 (m1's 14^2 and 7^2),
+    64 up to 32^2 (28^2), 256 above (56^2: one plane a block, since two of its
+    ~68 KB would hold fewer threads on an SM)."""
+    hw = h * w
+    return 16 if hw <= 256 else 64 if hw <= 1024 else 256
 
 
-def _layout(h: int, w: int, level: int, k: int) -> LaunchConfig:
-    """The block's shared memory, in 4-byte words: the fp32 pyramid F[0..L], the
+def fragments(team: int) -> int:
+    """Fragments of a block, each the lanes of one team within one warp: each keeps
+    one row of weight-gradient sums in shared memory."""
+    return BLOCK_THREADS // min(team, 32)
+
+
+def _team_layout(h: int, w: int, level: int, k: int) -> tuple:
+    """One team's shared memory, in 4-byte words: the fp32 pyramid F[0..L], the
     recomputed sums H[0..L-1] (h_L is F[L]), the gradient pyramid G[0..L], each with
     a zero halo of k/2 and an odd row pitch; a scratch plane of level 1's haloed size
-    for dy; the (L+2) k^2 weights; one k^2 row per warp for the block reductions."""
+    for dy. Returns (sizes, pitch, F, H, G, s1, words)."""
     p = k // 2
     sizes = pyramid_sizes(h, w, level)
-    pad = [0] * (MAX_LEVEL + 1 - len(sizes))
     pitch = [(lw + 2 * p) | 1 for _, lw in sizes]
     region = [(lh + 2 * p) * pitch[l] for l, (lh, _) in enumerate(sizes)]
     off = 0
@@ -157,20 +184,44 @@ def _layout(h: int, w: int, level: int, k: int) -> LaunchConfig:
             off += region[l]
     hb.append(0)  # h_L is F[L]: no buffer of its own
     s1, off = off, off + region[1]
-    zero_words = off
-    wts, off = off, off + (level + 2) * k * k
-    threads = block_threads(h, w)
-    red, off = off, off + (threads // 32) * k * k
+    return sizes, pitch, fb, hb, gb, s1, off
+
+
+def _layout(h: int, w: int, level: int, k: int) -> LaunchConfig:
+    """``launch_config`` without its check that the block fits in shared memory. The
+    teams' regions first (spaced by ``_team_stride``), then the channel's weights and
+    one row of weight-gradient sums per fragment."""
+    sizes, pitch, fb, hb, gb, s1, words = _team_layout(h, w, level, k)
+    taps = (level + 2) * k * k
+
+    def layout(team):
+        per_block = BLOCK_THREADS // team
+        stride = _team_stride(words, team)
+        wts = stride * per_block
+        slots = wts + taps
+        return per_block, stride, wts, slots, slots + fragments(team) * taps
+
+    team = team_size(h, w)
+    while team < BLOCK_THREADS and layout(team)[-1] * 4 > MAX_DYNAMIC_SMEM:
+        team *= 2  # fewer planes per block
+    per_block, stride, wts, slots, end = layout(team)
     _, frows, fcols = lerp_plan_table(h, w, level)
     _, brows, bcols = transposed_plan_table(h, w, level)
+    pad = [0] * (MAX_LEVEL + 1 - len(sizes))
     lpad = [0] * (MAX_LEVEL + 1 - len(frows))
     geometry = ((level,) + tuple(s[0] for s in sizes) + tuple(pad)
                 + tuple(s[1] for s in sizes) + tuple(pad) + tuple(pitch) + tuple(pad)
                 + tuple(fb) + tuple(pad) + tuple(hb) + tuple(pad) + tuple(gb) + tuple(pad)
                 + tuple(frows) + tuple(lpad) + tuple(fcols) + tuple(lpad)
                 + tuple(brows) + tuple(lpad) + tuple(bcols) + tuple(lpad)
-                + (s1, wts, red, zero_words))
-    return LaunchConfig(threads, off * 4, geometry)
+                + (s1, words, stride, wts, slots))
+    return LaunchConfig(team, per_block, end * 4, geometry)
+
+
+def partial_shape(n: int, c: int, level: int, k: int, planes_per_block: int) -> tuple:
+    """The kernel's weight-gradient partials: one (level + 2, k, k) row for each
+    channel and group of ``planes_per_block`` consecutive n."""
+    return (c, -(-n // planes_per_block), level + 2, k, k)
 
 
 def _check(level: int, k: int) -> None:
@@ -182,8 +233,9 @@ def _check(level: int, k: int) -> None:
 
 @functools.lru_cache(maxsize=None)
 def launch_config(h: int, w: int, level: int, k: int) -> LaunchConfig:
-    """Threads, shared bytes and geometry of the backward of an h x w plane. Raises
-    ValueError where one plane's backward does not fit in shared memory."""
+    """Team size, planes per block, shared bytes and geometry of the backward of an
+    h x w plane. Raises ValueError where one plane's backward does not fit in shared
+    memory."""
     _check(level, k)
     cfg = _layout(h, w, level, k)
     if cfg.smem_bytes > MAX_DYNAMIC_SMEM:
@@ -231,7 +283,8 @@ def recconv_backward_cuda(x: torch.Tensor, down_w: torch.Tensor,
     fplans = _device_plan_table(h, w, level, mode, x.device)
     bplans = _device_transposed_table(h, w, level, mode, x.device)
     dx = torch.empty_like(x)
-    partial = torch.empty(n * c, level + 2, k, k, dtype=torch.float32, device=x.device)
+    partial = torch.empty(partial_shape(n, c, level, k, cfg.planes_per_block),
+                          dtype=torch.float32, device=x.device)
     dw = torch.empty(level + 2, c, 1, k, k, dtype=torch.float32, device=x.device)
     geometry = (ctypes.c_int * len(cfg.geometry))(*cfg.geometry)
     lib = load_library()
@@ -241,7 +294,7 @@ def recconv_backward_cuda(x: torch.Tensor, down_w: torch.Tensor,
                                    weights.data_ptr(), fplans.data_ptr(), bplans.data_ptr(),
                                    partial.data_ptr(), dw.data_ptr(),
                                    ctypes.cast(geometry, ctypes.c_void_p), len(cfg.geometry),
-                                   n, c, k, cfg.threads, cfg.smem_bytes,
+                                   n, c, k, cfg.team, cfg.smem_bytes,
                                    int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"recconv backward kernel launch failed: "

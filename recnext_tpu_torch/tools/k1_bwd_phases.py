@@ -13,8 +13,8 @@ stack, the backward kernel and the sum over the batch):
   full time less the time without it. The weight-gradient sums are replaced by a
   cheap use of the partial sums, so that the compiler keeps the correlations that
   feed them. The variants compute wrong results and are only timed.
-* ``threads_ms``: the kernel as built with every thread count per plane that fits,
-  in place of ``ops/cuda/recconv_bwd.py``'s choice.
+* ``teams_ms``: the kernel as built with every team size (threads per plane) that
+  fits, in place of ``ops/cuda/recconv_bwd.py:team_size``'s choice.
 * ``sass``: the instruction mix of the bf16 k = 5 kernel as built (``cuobjdump
   -sass``): shared loads and stores, fp32 multiply-adds, shuffles, barriers.
 
@@ -39,6 +39,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from recnext_tpu_torch.ops.cuda import build
 from recnext_tpu_torch.ops.cuda import recconv_bwd as bwd
+from recnext_tpu_torch.ops.cuda.recconv import TEAM_SIZES
 from recnext_tpu_torch.ops.recconv import rec_conv2d_backward
 
 M1_MIXERS = {4: (48, 56), 3: (96, 28), 2: (192, 14), 1: (384, 7)}  # level: (C, side)
@@ -120,7 +121,7 @@ def main() -> int:
         libs = _build({"full": src, **{p: _without(src, p) for p in PHASES}}, Path(tmp))
         sass = _sass(libs["full"][1])
         gen = torch.Generator().manual_seed(0)
-        chosen = bwd.block_threads
+        chosen = bwd.team_size
         try:
             for level, (c, side) in M1_MIXERS.items():
                 x = torch.randn(BATCH, c, side, side, generator=gen).to("cuda", torch.bfloat16)
@@ -133,24 +134,27 @@ def main() -> int:
                     bwd.LIBRARY._lib = lib
                     phases[name] = _device_ms(run)
                 bwd.LIBRARY._lib = libs["full"][0]
-                threads = {}
-                for n in (64, 128, 256):
-                    bwd.block_threads = lambda h, w, n=n: n
+                teams = {}
+                for team in TEAM_SIZES:
+                    bwd.team_size = lambda h, w, team=team: team
                     bwd.launch_config.cache_clear()
                     try:
-                        bwd.launch_config(side, side, level, 5)
+                        cfg = bwd.launch_config(side, side, level, 5)
                     except ValueError:
                         continue
-                    threads[n] = _device_ms(run)
-                bwd.block_threads = chosen
+                    if cfg.team == team:
+                        teams[team] = _device_ms(run)
+                bwd.team_size = chosen
                 bwd.launch_config.cache_clear()
                 cfg = bwd.launch_config(side, side, level, 5)
-                print(json.dumps({"shape": [BATCH, c, side, side], "level": level,
-                                  "threads": cfg.threads, "smem_bytes": cfg.smem_bytes,
-                                  "phases_ms": phases, "threads_ms": threads,
-                                  "sass_bf16_k5": sass}), flush=True)
+                print(json.dumps({
+                    "shape": [BATCH, c, side, side], "level": level, "team": cfg.team,
+                    "planes_per_block": cfg.planes_per_block, "smem_bytes": cfg.smem_bytes,
+                    "resident_blocks": bwd.resident_blocks(side, side, level, 5,
+                                                           torch.bfloat16),
+                    "phases_ms": phases, "teams_ms": teams, "sass_bf16_k5": sass}), flush=True)
         finally:
-            bwd.block_threads = chosen
+            bwd.team_size = chosen
             bwd.launch_config.cache_clear()
             bwd.LIBRARY._lib = None
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

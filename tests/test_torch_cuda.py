@@ -408,6 +408,31 @@ def test_backward_kernel_at_odd_shapes(cuda, n, c, h, w, level, k):
     _check_backward(x, [t / k for t in ws], g, level, "bilinear")
 
 
+# k 3 and 7 at m1's planes, batches that leave the last group of a block's teams
+# ragged (n = 3, 5, 17), 15^2 and the 96^2 plane of a 384^2 input at level 4
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,level,k", [
+    (3, 192, 14, 14, 2, 3), (3, 192, 14, 14, 2, 7), (3, 48, 56, 56, 4, 3),
+    (3, 48, 56, 56, 4, 7), (5, 384, 7, 7, 1, 7), (17, 96, 28, 28, 3, 3),
+    (3, 8, 15, 15, 4, 5), (3, 4, 96, 96, 4, 5)])
+def test_backward_kernel_at_kernel_sizes_and_ragged_batches(cuda, n, c, h, w, level, k, dtype):
+    x, ws = _inputs(n, c, h, w, level, k=k, dtype=dtype, seed=n + k)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to("cuda", dtype)
+    _check_backward(x, [t / k for t in ws], g, level, "bilinear")
+
+
+@pytest.mark.parametrize("c,side,level", M1_PLANES)
+def test_backward_kernel_gives_the_same_bits_on_every_run(cuda, c, side, level):
+    x, ws = _inputs(9, c, side, side, level, dtype=torch.bfloat16, seed=1)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)).to("cuda",
+                                                                             torch.bfloat16)
+    first = rec_conv2d_backward(x, ws[0], ws[1:], g, level=level)
+    for _ in range(2):
+        again = rec_conv2d_backward(x, ws[0], ws[1:], g, level=level)
+        for a, b in zip([first[0], first[1], *first[2]], [again[0], again[1], *again[2]]):
+            assert torch.equal(a, b)
+
+
 def test_backward_refuses_a_plane_too_large_for_shared_memory(cuda):
     x, ws = _inputs(1, 2, 160, 160, 4)
     before = rec_conv2d_backward.launches

@@ -107,10 +107,11 @@ def test_transposed_plan_table_offsets():
 
 
 def test_launch_config_at_m1_shapes_and_refusal():
-    for side, level, threads in ((56, 4, 256), (28, 3, 128), (14, 2, 64), (7, 1, 64)):
+    for side, level, team in ((56, 4, 256), (28, 3, 64), (14, 2, 16), (7, 1, 16)):
         cfg = bwd.launch_config(side, side, level, 5)
-        assert cfg.threads == threads and cfg.smem_bytes <= 80_000
-        assert len(cfg.geometry) == 55 and cfg.geometry[0] == level
+        assert cfg.team == team and cfg.planes_per_block * team == 256
+        assert cfg.smem_bytes <= bwd.MAX_DYNAMIC_SMEM
+        assert len(cfg.geometry) == 56 and cfg.geometry[0] == level
     assert bwd.launch_config(96, 96, 4, 5).smem_bytes <= bwd.MAX_DYNAMIC_SMEM  # 384^2 finetune
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
         bwd.check_fits(160, 160, 4, 5)
