@@ -110,101 +110,196 @@ struct Team {
   }
 };
 
-// out(r, c) = sum_{u,v} w[u][v] in(S r + u - k/2, S c + v - k/2): in haloed (interior
-// pointer), out at out[r * op + c].
+// Outputs one thread computes along a row (ops/cuda/recconv_bwd.py: STRIP).
+constexpr int kStrip = 4;
+
+// A walk over the strips of an oh x ow grid by a team: consecutive threads take
+// consecutive rows (a power of two of them, the least that covers oh, at most a warp
+// or the team), so with an odd row pitch one tap's loads fall in distinct banks; the
+// rest take strips further along the rows.
+struct Strips {
+  int r0, dr, q0, dq;
+};
+__device__ __forceinline__ Strips strips(int oh, const Team& tm) {
+  int lg = 0;
+  while ((1 << lg) < oh && lg < 5 && (2 << lg) <= tm.nt) ++lg;
+  return {tm.tid & ((1 << lg) - 1), 1 << lg, (tm.tid >> lg) * kStrip, (tm.nt >> lg) * kStrip};
+}
+
+// A conv's k*k weights from shared memory into registers; rotated by 180 degrees for
+// the stride-1 conv's adjoint.
+template <int K, bool ROTATE = false>
+__device__ __forceinline__ void load_weights(float (&wk)[K * K], const float* src) {
+#pragma unroll
+  for (int i = 0; i < K * K; ++i) wk[i] = src[ROTATE ? K * K - 1 - i : i];
+}
+
+// kStrip outputs of a k x k conv of the given stride along one row. `src` is the
+// top-left of the first output's window in a haloed buffer of row pitch `pitch`.
+// Each tap row slides through registers: stride * (kStrip - 1) + k loads feed
+// kStrip * k multiply-adds.
 template <int K, int S>
-__device__ __forceinline__ void conv(const float* in, int ip, const float* w, float* out,
-                                     int op, int oh, int ow, const Team& tm) {
-  constexpr int P = K / 2;
-  for (int i = tm.tid; i < oh * ow; i += tm.nt) {
-    const int r = i / ow, c = i - r * ow;
-    const float* s = in + (S * r - P) * ip + S * c - P;
-    float acc = 0.f;
+__device__ __forceinline__ void conv_strip(const float* src, int pitch,
+                                           const float (&wk)[K * K], float (&acc)[kStrip]) {
+  constexpr int kWin = S * (kStrip - 1) + K;
 #pragma unroll
-    for (int u = 0; u < K; ++u)
+  for (int s = 0; s < kStrip; ++s) acc[s] = 0.f;
 #pragma unroll
-      for (int v = 0; v < K; ++v) acc = fmaf(w[u * K + v], s[u * ip + v], acc);
-    out[r * op + c] = acc;
+  for (int u = 0; u < K; ++u) {
+    float win[kWin];
+#pragma unroll
+    for (int j = 0; j < kWin; ++j) win[j] = src[u * pitch + j];
+#pragma unroll
+    for (int s = 0; s < kStrip; ++s)
+#pragma unroll
+      for (int v = 0; v < K; ++v) acc[s] = fmaf(win[S * s + v], wk[u * K + v], acc[s]);
   }
 }
 
-// out(a, b) = sum_{u,v} w[u][v] dy(a - u + k/2, b - v + k/2): the adjoint of the
-// stride-1 conv, dy haloed.
-template <int K>
-__device__ __forceinline__ void conv_t(const float* dy, int dp, const float* w, float* out,
-                                       int op, int oh, int ow, const Team& tm) {
+// dst[q0 + s] = acc[s] for the outputs left of column ow
+__device__ __forceinline__ void store_strip(float* dst, int q0, int ow,
+                                            const float (&acc)[kStrip]) {
+#pragma unroll
+  for (int s = 0; s < kStrip; ++s)
+    if (q0 + s < ow) dst[q0 + s] = acc[s];
+}
+
+// out(r, c) = sum_{u,v} wk[u][v] in(S r + u - k/2, S c + v - k/2) for an oh x ow
+// output: in haloed (interior pointer; its row pitch covers the strips past the
+// edge, whose outputs are dropped), out at out[r * op + c]. With the weights loaded
+// rotated (load_weights<K, true>), the stride-1 conv is the adjoint of the stride-1
+// conv: out(a, b) = sum w[u][v] dy(a - u + k/2, b - v + k/2).
+template <int K, int S>
+__device__ __forceinline__ void conv(const float* in, int ip, const float (&wk)[K * K],
+                                     float* out, int op, int oh, int ow, const Team& tm) {
   constexpr int P = K / 2;
-  for (int i = tm.tid; i < oh * ow; i += tm.nt) {
-    const int a = i / ow, b = i - a * ow;
-    const float* s = dy + (a + P) * dp + b + P;
-    float acc = 0.f;
-#pragma unroll
-    for (int u = 0; u < K; ++u)
-#pragma unroll
-      for (int v = 0; v < K; ++v) acc = fmaf(w[u * K + v], s[-u * dp - v], acc);
-    out[a * op + b] = acc;
-  }
+  const Strips st = strips(oh, tm);
+  for (int r = st.r0; r < oh; r += st.dr)
+    for (int q = st.q0; q < ow; q += st.dq) {
+      float acc[kStrip];
+      conv_strip<K, S>(in + (S * r - P) * ip + S * q - P, ip, wk, acc);
+      store_strip(out + r * op, q, ow, acc);
+    }
 }
 
 // acc[u][v] += sum_{r,c} dy(r, c) in(S r + u - k/2, S c + v - k/2) over this thread's
-// pixels: the weight gradient of a stride-S conv, in haloed.
+// strips of the oh x ow grid of dy: the weight gradient of a stride-S conv, in haloed.
+// A strip's kStrip values of dy stay in registers (zero past the edge) and each tap
+// row of `in` slides through registers.
 template <int K, int S>
 __device__ __forceinline__ void corr(const float* in, int ip, const float* dy, int dp,
                                      int oh, int ow, float (&acc)[K * K], const Team& tm) {
-  constexpr int P = K / 2;
-  for (int i = tm.tid; i < oh * ow; i += tm.nt) {
-    const int r = i / ow, c = i - r * ow;
-    const float d = dy[r * dp + c];
-    const float* s = in + (S * r - P) * ip + S * c - P;
+  constexpr int P = K / 2, kWin = S * (kStrip - 1) + K;
+  const Strips st = strips(oh, tm);
+  for (int r = st.r0; r < oh; r += st.dr)
+    for (int q = st.q0; q < ow; q += st.dq) {
+      float d[kStrip];
 #pragma unroll
-    for (int u = 0; u < K; ++u)
+      for (int s = 0; s < kStrip; ++s) {
+        const float v = dy[r * dp + q + s];  // the pitch covers the strip
+        d[s] = q + s < ow ? v : 0.f;
+      }
+      const float* src = in + (S * r - P) * ip + S * q - P;
 #pragma unroll
-      for (int v = 0; v < K; ++v) acc[u * K + v] = fmaf(d, s[u * ip + v], acc[u * K + v]);
+      for (int u = 0; u < K; ++u) {
+        float win[kWin];
+#pragma unroll
+        for (int j = 0; j < kWin; ++j) win[j] = src[u * ip + j];
+#pragma unroll
+        for (int v = 0; v < K; ++v)
+#pragma unroll
+          for (int s = 0; s < kStrip; ++s)
+            acc[u * K + v] = fmaf(d[s], win[S * s + v], acc[u * K + v]);
+      }
+    }
+}
+
+// The columns of df that a strip of the stride-2 conv's adjoint reads, relative to
+// q0 / 2 for a strip that starts at an even column q0: output q0 + s reads the taps v
+// with (s + k/2 - v) even at (s + k/2 - v) / 2.
+template <int K>
+__host__ __device__ constexpr int dt_lo() {
+  int lo = K;
+  for (int s = 0; s < kStrip; ++s)
+    for (int v = 0; v < K; ++v)
+      if ((s + K / 2 - v) % 2 == 0 && (s + K / 2 - v) / 2 < lo) lo = (s + K / 2 - v) / 2;
+  return lo;
+}
+template <int K>
+__host__ __device__ constexpr int dt_hi() {
+  int hi = -K;
+  for (int s = 0; s < kStrip; ++s)
+    for (int v = 0; v < K; ++v)
+      if ((s + K / 2 - v) % 2 == 0 && (s + K / 2 - v) / 2 > hi) hi = (s + K / 2 - v) / 2;
+  return hi;
+}
+
+// One row a of the stride-2 conv's adjoint for a strip at even column q0, the taps u
+// of parity PA = (a + k/2) & 1: rows (a + k/2 - u) / 2 of df.
+template <int K, int PA>
+__device__ __forceinline__ void down_t_strip(const float* df, int dp, int a, int q0,
+                                             const float (&wk)[K * K],
+                                             float (&acc)[kStrip]) {
+  constexpr int P = K / 2, lo = dt_lo<K>(), n = dt_hi<K>() - lo + 1;
+  const int a2 = (a + P - PA) / 2;  // row of df read by tap u = PA
+#pragma unroll
+  for (int u = PA; u < K; u += 2) {
+    const float* row = df + (a2 - (u - PA) / 2) * dp + q0 / 2 + lo;
+    float win[n];
+#pragma unroll
+    for (int j = 0; j < n; ++j) win[j] = row[j];
+#pragma unroll
+    for (int s = 0; s < kStrip; ++s)
+#pragma unroll
+      for (int v = (s + P) & 1; v < K; v += 2)
+        acc[s] = fmaf(wk[u * K + v], win[(s + P - v) / 2 - lo], acc[s]);
   }
 }
 
 // out(a, b) += sum w[u][v] df((a + k/2 - u) / 2, (b + k/2 - v) / 2) over the taps whose
 // (a + k/2 - u) and (b + k/2 - v) are even: the adjoint of the stride-2 conv, df haloed
-// (the taps reach at most k/2 past its edge).
+// (the taps reach at most k/2 past its edge; its row pitch covers the strips past the
+// edge). The tap parities are fixed for a strip: the rows' by a, the columns' by s.
 template <int K>
-__device__ __forceinline__ void down_t_add(const float* df, int dp, const float* w,
+__device__ __forceinline__ void down_t_add(const float* df, int dp, const float (&wk)[K * K],
                                            float* out, int op, int oh, int ow,
                                            const Team& tm) {
   constexpr int P = K / 2;
-  for (int i = tm.tid; i < oh * ow; i += tm.nt) {
-    const int a = i / ow, b = i - a * ow;
-    const int pu = (a + P) & 1, pv = (b + P) & 1;
-    float acc = 0.f;
+  const Strips st = strips(oh, tm);
+  for (int a = st.r0; a < oh; a += st.dr)
+    for (int q = st.q0; q < ow; q += st.dq) {
+      float acc[kStrip];
 #pragma unroll
-    for (int u = 0; u < K; ++u) {
-      if ((u & 1) != pu) continue;
-      const float* row = df + ((a + P - u) / 2) * dp;
+      for (int s = 0; s < kStrip; ++s) acc[s] = 0.f;
+      if ((a + P) & 1)
+        down_t_strip<K, 1>(df, dp, a, q, wk, acc);
+      else
+        down_t_strip<K, 0>(df, dp, a, q, wk, acc);
+      float* d = out + a * op + q;
 #pragma unroll
-      for (int v = 0; v < K; ++v) {
-        if ((v & 1) != pv) continue;
-        acc = fmaf(w[u * K + v], row[(b + P - v) / 2], acc);
-      }
+      for (int s = 0; s < kStrip; ++s)
+        if (q + s < ow) d[s] += acc[s];
     }
-    out[a * op + b] += acc;
-  }
 }
 
-// out[t] = the sum of acc[t] over the lanes of this thread's fragment (the lanes of
-// its team within one warp), for t < k*k: log2(lanes) shuffle stages, then the
-// fragment's first lane writes the k*k sums (zeros for a team past the last plane).
+// out[t] (+)= the sum of acc[t] over the lanes of this thread's fragment (the lanes
+// of its team within one warp), for t < k*k: log2(lanes) shuffle stages, then the
+// fragment's first lane writes (or with `add`, adds) the k*k sums; nothing of a team
+// past the last plane.
 template <int K>
 __device__ __forceinline__ void team_sum(float (&acc)[K * K], int lanes, bool active,
-                                         float* out) {
+                                         bool add, float* out) {
   // phase sums
 #pragma unroll
-  for (int t = 0; t < K * K; ++t) {
-    float v = acc[t];
-    for (int off = lanes >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    acc[t] = v;
+  for (int off = 16; off > 0; off >>= 1) {
+    if (off < lanes) {  // the same for the whole warp
+#pragma unroll
+      for (int t = 0; t < K * K; ++t) acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], off);
+    }
   }
   if ((threadIdx.x & (lanes - 1)) == 0) {
 #pragma unroll
-    for (int t = 0; t < K * K; ++t) out[t] = active ? acc[t] : 0.f;
+    for (int t = 0; t < K * K; ++t) out[t] = (add ? out[t] : 0.f) + (active ? acc[t] : 0.f);
   }
   // end sums
 }
@@ -260,10 +355,14 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
     // end load
     tm.sync();
     // phase pyramid: f_1 .. f_L
-    for (int l = 1; l <= L; ++l) {
-      conv<K, 2>(interior<K>(sm, G.f[l - 1], G.pitch[l - 1]), G.pitch[l - 1], wts,
-                 interior<K>(sm, G.f[l], G.pitch[l]), G.pitch[l], G.h[l], G.w[l], tm);
-      tm.sync();
+    {
+      float wk[KK];
+      load_weights<K>(wk, wts);
+      for (int l = 1; l <= L; ++l) {
+        conv<K, 2>(interior<K>(sm, G.f[l - 1], G.pitch[l - 1]), G.pitch[l - 1], wk,
+                   interior<K>(sm, G.f[l], G.pitch[l]), G.pitch[l], G.h[l], G.w[l], tm);
+        tm.sync();
+      }
     }
     // end pyramid
     // phase h: the sums h_{L-1} .. h_0, the forward kernel's arithmetic: the level's
@@ -274,7 +373,11 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
       const int hn = G.h[j + 1], wn = G.w[j + 1], pn = G.pitch[j + 1];
       const float* src = interior<K>(sm, j + 1 == L ? G.f[L] : G.hb[j + 1], pn);
       float* y = sm + G.gb[j + 1];
-      conv<K, 1>(src, pn, wts + (L - j) * KK, y, wn, hn, wn, tm);
+      {
+        float wk[KK];
+        load_weights<K>(wk, wts + (L - j) * KK);
+        conv<K, 1>(src, pn, wk, y, wn, hn, wn, tm);
+      }
       tm.sync();
       float* tmp = sm + G.gb[j];
       for (int i = tid; i < hj * wn; i += nt) {
@@ -315,10 +418,14 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
     // phase corr
     corr<K, 1>(H0, p0, G0, p0, h0, w0, acc, tm);
     // end corr
-    team_sum<K>(acc, lanes, active, slot + (L + 1) * KK);
+    team_sum<K>(acc, lanes, active, false, slot + (L + 1) * KK);
     tm.sync();
     // phase convt
-    conv_t<K>(G0, p0, wts + (L + 1) * KK, H0, p0, h0, w0, tm);
+    {
+      float wk[KK];
+      load_weights<K, true>(wk, wts + (L + 1) * KK);
+      conv<K, 1>(G0, p0, wk, H0, p0, h0, w0, tm);
+    }
     // end convt
     tm.sync();
     for (int j = 1; j <= L; ++j) {
@@ -367,26 +474,32 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
       // phase corr
       corr<K, 1>(hsj, pj, dy, pj, hj, wj, acc, tm);
       // end corr
-      team_sum<K>(acc, lanes, active, slot + (1 + L - j) * KK);
+      team_sum<K>(acc, lanes, active, false, slot + (1 + L - j) * KK);
       // phase convt
-      conv_t<K>(dy, pj, wts + (1 + L - j) * KK, interior<K>(sm, G.gb[j], pj), pj, hj, wj, tm);
+      {
+        float wk[KK];
+        load_weights<K, true>(wk, wts + (1 + L - j) * KK);
+        conv<K, 1>(dy, pj, wk, interior<K>(sm, G.gb[j], pj), pj, hj, wj, tm);
+      }
       // end convt
       tm.sync();
     }
     // sweep 2: dW_d += corr_s2(f_{j-1}, df_j); df_{j-1} = dh_{j-1} + DT(df_j), in place
-#pragma unroll
-    for (int t = 0; t < KK; ++t) acc[t] = 0.f;
     // phase sweep2
     for (int j = L; j >= 1; --j) {
       const int pj = G.pitch[j], pp = G.pitch[j - 1];
       const float* df = interior<K>(sm, G.gb[j], pj);
+#pragma unroll
+      for (int t = 0; t < KK; ++t) acc[t] = 0.f;
       corr<K, 2>(interior<K>(sm, G.f[j - 1], pp), pp, df, pj, G.h[j], G.w[j], acc, tm);
+      team_sum<K>(acc, lanes, active, j < L, slot);
+      float wk[KK];
+      load_weights<K>(wk, wts);
       float* dst = j == 1 ? H0 : interior<K>(sm, G.gb[j - 1], pp);
-      down_t_add<K>(df, pj, wts, dst, pp, G.h[j - 1], G.w[j - 1], tm);
+      down_t_add<K>(df, pj, wk, dst, pp, G.h[j - 1], G.w[j - 1], tm);
       tm.sync();
     }
     // end sweep2
-    team_sum<K>(acc, lanes, active, slot);
     if (active) {
       T* dxp = dx + plane * h0 * w0;
       for (int i = tid; i < h0 * w0; i += nt) {

@@ -32,8 +32,10 @@ from recnext_tpu_torch.ops.cuda.recconv import (
     MAX_LEVEL,
     MAX_SMEM_BYTES,
     MODES,
+    STRIP,
     TEAM_SIZES,
     _axis_plan,
+    _ceil_to,
     _device_plan_table,
     _team_stride,
     lerp_plan_table,
@@ -167,14 +169,39 @@ def fragments(team: int) -> int:
     return BLOCK_THREADS // min(team, 32)
 
 
+def _down_t_reach(k: int) -> int:
+    """The furthest column of df, past q0 / 2, that a strip of the stride-2 conv's
+    adjoint at an even column q0 reads (csrc/recconv_bwd.cu: dt_hi)."""
+    return max((s + k // 2 - v) // 2 for s in range(STRIP) for v in range(k)
+               if (s + k // 2 - v) % 2 == 0)
+
+
+def _pitches(sizes: list[tuple[int, int]], k: int) -> list[int]:
+    """Row pitch of each level's haloed buffers: odd (the lanes of a warp, on
+    consecutive rows, hit distinct banks), and wide enough for the strips that run
+    past a row's edge (their outputs are computed and dropped): the stride-1 convs
+    and correlations at level l, the stride-2 ones into level l + 1, and the stride-2
+    conv's adjoint out of level l into level l - 1."""
+    p, level = k // 2, len(sizes) - 1
+    pitch = []
+    for l, (_, lw) in enumerate(sizes):
+        need = _ceil_to(lw, STRIP) + 2 * p
+        if l < level:
+            need = max(need, 2 * _ceil_to(sizes[l + 1][1], STRIP) + k - 2)
+        if l > 0:
+            need = max(need, _ceil_to(sizes[l - 1][1], STRIP) // 2 + _down_t_reach(k) + p + 1)
+        pitch.append(need | 1)
+    return pitch
+
+
 def _team_layout(h: int, w: int, level: int, k: int) -> tuple:
     """One team's shared memory, in 4-byte words: the fp32 pyramid F[0..L], the
     recomputed sums H[0..L-1] (h_L is F[L]), the gradient pyramid G[0..L], each with
-    a zero halo of k/2 and an odd row pitch; a scratch plane of level 1's haloed size
-    for dy. Returns (sizes, pitch, F, H, G, s1, words)."""
+    a zero halo of k/2 and a row pitch from ``_pitches``; a scratch plane of level 1's
+    haloed size for dy. Returns (sizes, pitch, F, H, G, s1, words)."""
     p = k // 2
     sizes = pyramid_sizes(h, w, level)
-    pitch = [(lw + 2 * p) | 1 for _, lw in sizes]
+    pitch = _pitches(sizes, k)
     region = [(lh + 2 * p) * pitch[l] for l, (lh, _) in enumerate(sizes)]
     off = 0
     fb, hb, gb = [], [], []
