@@ -59,27 +59,31 @@ constexpr int kMaxFan = 4;  // fine indices that read one coarse index, per axis
 constexpr int kBlockThreads = 256;
 
 // The block's shared-memory layout, in 4-byte words, as ops/cuda/recconv_bwd.py:
-// launch_config builds it (the field order is the Python tuple's). Buffers are haloed:
-// interior (r, c) of a level-l buffer at base + (r + k/2) * pitch[l] + c + k/2.
+// launch_config builds it (the field order is the Python tuple's). A team's buffers
+// are haloed: interior (r, c) of a level-l buffer at base + (r + k/2) * pitch[l] + c +
+// k/2. Each holds several planes in turn, as the sweeps free them (dh_l is in F[0]
+// at l = 0, in F[level] at l = level, else in H[l]):
 struct Geometry {
   int level;
   int h[kLevels];
   int w[kLevels];
   int pitch[kLevels];
-  int f[kLevels];      // F[l]: the pyramid f_l (f_0 = x)
-  int hb[kLevels];     // H[l], l < level: h_l (then dh_0 and df_0 in H[0])
-  int gb[kLevels];     // G[l]: dh_l, then df_l
+  int f[kLevels];      // F[0]: x, h_0, dh_0, df_0 = dx; F[l]: f_l (F[level]: then dh, df)
+  int hb[kLevels];     // H[0]: the sums' lerp scratch, g, upT scratch, x; H[l], 0 < l <
+                       // level: h_l, then dh_l, df_l
+  int gb[kLevels];     // G[l], l > 0: the sums' conv output and lerp scratch, dy_l, then
+                       // upT scratch
   int frows[kLevels];  // forward lerp table (int4 rows): up-step l -> l-1, row plan
   int fcols[kLevels];  // ... and column plan
   int brows[kLevels];  // transposed table (int2 entries): up-step l's row plan
   int bcols[kLevels];  // ... and column plan
-  int s1;              // dy scratch, level 1's haloed size
-  int zero_words;      // F, H, G and the scratch: zeroed first
   int team_words;      // words from one team's region to the next
   // block-wide, after the teams: the channel's (level + 2) k*k weights (down, conv0
-  // .. conv{level}), and one (level + 2) k*k row of weight-gradient sums for each
-  // fragment of a team (the lanes of a team within one warp)
-  int wts, slots;
+  // .. conv{level}); one (level + 2) k*k row of weight-gradient sums for each fragment
+  // of a team (the lanes of a team within one warp); copies of the two plan tables
+  // (offsets -1 where the block reads them from device memory instead: where a copy
+  // would leave room for fewer blocks on an SM) and their sizes in words
+  int wts, slots, fplan, bplan, fplan_words, bplan_words;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -90,10 +94,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 template <int K>
 __device__ __forceinline__ float* interior(float* sm, int base, int pitch) {
   return sm + base + (K / 2) * pitch + K / 2;
-}
-
-__device__ __forceinline__ void zero(float* p, int n, int tid, int nt) {
-  for (int i = tid; i < n; i += nt) p[i] = 0.f;
 }
 
 // The threads of one team: a team of at most 32 threads lies within one warp; larger
@@ -109,6 +109,48 @@ struct Team {
       asm volatile("bar.sync %0, %1;\n" ::"r"(id + 1), "r"(nt) : "memory");
   }
 };
+
+// A 2-D walk over an oh x ow grid by a team: a power-of-two number of threads along a
+// row (the least that covers ow, at most the team), the rest down the rows.
+struct Walk {
+  int q0, dq, r0, dr;
+};
+__device__ __forceinline__ Walk walk(int ow, const Team& tm) {
+  int lg = 0;
+  while ((1 << lg) < ow && (2 << lg) <= tm.nt) ++lg;
+  return {tm.tid & ((1 << lg) - 1), 1 << lg, tm.tid >> lg, tm.nt >> lg};
+}
+
+// dst[r * dpitch + q] = src[r * spitch + q] for an h x w plane, converted to dst's
+// type. Consecutive threads take consecutive columns; each takes four rows at a time
+// and loads all four before it stores.
+template <typename D, typename S>
+__device__ __forceinline__ void copy_plane(D* dst, int dpitch, const S* src, int spitch,
+                                           int h, int w, const Team& tm) {
+  const Walk wk = walk(w, tm);
+  for (int q = wk.q0; q < w; q += wk.dq)
+    for (int r = wk.r0; r < h; r += 4 * wk.dr) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = to_f32(src[min(r + u * wk.dr, h - 1) * spitch + q]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (r + u * wk.dr < h) store(dst + (r + u * wk.dr) * dpitch + q, v[u]);
+    }
+}
+
+// Zero the k/2 ring around an h x w interior of a buffer with row pitch `pitch` (the
+// columns right of the ring, which only dropped outputs read, too).
+template <int P>
+__device__ void zero_ring(float* b, int h, int w, int pitch, const Team& tm) {
+  const Walk top = walk(pitch, tm);
+  for (int r = top.r0; r < 2 * P; r += top.dr)
+    for (int q = top.q0; q < pitch; q += top.dq) b[(r < P ? r : h + r) * pitch + q] = 0.f;
+  const int side = pitch - w;  // P on the left, the rest on the right
+  const Walk mid = walk(side, tm);
+  for (int r = mid.r0; r < h; r += mid.dr)
+    for (int q = mid.q0; q < side; q += mid.dq) b[(r + P) * pitch + (q < P ? q : w + q)] = 0.f;
+}
 
 // Outputs one thread computes along a row (ops/cuda/recconv_bwd.py: STRIP).
 constexpr int kStrip = 4;
@@ -282,76 +324,120 @@ __device__ __forceinline__ void down_t_add(const float* df, int dp, const float 
     }
 }
 
-// out[t] (+)= the sum of acc[t] over the lanes of this thread's fragment (the lanes
-// of its team within one warp), for t < k*k: log2(lanes) shuffle stages, then the
-// fragment's first lane writes (or with `add`, adds) the k*k sums; nothing of a team
-// past the last plane.
+// The k*k sums padded to a power of two, at least 32: the length of a team sum.
 template <int K>
-__device__ __forceinline__ void team_sum(float (&acc)[K * K], int lanes, bool active,
+constexpr int kPad = K * K <= 32 ? 32 : 64;
+
+// out[t] (+)= the sum of acc[t] over the F lanes of this thread's fragment (the lanes
+// of its team within one warp), for t < k*k, as a reduce-scatter: each of the log2(F)
+// shuffle stages sends half of the values still held and adds the half received, so
+// lane l of the fragment ends with the sums of entries [l m, (l + 1) m), m = kPad / F,
+// and writes (or with `add`, adds) those; nothing of a team past the last plane.
+// One stage of the reduce-scatter: lanes O apart swap halves of the M values held.
+template <int N, int O, int M>
+__device__ __forceinline__ void scatter_stage(float (&v)[N], int lane) {
+  if constexpr (O > 0) {
+    const bool upper = lane & O;  // keeps the upper half
+#pragma unroll
+    for (int t = 0; t < M / 2; ++t) {
+      const float send = upper ? v[t] : v[t + M / 2];
+      const float keep = upper ? v[t + M / 2] : v[t];
+      v[t] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    scatter_stage<N, O / 2, M / 2>(v, lane);
+  }
+}
+
+template <int K, int F>
+__device__ __forceinline__ void team_sum_f(const float (&acc)[K * K], bool active, bool add,
+                                           float* out) {
+  constexpr int KK = K * K, N = kPad<K>;
+  float v[N];
+#pragma unroll
+  for (int t = 0; t < N; ++t) v[t] = t < KK ? acc[t] : 0.f;
+  const int lane = threadIdx.x & (F - 1);
+  scatter_stage<N, F / 2, N>(v, lane);
+  constexpr int M = N / F;
+#pragma unroll
+  for (int t = 0; t < M; ++t) {
+    const int e = lane * M + t;
+    if (e < KK) out[e] = (add ? out[e] : 0.f) + (active ? v[t] : 0.f);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void team_sum(const float (&acc)[K * K], int lanes, bool active,
                                          bool add, float* out) {
   // phase sums
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    if (off < lanes) {  // the same for the whole warp
-#pragma unroll
-      for (int t = 0; t < K * K; ++t) acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], off);
-    }
-  }
-  if ((threadIdx.x & (lanes - 1)) == 0) {
-#pragma unroll
-    for (int t = 0; t < K * K; ++t) out[t] = (add ? out[t] : 0.f) + (active ? acc[t] : 0.f);
-  }
+  if (lanes == 8)
+    team_sum_f<K, 8>(acc, active, add, out);
+  else if (lanes == 16)
+    team_sum_f<K, 16>(acc, active, add, out);
+  else
+    team_sum_f<K, 32>(acc, active, add, out);
   // end sums
 }
 
 template <typename T, int K>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, K == 7 ? 2 : 4)  // k <= 5: 64 registers
 recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
                    const float* __restrict__ weights, const int4* __restrict__ fplans,
                    const int2* __restrict__ bplans, float* __restrict__ partial,
                    const Geometry geo, const int N, const int C, const int log2_team) {
-  constexpr int KK = K * K;
+  constexpr int KK = K * K, P = K / 2;
   extern __shared__ float smem[];
   __shared__ Geometry G;  // indexed by level at run time: kept in shared memory
   const int nt = 1 << log2_team;
   const Team tm = {(int)threadIdx.x & (nt - 1), nt, (int)threadIdx.x >> log2_team};
-  const int tid = tm.tid;
   const int per_block = blockDim.x >> log2_team;
   const int lanes = nt < 32 ? nt : 32;  // a fragment: the lanes of a team in one warp
   const int frags = blockDim.x / lanes, frag = threadIdx.x / lanes;
   const int groups = (N + per_block - 1) / per_block;  // groups of n per channel
-  if (threadIdx.x == 0) G = geo;
   const int L = geo.level;
   float* const sm = smem + tm.id * geo.team_words;
   float* const wts = smem + geo.wts;
   float* const slots = smem + geo.slots;
   float* const slot = slots + frag * (L + 2) * KK;
+  if (threadIdx.x == 0) G = geo;
+  // once per block: the plan tables (where the layout holds them), the halo rings
+  const int4* const fplan =
+      geo.fplan < 0 ? fplans : reinterpret_cast<const int4*>(smem + geo.fplan);
+  const int2* const bplan =
+      geo.bplan < 0 ? bplans : reinterpret_cast<const int2*>(smem + geo.bplan);
+  if (geo.fplan >= 0) {
+    const float* src = reinterpret_cast<const float*>(fplans);
+    for (int i = threadIdx.x; i < geo.fplan_words; i += blockDim.x) smem[geo.fplan + i] = src[i];
+    src = reinterpret_cast<const float*>(bplans);
+    for (int i = threadIdx.x; i < geo.bplan_words; i += blockDim.x) smem[geo.bplan + i] = src[i];
+  }
+  __syncthreads();
+  for (int l = 0; l <= L; ++l) {
+    zero_ring<P>(sm + G.f[l], G.h[l], G.w[l], G.pitch[l], tm);
+    if (l < L) zero_ring<P>(sm + G.hb[l], G.h[l], G.w[l], G.pitch[l], tm);
+    if (l > 0) zero_ring<P>(sm + G.gb[l], G.h[l], G.w[l], G.pitch[l], tm);
+  }
+  const int h0 = G.h[0], w0 = G.w[0], p0 = G.pitch[0];
+  auto F = [&](int l) { return interior<K>(sm, G.f[l], G.pitch[l]); };
+  auto H = [&](int l) { return interior<K>(sm, G.hb[l], G.pitch[l]); };
+  auto Gb = [&](int l) { return interior<K>(sm, G.gb[l], G.pitch[l]); };
+  auto dh = [&](int l) { return l == 0 || l == L ? F(l) : H(l); };  // dh_l, then df_l
+  float* const F0 = F(0);
+  float* const B0 = H(0);
   // A block walks over items (c, group of per_block consecutive n): its teams take the
   // planes (n, c) of one channel, whose weights the block loads once an item.
   for (int item = blockIdx.x; item < C * groups; item += gridDim.x) {
     const int c = item / groups;
     const int n = (item - c * groups) * per_block + tm.id;
     const bool active = n < N;  // a team past the last plane computes, unused
-    const size_t plane = (size_t)(active ? n : N - 1) * C + c;
+    const T* const xp = x + ((size_t)(active ? n : N - 1) * C + c) * h0 * w0;
     __syncthreads();  // the previous item's weights and slots are read
     for (int i = threadIdx.x; i < (L + 2) * KK; i += blockDim.x) {
       const int j = i / KK;
       wts[i] = weights[((size_t)j * C + c) * KK + (i - j * KK)];
     }
-    zero(sm, geo.zero_words, tid, nt);
     __syncthreads();
-    const int h0 = G.h[0], w0 = G.w[0], p0 = G.pitch[0];
-    float* const H0 = interior<K>(sm, G.hb[0], p0);
-    float* const G0 = interior<K>(sm, G.gb[0], p0);
     // phase load
-    {
-      float* f0 = interior<K>(sm, G.f[0], p0);
-      const T* xp = x + plane * h0 * w0;
-      for (int i = tid; i < h0 * w0; i += nt) {
-        const int r = i / w0;
-        f0[r * p0 + i - r * w0] = to_f32(xp[i]);
-      }
-    }
+    copy_plane(F0, p0, xp, w0, h0, w0, tm);
     // end load
     tm.sync();
     // phase pyramid: f_1 .. f_L
@@ -359,64 +445,64 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
       float wk[KK];
       load_weights<K>(wk, wts);
       for (int l = 1; l <= L; ++l) {
-        conv<K, 2>(interior<K>(sm, G.f[l - 1], G.pitch[l - 1]), G.pitch[l - 1], wk,
-                   interior<K>(sm, G.f[l], G.pitch[l]), G.pitch[l], G.h[l], G.w[l], tm);
+        conv<K, 2>(F(l - 1), G.pitch[l - 1], wk, F(l), G.pitch[l], G.h[l], G.w[l], tm);
         tm.sync();
       }
     }
     // end pyramid
     // phase h: the sums h_{L-1} .. h_0, the forward kernel's arithmetic: the level's
-    // conv into a dense plane (in G[j+1]), the lerp along H (into G[j]), the lerp
-    // along W and the add
+    // conv into G[j+1], the lerp along H into G[j] (H[0] at j = 0), the lerp along W
+    // and the add into H[j] (F[0], in place, at j = 0)
     for (int j = L - 1; j >= 0; --j) {
       const int hj = G.h[j], wj = G.w[j], pj = G.pitch[j];
       const int hn = G.h[j + 1], wn = G.w[j + 1], pn = G.pitch[j + 1];
-      const float* src = interior<K>(sm, j + 1 == L ? G.f[L] : G.hb[j + 1], pn);
-      float* y = sm + G.gb[j + 1];
+      float* const y = Gb(j + 1);
       {
         float wk[KK];
         load_weights<K>(wk, wts + (L - j) * KK);
-        conv<K, 1>(src, pn, wk, y, wn, hn, wn, tm);
+        conv<K, 1>(j + 1 == L ? F(L) : H(j + 1), pn, wk, y, pn, hn, wn, tm);
       }
       tm.sync();
-      float* tmp = sm + G.gb[j];
-      for (int i = tid; i < hj * wn; i += nt) {
-        const int r = i / wn, q = i - r * wn;
-        const int4 rp = __ldg(fplans + G.frows[j + 1] + r);
-        const float t0 = y[rp.x * wn + q], t1 = y[rp.y * wn + q];
-        tmp[i] = t0 + (t1 - t0) * __int_as_float(rp.z);
+      float* const tmp = j == 0 ? B0 : Gb(j);
+      {
+        const int4* rows = fplan + G.frows[j + 1];
+        const Walk wk = walk(wn, tm);
+        for (int r = wk.r0; r < hj; r += wk.dr) {
+          const int4 rp = rows[r];
+          const float* t0 = y + rp.x * pn;
+          const float* t1 = y + rp.y * pn;
+          for (int q = wk.q0; q < wn; q += wk.dq)
+            tmp[r * pj + q] = t0[q] + (t1[q] - t0[q]) * __int_as_float(rp.z);
+        }
       }
       tm.sync();
-      const float* fj = interior<K>(sm, G.f[j], pj);
-      float* hs = interior<K>(sm, G.hb[j], pj);
-      for (int i = tid; i < hj * wj; i += nt) {
-        const int r = i / wj, q = i - r * wj;
-        const int4 cp = __ldg(fplans + G.fcols[j + 1] + q);
-        const float* t = tmp + r * wn;
-        hs[r * pj + q] = fj[r * pj + q] + (t[cp.x] + (t[cp.y] - t[cp.x]) * __int_as_float(cp.z));
+      {
+        const float* fj = F(j);
+        float* hs = j == 0 ? F0 : H(j);
+        const int4* cols = fplan + G.fcols[j + 1];
+        const Walk wk = walk(wj, tm);
+        for (int q = wk.q0; q < wj; q += wk.dq) {
+          const int4 cp = cols[q];
+          for (int r = wk.r0; r < hj; r += wk.dr) {
+            const float* t = tmp + r * pj;
+            hs[r * pj + q] =
+                fj[r * pj + q] + (t[cp.x] + (t[cp.y] - t[cp.x]) * __int_as_float(cp.z));
+          }
+        }
       }
       tm.sync();
     }
     // end h
-    // the gradient pyramid starts at zero (halos included); g into G[0]
-    zero(sm + G.gb[0], G.s1 - G.gb[0], tid, nt);
-    tm.sync();
     // phase load
-    {
-      const T* gp = g + plane * h0 * w0;
-      for (int i = tid; i < h0 * w0; i += nt) {
-        const int r = i / w0;
-        G0[r * p0 + i - r * w0] = to_f32(gp[i]);
-      }
-    }
+    copy_plane(B0, p0, g + (xp - x), w0, h0, w0, tm);
     // end load
     tm.sync();
     float acc[KK];
-    // sweep 1: dW_L = corr(h_0, g); dh_0 = convT(g, W_L), into H[0] (h_0 is spent)
+    // sweep 1: dW_L = corr(h_0, g); dh_0 = convT(g, W_L), into F[0] (h_0 is spent)
 #pragma unroll
     for (int t = 0; t < KK; ++t) acc[t] = 0.f;
     // phase corr
-    corr<K, 1>(H0, p0, G0, p0, h0, w0, acc, tm);
+    corr<K, 1>(F0, p0, B0, p0, h0, w0, acc, tm);
     // end corr
     team_sum<K>(acc, lanes, active, false, slot + (L + 1) * KK);
     tm.sync();
@@ -424,89 +510,95 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
     {
       float wk[KK];
       load_weights<K, true>(wk, wts + (L + 1) * KK);
-      conv<K, 1>(G0, p0, wk, H0, p0, h0, w0, tm);
+      conv<K, 1>(B0, p0, wk, F0, p0, h0, w0, tm);
     }
     // end convt
     tm.sync();
     for (int j = 1; j <= L; ++j) {
-      const int hp = G.h[j - 1], hj = G.h[j], wj = G.w[j], pj = G.pitch[j];
-      // dh_{j-1}: in H[0] at j = 1, else in G[j-1]
-      const float* src = j == 1 ? H0 : interior<K>(sm, G.gb[j - 1], G.pitch[j - 1]);
-      const int sp = G.pitch[j - 1];
-      // upT along W into a dense (h_{j-1}, w_j) plane: in G[0] (g is spent) at j = 1,
-      // else in H[j-1] (h_{j-1} is spent)
-      float* tw = sm + (j == 1 ? G.gb[0] : G.hb[j - 1]);
+      const int hp = G.h[j - 1], pp = G.pitch[j - 1];
+      const int hj = G.h[j], wj = G.w[j], pj = G.pitch[j];
+      const float* src = dh(j - 1);
+      // upT along W into an (h_{j-1}, w_j) plane in H[0] (g is spent) at j = 1, else in
+      // G[j-1] (dy_{j-1} is spent)
+      float* const tw = j == 1 ? B0 : Gb(j - 1);
       // phase upt
-      for (int i = tid; i < hp * wj; i += nt) {
-        const int r = i / wj, q = i - r * wj;
-        const int2* e = bplans + G.bcols[j] + q * kMaxFan;
-        const float* row = src + r * sp;
-        float v = 0.f;
+      {
+        const Walk wk = walk(wj, tm);
+        for (int q = wk.q0; q < wj; q += wk.dq) {
+          int2 e[kMaxFan];
 #pragma unroll
-        for (int t = 0; t < kMaxFan; ++t) {
-          const int2 ent = __ldg(e + t);
-          v = fmaf(__int_as_float(ent.y), row[ent.x], v);
-        }
-        tw[i] = v;
-      }
-      // end upt
-      zero(sm + G.s1, G.zero_words - G.s1, tid, nt);
-      tm.sync();
-      // upT along H: dy_j, haloed in the scratch plane
-      float* dy = interior<K>(sm, G.s1, pj);
-      // phase upt
-      for (int i = tid; i < hj * wj; i += nt) {
-        const int r = i / wj, q = i - r * wj;
-        const int2* e = bplans + G.brows[j] + r * kMaxFan;
-        float v = 0.f;
+          for (int t = 0; t < kMaxFan; ++t) e[t] = bplan[G.bcols[j] + q * kMaxFan + t];
+          for (int r = wk.r0; r < hp; r += wk.dr) {
+            const float* row = src + r * pp;
+            float v = 0.f;
 #pragma unroll
-        for (int t = 0; t < kMaxFan; ++t) {
-          const int2 ent = __ldg(e + t);
-          v = fmaf(__int_as_float(ent.y), tw[ent.x * wj + q], v);
+            for (int t = 0; t < kMaxFan; ++t) v = fmaf(__int_as_float(e[t].y), row[e[t].x], v);
+            tw[r * pp + q] = v;
+          }
         }
-        dy[r * pj + q] = v;
       }
       // end upt
       tm.sync();
-      const float* hsj = interior<K>(sm, j == L ? G.f[L] : G.hb[j], pj);
+      // upT along H: dy_j into G[j]
+      float* const dy = Gb(j);
+      // phase upt
+      {
+        const Walk wk = walk(wj, tm);
+        for (int r = wk.r0; r < hj; r += wk.dr) {
+          int2 e[kMaxFan];
+#pragma unroll
+          for (int t = 0; t < kMaxFan; ++t) e[t] = bplan[G.brows[j] + r * kMaxFan + t];
+          for (int q = wk.q0; q < wj; q += wk.dq) {
+            float v = 0.f;
+#pragma unroll
+            for (int t = 0; t < kMaxFan; ++t)
+              v = fmaf(__int_as_float(e[t].y), tw[e[t].x * pp + q], v);
+            dy[r * pj + q] = v;
+          }
+        }
+      }
+      // end upt
+      tm.sync();
+      // dW_{L-j} = corr(h_j, dy_j); dh_j = convT(dy_j) in h_j's place (h_j is spent)
 #pragma unroll
       for (int t = 0; t < KK; ++t) acc[t] = 0.f;
       // phase corr
-      corr<K, 1>(hsj, pj, dy, pj, hj, wj, acc, tm);
+      corr<K, 1>(j == L ? F(L) : H(j), pj, dy, pj, hj, wj, acc, tm);
       // end corr
       team_sum<K>(acc, lanes, active, false, slot + (1 + L - j) * KK);
+      tm.sync();
       // phase convt
       {
         float wk[KK];
         load_weights<K, true>(wk, wts + (1 + L - j) * KK);
-        conv<K, 1>(dy, pj, wk, interior<K>(sm, G.gb[j], pj), pj, hj, wj, tm);
+        conv<K, 1>(dy, pj, wk, dh(j), pj, hj, wj, tm);
       }
       // end convt
       tm.sync();
     }
-    // sweep 2: dW_d += corr_s2(f_{j-1}, df_j); df_{j-1} = dh_{j-1} + DT(df_j), in place
+    // sweep 2: dW_d += corr_s2(f_{j-1}, df_j); df_{j-1} = dh_{j-1} + DT(df_j), in place;
+    // f_0 = x again, into H[0] (the upT scratch is spent)
+    // phase load
+    copy_plane(B0, p0, xp, w0, h0, w0, tm);
+    // end load
+    tm.sync();
     // phase sweep2
-    for (int j = L; j >= 1; --j) {
-      const int pj = G.pitch[j], pp = G.pitch[j - 1];
-      const float* df = interior<K>(sm, G.gb[j], pj);
-#pragma unroll
-      for (int t = 0; t < KK; ++t) acc[t] = 0.f;
-      corr<K, 2>(interior<K>(sm, G.f[j - 1], pp), pp, df, pj, G.h[j], G.w[j], acc, tm);
-      team_sum<K>(acc, lanes, active, j < L, slot);
+    {
       float wk[KK];
       load_weights<K>(wk, wts);
-      float* dst = j == 1 ? H0 : interior<K>(sm, G.gb[j - 1], pp);
-      down_t_add<K>(df, pj, wk, dst, pp, G.h[j - 1], G.w[j - 1], tm);
-      tm.sync();
-    }
-    // end sweep2
-    if (active) {
-      T* dxp = dx + plane * h0 * w0;
-      for (int i = tid; i < h0 * w0; i += nt) {
-        const int r = i / w0;
-        store(dxp + i, H0[r * p0 + i - r * w0]);
+      for (int j = L; j >= 1; --j) {
+        const int pj = G.pitch[j], pp = G.pitch[j - 1];
+        const float* df = dh(j);
+#pragma unroll
+        for (int t = 0; t < KK; ++t) acc[t] = 0.f;
+        corr<K, 2>(j == 1 ? B0 : F(j - 1), pp, df, pj, G.h[j], G.w[j], acc, tm);
+        team_sum<K>(acc, lanes, active, j < L, slot);
+        down_t_add<K>(df, pj, wk, dh(j - 1), pp, G.h[j - 1], G.w[j - 1], tm);
+        tm.sync();
       }
     }
+    // end sweep2
+    if (active) copy_plane(dx + (xp - x), w0, F0, p0, h0, w0, tm);
     __syncthreads();
     // the item's weight-gradient sums: the fragments' rows added in order
     float* const part = partial + (size_t)item * (L + 2) * KK;

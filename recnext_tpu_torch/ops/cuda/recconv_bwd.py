@@ -45,8 +45,11 @@ from recnext_tpu_torch.ops.cuda.recconv import (
 SOURCE = PKG / "csrc" / "recconv_bwd.cu"
 MAX_FAN = 4  # fine indices that read one coarse index, per axis (bilinear 4, nearest 2)
 # the dynamic shared memory a block may take: the H100's 227 KB less the kernel's
-# static copy of its geometry (csrc/recconv_bwd.cu: Geometry, 56 ints), rounded up
+# static copy of its geometry (csrc/recconv_bwd.cu: Geometry, 58 ints), rounded up
 MAX_DYNAMIC_SMEM = MAX_SMEM_BYTES - 256
+# an H100 SM's shared memory (228 KB), what the runtime keeps of it for each block,
+# and the threads an SM holds
+SM_SMEM_BYTES, BLOCK_RESERVED_BYTES, SM_THREADS = 233472, 1024, 2048
 TILED_ITEM = ("ROADMAP.md Queue 2 (a tiled or peeled RecConv2d backward for planes "
               "larger than shared memory)")
 
@@ -156,11 +159,12 @@ class LaunchConfig(NamedTuple):
 
 
 def team_size(h: int, w: int) -> int:
-    """Threads per plane, from the plane's area: 16 up to 16^2 (m1's 14^2 and 7^2),
-    64 up to 32^2 (28^2), 256 above (56^2: one plane a block, since two of its
-    ~68 KB would hold fewer threads on an SM)."""
+    """Threads per plane, from the plane's area: 8 up to 8^2 (m1's 7^2), 32 up to 16^2
+    (14^2), 64 up to 32^2 (28^2), 256 above (56^2: one plane a block; two of its
+    ~55 KB would leave room for fewer threads on an SM)."""
     hw = h * w
-    return 16 if hw <= 256 else 64 if hw <= 1024 else 256
+    return next(t for t, most in ((8, 64), (32, 256), (64, 1024), (256, None))
+                if most is None or hw <= most)
 
 
 def fragments(team: int) -> int:
@@ -195,31 +199,42 @@ def _pitches(sizes: list[tuple[int, int]], k: int) -> list[int]:
 
 
 def _team_layout(h: int, w: int, level: int, k: int) -> tuple:
-    """One team's shared memory, in 4-byte words: the fp32 pyramid F[0..L], the
-    recomputed sums H[0..L-1] (h_L is F[L]), the gradient pyramid G[0..L], each with
-    a zero halo of k/2 and a row pitch from ``_pitches``; a scratch plane of level 1's
-    haloed size for dy. Returns (sizes, pitch, F, H, G, s1, words)."""
+    """One team's shared memory, in 4-byte words: at level 0 two buffers, F[0] (x, h_0,
+    dh_0, df_0) and H[0] (scratch, g, scratch, x again); at each level l > 0 the
+    pyramid's F[l] (f_l; at l = level then dh_l, df_l), H[l] for l < level (h_l, then
+    dh_l, df_l) and G[l] (scratch, dy_l, scratch). Each has a zero halo of k/2 and a
+    row pitch from ``_pitches``. Returns (sizes, pitch, F, H, G, words), G[0] unused."""
     p = k // 2
     sizes = pyramid_sizes(h, w, level)
     pitch = _pitches(sizes, k)
     region = [(lh + 2 * p) * pitch[l] for l, (lh, _) in enumerate(sizes)]
     off = 0
-    fb, hb, gb = [], [], []
-    for bufs, levels in ((fb, range(level + 1)), (hb, range(level)), (gb, range(level + 1))):
+    fb, hb, gb = [], [], [0]
+    for bufs, levels in ((fb, range(level + 1)), (hb, range(level)),
+                         (gb, range(1, level + 1))):
         for l in levels:
             bufs.append(off)
             off += region[l]
-    hb.append(0)  # h_L is F[L]: no buffer of its own
-    s1, off = off, off + region[1]
-    return sizes, pitch, fb, hb, gb, s1, off
+    hb.append(0)  # h_level is F[level]: no buffer of its own
+    return sizes, pitch, fb, hb, gb, off
+
+
+def resident(smem_bytes: int) -> int:
+    """Blocks of ``smem_bytes`` dynamic shared memory (and 256 threads) that one SM of
+    an H100 holds: its 228 KB, less 1 KB the runtime keeps for each block."""
+    return min(SM_SMEM_BYTES // (smem_bytes + BLOCK_RESERVED_BYTES),
+               SM_THREADS // BLOCK_THREADS)
 
 
 def _layout(h: int, w: int, level: int, k: int) -> LaunchConfig:
     """``launch_config`` without its check that the block fits in shared memory. The
-    teams' regions first (spaced by ``_team_stride``), then the channel's weights and
-    one row of weight-gradient sums per fragment."""
-    sizes, pitch, fb, hb, gb, s1, words = _team_layout(h, w, level, k)
+    teams' regions first (spaced by ``_team_stride``), then the channel's weights,
+    one row of weight-gradient sums per fragment and, where they leave room for as
+    many blocks on an SM, copies of the two plan tables."""
+    sizes, pitch, fb, hb, gb, words = _team_layout(h, w, level, k)
     taps = (level + 2) * k * k
+    ftable, frows, fcols = lerp_plan_table(h, w, level)
+    btable, brows, bcols = transposed_plan_table(h, w, level)
 
     def layout(team):
         per_block = BLOCK_THREADS // team
@@ -232,8 +247,13 @@ def _layout(h: int, w: int, level: int, k: int) -> LaunchConfig:
     while team < BLOCK_THREADS and layout(team)[-1] * 4 > MAX_DYNAMIC_SMEM:
         team *= 2  # fewer planes per block
     per_block, stride, wts, slots, end = layout(team)
-    _, frows, fcols = lerp_plan_table(h, w, level)
-    _, brows, bcols = transposed_plan_table(h, w, level)
+    fplan = _ceil_to(end, 4)  # int4 rows
+    bplan = fplan + ftable.size
+    with_plans = bplan + btable.size
+    if resident(with_plans * 4) < resident(end * 4):
+        fplan = bplan = -1
+    else:
+        end = with_plans
     pad = [0] * (MAX_LEVEL + 1 - len(sizes))
     lpad = [0] * (MAX_LEVEL + 1 - len(frows))
     geometry = ((level,) + tuple(s[0] for s in sizes) + tuple(pad)
@@ -241,7 +261,7 @@ def _layout(h: int, w: int, level: int, k: int) -> LaunchConfig:
                 + tuple(fb) + tuple(pad) + tuple(hb) + tuple(pad) + tuple(gb) + tuple(pad)
                 + tuple(frows) + tuple(lpad) + tuple(fcols) + tuple(lpad)
                 + tuple(brows) + tuple(lpad) + tuple(bcols) + tuple(lpad)
-                + (s1, words, stride, wts, slots))
+                + (stride, wts, slots, fplan, bplan, ftable.size, btable.size))
     return LaunchConfig(team, per_block, end * 4, geometry)
 
 

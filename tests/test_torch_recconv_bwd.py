@@ -107,11 +107,11 @@ def test_transposed_plan_table_offsets():
 
 
 def test_launch_config_at_m1_shapes_and_refusal():
-    for side, level, team in ((56, 4, 256), (28, 3, 64), (14, 2, 16), (7, 1, 16)):
+    for side, level, team in ((56, 4, 256), (28, 3, 64), (14, 2, 32), (7, 1, 8)):
         cfg = bwd.launch_config(side, side, level, 5)
         assert cfg.team == team and cfg.planes_per_block * team == 256
         assert cfg.smem_bytes <= bwd.MAX_DYNAMIC_SMEM
-        assert len(cfg.geometry) == 56 and cfg.geometry[0] == level
+        assert len(cfg.geometry) == 58 and cfg.geometry[0] == level
     assert bwd.launch_config(96, 96, 4, 5).smem_bytes <= bwd.MAX_DYNAMIC_SMEM  # 384^2 finetune
     with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
         bwd.check_fits(160, 160, 4, 5)
@@ -119,95 +119,116 @@ def test_launch_config_at_m1_shapes_and_refusal():
         bwd.check_fits(14, 14, 2, 4)
 
 
-def _emulate(x, ws, g, level, mode):
-    """csrc/recconv_bwd.cu's arithmetic, vectorised over (n, c) and pixels but
-    indexed as the kernel indexes its haloed shared buffers: the forward recompute
-    with the forward kernel's lerp table, convT and corr by tap offsets into
-    halo-padded planes, D^T as the parity gather, up^T from the transposed table."""
+def _emulate(x, ws, g, level, mode, sm=None):
+    """csrc/recconv_bwd.cu's arithmetic, vectorised over the (n, c) planes but run in
+    one team's shared memory as ``ops/cuda/recconv_bwd.py:_team_layout`` lays it out:
+    every buffer is a view of a flat array that starts as NaN (or, passed as ``sm``,
+    holds what an earlier plane left), the halo rings are zeroed once, and each step
+    reads and writes the buffers the kernel does, in its order, in the interiors only.
+    A read of a stale word or of a ring the kernel never zeroes turns the result NaN.
+    Returns (dx, dWs, sm)."""
+    n, c, h0, w0 = x.shape
     k = ws[0].shape[-1]
     p = k // 2
-    h0, w0 = x.shape[2:]
-    sizes = pyramid_sizes(h0, w0, level)
-    wd, wc = ws[0][:, 0], [w[:, 0] for w in ws[1:]]  # (C, k, k)
-    pad = lambda t: np.pad(t, ((0, 0), (0, 0), (p, p), (p, p)))  # noqa: E731
+    sizes, pitch, fb, hb, gb, words = bwd._team_layout(h0, w0, level, k)
+    planes = n * c
+    if sm is None:
+        sm = np.full((planes, words), np.nan, np.float32)
+    chan = np.arange(planes) % c
+    wd, wc = ws[0][chan, 0], [w[chan, 0] for w in ws[1:]]  # (planes, k, k)
 
-    def conv(src, w, stride=1):  # cross-correlation over a haloed source
-        sp = pad(src)
-        oh, ow = ((src.shape[2] + 1) // 2, (src.shape[3] + 1) // 2) if stride == 2 \
-            else src.shape[2:]
-        out = np.zeros(src.shape[:2] + (oh, ow), np.float32)
+    def pad(off, l):  # the haloed buffer at `off` of level l, a view
+        return sm[:, off:off + (sizes[l][0] + 2 * p) * pitch[l]].reshape(planes, -1, pitch[l])
+
+    def inner(off, l, hh=None, ww=None):  # its interior (or an hh x ww corner of it)
+        hh, ww = hh or sizes[l][0], ww or sizes[l][1]
+        return pad(off, l)[:, p:p + hh, p:p + ww]
+
+    def ring(off, l):  # csrc/recconv_bwd.cu:zero_ring
+        b = pad(off, l)
+        b[:, :p] = 0
+        b[:, p + sizes[l][0]:] = 0
+        b[:, :, :p] = 0
+        b[:, :, p + sizes[l][1]:] = 0
+
+    def conv(src, w, oh, ow, stride=1):  # src haloed: out = sum w[u, v] src[s r + u, s c + v]
+        out = np.zeros((planes, oh, ow), np.float32)
         for u in range(k):
             for v in range(k):
-                win = sp[:, :, u:u + stride * oh:stride, v:v + stride * ow:stride]
-                out += w[None, :, u, v, None, None] * win
+                out += w[:, u, v, None, None] * src[:, u:u + stride * oh:stride,
+                                                    v:v + stride * ow:stride]
         return out
 
-    def corr(src, dy, stride=1):  # dW[c, u, v] = sum dy[i, j] src_pad[s*i + u, s*j + v]
-        sp = pad(src)
-        oh, ow = dy.shape[2:]
-        return np.stack([np.stack([(dy * sp[:, :, u:u + stride * oh:stride,
-                                            v:v + stride * ow:stride]).sum((0, 2, 3))
-                                   for v in range(k)], -1) for u in range(k)], -2)
+    def corr(src, dy, stride=1):  # dW[c, u, v] = sum dy[r, q] src[s r + u, s q + v]
+        oh, ow = dy.shape[1:]
+        per = np.stack([np.stack([(dy * src[:, u:u + stride * oh:stride,
+                                            v:v + stride * ow:stride]).sum((1, 2))
+                                  for v in range(k)], -1) for u in range(k)], -2)
+        return np.stack([per[chan == i].sum(0) for i in range(c)])[:, None]
 
-    def convT(dy, w):  # dh[a, b] = sum w[u, v] dy_pad[a + 2p - u, b + 2p - v]
-        dp = pad(dy)
-        hh, ww = dy.shape[2:]
-        out = np.zeros_like(dy)
-        for u in range(k):
-            for v in range(k):
-                out += w[None, :, u, v, None, None] * dp[:, :, 2 * p - u:2 * p - u + hh,
-                                                           2 * p - v:2 * p - v + ww]
-        return out
-
-    def down_T(df, w, hh, ww):  # taps with (a + p - u) even, read at (a + p - u)/2 + p
-        dp = pad(df)
-        out = np.zeros(df.shape[:2] + (hh, ww), np.float32)
+    def down_t(df, hh, ww):  # taps with (a + p - u) even, read at (a + p - u) / 2 + p
+        out = np.zeros((planes, hh, ww), np.float32)
         a, b = np.arange(hh), np.arange(ww)
         for u in range(k):
             ra = a + p - u
-            rok = ra % 2 == 0
             for v in range(k):
                 cb = b + p - v
-                cok = cb % 2 == 0
-                blk = dp[:, :, (ra // 2 + p)[:, None], (cb // 2 + p)[None, :]]
-                out += w[None, :, u, v, None, None] * blk * (rok[:, None] & cok[None, :])
+                blk = df[:, (ra // 2 + p)[:, None], (cb // 2 + p)[None, :]]
+                keep = (ra % 2 == 0)[:, None] & (cb % 2 == 0)[None, :]
+                out += np.where(keep, wd[:, u, v, None, None] * blk, 0)
         return out
 
     ftab, frows, fcols = lerp_plan_table(h0, w0, level, mode)
     btab, brows, bcols = bwd.transposed_plan_table(h0, w0, level, mode)
-    f = [x]
-    for _ in range(level):
-        f.append(conv(f[-1], wd, 2))
-    hs = [None] * level + [f[level]]
+    for l in range(level + 1):
+        ring(fb[l], l)
+        if l < level:
+            ring(hb[l], l)
+        if l > 0:
+            ring(gb[l], l)
+    F = lambda l: fb[l]  # noqa: E731
+    H = lambda l: hb[l]  # noqa: E731
+    dh = lambda l: fb[l] if l in (0, level) else hb[l]  # noqa: E731
+    inner(F(0), 0)[:] = x.reshape(planes, h0, w0)
+    for l in range(1, level + 1):
+        inner(F(l), l)[:] = conv(pad(F(l - 1), l - 1), wd, *sizes[l], stride=2)
     for j in range(level - 1, -1, -1):
-        y = conv(hs[j + 1], wc[level - j - 1])
-        r = ftab[frows[j + 1]:frows[j + 1] + sizes[j][0]]
-        wr = r[:, 2].view(np.float32)[None, None, :, None]
-        t = y[:, :, r[:, 0]] + (y[:, :, r[:, 1]] - y[:, :, r[:, 0]]) * wr
-        cc = ftab[fcols[j + 1]:fcols[j + 1] + sizes[j][1]]
-        wcc = cc[:, 2].view(np.float32)[None, None, None, :]
-        hs[j] = f[j] + (t[:, :, :, cc[:, 0]] + (t[:, :, :, cc[:, 1]] - t[:, :, :, cc[:, 0]]) * wcc)
-
-    def up_T(src, l):  # fine level l-1 -> coarse level l: columns, then rows
-        (ch, cw), fan = sizes[l], bwd.MAX_FAN
-        ci = btab[bcols[l]:bcols[l] + cw * fan].reshape(cw, fan, 2)
-        t = _apply_transposed(src, ci[..., 0], ci[..., 1].view(np.float32), 3)
-        ri = btab[brows[l]:brows[l] + ch * fan].reshape(ch, fan, 2)
-        return _apply_transposed(t, ri[..., 0], ri[..., 1].view(np.float32), 2).astype(
-            np.float32)
-
+        (hj, wj), (hn, wn) = sizes[j], sizes[j + 1]
+        y = inner(gb[j + 1], j + 1)
+        y[:] = conv(pad(F(level) if j + 1 == level else H(j + 1), j + 1), wc[level - j - 1],
+                    hn, wn)
+        r = ftab[frows[j + 1]:frows[j + 1] + hj]
+        wr = r[:, 2].view(np.float32)[None, :, None]
+        tmp = inner(hb[0] if j == 0 else gb[j], j, hj, wn)
+        tmp[:] = y[:, r[:, 0]] + (y[:, r[:, 1]] - y[:, r[:, 0]]) * wr
+        cc = ftab[fcols[j + 1]:fcols[j + 1] + wj]
+        wcc = cc[:, 2].view(np.float32)[None, None, :]
+        hs = inner(F(0) if j == 0 else H(j), j)
+        hs[:] = inner(F(j), j) + (tmp[:, :, cc[:, 0]]
+                                  + (tmp[:, :, cc[:, 1]] - tmp[:, :, cc[:, 0]]) * wcc)
+    inner(hb[0], 0)[:] = g.reshape(planes, h0, w0)
     dws = [None] * (level + 2)
-    dws[level + 1] = corr(hs[0], g)
-    dh = [convT(g, wc[level])] + [None] * level
+    dws[level + 1] = corr(pad(F(0), 0), inner(hb[0], 0))
+    inner(F(0), 0)[:] = conv(pad(hb[0], 0), wc[level][:, ::-1, ::-1], h0, w0)
+    fan = bwd.MAX_FAN
     for j in range(1, level + 1):
-        dy = up_T(dh[j - 1], j)
-        dws[1 + level - j] = corr(hs[j], dy)
-        dh[j] = convT(dy, wc[level - j])
-    dws[0] = np.zeros_like(dws[1])
+        (hp, _), (hj, wj) = sizes[j - 1], sizes[j]
+        ci = btab[bcols[j]:bcols[j] + wj * fan].reshape(wj, fan, 2)
+        tw = inner(hb[0] if j == 1 else gb[j - 1], j - 1, hp, wj)
+        tw[:] = _apply_transposed(inner(dh(j - 1), j - 1), ci[..., 0],
+                                  ci[..., 1].view(np.float32), 2)
+        ri = btab[brows[j]:brows[j] + hj * fan].reshape(hj, fan, 2)
+        dy = inner(gb[j], j)
+        dy[:] = _apply_transposed(tw, ri[..., 0], ri[..., 1].view(np.float32), 1)
+        dws[1 + level - j] = corr(pad(F(level) if j == level else H(j), j), dy)
+        inner(dh(j), j)[:] = conv(pad(gb[j], j), wc[level - j][:, ::-1, ::-1], hj, wj)
+    inner(hb[0], 0)[:] = x.reshape(planes, h0, w0)
+    dws[0] = 0
     for j in range(level, 0, -1):
-        dws[0] += corr(f[j - 1], dh[j], stride=2)
-        dh[j - 1] = dh[j - 1] + down_T(dh[j], wd, *sizes[j - 1])
-    return dh[0], [d[:, None] for d in dws]
+        dws[0] = dws[0] + corr(pad(hb[0] if j == 1 else F(j - 1), j - 1), inner(dh(j), j),
+                               stride=2)
+        inner(dh(j - 1), j - 1)[:] += down_t(pad(dh(j), j), *sizes[j - 1])
+    return inner(F(0), 0).reshape(x.shape).copy(), dws, sm
 
 
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
@@ -219,7 +240,10 @@ def test_kernel_transcription_matches_plain(side, c, level, k, mode):
     x = rng.normal(size=(2, c, side, side + 1)).astype(np.float32)  # odd and even widths
     ws = [(rng.normal(size=(c, 1, k, k)) / k).astype(np.float32) for _ in range(level + 2)]
     g = rng.normal(size=x.shape).astype(np.float32)
-    dx, dws = _emulate(x, ws, g, level, mode)
+    # a plane before this one leaves its values in the buffers' interiors
+    _, _, sm = _emulate(rng.normal(size=x.shape).astype(np.float32), ws,
+                        rng.normal(size=x.shape).astype(np.float32), level, mode)
+    dx, dws, _ = _emulate(x, ws, g, level, mode, sm)
     want = rec_conv2d_backward_plain(torch.from_numpy(x), torch.from_numpy(ws[0]),
                                      [torch.from_numpy(w) for w in ws[1:]],
                                      torch.from_numpy(g), level=level, mode=mode)
