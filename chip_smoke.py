@@ -61,7 +61,9 @@ and read just after:
               rec_conv2d in fp32, cuDNN TF32 off) at m1's four training shapes, batch
               128, f32 (dx within 2e-5 max|ref|, dW within 1e-4 max|ref|: sums over
               N*H*W terms) and bf16 (1e-2 max|ref|), bilinear and nearest; device
-              times at bf16 bilinear, each shape's bound, registers;
+              times at bf16 bilinear, each shape's bound, its launch configuration
+              (team, planes per block, shared bytes, resident blocks per SM) and the
+              kernel's registers and local bytes;
 12. train_grad recnext_m1 at full size, 224^2, batch 8, f32, train mode: every
               parameter's gradient through the kernels against the plain path;
 13. train     the trainer (train.main.main): m1, FAKE, --simple-aug, 224^2, batch
@@ -711,7 +713,8 @@ def _check_backward(x, ws, g, level, mode):
 def phase_backward():
     """The backward kernel at m1's four training shapes (batch 128), f32 and bf16,
     bilinear and nearest, against its plain version; device times at bf16 bilinear
-    (the train step's), each shape's bound and the kernel's registers."""
+    (the train step's), each shape's bound, its launch configuration and the kernel's
+    registers."""
     gen = torch.Generator().manual_seed(7)
     per_shape, max_abs_err = {}, 0.0
     for level, (c, side, _) in M1_MIXERS.items():

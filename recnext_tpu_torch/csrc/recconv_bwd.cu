@@ -14,35 +14,57 @@
 // convT is the stride-1 conv with the kernel rotated by 180 degrees, DT the stride-2
 // conv's adjoint, upT the resize's adjoint.
 //
-// Design: one block per (n, c) plane, all in fp32 shared memory. The block recomputes
-// the pyramid f and the sums h from x (so the forward saves only x and the weights),
-// then keeps the gradient pyramid beside them: three fp32 pyramids with zero halos of
-// k/2 and one level-1 scratch plane (ops/cuda/recconv_bwd.py:launch_config lays them
-// out and passes the offsets as `Geometry`). Every adjoint is a gather, so the kernel
-// uses no atomics and gives the same bits on every run:
-//   - convT and DT read the halo-padded gradient at the taps that reach an output;
-//     DT keeps the taps u with (i + k/2 - u) even and reads (i + k/2 - u) / 2;
-//   - upT reads, for each coarse index, the fine indices and weights that read it
-//     (at most 4 per axis), from a transposed plan table built on the host from the
-//     same per-axis plans as the forward kernel's (columns, then rows);
-//   - each weight gradient is a sum over the plane: each thread keeps k*k partial sums
-//     in registers over a fixed set of pixels, then a fixed tree of warp shuffles and
-//     one row per warp in shared memory add them.
-// The block writes its (L+2) k*k weight-gradient partials in fp32 to an
-// (N*C, L+2, k, k) buffer; recconv_bwd_sum_kernel adds them over N in a fixed order.
-// x and g are f32 or bf16 (one type); dx is written in that type; the weights are read
-// as fp32 and the weight gradients are fp32.
-//
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
 // cores): the function must read x and g and write dx, and do about three times the
 // forward's fp32 operations (the recomputed forward, convT and corr at every level, and
-// DT with corr_s2 at every downsample), so at m1's shapes the fp32 operations bound it,
-// as they bound the forward kernel. The design does nothing yet about the rate of
-// shared-memory loads (k*k loads per output of each conv and corr, one warp-wide load
-// per clock per SM), nor about the few lanes busy at the coarse levels, nor about the
-// occupancy that ~68 KB a block (m1's 56^2 plane) allows: it is the simple and right
-// first form. Planes whose backward does not fit in one block's shared memory are
-// refused by the host before any launch.
+// DT with corr_s2 at every downsample), so at m1's shapes the fp32 operations bound it
+// (0.55 ms over an m1 train step at batch 128). There is no matrix product for the
+// tensor cores. In practice what bounds it is the rate of shared-memory loads and
+// shuffles (one warp-wide instruction a clock an SM, against four warp-wide multiply-
+// adds), the lanes left idle by small planes and coarse levels, and the planes an SM
+// holds at once, which shared memory limits: the backward keeps two to three fp32
+// pyramids a plane, about three times the forward's.
+//
+// Design. Every (n, c) plane is independent. The kernel recomputes the pyramid f and
+// the sums h from x in fp32 shared memory (the forward saves only x and the weights),
+// then walks the gradient pyramid; every adjoint is a gather, so it uses no atomics and
+// gives the same bits on every run. Its design, in the three steps it was built in:
+//   1. Teams, and planes of one channel per block. A team of T threads (8 to 256, a
+//      power of two; ops/cuda/recconv_bwd.py:team_size picks it from the plane's area)
+//      owns one plane, and a block of 256 threads holds 256/T teams, which take the
+//      planes (n, c) of one channel c at consecutive n: the block loads the channel's
+//      (L+2) k*k weights once for them. The grid is one wave of resident blocks that
+//      walk over the items (c, group of n). A team synchronises alone (__syncwarp
+//      within a warp, a named barrier above). Each weight gradient is summed over a
+//      team's lanes by a reduce-scatter of log2(lanes) shuffle stages (about k*k
+//      shuffles, not k*k log2(lanes)) into one row per fragment (a team's lanes within
+//      one warp) in shared memory; at an item's end the block adds the rows in order
+//      into a (C, groups, L+2, k, k) buffer, and recconv_bwd_sum_kernel adds the
+//      groups of each channel in order. Small planes no longer run 64-thread blocks of
+//      mostly idle lanes through block-wide barriers and sums.
+//   2. Weights in registers and register strips. Each conv, its adjoint (the conv
+//      with the weights loaded rotated) and the down conv's adjoint load their k*k
+//      weights into registers, and every conv and correlation computes a strip of 4
+//      outputs along a row with each tap row's window in registers: (4 + k - 1) loads
+//      for 4k multiply-adds, not 2 loads a multiply-add. The down conv's adjoint
+//      resolves its tap parities per strip at compile time (the rows' by a's parity,
+//      the columns' by the position in the strip). Consecutive lanes take consecutive
+//      rows and every row pitch is odd, so one load's lanes hit distinct banks (teams
+//      within one warp are spaced by T modulo 32 words).
+//   3. Shared-memory cuts. Every step writes only the interiors of its haloed
+//      buffers, so each team zeroes its halo rings once a block. Level 0 holds two
+//      buffers (x, h_0 in place, dh_0, df_0; and scratch, g, scratch, x read again for
+//      sweep 2), and each level l > 0 three (f_l; h_l then dh_l; scratch then dy_l),
+//      as ops/cuda/recconv_bwd.py:_team_layout lays them out and passes the offsets as
+//      `Geometry`. The plan tables are copied into shared memory where that leaves
+//      room for as many blocks; the loops walk rows and columns without a division.
+// upT reads, for each coarse index, the fine indices and weights that read it (at most
+// 4 per axis), from a transposed plan table built on the host from the same per-axis
+// plans as the forward kernel's (columns, then rows); DT keeps the taps u with
+// (i + k/2 - u) even and reads (i + k/2 - u) / 2 inside the zero halo. x and g are f32
+// or bf16 (one type); dx is written in that type; the weights are read as fp32 and the
+// weight gradients are fp32. Planes whose backward does not fit in one block's shared
+// memory are refused by the host before any launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -379,7 +401,7 @@ __device__ __forceinline__ void team_sum(const float (&acc)[K * K], int lanes, b
 }
 
 template <typename T, int K>
-__global__ void __launch_bounds__(256, K == 7 ? 2 : 4)  // k <= 5: 64 registers
+__global__ void __launch_bounds__(256, K == 7 ? 2 : 3)  // k <= 5: 85 registers
 recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
                    const float* __restrict__ weights, const int4* __restrict__ fplans,
                    const int2* __restrict__ bplans, float* __restrict__ partial,

@@ -159,11 +159,12 @@ class LaunchConfig(NamedTuple):
 
 
 def team_size(h: int, w: int) -> int:
-    """Threads per plane, from the plane's area: 8 up to 8^2 (m1's 7^2), 32 up to 16^2
-    (14^2), 64 up to 32^2 (28^2), 256 above (56^2: one plane a block; two of its
-    ~55 KB would leave room for fewer threads on an SM)."""
+    """Threads per plane, from the plane's area: 8 up to 8^2 (m1's 7^2), 16 up to 16^2
+    (14^2), 64 up to 32^2 (28^2), 128 up to 64^2 (56^2), 256 above; the fastest team
+    at each of m1's planes (tools/k1_bwd_phases.py, PERF.md section 6). Planes whose
+    block does not fit take larger teams (``_layout``)."""
     hw = h * w
-    return next(t for t, most in ((8, 64), (32, 256), (64, 1024), (256, None))
+    return next(t for t, most in ((8, 64), (16, 256), (64, 1024), (128, 4096), (256, None))
                 if most is None or hw <= most)
 
 

@@ -107,7 +107,7 @@ def test_transposed_plan_table_offsets():
 
 
 def test_launch_config_at_m1_shapes_and_refusal():
-    for side, level, team in ((56, 4, 256), (28, 3, 64), (14, 2, 32), (7, 1, 8)):
+    for side, level, team in ((56, 4, 128), (28, 3, 64), (14, 2, 16), (7, 1, 8)):
         cfg = bwd.launch_config(side, side, level, 5)
         assert cfg.team == team and cfg.planes_per_block * team == 256
         assert cfg.smem_bytes <= bwd.MAX_DYNAMIC_SMEM

@@ -16,7 +16,7 @@ LEVELS = MAX_LEVEL + 1
 TAIL = ("team_words", "wts", "slots", "fplan", "bplan", "fplan_words", "bplan_words")
 ARRAYS = ("h", "w", "pitch", "f", "hb", "gb", "frows", "fcols", "brows", "bcols")
 # recnext_m1's four mixer planes at 224^2: (side, level) -> team size
-M1_TEAMS = {(56, 4): 256, (28, 3): 64, (14, 2): 32, (7, 1): 8}
+M1_TEAMS = {(56, 4): 128, (28, 3): 64, (14, 2): 16, (7, 1): 8}
 
 
 def _fields(cfg):
@@ -36,8 +36,15 @@ def test_team_size_and_teams_per_block_at_the_m1_planes(side, level):
     assert cfg.planes_per_block * cfg.team == bwd.BLOCK_THREADS
 
 
-def test_the_56_plane_leaves_room_for_four_blocks_an_sm():
-    assert bwd.resident(bwd.launch_config(56, 56, 4, 5).smem_bytes) >= 4
+def test_the_56_plane_leaves_room_for_four_one_plane_blocks_an_sm(monkeypatch):
+    monkeypatch.setattr(bwd, "team_size", lambda h, w: 256)
+    bwd.launch_config.cache_clear()
+    try:
+        cfg = bwd.launch_config(56, 56, 4, 5)
+        assert cfg.planes_per_block == 1 and bwd.resident(cfg.smem_bytes) >= 4
+    finally:
+        monkeypatch.undo()
+        bwd.launch_config.cache_clear()
 
 
 @pytest.mark.parametrize("k", [3, 5, 7])
