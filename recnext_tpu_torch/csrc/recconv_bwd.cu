@@ -56,8 +56,8 @@
 //      buffers (x, h_0 in place, dh_0, df_0; and scratch, g, scratch, x read again for
 //      sweep 2), and each level l > 0 three (f_l; h_l then dh_l; scratch then dy_l),
 //      as ops/cuda/recconv_bwd.py:_team_layout lays them out and passes the offsets as
-//      `Geometry`. The plan tables are copied into shared memory where that leaves
-//      room for as many blocks; the loops walk rows and columns without a division.
+//      `Geometry`. Each block copies the plan tables into shared memory; the loops
+//      walk rows and columns without a division.
 // upT reads, for each coarse index, the fine indices and weights that read it (at most
 // 4 per axis), from a transposed plan table built on the host from the same per-axis
 // plans as the forward kernel's (columns, then rows); DT keeps the taps u with
@@ -102,9 +102,8 @@ struct Geometry {
   int team_words;      // words from one team's region to the next
   // block-wide, after the teams: the channel's (level + 2) k*k weights (down, conv0
   // .. conv{level}); one (level + 2) k*k row of weight-gradient sums for each fragment
-  // of a team (the lanes of a team within one warp); copies of the two plan tables
-  // (offsets -1 where the block reads them from device memory instead: where a copy
-  // would leave room for fewer blocks on an SM) and their sizes in words
+  // of a team (the lanes of a team within one warp); copies of the two plan tables,
+  // and their sizes in words
   int wts, slots, fplan, bplan, fplan_words, bplan_words;
 };
 
@@ -421,12 +420,10 @@ recconv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restri
   float* const slots = smem + geo.slots;
   float* const slot = slots + frag * (L + 2) * KK;
   if (threadIdx.x == 0) G = geo;
-  // once per block: the plan tables (where the layout holds them), the halo rings
-  const int4* const fplan =
-      geo.fplan < 0 ? fplans : reinterpret_cast<const int4*>(smem + geo.fplan);
-  const int2* const bplan =
-      geo.bplan < 0 ? bplans : reinterpret_cast<const int2*>(smem + geo.bplan);
-  if (geo.fplan >= 0) {
+  // once per block: the plan tables into shared memory, the halo rings zeroed
+  const int4* const fplan = reinterpret_cast<const int4*>(smem + geo.fplan);
+  const int2* const bplan = reinterpret_cast<const int2*>(smem + geo.bplan);
+  {
     const float* src = reinterpret_cast<const float*>(fplans);
     for (int i = threadIdx.x; i < geo.fplan_words; i += blockDim.x) smem[geo.fplan + i] = src[i];
     src = reinterpret_cast<const float*>(bplans);

@@ -9,10 +9,11 @@ nothing is built or loaded at import.
 The host side lays the kernel out, once per plane shape, in plain Python that the
 CPU tests reach: ``launch_config`` gives the team size (threads per (n, c) plane),
 the teams in a block of 256 threads, the block's shared memory and the geometry the
-kernel reads as a struct (level sizes, row pitches, buffer offsets, plan offsets); ``transposed_plan_table`` packs the adjoint of every
-up-step as a gather: for each coarse index, the fine indices and weights that read
-it (at most ``MAX_FAN`` per axis), built from the same ``_axis_plan`` as the
-forward kernel's ``lerp_plan_table``. Planes whose backward does not fit in one
+kernel reads as a struct (level sizes, row pitches, buffer offsets, plan offsets);
+``transposed_plan_table`` packs the adjoint of every up-step as a gather: for each
+coarse index, the fine indices and weights that read it (at most ``MAX_FAN`` per
+axis), built from the same ``_axis_plan`` as the forward kernel's
+``lerp_plan_table``. Planes whose backward does not fit in one
 block's shared memory raise (``check_fits``), chosen by shape before any launch.
 """
 
@@ -33,7 +34,6 @@ from recnext_tpu_torch.ops.cuda.recconv import (
     MAX_SMEM_BYTES,
     MODES,
     STRIP,
-    TEAM_SIZES,
     _axis_plan,
     _ceil_to,
     _device_plan_table,
@@ -47,9 +47,6 @@ MAX_FAN = 4  # fine indices that read one coarse index, per axis (bilinear 4, ne
 # the dynamic shared memory a block may take: the H100's 227 KB less the kernel's
 # static copy of its geometry (csrc/recconv_bwd.cu: Geometry, 58 ints), rounded up
 MAX_DYNAMIC_SMEM = MAX_SMEM_BYTES - 256
-# an H100 SM's shared memory (228 KB), what the runtime keeps of it for each block,
-# and the threads an SM holds
-SM_SMEM_BYTES, BLOCK_RESERVED_BYTES, SM_THREADS = 233472, 1024, 2048
 TILED_ITEM = ("ROADMAP.md Queue 2 (a tiled or peeled RecConv2d backward for planes "
               "larger than shared memory)")
 
@@ -220,18 +217,10 @@ def _team_layout(h: int, w: int, level: int, k: int) -> tuple:
     return sizes, pitch, fb, hb, gb, off
 
 
-def resident(smem_bytes: int) -> int:
-    """Blocks of ``smem_bytes`` dynamic shared memory (and 256 threads) that one SM of
-    an H100 holds: its 228 KB, less 1 KB the runtime keeps for each block."""
-    return min(SM_SMEM_BYTES // (smem_bytes + BLOCK_RESERVED_BYTES),
-               SM_THREADS // BLOCK_THREADS)
-
-
 def _layout(h: int, w: int, level: int, k: int) -> LaunchConfig:
     """``launch_config`` without its check that the block fits in shared memory. The
     teams' regions first (spaced by ``_team_stride``), then the channel's weights,
-    one row of weight-gradient sums per fragment and, where they leave room for as
-    many blocks on an SM, copies of the two plan tables."""
+    one row of weight-gradient sums per fragment and copies of the two plan tables."""
     sizes, pitch, fb, hb, gb, words = _team_layout(h, w, level, k)
     taps = (level + 2) * k * k
     ftable, frows, fcols = lerp_plan_table(h, w, level)
@@ -250,11 +239,7 @@ def _layout(h: int, w: int, level: int, k: int) -> LaunchConfig:
     per_block, stride, wts, slots, end = layout(team)
     fplan = _ceil_to(end, 4)  # int4 rows
     bplan = fplan + ftable.size
-    with_plans = bplan + btable.size
-    if resident(with_plans * 4) < resident(end * 4):
-        fplan = bplan = -1
-    else:
-        end = with_plans
+    end = bplan + btable.size
     pad = [0] * (MAX_LEVEL + 1 - len(sizes))
     lpad = [0] * (MAX_LEVEL + 1 - len(frows))
     geometry = ((level,) + tuple(s[0] for s in sizes) + tuple(pad)

@@ -36,15 +36,17 @@ def test_team_size_and_teams_per_block_at_the_m1_planes(side, level):
     assert cfg.planes_per_block * cfg.team == bwd.BLOCK_THREADS
 
 
-def test_the_56_plane_leaves_room_for_four_one_plane_blocks_an_sm(monkeypatch):
-    monkeypatch.setattr(bwd, "team_size", lambda h, w: 256)
-    bwd.launch_config.cache_clear()
-    try:
-        cfg = bwd.launch_config(56, 56, 4, 5)
-        assert cfg.planes_per_block == 1 and bwd.resident(cfg.smem_bytes) >= 4
-    finally:
-        monkeypatch.undo()
-        bwd.launch_config.cache_clear()
+def _resident(smem_bytes):
+    """Blocks of ``smem_bytes`` dynamic shared memory and 256 threads that one H100 SM
+    holds: its 228 KB, less the 1 KB the runtime keeps for each block; 2048 threads."""
+    return min(233472 // (smem_bytes + 1024), 2048 // bwd.BLOCK_THREADS)
+
+
+@pytest.mark.parametrize("side,level,planes", [(56, 4, 4), (28, 3, 12), (14, 2, 32),
+                                               (7, 1, 96)])
+def test_planes_an_sm_holds_at_the_m1_planes(side, level, planes):
+    cfg = bwd.launch_config(side, side, level, 5)
+    assert _resident(cfg.smem_bytes) * cfg.planes_per_block == planes
 
 
 @pytest.mark.parametrize("k", [3, 5, 7])
@@ -57,14 +59,9 @@ def test_the_block_fits_in_shared_memory(side, level, k):
     assert f["team_words"] * cfg.planes_per_block <= f["wts"]
     assert f["slots"] == f["wts"] + (level + 2) * k * k
     end = f["slots"] + bwd.fragments(cfg.team) * (level + 2) * k * k
-    if f["fplan"] >= 0:
-        assert f["fplan"] % 4 == 0 and f["fplan"] >= end  # int4 rows
-        assert f["bplan"] == f["fplan"] + f["fplan_words"]
-        end = f["bplan"] + f["bplan_words"]
-    else:  # no copies only where they would leave room for fewer blocks
-        with_plans = bwd._ceil_to(end, 4) + f["fplan_words"] + f["bplan_words"]
-        assert bwd.resident(with_plans * 4) < bwd.resident(end * 4)
-    assert cfg.smem_bytes == 4 * end
+    assert f["fplan"] % 4 == 0 and end <= f["fplan"] < end + 4  # int4 rows
+    assert f["bplan"] == f["fplan"] + f["fplan_words"]
+    assert cfg.smem_bytes == 4 * (f["bplan"] + f["bplan_words"])
 
 
 @pytest.mark.parametrize("k", [3, 5, 7])
