@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
-source, started together), then drives three paths, each with every kernel launch
+source, started together), then drives four paths, each with every kernel launch
 count set to 0 just before its main phase (serving; for training, the trainer)
 and read just after:
 
@@ -73,7 +73,25 @@ and read just after:
               checkpoint files; the main path whose launches are counted;
 14. train_throughput  bench.train_throughput("recnext_m1", 128) with 3 repeats: the
               median img/s, the spread and the step ms, and a profiler trace of 3
-              steps (top kernels, the backward kernel's share, the idle share).
+              steps (top kernels, the backward kernel's share, the idle share);
+   recnext_a1 training (K2 and its backward kernel K2', csrc/linear_attention_bwd.cu,
+   with the reference recipe's hard distillation from a seeded regnety_160):
+15. attention_backward  K2' against its plain version (autograd over the kv-first
+              form in fp32) at tests/test_pallas.py's shapes, a1's four training
+              shapes at batch 128, DV != D (12, 24), D = DV = 128, heads off 16-byte
+              alignment and N = 1, through the (BH, N, D) and the NCHW entries: f32
+              within 1e-3 + 1e-3 |ref|, bf16 within 1e-2 max|ref|, the same bits on
+              three runs; each shape's launch configuration, the kernel's registers,
+              device times at a1's shapes (batch 128, bf16; CUDA events around calls
+              queued behind other work, back to back and with L2 flushed before each
+              call; the profiler's beside) beside bound and plain, and their sums
+              over one a1 train step's 23 calls;
+16-17.        phases 12-13 for recnext_a1: its full-size gradients through K2 and
+              K2' against the plain path; the trainer with --distillation-type hard
+              --teacher-model regnety_160: 23 K2 launches and 23 K2' calls per train
+              step, 23 K2 launches per fused eval forward, nothing of K1 or K1';
+18. train_throughput  phase 14 for recnext_a1, without and with the regnety_160
+              hard teacher, and the distilled step's cost over the plain one.
 Then each phase's seconds.
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
@@ -85,7 +103,9 @@ is too large for K1: its record's launches are those of one m1 forward at 640^2,
 and its times the sums over that forward's 6 launches at batch 2 in bf16. The
 backward kernel's (rec_conv2d_backward) launches are its calls in the train phase's
 first run, and its times the sums over one m1 train step's 23 calls at batch 128 in
-bf16. The last lines are the kernel record, the card's name and power limit, and
+bf16; K2' (linear_attention_backward) likewise, for a1's train phase and train
+step (times back to back; the phase also gives them with L2 flushed before each
+call). The last lines are the kernel record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -111,12 +131,16 @@ from recnext_tpu_torch.export import publish_fused
 from recnext_tpu_torch.fusion import fuse_params
 from recnext_tpu_torch.models.registry import create_model
 from recnext_tpu_torch.ops.attention import (
+    linear_attention_backward,
+    linear_attention_backward_plain,
     linear_attention_fused,
     linear_attention_kv_first,
     linear_attention_nchw,
+    linear_attention_nchw_backward,
     linear_attention_nchw_plain,
 )
 from recnext_tpu_torch.ops.cuda import linear_attention as attention_cuda
+from recnext_tpu_torch.ops.cuda import linear_attention_bwd as attention_bwd_cuda
 from recnext_tpu_torch.ops.cuda import recconv as recconv_cuda
 from recnext_tpu_torch.ops.cuda import recconv_bwd as recconv_bwd_cuda
 from recnext_tpu_torch.ops.recconv import (
@@ -144,16 +168,24 @@ A1_HEAD_DIM = 24
 # every launch count; each path's serving phase sets them all to 0 before it runs
 COUNTERS = {"rec_conv2d": rec_conv2d_fused, "rec_conv2d_level": rec_conv2d_level,
             "linear_attention": linear_attention_fused,
-            "rec_conv2d_backward": rec_conv2d_backward}
+            "rec_conv2d_backward": rec_conv2d_backward,
+            "linear_attention_backward": linear_attention_backward}
 EXPECTED = {"recnext_m1": {"rec_conv2d": 23, "rec_conv2d_level": 0, "linear_attention": 0,
-                           "rec_conv2d_backward": 0},
+                           "rec_conv2d_backward": 0, "linear_attention_backward": 0},
             "recnext_a1": {"rec_conv2d": 0, "rec_conv2d_level": 0, "linear_attention": 23,
-                           "rec_conv2d_backward": 0}}
-# the train phase's run: recnext_m1, FAKE, 224^2, batch 64, 2 epochs of 3 steps; each
-# epoch's eval scores 3 batches (capped by --steps-per-epoch) with the model and the EMA
+                           "rec_conv2d_backward": 0, "linear_attention_backward": 0}}
+# each training path's kernels: (forward kernel, its backward), 23 calls each a step
+TRAIN_KERNELS = {"recnext_m1": ("rec_conv2d", "rec_conv2d_backward"),
+                 "recnext_a1": ("linear_attention", "linear_attention_backward")}
+# the train phases' runs: FAKE, 224^2, batch 64, 2 epochs of 3 steps; each epoch's eval
+# scores 3 batches (capped by --steps-per-epoch) with the model and the EMA. recnext_a1
+# trains with the reference recipe's hard distillation from a (seeded) regnety_160
 TRAIN_ARGS = ["--model", "recnext_m1", "--data-set", "FAKE", "--simple-aug",
               "--input-size", "224", "--batch-size", "64", "--steps-per-epoch", "3",
               "--log-every", "1", "--seed", "0"]
+A1_TRAIN_ARGS = [a if a != "recnext_m1" else "recnext_a1" for a in TRAIN_ARGS] + [
+    "--distillation-type", "hard", "--teacher-model", "regnety_160"]
+TEACHER = "regnety_160"
 TRAIN_STEPS_PER_EPOCH, EVAL_FORWARDS_PER_EPOCH = 3, 2 * 3
 # m1 at 640^2: its 3 stage-0 mixers (160^2, level 4) each peel one level
 M1_640_LEVEL_LAUNCHES = 6
@@ -211,6 +243,25 @@ def device_ms(fn, iters: int = 20) -> float:
     """Device time per call: the kernels' times summed. Unlike ``cuda_ms`` it leaves
     out the host's time between launches, which bounds a call at small shapes."""
     return sum(k["ms"] for k in trace(fn, iters))
+
+
+def queued_ms(fn, iters: int = 20, ahead: int = 6) -> float:
+    """Device ms per call from CUDA events around ``iters`` calls queued behind
+    ``ahead`` bf16 8192^2 matmuls (about 1 ms each), so that the host's time per call
+    is hidden: the device runs the calls back to back."""
+    a = torch.ones(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(ahead):
+        a @ a
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def time_pair(kernel, plain):
@@ -480,6 +531,147 @@ def phase_attention():
         str(dt).removeprefix("torch."): attention_cuda.kernel_attributes(dt)
         for dt in (torch.float32, torch.bfloat16)}})
     return per_stage, max_abs_err
+
+
+def attention_bwd_work(b, heads, n, d, dv, elem_bytes):
+    """(bytes, flops) the linear-attention gradient needs from q, k, v and g: q, k, v
+    and g read and dq, dk and dv written once; the fp32 operations of its three
+    passes, per head 2*N*D*DV for each of k^T v, kv g_n, q^T a, dKV v_n and dKV^T k_n,
+    and 9*N*D + N*DV for the sums, the normaliser's dots and the scalings."""
+    nbytes = elem_bytes * b * heads * n * (4 * d + 3 * dv)
+    flops = b * heads * (10 * n * d * dv + 9 * n * d + n * dv)
+    return nbytes, flops
+
+
+def _check_attention_grads(got, want, dtype, what):
+    """dq, dk, dv against the plain version in f32 on the same values: f32 within 1e-3
+    + 1e-3 |ref| (tests/test_pallas.py:44's bound), bf16 within 1e-2 max|ref|. A
+    gradient that is 0 in exact arithmetic (dq and dk at N = 1, where out = v) holds
+    rounding noise on both sides: under 1e-5. Returns the max errors."""
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        if scale < 1e-5:
+            ok = a.abs().max().item() < 1e-5
+        elif dtype == torch.float32:
+            ok = bool(((a - b).abs() <= 1e-3 + 1e-3 * b.abs()).all())
+        else:
+            ok = err <= 1e-2 * scale
+        if not ok:
+            raise AssertionError(f"attention backward {name} mismatch at {what}: {err} "
+                                 f"(max|ref| {scale})")
+        errs[name] = err
+    return errs
+
+
+def phase_attention_backward():
+    """K2' (the linear-attention backward kernel) against its plain version (autograd
+    over the kv-first form in fp32, on the same values) through both entries: the
+    (BH, N, D) one (d-fastest heads) and the model's NCHW one (n-fastest heads, q and
+    k the halves of one tensor); the same bits on three runs; each shape's launch
+    configuration and the kernel's registers; device times at a1's training shapes
+    (batch 128, bf16, the NCHW entry) beside their bound and the plain version's."""
+    gen = torch.Generator().manual_seed(9)
+
+    def inputs(bh, n, d, dv):
+        q = torch.randn(bh, n, d, generator=gen).abs() + 0.1  # elu(x)+1 features
+        k = torch.randn(bh, n, d, generator=gen).abs() + 0.1
+        v, g = torch.randn(bh, n, dv, generator=gen), torch.randn(bh, n, dv, generator=gen)
+        return q, k, v, g
+
+    def shifted(t, shift):  # t's values, `shift` elements past a buffer's start
+        flat = torch.empty(shift + t.numel(), dtype=t.dtype, device=t.device)
+        return flat[shift:].view(t.shape).copy_(t)
+
+    def nchw(ts, nh, shift):  # (B*nh, N, R) -> (B, nh*R, 1, N), planes `shift` late
+        bh, n, r = ts.shape
+        buf = torch.empty(bh // nh, shift + nh * r, 1, n, dtype=ts.dtype, device=ts.device)
+        return buf[:, shift:].copy_(ts.transpose(1, 2).reshape(bh // nh, nh * r, 1, n))
+
+    def heads(t, nh, r):  # (B, nh*R, 1, N) -> (B*nh, N, R)
+        return t.reshape(t.shape[0] * nh, r, t.shape[-1]).transpose(1, 2)
+
+    def nchw_entry(q, k, v, g, nh, shift=0):
+        d, dv = q.shape[-1], v.shape[-1]
+        qk = torch.cat([nchw(q, nh, 0), nchw(k, nh, 0)], dim=1)
+        if shift:
+            qk = nchw(heads(qk, 1, 2 * nh * d), 1, shift)
+        dqk, dvn = linear_attention_nchw_backward(qk, nchw(v, nh, shift), nchw(g, nh, shift), nh)
+        return heads(dqk[:, : nh * d], nh, d), heads(dqk[:, nh * d:], nh, d), heads(dvn, nh, dv)
+
+    # (BH, N, D, DV, heads a batch row, shift): tests/test_pallas.py:29-34's shapes; a1's
+    # four training shapes at batch 128; DV != D (the L family's LA3); D = DV = 128;
+    # heads off 16-byte alignment; N = 1
+    cases = [(2, 16, 32, 32, 2, 0), (4, 64, 64, 64, 2, 0), (2, 49, 20, 20, 2, 0),
+             (2, 196, 20, 40, 2, 0)]
+    cases += [(128 * nh, side * side, A1_HEAD_DIM, A1_HEAD_DIM, nh, 0)
+              for nh, side, _, _ in A1_ATTENTION.values()]
+    cases += [(16, 49, 12, 24, 4, 0), (4, 784, 128, 128, 2, 0), (12, 49, 24, 40, 3, 3),
+              (6, 1, 24, 40, 3, 0)]
+    per_stage, max_abs_err = {}, 0.0
+    for bh, n, d, dv, nh, shift in cases:
+        rec = {"phase": "attention_backward", "bh": bh, "n": n, "d": d, "dv": dv,
+               "heads": nh, "head_shift": shift,
+               "launch": {f"{dt}_{lay}":
+                          attention_bwd_cuda.launch_config(n, d, dv, eb, lay)._asdict()
+                          for dt, eb in (("bf16", 2), ("f32", 4)) for lay in ("n", "d")}}
+        for cfg in rec["launch"].values():
+            del cfg["geometry"]
+        base = inputs(bh, n, d, dv)
+        for dtype in (torch.float32, torch.bfloat16):
+            key = "f32" if dtype == torch.float32 else "bf16"
+            q, k, v, g = (t.to("cuda", dtype) for t in base)
+            want = linear_attention_backward_plain(q.float(), k.float(), v.float(), g.float())
+            got_d = linear_attention_backward(*(shifted(t, shift) for t in (q, k, v, g)))
+            runs = [nchw_entry(q, k, v, g, nh, shift) for _ in range(3)]
+            torch.cuda.synchronize()
+            what = (bh, n, d, dv, shift, key)
+            rec[f"{key}_d_max_abs_err"] = _check_attention_grads(got_d, want, dtype, what)
+            rec[f"{key}_n_max_abs_err"] = _check_attention_grads(runs[0], want, dtype, what)
+            if not all(torch.equal(a, b) for run in runs[1:] for a, b in zip(run, runs[0])):
+                raise AssertionError(f"attention backward: not the same bits on 3 runs at {what}")
+            rec[f"{key}_same_bits_3_runs"] = True
+        stage = next((st for st, (h, sd, _, _) in A1_ATTENTION.items()
+                      if (bh, n, d, dv) == (128 * h, sd * sd, A1_HEAD_DIM, A1_HEAD_DIM)), None)
+        if stage is not None:
+            max_abs_err = max(max_abs_err, *rec["bf16_n_max_abs_err"].values())
+            # timing at the train step's size: batch 128, bf16, the model's NCHW entry
+            q, k, v, g = (t.to("cuda", torch.bfloat16) for t in base)
+            qk = torch.cat([nchw(q, nh, 0), nchw(k, nh, 0)], dim=1)
+            vn, gn = nchw(v, nh, 0), nchw(g, nh, 0)
+            # device time by CUDA events around calls queued behind other work: the
+            # profiler has listed only some of this kernel's launches in a run (0.4 of
+            # them), so its time and launch count are printed beside
+            call = lambda: linear_attention_nchw_backward(qk, vn, gn, nh)  # noqa: E731
+            seen = [t for t in trace(call, iters=10) if "linear_attention_bwd_kernel" in t["name"]]
+            # as the train step finds its inputs: L2 (50 MB) flushed before each call by
+            # writing 96 MB; the flush's own time taken off
+            flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+            times = {"kernel_ms": queued_ms(call),
+                     "kernel_cold_l2_ms": (queued_ms(lambda: (flush.zero_(), call()))
+                                           - queued_ms(flush.zero_)),
+                     "plain_ms": device_ms(
+                         lambda: linear_attention_backward_plain(q, k, v, g), iters=3),
+                     "profiler_kernel_ms": sum(t["ms"] for t in seen),
+                     "profiler_launches_per_call": sum(t["launches"] for t in seen)}
+            del flush
+            nbytes, flops = attention_bwd_work(128, nh, n, d, dv, 2)
+            bms, by = bound(nbytes, flops)
+            per_stage[stage] = dict(times, bytes=nbytes, flops=flops)
+            rec.update(stage=stage, batch_128_bf16=dict(times, bound_ms=bms, bound_by=by,
+                                                        bytes=nbytes, flops=flops,
+                                                        library_ms=None))
+        emit(rec)
+    emit({"phase": "attention_backward_kernel", **{
+        str(dt).removeprefix("torch."): attention_bwd_cuda.kernel_attributes(dt)
+        for dt in (torch.float32, torch.bfloat16)}})
+    total = {key: sum(A1_ATTENTION[st][2] * per_stage[st][key] for st in per_stage)
+             for key in ("kernel_ms", "kernel_cold_l2_ms", "profiler_kernel_ms", "plain_ms",
+                         "bytes", "flops")}
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["flops"])
+    emit({"phase": "attention_backward_step", "calls": 23, **total})
+    return total, max_abs_err
 
 
 def calibrated(name, **overrides):
@@ -756,10 +948,11 @@ def phase_backward():
     return total, max_abs_err
 
 
-def phase_train_grad():
-    """recnext_m1 at full width and depth, 224^2, batch 8, f32, in train mode: every
-    parameter's gradient of the loss through the kernel path (K1 and the backward
-    kernel in every mixer) against the plain path (autograd over forward_plain).
+def phase_train_grad(name="recnext_m1"):
+    """``name`` (recnext_m1 or recnext_a1) at full width and depth, 224^2, batch 8,
+    f32, in train mode: every parameter's gradient of the loss through the kernel
+    path (the forward kernel and its backward in every mixer: K1 and K1', or K2 and
+    K2') against the plain path (autograd over forward_plain).
     Tolerance 1e-3 max|ref| of each tensor: fp32 sums in another order, carried
     back through ~100 train-mode BatchNorms. A tensor whose exact gradient is 0 (a
     shift that a BatchNorm follows) holds rounding noise on both paths: its
@@ -767,10 +960,11 @@ def phase_train_grad():
     import copy
 
     gen = torch.Generator().manual_seed(8)
-    model = create_model("recnext_m1", device="cuda", generator=gen).train()
+    model = create_model(name, device="cuda", generator=gen).train()
     x = torch.randn(8, 3, 224, 224, generator=gen).cuda()
     y = torch.randint(0, 1000, (8,), generator=gen).cuda()
-    out = {"phase": "train_grad", "model": "recnext_m1", "input": [8, 3, 224, 224]}
+    out = {"phase": "train_grad", "model": name, "input": [8, 3, 224, 224]}
+    fwd, bwd = TRAIN_KERNELS[name]
     grads = {}
     for path in ("kernel_path", "plain_path"):
         m = copy.deepcopy(model)
@@ -782,9 +976,9 @@ def phase_train_grad():
         launches = {k: v - before[k] for k, v in counts().items()}
         if restore:
             restore()
-        want = ({"rec_conv2d": 23, "rec_conv2d_backward": 23} if path == "kernel_path"
-                else {"rec_conv2d": 0, "rec_conv2d_backward": 0})
-        if {k: launches[k] for k in want} != want:
+        calls = 23 if path == "kernel_path" else 0
+        want = {k: (calls if k in (fwd, bwd) else 0) for k in COUNTERS}
+        if launches != want:
             raise AssertionError(f"{path}: launches {launches}, expected {want}")
         grads[path] = {n: p.grad for n, p in m.named_parameters()}
         out[path] = {"loss": loss.item(), "launches": launches}
@@ -810,18 +1004,21 @@ def phase_train_grad():
     emit(out)
 
 
-def phase_train():
-    """The trainer, ``recnext_tpu_torch.train.main.main``, on the card: recnext_m1,
+def phase_train(name="recnext_m1", args=TRAIN_ARGS):
+    """The trainer, ``recnext_tpu_torch.train.main.main``, on the card with ``args``:
+    ``name`` (recnext_m1; recnext_a1 with hard distillation from a seeded regnety_160),
     FAKE, --simple-aug, 224^2, batch 64, 2 epochs of 3 steps, then a rerun to 3 epochs
     that resumes. Every count set to 0 just before the first run and read just after:
-    23 K1 launches and 23 backward-kernel calls per train step, 23 K1 launches per
-    fused eval forward, nothing else."""
+    23 launches of the model's forward kernel (K1 or K2) and 23 calls of its backward
+    (K1' or K2') per train step, 23 forward-kernel launches per fused eval forward,
+    nothing else (the teacher launches no kernel of the port)."""
     import contextlib
     import io
 
     build = Path(__file__).resolve().parent / "recnext_tpu_torch" / "_build"
     build.mkdir(parents=True, exist_ok=True)
-    rec = {"phase": "train"}
+    rec = {"phase": "train", "model": name, "args": args}
+    fwd, bwd = TRAIN_KERNELS[name]
     with tempfile.TemporaryDirectory(dir=build) as run_dir:
         runs = []
         for epochs in (2, 3):
@@ -830,7 +1027,7 @@ def phase_train():
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
-                train_main.main(TRAIN_ARGS + ["--epochs", str(epochs), "--output-dir", run_dir])
+                train_main.main(args + ["--epochs", str(epochs), "--output-dir", run_dir])
             torch.cuda.synchronize()
             launches = counts()  # ... and ends here
             text = buf.getvalue()
@@ -840,8 +1037,8 @@ def phase_train():
             losses = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
                       if ": loss " in line]
             stats = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
-            per_step = {"rec_conv2d": (launches["rec_conv2d"] - 23 * evals) / steps,
-                        "rec_conv2d_backward": launches["rec_conv2d_backward"] / steps}
+            per_step = {fwd: (launches[fwd] - 23 * evals) / steps, bwd: launches[bwd] / steps}
+            others = {k: v for k, v in launches.items() if k not in (fwd, bwd)}
             run = {"epochs": epochs, "seconds": time.perf_counter() - t0, "losses": losses,
                    "epoch_lines": stats, "launches": launches,
                    "launches_per_train_step": per_step,
@@ -851,8 +1048,7 @@ def phase_train():
             if (len(losses) != steps or not all(np.isfinite(losses))
                     or len(stats) != ran or not all(np.isfinite(s["train_loss"]) for s in stats)):
                 raise AssertionError(f"train run to {epochs} epochs: {run}")
-            if per_step != {"rec_conv2d": 23, "rec_conv2d_backward": 23} or \
-                    launches["rec_conv2d_level"] or launches["linear_attention"]:
+            if per_step != {fwd: 23, bwd: 23} or any(others.values()):
                 raise AssertionError(f"train run to {epochs} epochs: launches {launches}")
             if run["resumed"] != (epochs == 3):
                 raise AssertionError(f"train run to {epochs} epochs: resume {run['resumed']}")
@@ -861,28 +1057,36 @@ def phase_train():
     return runs[0]["launches"]
 
 
-def phase_train_throughput():
-    """bench.train_throughput("recnext_m1", 128) with 3 repeats, then a profiler trace
-    of 3 steps of the same step: the top kernels, the backward kernel's share and
-    the device's idle share."""
-    ips, batch, spread = bench.train_throughput("recnext_m1", 128, repeats=3)
+TRACE_KERNELS = {  # CUDA function names of each training path's kernels: (forward,
+    # backward, ...)
+    "recnext_m1": ("recconv_kernel", "recconv_bwd_kernel", "recconv_bwd_sum_kernel"),
+    "recnext_a1": ("linear_attention_kernel", "linear_attention_bwd_kernel")}
+
+
+def phase_train_throughput(name="recnext_m1", teacher=None):
+    """bench.train_throughput(name, 128) with 3 repeats (distilled from a seeded
+    ``teacher`` where given), then a profiler trace of 3 steps of the same step: the
+    top kernels, the backward kernel's share and the device's idle share."""
+    ips, batch, spread = bench.train_throughput(name, 128, repeats=3, teacher=teacher)
     step_ms = batch / ips * 1e3
-    fn, _ = bench.train_bench_step("recnext_m1", 128)
+    fn, _ = bench.train_bench_step(name, 128, teacher=teacher)
     kernels = trace(fn, iters=3, warmup=2)
     busy = sum(k["ms"] for k in kernels)
     if busy > step_ms:  # the trace counts some device time twice: no idle share to give
         raise AssertionError(f"train_throughput: device busy {busy} ms in a step of "
                              f"{step_ms} ms")
-    ours = {name: sum(k["ms"] for k in kernels if name in k["name"])
-            for name in ("recconv_bwd_kernel", "recconv_bwd_sum_kernel", "recconv_kernel")}
-    emit({"phase": "train_throughput", "model": "recnext_m1", "batch": batch,
+    # no name of the tuple is a part of another, so a substring picks one kernel
+    ours = {kn: sum(k["ms"] for k in kernels if kn in k["name"]) for kn in TRACE_KERNELS[name]}
+    emit({"phase": "train_throughput", "model": name, "teacher": teacher,
+          "distillation": "hard" if teacher else "none", "batch": batch,
           "dtype": "bf16 compute, fp32 parameters", "images_per_s_median": ips,
           "spread": spread, "step_ms": step_ms, "device_busy_ms_per_step": busy,
           "device_idle_share": 1 - busy / step_ms,
           "kernel_ms_per_step": ours,
-          "backward_kernel_share_of_busy": (ours["recconv_bwd_kernel"]
-                                            + ours["recconv_bwd_sum_kernel"]) / busy,
+          "backward_kernel_share_of_busy": sum(ours[kn] for kn in TRACE_KERNELS[name][1:])
+          / busy,
           "top_kernels": kernels[:8]})
+    return ips
 
 
 def forward_totals(per_shape, table):
@@ -907,7 +1111,8 @@ def main() -> int:
         return 2
     card = nvidia_smi()
     start = t0 = time.perf_counter()
-    libraries = (recconv_cuda.LIBRARY, attention_cuda.LIBRARY, recconv_bwd_cuda.LIBRARY)
+    libraries = (recconv_cuda.LIBRARY, attention_cuda.LIBRARY, recconv_bwd_cuda.LIBRARY,
+                 attention_bwd_cuda.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
         list(pool.map(lambda lib: lib.load(), libraries))
     emit({"phase": "env", "nvidia_smi": card, "torch": torch.__version__,
@@ -952,6 +1157,17 @@ def main() -> int:
     timed("train_grad", phase_train_grad)
     train_launches = timed("train", phase_train)
     timed("train_throughput", phase_train_throughput)
+
+    # recnext_a1 training with the reference recipe's distillation: K2 and K2'
+    abwd_total, abwd_err = timed("attention_backward", phase_attention_backward)
+    timed("train_grad", phase_train_grad, "recnext_a1")
+    a1_train_launches = timed("train", phase_train, "recnext_a1", A1_TRAIN_ARGS)
+    plain_ips = timed("train_throughput", phase_train_throughput, "recnext_a1")
+    distilled_ips = timed("train_throughput", phase_train_throughput, "recnext_a1", TEACHER)
+    emit({"phase": "distillation_cost", "model": "recnext_a1", "teacher": TEACHER,
+          "images_per_s": {"plain": plain_ips, "hard_distilled": distilled_ips},
+          "step_ms": {"plain": 128e3 / plain_ips, "hard_distilled": 128e3 / distilled_ips},
+          "distilled_over_plain": plain_ips / distilled_ips})
     emit({"phase": "seconds", **seconds, "script": time.perf_counter() - start})
 
     emit({"kernels": [
@@ -966,7 +1182,12 @@ def main() -> int:
                       a1_launches["linear_attention"], k2_err, a1_total),
         kernel_record("rec_conv2d_backward", "recnext_tpu_torch/csrc/recconv_bwd.cu",
                       "gradient of recnext_tpu/ops/recconv.py:rec_conv2d; no Pallas backward",
-                      train_launches["rec_conv2d_backward"], bwd_err, bwd_total)]})
+                      train_launches["rec_conv2d_backward"], bwd_err, bwd_total),
+        kernel_record("linear_attention_backward",
+                      "recnext_tpu_torch/csrc/linear_attention_bwd.cu",
+                      "gradient of recnext_tpu/ops/attention.py:linear_attention_kv_first; "
+                      "no Pallas backward",
+                      a1_train_launches["linear_attention_backward"], abwd_err, abwd_total)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,6 +6,8 @@ The port's own copy of the reverse converter in ``recnext_tpu/convert.py``
 ``flax_to_torch``, ``flax_fused_to_torch``), for the M and A families: flax
 HWIO kernels become OIHW, Dense (in, out) kernels become Linear (out, in), and
 paths are renamed to the reference module tree the port's models share.
+``jax_regnet_to_torch`` does the same for the RegNetY teacher, into timm's names:
+the inverse of ``recnext_tpu/convert.py:regnety_torch_to_flax``.
 """
 
 from __future__ import annotations
@@ -183,4 +185,54 @@ def jax_fused_to_torch(params: Mapping[str, Any], model: torch.nn.Module | None 
             continue
         key, tr = _inv_leaf(path, fused=True)
         out[key] = _inv_transform(v.astype(np.float32), tr)
+    return _to_torch(out, model)
+
+
+_REGNET_BLOCK_RE = re.compile(r"s(\d+)_b(\d+)")
+_REGNET_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                   "var": "running_var"}
+
+
+def _regnet_key(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """A JAX RegNetY leaf path -> (timm key, transform): ``s{i}_b{j}`` becomes
+    ``s{i}.b{j}``, ``norm`` becomes ``bn``, ``head_fc`` becomes ``head.fc``."""
+    toks: list = []
+    for t in path[:-1]:
+        m = _REGNET_BLOCK_RE.fullmatch(t)
+        if m:
+            toks += [f"s{m.group(1)}", f"b{m.group(2)}"]
+        elif t == "norm":
+            toks.append("bn")
+        elif t == "head_fc":
+            toks += ["head", "fc"]
+        else:
+            toks.append(t)
+    leaf = path[-1]
+    if toks[-1] == "bn" and leaf in _REGNET_BN_LEAF:
+        return ".".join(toks + [_REGNET_BN_LEAF[leaf]]), "id"
+    if leaf in ("kernel", "bias"):
+        name = "weight" if leaf == "kernel" else "bias"
+        tr = "id" if leaf == "bias" else ("linear" if path[0] == "head_fc" else "conv")
+        return ".".join(toks + [name]), tr
+    raise KeyError(f"unmapped RegNetY flax path: {'/'.join(path)}")
+
+
+def jax_regnet_to_torch(variables: Mapping[str, Any], model: torch.nn.Module | None = None
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX RegNetY ``{params, batch_stats}`` -> the port's RegNetY state dict (fp32,
+    timm's names). With ``model``, check that keys and shapes are exactly its
+    ``state_dict()``'s."""
+    params = dict(variables.get("params", {}))
+    if not params:
+        raise ValueError("jax_regnet_to_torch expects {'params': ..., 'batch_stats': ...} "
+                         "(got no 'params' collection)")
+    out: Dict[str, np.ndarray] = {}
+    for path, v in _flatten_tree(params).items():
+        key, tr = _regnet_key(path)
+        out[key] = _inv_transform(v.astype(np.float32), tr)
+    for path, v in _flatten_tree(dict(variables.get("batch_stats", {}))).items():
+        key, _ = _regnet_key(path)
+        out[key] = v.astype(np.float32)
+        if path[-1] == "mean":  # torch BN buffers include num_batches_tracked
+            out[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = np.zeros((), np.int64)
     return _to_torch(out, model)

@@ -63,8 +63,10 @@ class LinearAttention(nn.Module):
     """Mean-normalised linear attention with a depthwise positional term:
     ``attn(feature_map(qk(x)), x) + pe(x)``, v = x. Variant 1 is the kv-first form,
     variant 2 the qk-first one (the same function); on a CUDA tensor both are one
-    launch of the linear-attention kernel. Submodules ``qk`` (1x1, 2C outputs, 2
-    groups) and ``pe`` (3x3 depthwise), each a ConvNorm."""
+    launch of the linear-attention kernel, and where a gradient is needed the kernel
+    pair of ``ops/attention.py:LinearAttentionFunction`` (K2 forward, one launch of
+    its backward kernel). Submodules ``qk`` (1x1, 2C outputs, 2 groups) and ``pe``
+    (3x3 depthwise), each a ConvNorm."""
 
     def __init__(self, dim: int, num_heads: int, variant: int = 1, kernel: str = "elu",
                  *, fused: bool = False):
@@ -83,7 +85,8 @@ class LinearAttention(nn.Module):
         return linear_attention_nchw(qk, x, self.num_heads, variant=self.variant) + self.pe(x)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
-        """The plain PyTorch version on any device."""
+        """The plain PyTorch version on any device (autograd over it where a gradient
+        is needed): the reference the kernel path is held against."""
         qk = feature_map(self.qk(x), self.kernel)
         return (linear_attention_nchw_plain(qk, x, self.num_heads, variant=self.variant)
                 + self.pe(x))
@@ -93,7 +96,9 @@ class RecAttn2d(nn.Module):
     """A one-level RecConv whose coarse body is linear attention:
     ``conv(x + nearest_up(attn(down(x))))``. ``down`` is a Sequential of the
     stride-2 depthwise ConvNorm and the LinearAttention (torch keys ``down.0.*``,
-    ``down.1.{qk,pe}.*``), ``conv`` the full-resolution depthwise ConvNorm."""
+    ``down.1.{qk,pe}.*``), ``conv`` the full-resolution depthwise ConvNorm. Its
+    attention runs the LinearAttention's kernels, under grad both of them; its
+    convolutions and the nearest upsample are plain PyTorch."""
 
     def __init__(self, dim: int, num_heads: int, kernel_size: int = 5, la_variant: int = 1,
                  kernel: str = "elu", mode: str = "nearest", *, fused: bool = False):

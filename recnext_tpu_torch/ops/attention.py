@@ -25,6 +25,12 @@ channels of contiguous planes, or a (BH, N, D) head's rows) and raises on others
 ``linear_attention_fused.launches`` counts the kernel's launches through either.
 ``linear_attention_blockdiag`` (a TPU formulation of the same function) is not
 ported.
+
+Training goes through ``LinearAttentionFunction``: where a CUDA input requires a
+gradient, both entries run it, its forward one launch of the kernel and its backward
+one launch of the backward kernel (``linear_attention_backward``, ``ops/cuda/
+linear_attention_bwd.py``; ``linear_attention_backward_plain``, autograd over
+``linear_attention_kv_first`` in fp32, on a CPU tensor).
 """
 
 from __future__ import annotations
@@ -107,11 +113,6 @@ _launch_lock = threading.Lock()
 def _launch(q4, k4, v4, out4, eps):
     from recnext_tpu_torch.ops.cuda.linear_attention import linear_attention_cuda
 
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q4, k4, v4)):
-        raise ValueError("the linear-attention kernel is forward-only: its backward (and "
-                         "A-family training on the GPU) is ROADMAP.md Queue 1 item 6; run "
-                         "the plain version (the mixers' forward_plain) where a gradient "
-                         "is needed")
     linear_attention_cuda(q4, k4, v4, out4, eps=eps)
     with _launch_lock:
         linear_attention_fused.launches += 1
@@ -126,18 +127,55 @@ def _check_device(x: torch.Tensor, name: str) -> bool:
     return False
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _bh_views(q, k, v):
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("linear_attention_fused: q, k, v must be (BH, N, D)")
+    return q[:, None], k[:, None], v[:, None]
+
+
+def _nchw_views(qk, v, num_heads):
+    """(q, k, v) as (B, nh, N, D) views of the NCHW tensors (never a copy), and the
+    function that views another (B, nh*R, H, W) tensor so."""
+    q, k = _split_qk(qk, v, num_heads)
+    b, _, h, w = v.shape
+
+    def view(x):  # a dimension of size 1 may carry any stride
+        if (w > 1 and x.stride(3) != 1) or (h > 1 and x.stride(2) != w):
+            raise ValueError("linear_attention_nchw: each (H, W) plane must be contiguous")
+        return x.view(b, num_heads, x.shape[1] // num_heads, h * w).transpose(2, 3)
+
+    return view(q), view(k), view(v), view
+
+
+def _bh_kernel(q, k, v, eps):
+    q4, k4, v4 = _bh_views(q, k, v)
+    out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch(q4, k4, v4, out[:, None], eps)
+    return out
+
+
+def _nchw_kernel(qk, v, num_heads, eps):
+    q4, k4, v4, view = _nchw_views(qk, v, num_heads)
+    out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch(q4, k4, v4, view(out), eps)
+    return out
+
+
 def linear_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            eps: float = EPS) -> torch.Tensor:
     """q, k: (BH, N, D); v: (BH, N, DV) -> (BH, N, DV). On a CUDA tensor one launch
-    of the kernel (or a raise: there is no fallback); on a CPU tensor the plain
-    kv-first version. Each head's rows must be one contiguous span."""
+    of the kernel (or a raise: there is no fallback), through
+    ``LinearAttentionFunction`` where an input requires a gradient; on a CPU tensor
+    the plain kv-first version. Each head's rows must be one contiguous span."""
     if _check_device(q, "linear_attention_fused"):
         return linear_attention_kv_first(q, k, v, eps)
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("linear_attention_fused: q, k, v must be (BH, N, D)")
-    out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch(q[:, None], k[:, None], v[:, None], out[:, None], eps)
-    return out
+    if _needs_grad(q, k, v):
+        return LinearAttentionFunction.apply(0, eps, q, k, v)
+    return _bh_kernel(q, k, v, eps)
 
 
 linear_attention_fused.launches = 0
@@ -148,20 +186,118 @@ def linear_attention_nchw(qk: torch.Tensor, v: torch.Tensor, num_heads: int, *,
     """qk: (B, 2*nh*D, H, W) after the feature map; v: (B, nh*DV, H, W) ->
     (B, nh*DV, H, W). On a CUDA tensor both variants are one launch of the kernel,
     which reads q, k and v in place (each head's channels must be one contiguous
-    span of planes) and writes a contiguous output; on a CPU tensor the plain version
-    of ``variant``."""
+    span of planes) and writes a contiguous output, through
+    ``LinearAttentionFunction`` where an input requires a gradient; on a CPU tensor
+    the plain version of ``variant``."""
     if _check_device(qk, "linear_attention_nchw"):
         return linear_attention_nchw_plain(qk, v, num_heads, variant=variant, eps=eps)
     if variant not in (1, 2):
         raise ValueError(f"linear attention variant {variant} is not ported (1, 2)")
-    q, k = _split_qk(qk, v, num_heads)
-    b, _, h, w = v.shape
-    out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if _needs_grad(qk, v):
+        return LinearAttentionFunction.apply(num_heads, eps, qk, v)
+    return _nchw_kernel(qk, v, num_heads, eps)
 
-    def view(x):  # (B, nh*D, H, W) -> (B, nh, N, D), never a copy
-        if x.stride(3) != 1 or x.stride(2) != w:
-            raise ValueError("linear_attention_nchw: each (H, W) plane must be contiguous")
-        return x.view(b, num_heads, x.shape[1] // num_heads, h * w).transpose(2, 3)
 
-    _launch(view(q), view(k), view(v), view(out), eps)
-    return out
+def linear_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    g: torch.Tensor, eps: float = EPS):
+    """``linear_attention_backward``'s plain version, on any device:
+    ``torch.autograd.grad`` over ``linear_attention_kv_first`` in fp32 (where kv is
+    not rounded, as in the kernel). Returns (dq, dk, dv) in the inputs' dtypes."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+        out = linear_attention_kv_first(qf, kf, vf, eps)
+        dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf), g.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_backward(q4, k4, v4, g4, dq4, dk4, dv4, eps):
+    from recnext_tpu_torch.ops.cuda.linear_attention_bwd import linear_attention_backward_cuda
+
+    linear_attention_backward_cuda(q4, k4, v4, g4, dq4, dk4, dv4, eps=eps)
+    with _launch_lock:
+        linear_attention_backward.launches += 1
+
+
+def _one_span_per_head(views) -> bool:
+    """Whether every head of each of ``views()``'s (B, H, N, R) views is one span,
+    all in one order (False also where a view cannot be taken)."""
+    from recnext_tpu_torch.ops.cuda.linear_attention import head_layout
+
+    try:
+        head_layout(*views())
+    except ValueError:
+        return False
+    return True
+
+
+def linear_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              g: torch.Tensor, eps: float = EPS):
+    """The gradient of the kv-first function at q, k: (BH, N, D), v: (BH, N, DV),
+    given g = dL/dout (BH, N, DV): (dq, dk, dv) in the inputs' dtype. On a CUDA tensor
+    one launch of the backward kernel (``linear_attention_backward.launches`` counts
+    them) or a raise; on a CPU tensor the plain version."""
+    if _check_device(q, "linear_attention_backward"):
+        return linear_attention_backward_plain(q, k, v, g, eps)
+    if not _one_span_per_head(lambda: [t[:, None] for t in (q, k, v, g)]):
+        g = torch.empty_like(v).copy_(g)  # the kernel reads each head of g as one span
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))  # in the inputs' order
+    _launch_backward(*(t[:, None] for t in (q, k, v, g, dq, dk, dv)), eps)
+    return dq, dk, dv
+
+
+linear_attention_backward.launches = 0
+
+
+def linear_attention_nchw_backward(qk: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                                   num_heads: int, eps: float = EPS):
+    """The gradient of ``linear_attention_nchw`` at (qk, v) given g = dL/dout (B,
+    nh*DV, H, W): (dqk, dv), dqk one (B, 2*nh*D, H, W) tensor holding dq and dk. One
+    launch of the backward kernel on a CUDA tensor; the plain version on a CPU one."""
+    q4, k4, v4, view = _nchw_views(qk, v, num_heads)
+    dqk = torch.empty(qk.shape, dtype=qk.dtype, device=qk.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    dq4, dk4, dv4, _ = _nchw_views(dqk, dv, num_heads)
+    if _check_device(qk, "linear_attention_nchw_backward"):
+        bh = lambda t: t.reshape(-1, t.shape[2], t.shape[3])  # noqa: E731
+        grads = linear_attention_backward_plain(bh(q4), bh(k4), bh(v4),
+                                                bh(view(g.contiguous())), eps)
+        for dst, src in zip((dq4, dk4, dv4), grads):
+            dst.copy_(src.view(dst.shape))
+        return dqk, dv
+    if not _one_span_per_head(lambda: (q4, k4, v4, view(g))):
+        g = g.contiguous()  # the kernel reads each head of g as one span of planes
+    _launch_backward(q4, k4, v4, view(g), dq4, dk4, dv4, eps)
+    return dqk, dv
+
+
+class LinearAttentionFunction(torch.autograd.Function):
+    """Linear attention with a kernel on both passes: the forward is one launch of
+    K2 and the backward one launch of the backward kernel, which recomputes kv and
+    the normaliser from the saved q, k, v (nothing else is saved). Both variants are
+    the same function, so one Function serves them. On CPU tensors both passes run
+    the plain version (the kv-first form).
+
+    ``apply(num_heads, eps, qk, v)`` for the NCHW entry (``linear_attention_nchw``;
+    the gradient of qk is one tensor holding dq and dk), ``apply(0, eps, q, k, v)``
+    for the (BH, N, D) entry (``linear_attention_fused``). The inputs come in one
+    dtype, f32 or bf16; the gradients take it."""
+
+    @staticmethod
+    def forward(ctx, num_heads, eps, *ts):
+        ctx.num_heads, ctx.eps = num_heads, eps
+        ctx.save_for_backward(*ts)
+        cpu = ts[0].device.type == "cpu"
+        if num_heads:
+            return (linear_attention_nchw_plain(*ts, num_heads, eps=eps) if cpu
+                    else _nchw_kernel(*ts, num_heads, eps))
+        return linear_attention_kv_first(*ts, eps) if cpu else _bh_kernel(*ts, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        ts = ctx.saved_tensors
+        if ctx.num_heads:
+            grads = linear_attention_nchw_backward(*ts, g, ctx.num_heads, ctx.eps)
+        else:
+            grads = linear_attention_backward(*ts, g, ctx.eps)
+        return (None, None, *(d if need else None
+                              for d, need in zip(grads, ctx.needs_input_grad[2:])))

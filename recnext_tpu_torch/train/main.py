@@ -1,19 +1,24 @@
 """Training CLI: ``python -m recnext_tpu_torch.train.main``.
 
 Counterpart of ``recnext_tpu/train/main.py`` for the subset the port runs so far:
-one device (the GPU unless ``--device cpu``), the M and A families (the A family on
-the CPU only: its kernel has no backward yet), FAKE data with the simple train
+one device (the GPU unless ``--device cpu``), the M and A families (on the GPU
+through their kernels and the kernels' backward), FAKE data with the simple train
 transform and the loader's seeded permutation, mixup/cutmix and label smoothing,
-AGC + AdamW with the reference cosine schedule, EMA, bf16 compute with fp32
-parameters (``--dtype``), a per-epoch BN-fused eval of the model and of its EMA, a
-checkpoint each epoch (``torch.save``; the last 3 and the best kept) and
-auto-resume from the newest. The per-epoch JSON line and ``log.txt`` keep the JAX
-CLI's key names.
+hard or soft distillation from a teacher (``--distillation-type``, ``--teacher-model``
+regnety_160/040/016 or a registry model, ``--teacher-ckpt``), AGC + AdamW with the
+reference cosine schedule, EMA, bf16 compute with fp32 parameters (``--dtype``), a
+per-epoch BN-fused eval of the model and of its EMA, a checkpoint each epoch
+(``torch.save``; the last 3 and the best kept) and auto-resume from the newest. The
+per-epoch JSON line and ``log.txt`` keep the JAX CLI's key names.
 
-Other data sets and the full train transform (RandAugment, ThreeAugment, erasing)
-raise, naming their ROADMAP item; the JAX CLI's other options (distillation, MESA,
-JSD, gradient accumulation, remat, the repeated-augmentation sampler, the unfused
-eval) are not flags here yet.
+The teacher's ``--teacher-ckpt`` is a ``.pth``/``.pt`` state dict (timm's layout for a
+RegNetY, the published DeiT ``regnety_160`` one included; the port's own for a
+registry model), loaded strictly; without one the teacher is a seeded init, as the
+JAX CLI's ``init(PRNGKey(1))``. Other data sets, the full train transform
+(RandAugment, ThreeAugment, erasing) and the JAX package's teacher checkpoints
+(orbax, msgpack) raise, naming their ROADMAP item; the JAX CLI's other options
+(MESA, JSD, gradient accumulation, remat, the repeated-augmentation sampler, the
+unfused eval) are not flags here yet.
 
 Smoke run on the CPU (a small M config; it resumes from the checkpoints that
 --output-dir already holds, so empty it first):
@@ -22,6 +27,12 @@ Smoke run on the CPU (a small M config; it resumes from the checkpoints that
       --model-kwargs embed_dim=16:32:64:128,depth=1:1:2:1 --data-set FAKE \\
       --simple-aug --input-size 32 --batch-size 4 --epochs 2 --steps-per-epoch 2 \\
       --fake-classes 11 --dtype float32 --output-dir runs/smoke
+
+recnext_a1 with the reference recipe's hard distillation from a (seeded) regnety_160
+teacher on the GPU:
+  python -m recnext_tpu_torch.train.main --model recnext_a1 --distillation-type hard \
+      --teacher-model regnety_160 --data-set FAKE --simple-aug --batch-size 64 \
+      --epochs 2 --steps-per-epoch 3 --output-dir runs/a1_distill
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import torch
 from recnext_tpu_torch.data.datasets import DATA_ITEM
 
 CKPT_KEEP = 3
+CKPT_ITEM = "ROADMAP.md Queue 1 item 9 (checkpoint import)"
 
 
 def parse_args(argv=None):
@@ -62,6 +74,14 @@ def parse_args(argv=None):
     p.add_argument("--simple-aug", action="store_true",
                    help="RRC + flip + normalize (the only train transform ported so far)")
     p.add_argument("--fake-classes", type=int, default=1000)
+    p.add_argument("--distillation-type", default="none", choices=["none", "hard", "soft"])
+    p.add_argument("--distillation-alpha", type=float, default=0.5)
+    p.add_argument("--distillation-tau", type=float, default=1.0)
+    p.add_argument("--teacher-ckpt", default="",
+                   help=".pth/.pt state dict of the teacher (timm's layout for a RegNetY, "
+                        "the port's for a registry model); none: a seeded init")
+    p.add_argument("--teacher-model", default="",
+                   help="the teacher: regnety_160/040/016 or a registry model")
     p.add_argument("--model-ema-decay", type=float, default=0.99996)
     p.add_argument("--no-model-ema", action="store_true")
     p.add_argument("--data-set", default="IMNET",
@@ -83,6 +103,35 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError("the full train transform (RandAugment, ThreeAugment, "
                                   f"erasing) is not ported yet: pass --simple-aug; see "
                                   f"{DATA_ITEM}")
+    if args.distillation_type != "none" and not args.teacher_model:
+        raise SystemExit("--distillation-type requires --teacher-model")
+    if args.teacher_ckpt and not args.teacher_ckpt.endswith((".pth", ".pt")):
+        raise NotImplementedError(f"teacher checkpoint {args.teacher_ckpt!r}: the port reads "
+                                  ".pth/.pt state dicts; the JAX package's orbax directories "
+                                  f"and .msgpack files are not ported; see {CKPT_ITEM}")
+
+
+def load_state_dict_file(path: str) -> dict:
+    """A ``.pth``/``.pt`` state dict: as saved, inside a ``{"model": ...}`` checkpoint
+    (timm's, the published DeiT teacher's), or inside this trainer's checkpoint
+    (``{"state": {"model": ...}}``)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    state = state.get("state", state)
+    return state.get("model", state)
+
+
+def build_teacher(args, num_classes: int, device: torch.device, dtype: torch.dtype, log):
+    """``teacher_apply`` for the train step: ``--teacher-model`` with the weights of
+    ``--teacher-ckpt`` (strict), or seeded."""
+    from recnext_tpu_torch.train.step import create_teacher, make_teacher_apply
+
+    teacher = create_teacher(args.teacher_model, num_classes=num_classes, device=device)
+    if args.teacher_ckpt:
+        teacher.load_state_dict(load_state_dict_file(args.teacher_ckpt), strict=True)
+    n = sum(p.numel() for p in teacher.parameters())
+    log(f"teacher {args.teacher_model}: {n / 1e6:.2f}M params, "
+        f"{args.teacher_ckpt or 'seeded weights (no --teacher-ckpt)'}")
+    return make_teacher_apply(teacher, dtype)
 
 
 class Checkpoints:
@@ -147,7 +196,10 @@ def main(argv=None):
     train_ds, nb_classes = build_dataset(True, args.data_set, "", args.input_size,
                                          args.fake_classes)
     val_ds, _ = build_dataset(False, args.data_set, "", args.input_size, args.fake_classes)
+    distill = args.distillation_type != "none"
     overrides = dict(parse_kv_overrides(args.model_kwargs), num_classes=nb_classes)
+    if distill:
+        overrides["distillation"] = True  # the dual-head student
     model = create_model(args.model, device=device,
                          generator=torch.Generator().manual_seed(args.seed), **overrides)
     n_parameters = sum(p.numel() for p in model.parameters())
@@ -165,11 +217,16 @@ def main(argv=None):
     use_mix = args.mixup > 0 or args.cutmix > 0
     switch_prob = 0.5 if args.mixup > 0 and args.cutmix > 0 else (
         1.0 if args.cutmix > 0 else 0.0)
+    teacher_apply = (build_teacher(args, nb_classes, device, dtype, log)
+                     if distill and not args.eval else None)
     train_step = make_train_step(
         num_classes=nb_classes, mixup=use_mix,
         mixup_kwargs=dict(mixup_alpha=max(args.mixup, 1e-8),
                           cutmix_alpha=max(args.cutmix, 1e-8), switch_prob=switch_prob),
-        smoothing=args.smoothing, ema_decay=args.model_ema_decay, dtype=dtype)
+        smoothing=args.smoothing, ema_decay=args.model_ema_decay, dtype=dtype,
+        teacher_apply=teacher_apply,
+        distillation=args.distillation_type if teacher_apply else "none",
+        alpha=args.distillation_alpha, tau=args.distillation_tau)
     cfg = get_config(args.model, **overrides)
     eval_step = make_fused_eval_step(cfg, dtype=dtype)
     eval_ema = None

@@ -12,10 +12,17 @@ biases) cast to ``dtype`` (``compute_params``, through
 the fp32 parameter. This is the one place that casts weights: the modules use
 theirs as given. BatchNorm computes its statistics and normalisation in fp32
 (``models/layers.py``). The RecConv2d mixers run the forward kernel and the
-backward kernel on a CUDA tensor (``ops/recconv.py:RecConv2dFunction``).
+backward kernel on a CUDA tensor (``ops/recconv.py:RecConv2dFunction``), the
+linear-attention mixers theirs (``ops/attention.py:LinearAttentionFunction``).
 
-Not ported yet, each raising with its ROADMAP item: MESA, the JSD loss, ``remat``,
-``grad_accum > 1`` and distillation with a teacher (``models/regnet.py``).
+Distillation (DeiT's, as the reference recipe trains every headline model): a
+teacher (``make_teacher_apply``: the RegNetY of ``models/regnet.py`` or a registry
+model) scores the mixed batch in eval mode, without gradient, in the compute dtype,
+and the dual-head student's second head learns its hard labels or its softened
+distribution (``train/losses.py:distillation_loss``).
+
+Not ported yet, each raising with its ROADMAP item: MESA, the JSD loss, ``remat``
+and ``grad_accum > 1``.
 """
 
 from __future__ import annotations
@@ -34,7 +41,6 @@ from recnext_tpu_torch.train import losses as L
 from recnext_tpu_torch.train.optim import TRAIN_ITEM, global_norm
 from recnext_tpu_torch.train.state import TrainState, ema_update
 
-TEACHER_ITEM = "ROADMAP.md Queue 1 item 6 (the RegNetY teacher, models/regnet.py)"
 PACKED_ITEM = "ROADMAP.md Queue 1 item 12 (models/packed_infer.py)"
 
 
@@ -62,29 +68,62 @@ def forward_model(model: nn.Module, x: torch.Tensor, dtype: torch.dtype,
     return functional_call(model, tensors, (x.to(dtype),), strict=False)
 
 
+def create_teacher(name: str, *, num_classes: int, device=None) -> nn.Module:
+    """The teacher ``name``: a RegNetY of ``models/regnet.py`` (``regnet*``) or a
+    registry model, with weights from a generator of seed 1 (the JAX CLI's teacher
+    without a checkpoint is ``init(PRNGKey(1))``), on ``device``, in eval mode."""
+    from recnext_tpu_torch.models.regnet import create_regnet
+    from recnext_tpu_torch.models.registry import create_model
+
+    make = create_regnet if name.startswith("regnet") else create_model
+    return make(name, num_classes=num_classes, device=device,
+                generator=torch.Generator().manual_seed(1))
+
+
+def make_teacher_apply(teacher: nn.Module, dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """``teacher_apply(x) -> logits`` for the train step: ``teacher`` in eval mode,
+    without gradient, on x in ``dtype``, its conv and linear weights cast to ``dtype``
+    once (the teacher never changes), its BatchNorm in fp32 on running statistics."""
+    teacher.eval()
+    params = compute_params(teacher, dtype)
+
+    def teacher_apply(x: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return functional_call(teacher, params, (x.to(dtype),), strict=False)
+
+    return teacher_apply
+
+
 def train_loss(model: nn.Module, x: torch.Tensor, targets: torch.Tensor, *,
-               dtype: torch.dtype = torch.bfloat16, smoothing: float = 0.1) -> torch.Tensor:
+               dtype: torch.dtype = torch.bfloat16, smoothing: float = 0.1,
+               teacher_logits: Optional[torch.Tensor] = None, distillation: str = "none",
+               alpha: float = 0.5, tau: float = 1.0) -> torch.Tensor:
     """Forward in ``dtype`` and the fp32 loss: soft-target CE on mixup targets,
-    label-smoothing CE on integer labels."""
+    label-smoothing CE on integer labels, blended with the distillation loss on the
+    dual-head model's second head where ``distillation`` is "hard" or "soft"."""
     outputs = forward_model(model, x, dtype)
     base = (L.soft_target_cross_entropy if targets.dim() == 2 else
             functools.partial(L.label_smoothing_cross_entropy, smoothing=smoothing))
-    return L.distillation_loss(outputs, targets, None, base_criterion=base, kind="none")
+    return L.distillation_loss(outputs, targets, teacher_logits, base_criterion=base,
+                               kind=distillation, alpha=alpha, tau=tau)
 
 
 def make_train_step(*, num_classes: int = 1000, mixup: bool = True,
                     mixup_kwargs: Optional[dict] = None, smoothing: float = 0.1,
                     ema_decay: float = 0.99996, dtype: torch.dtype = torch.bfloat16,
                     teacher_apply: Optional[Callable] = None, distillation: str = "none",
-                    remat: bool = False, jsd_splits: int = 0, grad_accum: int = 1,
-                    mesa: float = 0.0):
+                    alpha: float = 0.5, tau: float = 1.0, remat: bool = False,
+                    jsd_splits: int = 0, grad_accum: int = 1, mesa: float = 0.0):
     """Returns ``train_step(state, batch, generator) -> {"loss", "grad_norm"}``: the
     state (``train/state.py``) carries the model and the optimizer.
 
     batch = {"image": NCHW float tensor, "label": integer tensor}, on the model's
-    device; ``generator`` (a CPU ``torch.Generator``) gives the mixup draws. The
-    last six arguments are the JAX step's options that are not ported yet: any
-    but their default raises."""
+    device; ``generator`` (a CPU ``torch.Generator``) gives the mixup draws. With
+    ``distillation`` "hard" or "soft", ``teacher_apply(x) -> logits``
+    (``make_teacher_apply``) scores the mixed batch and the state's model is the
+    dual-head one (``distillation=True``); ``alpha`` and ``tau`` blend the losses as
+    the JAX step does. The last four arguments are the JAX step's options that are
+    not ported yet: any but their default raises."""
     if mesa > 0:
         raise NotImplementedError(f"MESA self-distillation is not ported yet; see "
                                   f"{TRAIN_ITEM}")
@@ -95,9 +134,10 @@ def make_train_step(*, num_classes: int = 1000, mixup: bool = True,
     if grad_accum > 1:
         raise NotImplementedError(f"gradient accumulation is not ported yet; see "
                                   f"{TRAIN_ITEM}")
-    if distillation != "none" or teacher_apply is not None:
-        raise NotImplementedError(f"distillation with a teacher is not ported yet; see "
-                                  f"{TEACHER_ITEM}")
+    if distillation not in ("none", "hard", "soft"):
+        raise ValueError(f"unknown distillation kind {distillation!r} (none, hard, soft)")
+    if distillation != "none" and teacher_apply is None:
+        raise ValueError(f"{distillation} distillation needs a teacher (teacher_apply)")
     mk = dict(num_classes=num_classes, smoothing=smoothing, **(mixup_kwargs or {}))
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
@@ -106,8 +146,11 @@ def make_train_step(*, num_classes: int = 1000, mixup: bool = True,
         targets = y
         if mixup:
             x, targets = mixup_cutmix(generator, x, y, **mk)
+        teacher_logits = teacher_apply(x) if distillation != "none" else None
         state.optimizer.zero_grad()
-        loss = train_loss(state.model, x, targets, dtype=dtype, smoothing=smoothing)
+        loss = train_loss(state.model, x, targets, dtype=dtype, smoothing=smoothing,
+                          teacher_logits=teacher_logits, distillation=distillation,
+                          alpha=alpha, tau=tau)
         loss.backward()
         gnorm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
         state.optimizer.step()

@@ -11,12 +11,15 @@ import torch
 
 from recnext_tpu_torch.models.registry import create_model
 from recnext_tpu_torch.ops.attention import (
+    linear_attention_backward,
+    linear_attention_backward_plain,
     linear_attention_fused,
     linear_attention_kv_first,
     linear_attention_nchw,
+    linear_attention_nchw_backward,
     linear_attention_nchw_plain,
 )
-from recnext_tpu_torch.models.mixers import RecConv2dMixer
+from recnext_tpu_torch.models.mixers import LinearAttention, RecConv2dMixer
 from recnext_tpu_torch.ops.recconv import (
     rec_conv2d,
     rec_conv2d_backward,
@@ -327,8 +330,13 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
         linear_attention_nchw(qk.transpose(2, 3), qk[:, :8].transpose(2, 3), 2)
     with pytest.raises(ValueError, match="contiguous"):  # a head's rows are not one span
         linear_attention_fused(q[:, ::2], q[:, ::2], q[:, ::2])
-    with pytest.raises(ValueError, match="forward-only"):
-        linear_attention_fused(q.requires_grad_(), q, q)
+    # under grad the call is the Function's: one launch of K2, and of K2' backward
+    before = (linear_attention_fused.launches, linear_attention_backward.launches)
+    out = linear_attention_fused(q.detach().clone().requires_grad_(), q, q)
+    assert type(out.grad_fn).__name__ == "LinearAttentionFunctionBackward"
+    out.sum().backward()
+    assert (linear_attention_fused.launches, linear_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 def test_nearest_model_runs_through_the_kernel(cuda):
@@ -462,3 +470,151 @@ def test_mixer_under_grad_launches_k1_and_the_backward_kernel_once(cuda):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         assert (a - b).abs().max().item() <= 2e-2 * b.abs().max().item()
+
+
+# K2' (the linear-attention backward): tests/test_pallas.py:29-34's shapes; a1's four
+# training head shapes (N 784, 196, 49, 16; D = DV = 24); DV != D (the L family's
+# LA3: D 12, DV 24); D = DV = 128 (several tiles a head); N = 1
+BWD_CASES = [(2, 16, 32, 32), (4, 64, 64, 64), (2, 49, 20, 20), (2, 196, 20, 40),
+             (8, 784, 24, 24), (16, 196, 24, 24), (32, 49, 24, 24), (64, 16, 24, 24),
+             (6, 49, 12, 24), (2, 784, 128, 128), (6, 1, 24, 40)]
+
+
+def _bwd_inputs(bh, n, d, dv, seed, dtype):
+    g = torch.Generator().manual_seed(seed)
+    q, k = _positive((bh, n, d), g), _positive((bh, n, d), g)
+    v, go = torch.randn(bh, n, dv, generator=g), torch.randn(bh, n, dv, generator=g)
+    return [t.to("cuda", dtype) for t in (q, k, v, go)]
+
+
+def _check_attention_backward(got, want, dtype):
+    """f32: within 1e-3 + 1e-3 |ref| (tests/test_pallas.py:44's bound); bf16: within
+    1e-2 max|ref| of the plain version in f32 on the same bf16 values. A gradient that
+    is 0 in exact arithmetic (dq and dk at N = 1, where out = v) holds rounding noise
+    on both sides: under 1e-5."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        a, b = a.float(), b.float()
+        if b.abs().max().item() < 1e-5:
+            assert a.abs().max().item() < 1e-5, name
+        elif dtype == torch.float32:
+            bad = ((a - b).abs() > 1e-3 + 1e-3 * b.abs()).sum().item()
+            assert bad == 0, (name, (a - b).abs().max().item())
+        else:
+            err, scale = (a - b).abs().max().item(), b.abs().max().item()
+            assert err <= 1e-2 * scale, (name, err, scale)
+
+
+def _as_nchw(t, nh):
+    """(B*nh, N, R) -> (B, nh*R, 1, N): the same heads as NCHW planes (n-fastest)."""
+    bh, n, r = t.shape
+    return t.transpose(1, 2).reshape(bh // nh, nh * r, 1, n).contiguous()
+
+
+@pytest.mark.parametrize("layout", ["n", "d"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,n,d,dv", BWD_CASES)
+def test_attention_backward_matches_plain(cuda, bh, n, d, dv, dtype, layout):
+    q, k, v, go = _bwd_inputs(bh, n, d, dv, bh + n, dtype)
+    want = linear_attention_backward_plain(*(t.float() for t in (q, k, v, go)))
+    before = linear_attention_backward.launches
+    if layout == "d":  # the (BH, N, D) entry
+        got = linear_attention_backward(q, k, v, go)
+    else:  # the NCHW entry: q and k the halves of one tensor, two heads a batch row
+        nh = 2
+        qk = torch.cat([_as_nchw(q, nh), _as_nchw(k, nh)], dim=1)
+        dqk, dv_ = linear_attention_nchw_backward(qk, _as_nchw(v, nh), _as_nchw(go, nh), nh)
+        def back(t, r):  # (B, nh*R, 1, N) -> (B*nh, N, R)
+            return t.reshape(bh, r, n).transpose(1, 2)
+
+        got = (back(dqk[:, : nh * d], d), back(dqk[:, nh * d:], d), back(dv_, dv))
+    torch.cuda.synchronize()
+    assert linear_attention_backward.launches == before + 1
+    _check_attention_backward(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [1, 3])
+def test_attention_backward_reads_misaligned_heads(cuda, shift, dtype):
+    """Heads that start `shift` elements (the BH entry) or planes (the NCHW entry)
+    past a tensor's start: off 16-byte alignment with 49 positions."""
+    q, k, v, go = _bwd_inputs(6, 49, 24, 40, shift, dtype)
+    want = linear_attention_backward_plain(*(t.float() for t in (q, k, v, go)))
+
+    def shifted(t):
+        flat = torch.empty(shift + t.numel(), dtype=t.dtype, device=t.device)
+        return flat[shift:].view(t.shape).copy_(t)
+
+    got = linear_attention_backward(*(shifted(t) for t in (q, k, v, go)))
+    _check_attention_backward(got, want, dtype)
+    qk = torch.cat([_as_nchw(q, 3), _as_nchw(k, 3)], dim=1)
+
+    def planes(t):  # the same values in a tensor whose planes start `shift` later
+        buf = torch.empty(t.shape[0], shift + t.shape[1], *t.shape[2:], dtype=t.dtype,
+                          device=t.device)
+        return buf[:, shift:].copy_(t)
+
+    dqk, dv = linear_attention_nchw_backward(planes(qk), planes(_as_nchw(v, 3)),
+                                             planes(_as_nchw(go, 3)), 3)
+    torch.cuda.synchronize()
+    back = lambda t, r: t.reshape(6, r, 49).transpose(1, 2)  # noqa: E731
+    got = (back(dqk[:, :72], 24), back(dqk[:, 72:], 24), back(dv, 40))
+    _check_attention_backward(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,n", [(16, 784), (64, 196)])
+def test_attention_backward_gives_the_same_bits_on_every_run(cuda, bh, n, dtype):
+    q, k, v, go = _bwd_inputs(bh, n, 24, 24, 11, dtype)
+    runs = [linear_attention_backward(q, k, v, go) for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+
+
+def test_attention_backward_refuses_what_it_does_not_take(cuda):
+    before = linear_attention_backward.launches
+    q = torch.rand(2, 16, 8, device="cuda") + 0.1
+    with pytest.raises(ValueError, match="dtype"):
+        linear_attention_backward(q.half(), q.half(), q.half(), q.half())
+    big = torch.rand(2, 16, 129, device="cuda")
+    with pytest.raises(ValueError, match="D=129"):
+        linear_attention_backward(big, big, q, q)
+    with pytest.raises(ValueError, match="DV=129"):
+        linear_attention_backward(q, q, big, big)
+    with pytest.raises(ValueError, match="CUDA"):
+        linear_attention_backward(q, q.cpu(), q, q)
+    with pytest.raises(ValueError, match="contiguous"):  # q n-fastest, k d-fastest
+        linear_attention_backward(q.transpose(1, 2).contiguous().transpose(1, 2), q, q, q)
+    with pytest.raises(ValueError, match="shapes"):
+        linear_attention_backward(q, q[:, :8], q, q)
+    assert linear_attention_backward.launches == before
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+def test_linear_attention_under_grad_launches_k2_and_its_backward_once(cuda, variant):
+    """A train-mode LinearAttention under autograd: one launch of K2 in the forward
+    and one of K2' in the backward, nothing of the plain version; its input and
+    parameter gradients those of the plain path (autograd over forward_plain)."""
+    torch.manual_seed(variant)
+    mixer = LinearAttention(48, 2, variant).cuda().train()
+    x = torch.randn(4, 48, 28, 28, device="cuda", requires_grad=True)
+    go = torch.randn(4, 48, 28, 28, device="cuda")
+    k2, bw = linear_attention_fused.launches, linear_attention_backward.launches
+    (mixer(x) * go).sum().backward()
+    torch.cuda.synchronize()
+    assert (linear_attention_fused.launches, linear_attention_backward.launches) == (
+        k2 + 1, bw + 1)
+    got = [p.grad.clone() for p in mixer.parameters()] + [x.grad.clone()]
+    mixer.zero_grad()
+    x.grad = None
+    (mixer.forward_plain(x) * go).sum().backward()
+    want = [p.grad for p in mixer.parameters()] + [x.grad]
+    assert (linear_attention_fused.launches, linear_attention_backward.launches) == (
+        k2 + 1, bw + 1)
+    for a, b in zip(got, want):
+        scale = b.abs().max().item()
+        if scale < 1e-6:  # a shift that a train-mode BatchNorm follows: exact gradient 0
+            assert a.abs().max().item() < 1e-5
+            continue
+        assert (a - b).abs().max().item() <= 1e-3 * scale

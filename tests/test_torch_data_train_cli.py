@@ -1,6 +1,7 @@
 """The port's FAKE data set, simple train transform and loaders against the JAX
 package's (indices and pixels, NHWC -> NCHW), the training CLI on the CPU (two
-epochs, a checkpoint, auto-resume) and the bench's train mode on the CPU."""
+epochs, a checkpoint, auto-resume; hard distillation from a teacher and its
+checkpoint) and the bench's train mode on the CPU, with and without a teacher."""
 
 import json
 
@@ -15,6 +16,8 @@ from recnext_tpu_torch import bench
 from recnext_tpu_torch.data import datasets as tds
 from recnext_tpu_torch.data import loader as tloader
 from recnext_tpu_torch.data import transforms as ttf
+from recnext_tpu_torch.models import regnet as tregnet
+from recnext_tpu_torch.models.registry import create_model
 from recnext_tpu_torch.train import main as tmain
 
 SMALL = "embed_dim=16:32:64:128,depth=1:1:2:1"
@@ -184,8 +187,8 @@ def test_bench_default_and_latency_modes_on_the_cpu(capsys):
 
 
 def test_train_cli_runs_the_a_family_on_the_cpu(tmp_path, capsys):
-    """The A family trains on the CPU through autograd over its plain ops (its
-    attention kernel has no backward yet)."""
+    """The A family trains on the CPU through autograd over its plain ops (on the
+    GPU, through its attention kernel and that kernel's backward)."""
     tmain.main(["--device", "cpu", "--model", "recnext_a0", "--model-kwargs", SMALL,
                 "--data-set", "FAKE", "--simple-aug", "--input-size", "32", "--batch-size", "4",
                 "--epochs", "1", "--steps-per-epoch", "2", "--fake-classes", "11",
@@ -193,3 +196,87 @@ def test_train_cli_runs_the_a_family_on_the_cpu(tmp_path, capsys):
     stats = [json.loads(line) for line in capsys.readouterr().out.splitlines()
              if line.startswith("{")]
     assert len(stats) == 1 and np.isfinite(stats[0]["train_loss"])
+
+
+TINY_TEACHER = "regnety_tiny_test"
+
+
+@pytest.fixture
+def tiny_teacher(monkeypatch):
+    """A tiny RegNetY (tests/test_regnet.py:116's widths) under a registry name."""
+    monkeypatch.setitem(tregnet.REGNET_CONFIGS, TINY_TEACHER, tregnet.RegNetConfig(
+        TINY_TEACHER, w0=24, wa=24.0, wm=2.0, depth=4, group_width=8, stem_width=16))
+    return TINY_TEACHER
+
+
+def _distill_cli(tmp_path, epochs, *extra):
+    return tmain.main(["--device", "cpu", "--model", "recnext_a0", "--model-kwargs", SMALL,
+                       "--data-set", "FAKE", "--simple-aug", "--input-size", "32",
+                       "--batch-size", "4", "--epochs", str(epochs), "--steps-per-epoch", "2",
+                       "--fake-classes", "11", "--dtype", "float32", "--log-every", "1",
+                       "--distillation-type", "hard", "--output-dir", str(tmp_path), *extra])
+
+
+def test_train_cli_distills_from_a_teacher_and_resumes(tmp_path, capsys, tiny_teacher):
+    res = _distill_cli(tmp_path, 2, "--teacher-model", tiny_teacher)
+    out = capsys.readouterr().out
+    assert f"teacher {tiny_teacher}:" in out and "seeded weights" in out
+    stats = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    assert [s["epoch"] for s in stats] == [0, 1]
+    assert all(np.isfinite(s["train_loss"]) for s in stats)
+    assert res["state"].model.cfg.distillation  # the dual-head student
+    _distill_cli(tmp_path, 3, "--teacher-model", tiny_teacher)
+    out = capsys.readouterr().out
+    assert "auto-resumed at epoch 2" in out
+    assert [json.loads(line)["epoch"] for line in out.splitlines()
+            if line.startswith("{")] == [2]
+
+
+def test_train_cli_loads_the_teacher_checkpoint_strictly(tmp_path, capsys, tiny_teacher):
+    teacher = tregnet.create_regnet(tiny_teacher, num_classes=11, device="cpu",
+                                    generator=torch.Generator().manual_seed(9))
+    ckpt = tmp_path / "teacher.pth"
+    torch.save({"model": teacher.state_dict()}, ckpt)  # the timm checkpoint's wrapping
+    _distill_cli(tmp_path / "run", 1, "--teacher-model", tiny_teacher,
+                 "--teacher-ckpt", str(ckpt))
+    assert f"teacher {tiny_teacher}: " in capsys.readouterr().out
+    loaded = tmain.load_state_dict_file(str(ckpt))
+    assert all(torch.equal(loaded[k], v) for k, v in teacher.state_dict().items())
+    # a registry model in the port's own layout: as saved, and in this trainer's checkpoint
+    reg = create_model("recnext_m0", device="cpu", num_classes=11,
+                       embed_dim=(16, 32, 64, 128), depth=(1, 1, 2, 1))
+    torch.save(reg.state_dict(), tmp_path / "m0.pt")
+    torch.save({"epoch": 0, "state": {"step": 2, "model": reg.state_dict()}},
+               tmp_path / "epoch_0000.pt")
+    for name in ("m0.pt", "epoch_0000.pt"):
+        loaded = tmain.load_state_dict_file(str(tmp_path / name))
+        assert all(torch.equal(loaded[k], v) for k, v in reg.state_dict().items())
+    # strict: a checkpoint that lacks a key is refused
+    bad = {k: v for k, v in teacher.state_dict().items() if k != "head.fc.bias"}
+    torch.save(bad, tmp_path / "bad.pth")
+    with pytest.raises(RuntimeError, match="head.fc.bias"):
+        _distill_cli(tmp_path / "run2", 1, "--teacher-model", tiny_teacher,
+                     "--teacher-ckpt", str(tmp_path / "bad.pth"))
+
+
+def test_train_cli_refuses_a_teacher_it_cannot_read(tmp_path, tiny_teacher):
+    for ckpt in ("teacher.msgpack", "orbax_dir"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            _distill_cli(tmp_path, 1, "--teacher-model", tiny_teacher,
+                         "--teacher-ckpt", str(tmp_path / ckpt))
+    with pytest.raises(SystemExit, match="requires --teacher-model"):
+        _distill_cli(tmp_path, 1)
+
+
+def test_bench_train_mode_with_a_teacher_on_the_cpu(capsys, tiny_teacher):
+    ips, batch, spread = bench.train_throughput(
+        "recnext_a0", 4, device="cpu", timed_s=0.05, image_size=32, repeats=2,
+        teacher=tiny_teacher, distillation="soft", embed_dim=(16, 32, 64, 128),
+        depth=(1, 1, 2, 1), num_classes=11)
+    assert batch == 4 and ips > 0 and len(spread["runs"]) == 2
+    rec = bench.main(["--train", "--device", "cpu", "--model", "recnext_a0",
+                      "--model-kwargs", SMALL + ",num_classes=11", "--batch", "4",
+                      "--image-size", "32", "--timed", "0.05", "--repeats", "1",
+                      "--teacher", tiny_teacher])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
+    assert rec["teacher"] == tiny_teacher and rec["distillation"] == "hard" and rec["value"] > 0

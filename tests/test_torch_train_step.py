@@ -1,10 +1,13 @@
 """One train step of the port against the JAX package's ``make_train_step``, from
 the same weights (a JAX init carried across with jax_to_torch) and the same batch,
 in f32 with mixup off and drop-path 0: the loss, every gradient, the BN running
-statistics, the updated parameters and the EMA. Then the eval metrics, the unfused
-eval step and the fused eval step against JAX's."""
+statistics, the updated parameters and the EMA; for a small M model, and for a
+small A model plain and with hard and soft distillation from a tiny RegNetY teacher
+on both sides (its JAX weights carried across with jax_regnet_to_torch). Then the
+eval metrics, the unfused eval step and the fused eval step against JAX's."""
 
 import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -13,13 +16,15 @@ import optax
 import pytest
 import torch
 
+from recnext_tpu.models import regnet as jregnet
 from recnext_tpu.models.registry import create_model as jax_create_model
 from recnext_tpu.models.registry import get_config as jax_get_config
 from recnext_tpu.train import losses as JL
 from recnext_tpu.train import optim as jopt
 from recnext_tpu.train import step as jstep
 from recnext_tpu.train.state import TrainState as JaxTrainState
-from recnext_tpu_torch.convert import jax_to_torch
+from recnext_tpu_torch.convert import jax_regnet_to_torch, jax_to_torch
+from recnext_tpu_torch.models import regnet as tregnet
 from recnext_tpu_torch.models.registry import create_model, get_config
 from recnext_tpu_torch.train import optim as topt
 from recnext_tpu_torch.train import step as tstep
@@ -52,27 +57,53 @@ def _batch(seed=0, n=4, side=32):
     return x, y
 
 
-@pytest.fixture(scope="module")
-def run():
-    """Both packages' train step, once: the states before and after, the gradients."""
-    model = jax_create_model(NAME, **OVR)
+# a tiny RegNetY teacher (tests/test_regnet.py:116's config) for the distillation steps
+TEACHER = dict(name="tiny", w0=24, wa=24.0, wm=2.0, depth=4, group_width=8, stem_width=16,
+               num_classes=11)
+
+
+def _teacher():
+    """The teacher on both sides: (JAX apply, the port's module), on the same weights
+    with BN statistics moved off (0, 1)."""
+    model = jregnet.RegNetY(cfg=jregnet.RegNetConfig(**TEACHER))
+    variables = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3)))
+    rng = np.random.default_rng(5)
+    variables = {"params": variables["params"], "batch_stats": jax.tree.map(
+        lambda v: v + 0.3 * np.abs(rng.normal(size=v.shape)).astype(v.dtype),
+        variables["batch_stats"])}
+    port = tregnet.RegNetY(tregnet.RegNetConfig(**TEACHER))
+    port.load_state_dict(jax_regnet_to_torch(variables, port), strict=True)
+    return (lambda xb: model.apply(variables, xb, training=False)), port
+
+
+def _run_step(name, distillation="none", alpha=0.5, tau=1.0, side=32):
+    """Both packages' train step, once, on a batch of ``side``^2 images: the states
+    before and after, the gradients."""
+    distill = distillation != "none"
+    model = jax_create_model(name, distillation=distill, **OVR)
     variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
     # the init's weights; BN running statistics moved off (0, 1), so that the
     # momentum update is exercised
     variables = {"params": variables["params"], "batch_stats": jax.tree.map(
         lambda v: v + 0.05 * np.random.default_rng(3).normal(size=v.shape).astype(v.dtype),
         variables["batch_stats"])}
-    x, y = _batch()
+    x, y = _batch(side=side)
     tx = jopt.make_optimizer(_sched(jopt), weight_decay=0.025, agc_clip=0.02)
     state = JaxTrainState.create(variables, tx)
+    jax_teacher, port_teacher = _teacher() if distill else (None, None)
     train_step = jstep.make_train_step(model, tx, num_classes=11, mixup=False,
-                                       smoothing=0.1, ema_decay=EMA_DECAY)
+                                       smoothing=0.1, ema_decay=EMA_DECAY,
+                                       teacher_apply=jax_teacher, distillation=distillation,
+                                       alpha=alpha, tau=tau)
     batch = {"image": jnp.asarray(x), "label": jnp.asarray(y)}
+    base = functools.partial(JL.label_smoothing_cross_entropy, smoothing=0.1)
 
     def loss_fn(params):
         out, _ = model.apply({"params": params, "batch_stats": variables["batch_stats"]},
                              batch["image"], training=True, mutable=["batch_stats"])
-        return JL.label_smoothing_cross_entropy(out, batch["label"], 0.1)
+        teacher_logits = jax_teacher(batch["image"]) if distill else None
+        return JL.distillation_loss(out, batch["label"], teacher_logits, base_criterion=base,
+                                    kind=distillation, alpha=alpha, tau=tau)
 
     @jax.jit
     def step_and_grads(st):
@@ -84,7 +115,7 @@ def run():
 
     new, metrics, grads, clipped = step_and_grads(state)
 
-    tm = create_model(NAME, device="cpu", **OVR)
+    tm = create_model(name, device="cpu", distillation=distill, **OVR)
     tm.load_state_dict(jax_to_torch(variables, tm), strict=True)
     before = copy.deepcopy(tm).train()
     opt = topt.make_optimizer(tm.named_parameters(), _sched(topt), weight_decay=0.025,
@@ -92,12 +123,17 @@ def run():
     tstate = TrainState.create(tm, opt)
     tb = {"image": torch.from_numpy(x.transpose(0, 3, 1, 2).copy()),
           "label": torch.from_numpy(y).long()}
+    teacher_apply = (tstep.make_teacher_apply(port_teacher, torch.float32) if distill
+                     else None)
     train_step = tstep.make_train_step(num_classes=11, mixup=False, smoothing=0.1,
-                                       ema_decay=EMA_DECAY, dtype=torch.float32)
+                                       ema_decay=EMA_DECAY, dtype=torch.float32,
+                                       teacher_apply=teacher_apply, distillation=distillation,
+                                       alpha=alpha, tau=tau)
     tmetrics = train_step(tstate, tb, torch.Generator().manual_seed(0))
     # the port's gradient: the same loss the step backpropagates, on the weights before
     loss = tstep.train_loss(before, tb["image"], tb["label"], dtype=torch.float32,
-                            smoothing=0.1)
+                            smoothing=0.1, distillation=distillation, alpha=alpha, tau=tau,
+                            teacher_logits=teacher_apply(tb["image"]) if distill else None)
     loss.backward()
     tgrads = {n: p.grad for n, p in before.named_parameters()}
     return dict(jax_state=new, jax_metrics=metrics, jax_grads=grads, jax_clipped=clipped,
@@ -106,11 +142,39 @@ def run():
                 jax_batch=batch, jax_model=model)
 
 
+@pytest.fixture(scope="module")
+def run():
+    return _run_step(NAME)
+
+
+# a small A model, plain and with hard and soft distillation (soft at tau 2): the A
+# family with a RegNetY teacher is the reference recipe's. At 64^2: at 32^2 its last
+# two stages attend over 1x1 maps, where the gradients of q and k are 0 in exact
+# arithmetic and a train-mode BatchNorm normalises 4 values
+A0 = "recnext_a0"
+OTHER_STEPS = {"a0": (A0, "none", 1.0, 64), "hard": (A0, "hard", 1.0, 64),
+               "soft": (A0, "soft", 2.0, 64)}
+
+
+@pytest.fixture(scope="module", params=sorted(OTHER_STEPS))
+def other_run(request):
+    name, distillation, tau, side = OTHER_STEPS[request.param]
+    return _run_step(name, distillation, tau=tau, side=side)
+
+
 def _ref(run, params, stats):
     return jax_to_torch({"params": params, "batch_stats": stats}, run["model"])
 
 
 def test_loss_and_grad_norm_match_jax(run):
+    _check_loss_and_grad_norm(run)
+
+
+def test_other_steps_loss_and_grad_norm_match_jax(other_run):
+    _check_loss_and_grad_norm(other_run)
+
+
+def _check_loss_and_grad_norm(run):
     want = float(run["jax_metrics"]["loss"])
     assert float(run["metrics"]["loss"]) == pytest.approx(want, rel=1e-5)
     assert float(run["metrics"]["grad_norm"]) == pytest.approx(
@@ -118,6 +182,14 @@ def test_loss_and_grad_norm_match_jax(run):
 
 
 def test_every_gradient_matches_jax(run):
+    _check_every_gradient(run)
+
+
+def test_other_steps_every_gradient_matches_jax(other_run):
+    _check_every_gradient(other_run)
+
+
+def _check_every_gradient(run):
     ref = _ref(run, run["jax_grads"], run["variables"]["batch_stats"])
     assert set(run["grads"]) <= set(ref)
     zero = 0
@@ -137,6 +209,14 @@ def test_every_gradient_matches_jax(run):
 
 
 def test_bn_statistics_params_and_ema_match_jax(run):
+    _check_bn_statistics_params_and_ema(run)
+
+
+def test_other_steps_bn_statistics_params_and_ema_match_jax(other_run):
+    _check_bn_statistics_params_and_ema(other_run)
+
+
+def _check_bn_statistics_params_and_ema(run):
     new = run["jax_state"]
     after = _ref(run, new.params, new.batch_stats)
     # the gradient Adam sees: the reference's, after AGC
@@ -219,9 +299,29 @@ def test_eval_steps_match_jax(run, ema):
 
 
 def test_unported_options_raise_naming_their_item():
-    for kw in (dict(mesa=1.0), dict(jsd_splits=3), dict(remat=True), dict(grad_accum=2),
-               dict(distillation="hard")):
+    for kw in (dict(mesa=1.0), dict(jsd_splits=3), dict(remat=True), dict(grad_accum=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
             tstep.make_train_step(**kw)
     with pytest.raises(NotImplementedError, match="item 12"):
         tstep.make_fused_eval_step(get_config(NAME, **OVR), packed=True)
+
+
+def test_distillation_needs_a_teacher_and_a_known_kind():
+    with pytest.raises(ValueError, match="needs a teacher"):
+        tstep.make_train_step(distillation="hard")
+    with pytest.raises(ValueError, match="unknown distillation kind"):
+        tstep.make_train_step(distillation="mild", teacher_apply=lambda x: x)
+
+
+def test_teacher_apply_is_eval_mode_without_gradient_in_the_compute_dtype():
+    _, teacher = _teacher()
+    teacher.train()
+    apply = tstep.make_teacher_apply(teacher, torch.bfloat16)
+    assert not teacher.training
+    x = torch.from_numpy(_batch()[0].transpose(0, 3, 1, 2).copy())
+    logits = apply(x)
+    assert logits.dtype == torch.float32 and not logits.requires_grad  # the fp32 head
+    with torch.no_grad():
+        want = teacher(x)
+    assert (logits - want).abs().max().item() <= 5e-2 * want.abs().max().item()  # bf16 convs
+    assert all(p.dtype == torch.float32 for p in teacher.parameters())  # cast apart
