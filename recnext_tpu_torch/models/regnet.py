@@ -145,17 +145,27 @@ class RegNetStage(nn.Module):
         return x
 
 
+class Fp32Linear(nn.Linear):
+    """A linear layer on fp32 inputs and weights whatever the compute dtype: its
+    ``fp32`` flag keeps the train step's casts (``train/step.py:compute_params``) off
+    its parameters."""
+
+    fp32 = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.float(), self.weight.float(), self.bias.float())
+
+
 class RegNetHead(nn.Module):
     """fp32 mean pool and an fp32 linear classifier (``head.fc``), whatever the
     compute dtype, as the JAX model's ``head_fc``."""
 
     def __init__(self, cin: int, num_classes: int):
         super().__init__()
-        self.fc = nn.Linear(cin, num_classes)
+        self.fc = Fp32Linear(cin, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float().mean(dim=(2, 3))
-        return F.linear(x, self.fc.weight.float(), self.fc.bias.float())
+        return self.fc(x.float().mean(dim=(2, 3)))
 
 
 class RegNetY(nn.Module):
@@ -183,15 +193,16 @@ class RegNetY(nn.Module):
 
 
 def create_regnet(name: str, *, num_classes: int = 1000,
-                  device: str | torch.device | None = None, dtype: torch.dtype = torch.float32,
+                  device: str | torch.device | None = None,
                   generator: torch.Generator | None = None) -> RegNetY:
     """``name`` from ``REGNET_CONFIGS`` on ``device`` (default: the GPU; raises without
-    one), weights drawn from ``generator`` (default: seed 0) by the JAX package's
-    initialisation, in eval mode."""
+    one), fp32 weights drawn from ``generator`` (default: seed 0) by the JAX package's
+    initialisation, in eval mode. The train step's ``make_teacher_apply`` casts them to
+    the compute dtype."""
     if name not in REGNET_CONFIGS:
         raise KeyError(f"unknown regnet {name!r}; known: {sorted(REGNET_CONFIGS)}")
     dev = resolve_device(device)
     model = RegNetY(dataclasses.replace(REGNET_CONFIGS[name], num_classes=num_classes))
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))
-    return model.to(device=dev, dtype=dtype).eval()
+    return model.to(dev).eval()

@@ -26,11 +26,13 @@ channels of contiguous planes, or a (BH, N, D) head's rows) and raises on others
 ``linear_attention_blockdiag`` (a TPU formulation of the same function) is not
 ported.
 
-Training goes through ``LinearAttentionFunction``: where a CUDA input requires a
-gradient, both entries run it, its forward one launch of the kernel and its backward
-one launch of the backward kernel (``linear_attention_backward``, ``ops/cuda/
-linear_attention_bwd.py``; ``linear_attention_backward_plain``, autograd over
-``linear_attention_kv_first`` in fp32, on a CPU tensor).
+Training on the card goes through ``LinearAttentionFunction``: where a CUDA input
+requires a gradient, both entries run it, its forward one launch of the kernel and
+its backward one launch of the backward kernel (``linear_attention_backward``,
+``ops/cuda/linear_attention_bwd.py``; its plain version
+``linear_attention_backward_plain`` is autograd over ``linear_attention_kv_first`` in
+fp32). On CPU tensors the entries return the plain version, which autograd
+differentiates.
 """
 
 from __future__ import annotations
@@ -252,18 +254,11 @@ def linear_attention_nchw_backward(qk: torch.Tensor, v: torch.Tensor, g: torch.T
                                    num_heads: int, eps: float = EPS):
     """The gradient of ``linear_attention_nchw`` at (qk, v) given g = dL/dout (B,
     nh*DV, H, W): (dqk, dv), dqk one (B, 2*nh*D, H, W) tensor holding dq and dk. One
-    launch of the backward kernel on a CUDA tensor; the plain version on a CPU one."""
+    launch of the backward kernel on CUDA tensors; anything else raises."""
     q4, k4, v4, view = _nchw_views(qk, v, num_heads)
     dqk = torch.empty(qk.shape, dtype=qk.dtype, device=qk.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     dq4, dk4, dv4, _ = _nchw_views(dqk, dv, num_heads)
-    if _check_device(qk, "linear_attention_nchw_backward"):
-        bh = lambda t: t.reshape(-1, t.shape[2], t.shape[3])  # noqa: E731
-        grads = linear_attention_backward_plain(bh(q4), bh(k4), bh(v4),
-                                                bh(view(g.contiguous())), eps)
-        for dst, src in zip((dq4, dk4, dv4), grads):
-            dst.copy_(src.view(dst.shape))
-        return dqk, dv
     if not _one_span_per_head(lambda: (q4, k4, v4, view(g))):
         g = g.contiguous()  # the kernel reads each head of g as one span of planes
     _launch_backward(q4, k4, v4, view(g), dq4, dk4, dv4, eps)
@@ -274,8 +269,8 @@ class LinearAttentionFunction(torch.autograd.Function):
     """Linear attention with a kernel on both passes: the forward is one launch of
     K2 and the backward one launch of the backward kernel, which recomputes kv and
     the normaliser from the saved q, k, v (nothing else is saved). Both variants are
-    the same function, so one Function serves them. On CPU tensors both passes run
-    the plain version (the kv-first form).
+    the same function, so one Function serves them. It takes CUDA tensors only: the
+    entries give CPU tensors the plain version, which autograd differentiates.
 
     ``apply(num_heads, eps, qk, v)`` for the NCHW entry (``linear_attention_nchw``;
     the gradient of qk is one tensor holding dq and dk), ``apply(0, eps, q, k, v)``
@@ -286,11 +281,7 @@ class LinearAttentionFunction(torch.autograd.Function):
     def forward(ctx, num_heads, eps, *ts):
         ctx.num_heads, ctx.eps = num_heads, eps
         ctx.save_for_backward(*ts)
-        cpu = ts[0].device.type == "cpu"
-        if num_heads:
-            return (linear_attention_nchw_plain(*ts, num_heads, eps=eps) if cpu
-                    else _nchw_kernel(*ts, num_heads, eps))
-        return linear_attention_kv_first(*ts, eps) if cpu else _bh_kernel(*ts, eps)
+        return _nchw_kernel(*ts, num_heads, eps) if num_heads else _bh_kernel(*ts, eps)
 
     @staticmethod
     def backward(ctx, g):

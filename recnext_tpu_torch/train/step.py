@@ -48,11 +48,12 @@ def compute_params(model: nn.Module, dtype: torch.dtype,
                    source: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """The conv and linear parameters (weights and biases) cast to ``dtype``, by
     name, from ``source`` where it has them (an EMA copy), else from the model. The
-    BatchNorm parameters are left out: they stay fp32."""
+    BatchNorm parameters and those of a layer flagged ``fp32`` (RegNetY's classifier)
+    are left out: they stay fp32."""
     source = source or {}
     out = {}
     for prefix, mod in model.named_modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.Linear)) and not getattr(mod, "fp32", False):
             for leaf, p in mod.named_parameters(recurse=False):
                 name = f"{prefix}.{leaf}" if prefix else leaf
                 out[name] = source.get(name, p).to(dtype)
@@ -83,7 +84,8 @@ def create_teacher(name: str, *, num_classes: int, device=None) -> nn.Module:
 def make_teacher_apply(teacher: nn.Module, dtype: torch.dtype = torch.bfloat16) -> Callable:
     """``teacher_apply(x) -> logits`` for the train step: ``teacher`` in eval mode,
     without gradient, on x in ``dtype``, its conv and linear weights cast to ``dtype``
-    once (the teacher never changes), its BatchNorm in fp32 on running statistics."""
+    once (the teacher never changes) but for RegNetY's fp32 classifier, its BatchNorm
+    in fp32 on running statistics."""
     teacher.eval()
     params = compute_params(teacher, dtype)
 

@@ -3,11 +3,11 @@
 The plain backward (autograd over the kv-first form in fp32) against ``jax.vjp`` of
 ``recnext_tpu.ops.attention.linear_attention_kv_first`` and ``_qk_first``; a numpy
 transcription of the backward kernel's three passes (its tiles, its formulas and
-their order) against the same ``jax.vjp``; the kernel's launch layout; the Function
-that carries both kernels, on CPU tensors (where it runs the plain versions); and the
-LinearAttention and RecAttn2d mixers' parameter and input gradients against
-``jax.grad`` of the flax modules on the same weights. Inputs are made with numpy and
-handed to both; NHWC <-> NCHW is explicit."""
+their order) against the same ``jax.vjp``; the kernel's launch layout; the entries
+under grad on CPU tensors (the plain version under autograd; the Function that carries
+both kernels takes CUDA tensors only); and the LinearAttention and RecAttn2d mixers'
+parameter and input gradients against ``jax.grad`` of the flax modules on the same
+weights. Inputs are made with numpy and handed to both; NHWC <-> NCHW is explicit."""
 
 import jax
 import jax.numpy as jnp
@@ -208,31 +208,31 @@ def test_backward_entries_on_cpu_are_the_plain_version():
 
 
 @pytest.mark.parametrize("variant", [1, 2])
-def test_function_gradients_match_autograd_over_the_plain_version(variant):
-    """LinearAttentionFunction on CPU tensors: the NCHW entry's gradient of qk holds
-    dq and dk in its two halves, and the (BH, N, D) entry's, each input's."""
+def test_cpu_entries_differentiate_the_plain_version_and_the_function_takes_cuda_only(
+        variant):
+    """On CPU tensors under grad, the NCHW entry is the plain version of ``variant``
+    under autograd (the Function is not in the graph); the Function and the NCHW
+    backward refuse CPU tensors before any launch. The Function's gradients are held
+    against autograd over the plain version on the card (tests/test_torch_cuda.py)."""
     rng = np.random.default_rng(4)
     qk = torch.from_numpy(np.abs(rng.normal(size=(2, 2 * 3 * 8, 5, 6))).astype(np.float32) + .1)
     v = torch.from_numpy(rng.normal(size=(2, 3 * 10, 5, 6)).astype(np.float32))
     g = torch.from_numpy(rng.normal(size=(2, 3 * 10, 5, 6)).astype(np.float32))
     qk.requires_grad_()
     v.requires_grad_()
-    out = A.LinearAttentionFunction.apply(3, EPS, qk, v)
+    out = A.linear_attention_nchw(qk, v, 3, variant=variant)
+    assert "LinearAttentionFunction" not in type(out.grad_fn).__name__
     got = torch.autograd.grad(out, (qk, v), g)
     want = torch.autograd.grad(A.linear_attention_nchw_plain(qk, v, 3, variant=variant),
                                (qk, v), g)
     for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
-    # only v requires a gradient: the Function returns none for qk
-    out = A.LinearAttentionFunction.apply(3, EPS, qk.detach(), v)
-    (dv,) = torch.autograd.grad(out, (v,), g)
-    torch.testing.assert_close(dv, want[1], rtol=1e-5, atol=1e-5 * want[1].abs().max().item())
-    q, k, vv, gg = (torch.from_numpy(a) for a in _qkvg(4, 9, 6, 7, seed=5))
-    ins = [t.requires_grad_() for t in (q, k, vv)]
-    got = torch.autograd.grad(A.LinearAttentionFunction.apply(0, EPS, *ins), ins, gg)
-    want = torch.autograd.grad(A.linear_attention_kv_first(*ins), ins, gg)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    before = (A.linear_attention_fused.launches, A.linear_attention_backward.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        A.LinearAttentionFunction.apply(3, EPS, qk, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        A.linear_attention_nchw_backward(qk.detach(), v.detach(), g, 3)
+    assert (A.linear_attention_fused.launches, A.linear_attention_backward.launches) == before
 
 
 def _nchw(a: np.ndarray) -> torch.Tensor:

@@ -15,6 +15,7 @@ from recnext_tpu.models import regnet as jregnet
 from recnext_tpu_torch.convert import jax_regnet_to_torch
 from recnext_tpu_torch.models import regnet as tregnet
 from recnext_tpu_torch.models.recnext import init_weights
+from recnext_tpu_torch.train.step import make_teacher_apply
 
 TINY = dict(name="tiny", w0=24, wa=24.0, wm=2.0, depth=4, group_width=8, stem_width=16,
             num_classes=11)  # tests/test_regnet.py:116's config
@@ -70,6 +71,32 @@ def test_logits_match_jax_on_carried_weights():
         got = port(torch.from_numpy(x.transpose(0, 3, 1, 2).copy())).numpy()
     assert got.shape == want.shape == (2, 11)
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_teacher_in_bf16_matches_jax_in_bf16_with_an_fp32_classifier():
+    """The train step's teacher (``make_teacher_apply`` at bf16) against the JAX
+    package's RegNetY(dtype=bfloat16) on the same weights: within 1e-2 max|ref| (bf16
+    convs on both sides, rounded in other orders; 5e-3 seen, where JAX's bf16 and f32
+    models differ by 1.7e-2). As JAX's ``head_fc``, the classifier takes the fp32 mean
+    of the body's bf16 output and its fp32 weights: the logits are that product to
+    the bit."""
+    _, variables = _jax_tiny()
+    jmodel = jregnet.RegNetY(cfg=jregnet.RegNetConfig(**TINY), dtype=jnp.bfloat16)
+    port = tregnet.RegNetY(tregnet.RegNetConfig(**TINY)).eval()
+    port.load_state_dict(jax_regnet_to_torch(variables, port), strict=True)
+    feats = []
+    port.head.register_forward_hook(lambda mod, args, out: feats.append(args[0]))
+    for seed in range(3):
+        x = _x(seed)
+        want = np.asarray(jmodel.apply(variables, jnp.asarray(x), training=False))
+        got = make_teacher_apply(port, torch.bfloat16)(
+            torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+        assert got.dtype == torch.float32 and feats[-1].dtype == torch.bfloat16
+        assert np.abs(got.numpy() - want).max() <= 1e-2 * np.abs(want).max()
+        head = torch.nn.functional.linear(feats[-1].float().mean(dim=(2, 3)),
+                                          port.head.fc.weight, port.head.fc.bias)
+        assert torch.equal(got, head)
+    assert all(p.dtype == torch.float32 for p in port.parameters())
 
 
 def test_port_state_dict_maps_onto_every_jax_leaf():
