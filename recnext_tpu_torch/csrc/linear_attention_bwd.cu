@@ -83,6 +83,15 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+// every store of dq, dk and dv (tools/k2_bwd_phases.py replaces the marked line with
+// a store that never runs, so that what feeds it stays live)
+template <typename T>
+__device__ __forceinline__ void store(T* p, float v) {
+  // phase store
+  st(p, v);
+  // end store
+}
+
 // Copy positions n0 .. n0+len of a head's `rows` rows (src: the head's span) into a
 // tile (row r, position n at dst[r * tp + n]), in fp32, in the order of the span.
 template <typename T>
@@ -158,6 +167,7 @@ __device__ __forceinline__ void outer_accumulate(const float* A, int RA, const f
     }
     // the splits of a block are consecutive lanes of one warp (block_items and the
     // team are multiples of splits): a butterfly sums their blocks in a fixed order
+    // phase butterfly
     if (splits > 1) {
       const unsigned group = ((2u << (splits - 1)) - 1) << ((threadIdx.x & 31) & ~(splits - 1));
       for (int off = splits >> 1; off > 0; off >>= 1) {
@@ -167,6 +177,7 @@ __device__ __forceinline__ void outer_accumulate(const float* A, int RA, const f
           for (int j = 0; j < kB; ++j) acc[i][j] += __shfl_xor_sync(group, acc[i][j], off);
       }
     }
+    // end butterfly
     if (sp != 0) continue;
 #pragma unroll
     for (int i = 0; i < kB; ++i) {
@@ -240,10 +251,14 @@ linear_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // 1. kv^T (into mt: entry (d, e) at e * dp + d) and ksum (into m)
   for (int t = 0; t < g.tiles; ++t) {
     const int n0 = t * g.tile, len = min(g.tile, N - n0);
+    // phase load
     load_tile(A, kh, D, n0, len, g);
     load_tile(B, vh, DV, n0, len, g);
+    // end load
     __syncthreads();
+    // phase pass1
     outer_accumulate(A, D, B, DV, len, mt, 1, g.dp, m, nullptr, g);
+    // end pass1
     __syncthreads();
   }
   for (int i = tid; i < DV * g.dp; i += team) mt[i] *= inv_n;  // s2 k^T v
@@ -254,19 +269,24 @@ linear_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nbd = (D + kB - 1) / kB, nbv = (DV + kB - 1) / kB;
   for (int t = 0; t < g.tiles; ++t) {
     const int n0 = t * g.tile, len = min(g.tile, N - n0);
+    // phase load
     load_tile(A, qh, D, n0, len, g);
     load_tile(B, gh, DV, n0, len, g);
+    // end load
     __syncthreads();
     // t_n = kv g_n (items: d block by position pair), and r_n (one item a position)
     const int S = (len + kP - 1) / kP;
     for (int it = tid; it < nbd * S + len; it += team) {
       if (it >= nbd * S) {
+        // phase dots
         const int n = it - nbd * S;
         float dot = 0.f;
         for (int d = 0; d < D; ++d) dot = fmaf(A[d * tp + n], m[d], dot);
         R[n] = 1.f / (dot + eps);
+        // end dots
         continue;
       }
+      // phase t_dq
       const int ob = it / S, ns = it - ob * S, o0 = ob * kB;
       const int np[kP] = {ns, min(ns + S, len - 1)};
       float acc[kP][kB];
@@ -277,14 +297,17 @@ linear_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int o = 0; o < kB; ++o) Tt[(o0 + o) * tp + ns + p * S] = acc[p][o];
       }
+      // end t_dq
     }
     __syncthreads();
     // b_n = -r_n^2 (q_n . t_n)
+    // phase dots
     for (int n = tid; n < len; n += team) {
       float dot = 0.f;
       for (int d = 0; d < D; ++d) dot = fmaf(A[d * tp + n], Tt[d * tp + n], dot);
       Bn[n] = -R[n] * R[n] * dot;
     }
+    // end dots
     __syncthreads();
     // dq_n = r_n t_n + b_n m, stored in the span's order; a_n = r_n g_n in place of g
     const int total = D * len;
@@ -292,14 +315,18 @@ linear_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       int d, n;
       if (g.n_fastest) { d = i / len; n = i - d * len; }
       else { n = i / D; d = i - n * D; }
-      st(dqh + (n0 + n) * dn + d * dd, fmaf(R[n], Tt[d * tp + n], Bn[n] * m[d]));
+      store(dqh + (n0 + n) * dn + d * dd, fmaf(R[n], Tt[d * tp + n], Bn[n] * m[d]));
     }
+    // phase dkv
     for (int i = tid; i < DV * len; i += team) {
       const int e = i / len, n = i - e * len;
       B[e * tp + n] *= R[n];
     }
+    // end dkv
     __syncthreads();
+    // phase dkv
     outer_accumulate(A, D, B, DV, len, mk, g.dvp, 1, dm, Bn, g);
+    // end dkv
     __syncthreads();
   }
   // s2 dKV into mk and, transposed, into mt (kv^T is no longer needed); dm / N
@@ -316,10 +343,13 @@ linear_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   //    rows by k); items: output block by position pair, dk's then dv's
   for (int t = 0; t < g.tiles; ++t) {
     const int n0 = t * g.tile, len = min(g.tile, N - n0);
+    // phase load
     load_tile(A, kh, D, n0, len, g);
     load_tile(B, vh, DV, n0, len, g);
+    // end load
     __syncthreads();
     const int S = (len + kP - 1) / kP;
+    // phase pass3
     for (int it = tid; it < (nbd + nbv) * S; it += team) {
       const bool is_dk = it < nbd * S;
       const int j = is_dk ? it : it - nbd * S;
@@ -338,9 +368,10 @@ linear_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int o = 0; o < kB; ++o)
           if (o0 + o < O)
-            st(out + (n0 + n) * on + (o0 + o) * oo, is_dk ? acc[p][o] + dm[o0 + o] : acc[p][o]);
+            store(out + (n0 + n) * on + (o0 + o) * oo, is_dk ? acc[p][o] + dm[o0 + o] : acc[p][o]);
       }
     }
+    // end pass3
     __syncthreads();  // the tiles are free
   }
 }
@@ -410,6 +441,18 @@ int linear_attention_backward_attributes(int is_bf16, int* registers, int* local
   *registers = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
   return 0;
+}
+
+// Blocks of `threads` threads and `smem` dynamic shared bytes that one SM holds at
+// once, for the kernel instantiated for the dtype.
+int linear_attention_backward_resident(int is_bf16, int threads, int smem, int* blocks) {
+  const void* f = is_bf16 ? reinterpret_cast<const void*>(linear_attention_bwd_kernel<__nv_bfloat16>)
+                          : reinterpret_cast<const void*>(linear_attention_bwd_kernel<float>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, f, threads, smem);
 }
 
 const char* linear_attention_backward_error_string(int err) {

@@ -42,6 +42,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                                                          ctypes.POINTER(ctypes.c_int),
                                                          ctypes.POINTER(ctypes.c_int)]
     lib.linear_attention_backward_attributes.restype = ctypes.c_int
+    lib.linear_attention_backward_resident.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.linear_attention_backward_resident.restype = ctypes.c_int
     lib.linear_attention_backward_error_string.argtypes = [ctypes.c_int]
     lib.linear_attention_backward_error_string.restype = ctypes.c_char_p
 
@@ -67,6 +70,20 @@ def kernel_attributes(dtype: torch.dtype) -> dict:
     return {"registers": regs.value, "local_bytes": local.value}
 
 
+def resident_blocks(threads: int, smem_bytes: int, dtype: torch.dtype) -> int:
+    """Blocks of ``threads`` threads and ``smem_bytes`` dynamic shared bytes that one
+    SM holds at once (the CUDA runtime's occupancy for the kernel built for
+    ``dtype``)."""
+    lib = load_library()
+    blocks = ctypes.c_int()
+    err = lib.linear_attention_backward_resident(int(dtype == torch.bfloat16), threads,
+                                                 smem_bytes, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"linear attention backward occupancy: "
+                           f"{lib.linear_attention_backward_error_string(err).decode()} ({err})")
+    return blocks.value
+
+
 def _ceil_to(a: int, m: int) -> int:
     return -(-a // m) * m
 
@@ -78,6 +95,10 @@ class LaunchConfig(NamedTuple):
     splits: int      # lanes that share one 8 x 8 outer-product block
     smem_bytes: int  # dynamic shared memory of a block
     geometry: tuple  # csrc/linear_attention_bwd.cu:Geometry, field by field (GEOMETRY_FIELDS)
+
+    @property
+    def threads(self) -> int:  # threads of a block
+        return self.team
 
 
 def team_size(n: int) -> int:
@@ -117,7 +138,17 @@ def launch_config(n: int, d: int, dv: int, elem_bytes: int, layout: str) -> Laun
     if elem_bytes not in (2, 4):
         raise ValueError(f"linear_attention_backward_cuda: {elem_bytes}-byte elements "
                          "(f32 or bf16 only)")
-    team = team_size(n)
+    return _config(n, d, dv, layout, team_size(n))
+
+
+def candidates(n: int, d: int, dv: int, elem_bytes: int, layout: str) -> dict:
+    """Every launch configuration of these heads that the kernel takes, by label:
+    one per team size (``tools/k2_bwd_phases.py`` times each)."""
+    launch_config(n, d, dv, elem_bytes, layout)  # raises on what the kernel does not take
+    return {f"team{t}": _config(n, d, dv, layout, t) for t in (32, 64, 128, 256)}
+
+
+def _config(n: int, d: int, dv: int, layout: str, team: int) -> LaunchConfig:
     blocks = -(-d // BLOCK) * -(-dv // BLOCK)
     splits = 1
     while splits < 32 and 2 * splits * blocks <= team:
