@@ -82,8 +82,13 @@ and read just after:
               shapes at batch 128, DV != D (12, 24), D = DV = 128, heads off 16-byte
               alignment and N = 1, through the (BH, N, D) and the NCHW entries:
               each gradient f32 within 2e-5 max|ref|, bf16 within 1e-2 max|ref|, the
-              same bits on three runs; each shape's launch configuration, the
-              kernel's registers, device times at a1's shapes (batch 128, bf16;
+              same bits on three runs, at every route of K2' (heads packed in a
+              block, a head split over a thread-block cluster, the tiled walk)
+              and at head counts that leave a packed block or a cluster's last
+              slice partly filled; each shape's launch configuration (route,
+              team, heads a block, cluster, shared bytes) with its kernel's
+              registers and resident blocks an SM, device times at a1's shapes
+              (batch 128, bf16;
               CUDA events around calls queued behind other work, back to back and
               with L2 flushed before each call; the profiler's beside) beside bound
               and plain, and their sums over one a1 train step's 23 calls;
@@ -602,22 +607,26 @@ def phase_attention_backward():
 
     # (BH, N, D, DV, heads a batch row, shift): tests/test_pallas.py:29-34's shapes; a1's
     # four training shapes at batch 128; DV != D (the L family's LA3); D = DV = 128;
-    # heads off 16-byte alignment; N = 1
+    # heads off 16-byte alignment; N = 1; a packed block (2 and 4 heads of 128 and 64
+    # threads) and a cluster's last slice (780 = 7 * 98 + 94) partly filled
     cases = [(2, 16, 32, 32, 2, 0), (4, 64, 64, 64, 2, 0), (2, 49, 20, 20, 2, 0),
              (2, 196, 20, 40, 2, 0)]
     cases += [(128 * nh, side * side, A1_HEAD_DIM, A1_HEAD_DIM, nh, 0)
               for nh, side, _, _ in A1_ATTENTION.values()]
     cases += [(16, 49, 12, 24, 4, 0), (4, 784, 128, 128, 2, 0), (12, 49, 24, 40, 3, 3),
-              (6, 1, 24, 40, 3, 0)]
+              (6, 1, 24, 40, 3, 0), (3, 49, 24, 24, 3, 0), (5, 16, 24, 24, 5, 0),
+              (6, 780, 24, 24, 2, 0)]
     per_stage, max_abs_err = {}, 0.0
     for bh, n, d, dv, nh, shift in cases:
         rec = {"phase": "attention_backward", "bh": bh, "n": n, "d": d, "dv": dv,
-               "heads": nh, "head_shift": shift,
-               "launch": {f"{dt}_{lay}":
-                          attention_bwd_cuda.launch_config(n, d, dv, eb, lay)._asdict()
-                          for dt, eb in (("bf16", 2), ("f32", 4)) for lay in ("n", "d")}}
-        for cfg in rec["launch"].values():
-            del cfg["geometry"]
+               "heads": nh, "head_shift": shift, "launch": {}}
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for lay in ("n", "d"):
+                cfg = attention_bwd_cuda.launch_config(n, d, dv, dtype.itemsize, lay)
+                rec["launch"][f"{dt}_{lay}"] = {
+                    **{key: val for key, val in cfg._asdict().items() if key != "geometry"},
+                    **attention_bwd_cuda.kernel_attributes(dtype, cfg.route),
+                    "resident_blocks": attention_bwd_cuda.resident_blocks(cfg, dtype)}
         base = inputs(bh, n, d, dv)
         for dtype in (torch.float32, torch.bfloat16):
             key = "f32" if dtype == torch.float32 else "bf16"
@@ -645,7 +654,7 @@ def phase_attention_backward():
             # profiler has listed only some of this kernel's launches in a run (0.4 of
             # them), so its time and launch count are printed beside
             call = lambda: linear_attention_nchw_backward(qk, vn, gn, nh)  # noqa: E731
-            seen = [t for t in trace(call, iters=10) if "linear_attention_bwd_kernel" in t["name"]]
+            seen = [t for t in trace(call, iters=10) if "linear_attention_bwd_" in t["name"]]
             # as the train step finds its inputs: L2 (50 MB) flushed before each call by
             # writing 96 MB; the flush's own time taken off
             flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -665,8 +674,8 @@ def phase_attention_backward():
                                                         library_ms=None))
         emit(rec)
     emit({"phase": "attention_backward_kernel", **{
-        str(dt).removeprefix("torch."): attention_bwd_cuda.kernel_attributes(dt)
-        for dt in (torch.float32, torch.bfloat16)}})
+        f"{str(dt).removeprefix('torch.')}_{route}": attention_bwd_cuda.kernel_attributes(dt, route)
+        for dt in (torch.float32, torch.bfloat16) for route in ("packed", "tiled")}})
     total = {key: sum(A1_ATTENTION[st][2] * per_stage[st][key] for st in per_stage)
              for key in ("kernel_ms", "kernel_cold_l2_ms", "profiler_kernel_ms", "plain_ms",
                          "bytes", "flops")}
@@ -1061,7 +1070,7 @@ def phase_train(name="recnext_m1", args=TRAIN_ARGS):
 TRACE_KERNELS = {  # CUDA function names of each training path's kernels: (forward,
     # backward, ...)
     "recnext_m1": ("recconv_kernel", "recconv_bwd_kernel", "recconv_bwd_sum_kernel"),
-    "recnext_a1": ("linear_attention_kernel", "linear_attention_bwd_kernel")}
+    "recnext_a1": ("linear_attention_kernel", "linear_attention_bwd_")}  # K2' either route
 
 
 def phase_train_throughput(name="recnext_m1", teacher=None):

@@ -15,13 +15,16 @@ time per call is hidden:
   stores are replaced by a store that never runs, so that the compiler keeps what
   feeds them. The variants compute wrong results and are only timed.
 * ``configs_ms``: the kernel as built with every launch configuration that fits
-  (``ops/cuda/linear_attention_bwd.py:candidates``), in place of ``launch_config``'s
-  choice, each with its resident blocks per SM.
-* ``sass``: the instruction mix of the bf16 kernel as built (``cuobjdump -sass``).
+  (``ops/cuda/linear_attention_bwd.py:candidates``: each packed team size, each
+  cluster size, the tiled walk), in place of ``launch_config``'s choice, each with
+  its resident blocks per SM.
+* ``sass``: the instruction mix of the bf16 kernels as built (``cuobjdump -sass``).
 * ``profiler``: launches per call that ``torch.profiler``'s ``key_averages`` and its
-  exported trace list for K2' and, as a control, for K2, over 10 calls.
+  exported trace list for K2' and, as a control, for K2, over 10 calls; and, at the
+  end, for K2' again after 30 more profiler sessions in the same process (as
+  ``chip_smoke.py`` runs many before it times K2').
 
-Prints registers and local bytes of each build, one JSON line per shape and the
+Prints registers and local bytes of each build's kernels, one JSON line per shape and the
 card's name and power limit. Builds go to a temporary directory; nothing of the
 package is changed.
 """
@@ -165,7 +168,8 @@ def main() -> int:
         builds = {}
         for name, (lib, _) in libs.items():
             bwd.LIBRARY._lib = lib
-            builds[name] = bwd.kernel_attributes(torch.bfloat16)
+            builds[name] = {route: bwd.kernel_attributes(torch.bfloat16, route)
+                            for route in ("packed", "tiled")}
         bwd.LIBRARY._lib = libs["full"][0]
         print(json.dumps({"builds_bf16": builds, "sass_bf16": _sass(libs["full"][1])}),
               flush=True)
@@ -185,10 +189,8 @@ def main() -> int:
                 for label, cfg in bwd.candidates(n, HEAD_DIM, HEAD_DIM, 2, "n").items():
                     bwd.launch_config = lambda *a, cfg=cfg: cfg
                     bwd._launch_args.cache_clear()
-                    configs[label] = {
-                        "ms": queued_ms(run),
-                        "resident_blocks": bwd.resident_blocks(cfg.threads, cfg.smem_bytes,
-                                                               torch.bfloat16)}
+                    configs[label] = {"ms": queued_ms(run),
+                                      "resident_blocks": bwd.resident_blocks(cfg, torch.bfloat16)}
                 bwd.launch_config = chosen
                 bwd._launch_args.cache_clear()
                 cfg = chosen(n, HEAD_DIM, HEAD_DIM, 2, "n")
@@ -200,10 +202,18 @@ def main() -> int:
                 print(json.dumps({
                     "stage": stage, "bh": BATCH * nh, "n": n, "d": HEAD_DIM, "dv": HEAD_DIM,
                     "launch": {k: v for k, v in cfg._asdict().items() if k != "geometry"},
-                    "resident_blocks": bwd.resident_blocks(cfg.threads, cfg.smem_bytes,
-                                                           torch.bfloat16),
+                    "resident_blocks": bwd.resident_blocks(cfg, torch.bfloat16),
                     "phases_ms": phases, "configs_ms": configs, "profiler": prof}),
                     flush=True)
+            nh, side = A1[2]
+            qk, v, g = _inputs(nh, side, gen)
+            run = lambda: linear_attention_nchw_backward(qk, v, g, nh)  # noqa: E731
+            for _ in range(30):
+                profiler_launches(run, "linear_attention_bwd")
+            print(json.dumps({"profiler_after_30_sessions": {
+                "k2_bwd": profiler_launches(run, "linear_attention_bwd"),
+                "k2_forward": profiler_launches(lambda: linear_attention_nchw(qk, v, nh),
+                                                "linear_attention_kernel")}}), flush=True)
         finally:
             bwd.launch_config = chosen
             bwd._launch_args.cache_clear()

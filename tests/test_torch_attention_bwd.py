@@ -72,14 +72,24 @@ def test_plain_backward_matches_jax_vjp(bh, n, d, dv):
             _close(a.numpy(), b, f"d{name} vs {fn.__name__}")
 
 
-def transcribe_kernel(q, k, v, g, layout="n", eps=EPS, elem_bytes=4):
-    """csrc/linear_attention_bwd.cu, one head at a time, in numpy fp32: the launch
-    configuration's tiles, the outer products split over ``splits`` lanes (each
-    lane's positions in order, then the butterfly), the row sums one lane a row, the
-    three passes with the kernel's formulas in the kernel's order."""
+def transcribe_kernel(q, k, v, g, layout="n", eps=EPS, elem_bytes=4, cfg=None, shift=0):
+    """csrc/linear_attention_bwd.cu, one head at a time, in numpy fp32, on the route
+    ``launch_config`` picks (or ``cfg``): the resident routes through
+    ``transcribe_resident``, the tiled one through ``transcribe_tiled``."""
+    bh, n, d = q.shape
+    cfg = cfg or B.launch_config(n, d, v.shape[-1], elem_bytes, layout)
+    if cfg.route == "tiled":
+        return transcribe_tiled(q, k, v, g, cfg, eps)
+    return transcribe_resident(q, k, v, g, cfg, layout, eps, elem_bytes, shift)
+
+
+def transcribe_tiled(q, k, v, g, cfg, eps=EPS):
+    """The tiled route: the launch configuration's tiles, the outer products split
+    over ``splits`` lanes (each lane's positions in order, then the butterfly), the
+    row sums one lane a row, the three passes with the kernel's formulas in the
+    kernel's order."""
     bh, n, d = q.shape
     dv = v.shape[-1]
-    cfg = B.launch_config(n, d, dv, elem_bytes, layout)
     f32 = np.float32
     inv_n = f32(1.0) / f32(n)
 
@@ -89,11 +99,7 @@ def transcribe_kernel(q, k, v, g, layout="n", eps=EPS, elem_bytes=4):
         for sp in range(cfg.splits):
             for i in range(sp, a_tile.shape[1], cfg.splits):
                 parts[sp] = parts[sp] + np.outer(a_tile[:, i], b_tile[:, i]).astype(f32)
-        off = cfg.splits // 2
-        while off:  # the butterfly: lane l adds lane l ^ off's partial
-            parts = [parts[l] + parts[l ^ off] for l in range(cfg.splits)]
-            off //= 2
-        return parts[0]
+        return _butterfly(parts)
 
     out = [np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)]
     for h in range(bh):
@@ -127,6 +133,162 @@ def transcribe_kernel(q, k, v, g, layout="n", eps=EPS, elem_bytes=4):
     return out
 
 
+def _butterfly(parts):
+    """The kernel's butterfly over the lanes of one block: lane l adds lane l ^ off's
+    partial, off = splits / 2 .. 1; lane 0's sum."""
+    off = len(parts) // 2
+    while off:
+        parts = [parts[lane] + parts[lane ^ off] for lane in range(len(parts))]
+        off //= 2
+    return parts[0]
+
+
+def _block_order(rows: int) -> np.ndarray:
+    """Where row r of a 4-row-block matrix sits in the kernel's block order:
+    (r % nb) * 4 + r // nb for nb = rows / 4 (``ROWS``)."""
+    nb = rows // B.ROWS
+    r = np.arange(rows)
+    return (r % nb) * B.ROWS + r // nb
+
+
+def load_slice(sm, off, span, rows, n0, length, geo, layout, elem_bytes, shift):
+    """The kernel's load_slices for one operand: the 16-byte chunks that cover each
+    piece of the slice (at the head's misalignment ``shift`` elements), each element
+    stored at row * pn + position of the region at ``off`` of ``sm``."""
+    rowwise = layout == "n" and geo["cluster"] > 1
+    pieces, plen = (rows, length) if rowwise else (1, rows * length)
+    chunks = (30 + plen * elem_bytes) >> 4
+    start = n0 if layout == "n" else n0 * rows
+    w = length if layout == "n" else rows
+    for p in range(pieces):
+        ps = start + p * geo["n"]
+        sh = ((shift + ps) * elem_bytes) % 16
+        for j in range(chunks):
+            if 16 * j >= sh + plen * elem_bytes:
+                continue
+            i0 = (16 * j - sh) // elem_bytes
+            lo = max(0, -i0)
+            slow, fast = divmod(p * plen + i0 + lo, w)
+            for e in range(lo, 16 // elem_bytes):
+                if i0 + e >= plen:
+                    break
+                row, pos = (slow, fast) if layout == "n" else (fast, slow)
+                sm[off + row * geo["pn"] + pos] = span[ps + i0 + e]
+                fast += 1
+                if fast == w:
+                    fast, slow = 0, slow + 1
+
+
+def _zero_pad(sm, off, rows, rows_r, length, l4, pn):
+    reg = sm[off:off + rows_r * pn].reshape(rows_r, pn)
+    reg[:rows, length:l4] = 0.0
+    reg[rows:rows_r, :l4] = 0.0
+
+
+def _outer_resident(sm, a_off, nba, b_off, nbb, length, geo, dst, rowsum, w, scale):
+    """outer: each 4 x 4 block's splits (every splits-th pair of positions) summed by
+    the butterfly, times ``scale``, into dr rows of dvr with the columns in block
+    order; the row sums (even and odd positions apart, then added) times ``scale``."""
+    pn, splits = geo["pn"], geo["splits"]
+    ra, rb = nba * B.ROWS, nbb * B.ROWS
+    A = sm[a_off:a_off + ra * pn].reshape(ra, pn)
+    Bm = sm[b_off:b_off + rb * pn].reshape(rb, pn)
+    pairs = (length + 1) // 2
+    parts = []
+    for sp in range(splits):
+        pos = np.array([2 * j + o for j in range(sp, pairs, splits) for o in (0, 1)], int)
+        parts.append((A[:, pos] @ Bm[:, pos].T).astype(np.float32) if len(pos)
+                     else np.zeros((ra, rb), np.float32))
+    total = _butterfly(parts) * np.float32(scale)
+    sm[dst + np.arange(ra)[:, None] * rb + _block_order(rb)[None, :]] = total
+    wt = np.ones(2 * pairs, np.float32) if w is None else sm[w:w + 2 * pairs]
+    prod = A[:, :2 * pairs] * wt
+    sm[rowsum:rowsum + ra] = (prod[:, 0::2].sum(axis=1, dtype=np.float32)
+                              + prod[:, 1::2].sum(axis=1, dtype=np.float32)) * np.float32(scale)
+
+
+def transcribe_resident(q, k, v, g, cfg, layout, eps=EPS, elem_bytes=4, shift=0):
+    """The packed and cluster routes: each block's team region as one float32 array
+    filled with NaN (a read of a word the kernel has not written shows as NaN), the
+    slices loaded chunk by chunk and zero-padded, the outer products' splits summed by
+    the butterfly once a pass (scaled by 1/N where the slice is the head), a
+    cluster's partial sums added in rank order and then scaled, pass 2's dots as
+    shares of 4-row blocks summed in block order, the kernel's formulas and block
+    orders throughout."""
+    geo = dict(zip(B.RESIDENT_FIELDS, cfg.geometry[1:]))
+    bh, n, d = q.shape
+    dv = v.shape[-1]
+    f32 = np.float32
+    inv_n = f32(1.0) / f32(n)
+    pn, dr, dvr, C = geo["pn"], geo["dr"], geo["dvr"], geo["cluster"]
+    nbd = dr // B.ROWS
+    mat = dr * dvr
+    scale = f32(1.0) if C > 1 else inv_n
+    natural = _block_order(dvr)  # column e of a matrix sits at natural[e]
+    out = [np.full_like(q, np.nan), np.full_like(k, np.nan), np.full_like(v, np.nan)]
+
+    def span(x):  # a head's span in the layout's order
+        return (x.T if layout == "n" else x).reshape(-1).astype(f32)
+
+    def combine(sms, x_off, f_off):  # the head's sums: the blocks' in rank order, scaled
+        if C == 1:
+            return
+        parts = [sm[x_off:x_off + mat + dr].copy() for sm in sms]
+        for sm in sms:
+            total = np.zeros_like(parts[0])
+            for part in parts:
+                total = total + part
+            sm[f_off:f_off + mat + dr] = total * inv_n
+
+    for h in range(bh):
+        sms = [np.full(geo["team_floats"], np.nan, f32) for _ in range(C)]
+        slices = [(r * geo["len"], min(geo["len"], n - r * geo["len"])) for r in range(C)]
+        for sm, (n0, ln) in zip(sms, slices):
+            l4 = -(-ln // B.QUAD) * B.QUAD
+            for name, x, rows, rows_r in (("k", k, d, dr), ("v", v, dv, dvr), ("q", q, d, dr),
+                                          ("g", g, dv, dvr)):
+                load_slice(sm, geo[name], span(x[h]), rows, n0, ln, geo, layout, elem_bytes,
+                           shift)
+                _zero_pad(sm, geo[name], rows, rows_r, ln, l4, pn)
+            _outer_resident(sm, geo["k"], nbd, geo["v"], dvr // B.ROWS, ln, geo, geo["x1"],
+                            geo["x1"] + mat, None, scale)
+        combine(sms, geo["x1"], geo["f1"])
+        for sm, (n0, ln) in zip(sms, slices):
+            l4 = -(-ln // B.QUAD) * B.QUAD
+            G = sm[geo["g"]:geo["g"] + dvr * pn].reshape(dvr, pn)
+            Q = sm[geo["q"]:geo["q"] + dr * pn].reshape(dr, pn)
+            kv = sm[geo["f1"]:geo["f1"] + mat].reshape(dr, dvr)[:, natural]  # (d, e)
+            m = sm[geo["f1"] + mat:geo["f1"] + mat + dr]
+            t = (kv[:, :dv] @ G[:dv, :l4]).astype(f32)  # (d, n): t_n = kv g_n
+            # each item's shares over its rows db + i nbd, summed over i
+            PM = sm[geo["pm"]:geo["pm"] + nbd * pn].reshape(nbd, pn)
+            PT = sm[geo["pt"]:geo["pt"] + nbd * pn].reshape(nbd, pn)
+            PM[:, :l4] = (Q[:, :l4] * m[:, None]).reshape(B.ROWS, nbd, l4).sum(axis=0, dtype=f32)
+            PT[:, :l4] = (Q[:, :l4] * t).reshape(B.ROWS, nbd, l4).sum(axis=0, dtype=f32)
+            sm4, st4 = np.zeros(l4, f32), np.zeros(l4, f32)
+            for x in range(nbd):  # the shares in block order
+                sm4, st4 = sm4 + PM[x, :l4], st4 + PT[x, :l4]
+            r = f32(1.0) / (sm4 + f32(eps))
+            b = -r * r * st4
+            out[0][h, n0:n0 + ln] = (r * t + b * m[:, None])[:d, :ln].T  # dq_n = r t_n + b m
+            G[:dv, :l4] *= r  # a_n = r_n g_n
+            sm[geo["bn"]:geo["bn"] + l4] = b
+            _outer_resident(sm, geo["q"], nbd, geo["g"], dvr // B.ROWS, ln, geo, geo["x2"],
+                            geo["x2"] + mat, geo["bn"], scale)
+        combine(sms, geo["x2"], geo["f2"])
+        for sm, (n0, ln) in zip(sms, slices):
+            l4 = -(-ln // B.QUAD) * B.QUAD
+            V = sm[geo["v"]:geo["v"] + dvr * pn].reshape(dvr, pn)
+            K = sm[geo["k"]:geo["k"] + dr * pn].reshape(dr, pn)
+            dkv = sm[geo["f2"]:geo["f2"] + mat].reshape(dr, dvr)[:, natural]  # (d, e)
+            dm = sm[geo["f2"] + mat:geo["f2"] + mat + dr]
+            dk = (dkv[:, :dv] @ V[:dv, :l4]).astype(f32) + dm[:, None]  # s2 dKV v_n + dm / N
+            dvv = (dkv[:d].T @ K[:d, :l4]).astype(f32)  # s2 dKV^T k_n
+            out[1][h, n0:n0 + ln] = dk[:d, :ln].T
+            out[2][h, n0:n0 + ln] = dvv[:dv, :ln].T
+    return out
+
+
 @pytest.mark.parametrize("layout", ["n", "d"])
 @pytest.mark.parametrize("bh,n,d,dv", SHAPES, ids=IDS)
 def test_kernel_transcription_matches_jax_vjp(bh, n, d, dv, layout):
@@ -154,10 +316,15 @@ LAYOUT_SHAPES = [(n, d, dv) for _, n, d, dv in SHAPES] + [
 @pytest.mark.parametrize("elem_bytes", [2, 4])
 @pytest.mark.parametrize("n,d,dv", LAYOUT_SHAPES)
 def test_launch_config_fits_and_divides_its_block(n, d, dv, elem_bytes, layout):
-    cfg = B.launch_config(n, d, dv, elem_bytes, layout)
-    geo = dict(zip(B.GEOMETRY_FIELDS, cfg.geometry))
+    """The tiled route's layout, which the kernel takes at every shape (launch_config
+    picks it where no resident layout fits: tests/test_torch_attention_bwd_plan.py)."""
+    B.launch_config(n, d, dv, elem_bytes, layout)  # the kernel takes the shape
+    cfg = B.tiled_config(n, d, dv, layout)
+    geo = dict(zip(B.TILED_FIELDS, cfg.geometry[1:]))
+    assert cfg.route == "tiled" and cfg.geometry[0] == B.ROUTE_CODE["tiled"]
+    assert len(cfg.geometry) == 1 + len(B.TILED_FIELDS)
     assert cfg.smem_bytes == 4 * geo["floats"] <= MAX_SMEM_BYTES
-    assert cfg.team in (32, 64, 128, 256) and cfg.team == B.team_size(n)
+    assert cfg.team in (32, 64, 128, 256) and cfg.team == B.tiled_team(n)
     # the lanes of an outer-product block are consecutive lanes of one warp, and the
     # block items fill whole groups of them
     assert cfg.splits in (1, 2, 4, 8, 16, 32) and cfg.team % cfg.splits == 0
@@ -178,14 +345,19 @@ def test_launch_config_fits_and_divides_its_block(n, d, dv, elem_bytes, layout):
 
 
 def test_launch_config_takes_the_fewest_tiles_that_fit():
-    assert B.launch_config(784, 24, 24, 2, "n")[:4] == (256, 112, 7, 16)
-    assert B.launch_config(196, 24, 24, 2, "n")[:4] == (128, 98, 2, 8)
-    assert B.launch_config(49, 24, 24, 2, "n")[:4] == (64, 49, 1, 4)
-    assert B.launch_config(16, 24, 24, 2, "n")[:4] == (32, 16, 1, 2)
-    # the largest D and DV: the two matrices take 128 KB, the tiles what is left
+    def tiled(*a):
+        c = B.tiled_config(*a)
+        return c.team, c.tile, c.tiles, c.splits
+
+    assert tiled(784, 24, 24, "n") == (256, 112, 7, 16)
+    assert tiled(196, 24, 24, "n") == (128, 98, 2, 8)
+    assert tiled(49, 24, 24, "n") == (64, 49, 1, 4)
+    assert tiled(16, 24, 24, "n") == (32, 16, 1, 2)
+    # the largest D and DV: no slice is resident, and on the tiled route the two
+    # matrices take 128 KB, the tiles what is left
     big = B.launch_config(784, 128, 128, 4, "d")
-    assert big.tiles > -(-784 // B.MAX_TILE)
-    assert 4 * B._layout(784, 128, 128, -(-784 // (big.tiles - 1)))["floats"] > MAX_SMEM_BYTES
+    assert big.route == "tiled" and big.tiles > -(-784 // B.MAX_TILE)
+    assert 4 * B.tiled_layout(784, 128, 128, -(-784 // (big.tiles - 1)))["floats"] > MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("n,d,dv,elem_bytes,layout,match", [

@@ -20,6 +20,7 @@ from recnext_tpu_torch.ops.attention import (
     linear_attention_nchw_plain,
 )
 from recnext_tpu_torch.models.mixers import LinearAttention, RecConv2dMixer
+from recnext_tpu_torch.ops.cuda import linear_attention_bwd as attention_bwd_cuda
 from recnext_tpu_torch.ops.recconv import (
     rec_conv2d,
     rec_conv2d_backward,
@@ -474,10 +475,11 @@ def test_mixer_under_grad_launches_k1_and_the_backward_kernel_once(cuda):
 
 # K2' (the linear-attention backward): tests/test_pallas.py:29-34's shapes; a1's four
 # training head shapes (N 784, 196, 49, 16; D = DV = 24); DV != D (the L family's
-# LA3: D 12, DV 24); D = DV = 128 (several tiles a head); N = 1
+# LA3: D 12, DV 24); D = DV = 128 (the tiled route, several tiles a head); N = 1; a
+# cluster whose last block holds a shorter slice (780 = 7 * 98 + 94)
 BWD_CASES = [(2, 16, 32, 32), (4, 64, 64, 64), (2, 49, 20, 20), (2, 196, 20, 40),
              (8, 784, 24, 24), (16, 196, 24, 24), (32, 49, 24, 24), (64, 16, 24, 24),
-             (6, 49, 12, 24), (2, 784, 128, 128), (6, 1, 24, 40)]
+             (6, 49, 12, 24), (2, 784, 128, 128), (6, 1, 24, 40), (6, 780, 24, 24)]
 
 
 def _bwd_inputs(bh, n, d, dv, seed, dtype):
@@ -593,8 +595,53 @@ def test_function_gradients_match_autograd_over_the_plain_version(cuda, variant)
     _check_attention_backward(got, want, torch.float32)
 
 
+@pytest.mark.parametrize("layout", ["n", "d"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,n", [(16, 784), (64, 196)])
+@pytest.mark.parametrize("bh,n,d,dv", [(6, 780, 24, 24), (3, 49, 24, 24), (5, 16, 24, 24),
+                                       (2, 196, 20, 40), (3, 100, 12, 24)])
+def test_attention_backward_at_every_route(cuda, monkeypatch, bh, n, d, dv, dtype, layout):
+    """Every configuration K2' takes at these heads (each packed team size, each
+    cluster size, the tiled walk; ops/cuda/linear_attention_bwd.py:candidates), with
+    head counts that leave a packed block or a cluster's last slice partly filled,
+    through the (BH, N, D) entry ("d") or as NCHW planes of one batch row ("n"): one
+    launch each, against the plain version."""
+    q, k, v, go = _bwd_inputs(bh, n, d, dv, 3 * n + bh, dtype)
+    want = linear_attention_backward_plain(*(t.float() for t in (q, k, v, go)))
+    options = attention_bwd_cuda.candidates(n, d, dv, q.element_size(), layout)
+    routes = {c.route for c in options.values()}
+    assert "tiled" in routes and routes & {"packed", "cluster"}
+    for label, cfg in options.items():
+        monkeypatch.setattr(attention_bwd_cuda, "launch_config", lambda *a, cfg=cfg: cfg)
+        attention_bwd_cuda._launch_args.cache_clear()
+        before = linear_attention_backward.launches
+        if layout == "d":
+            got = linear_attention_backward(q, k, v, go)
+        else:
+            qk = torch.cat([_as_nchw(q, bh), _as_nchw(k, bh)], dim=1)
+            dqk, dv_ = linear_attention_nchw_backward(qk, _as_nchw(v, bh), _as_nchw(go, bh), bh)
+            back = lambda t, r: t.reshape(bh, r, n).transpose(1, 2)  # noqa: E731
+            got = (back(dqk[:, : bh * d], d), back(dqk[:, bh * d:], d), back(dv_, dv))
+        torch.cuda.synchronize()
+        assert linear_attention_backward.launches == before + 1, label
+        _check_attention_backward(got, want, dtype)
+    monkeypatch.undo()
+    attention_bwd_cuda._launch_args.cache_clear()
+
+
+@pytest.mark.parametrize("n", [784, 196, 49, 16])
+def test_attention_backward_holds_32_warps_an_sm_at_a1_shapes(cuda, n):
+    """At a1's training heads the kernel keeps to its register budget and the
+    runtime puts 4 blocks of 256 threads (32 warps) on an SM, as launch_config
+    plans."""
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = attention_bwd_cuda.launch_config(n, 24, 24, dtype.itemsize, "n")
+        attrs = attention_bwd_cuda.kernel_attributes(dtype, cfg.route)
+        assert attrs["registers"] <= attention_bwd_cuda.REGISTERS
+        assert attention_bwd_cuda.resident_blocks(cfg, dtype) * cfg.threads // 32 >= 32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,n", [(16, 784), (64, 196), (64, 49), (128, 16), (6, 780)])
 def test_attention_backward_gives_the_same_bits_on_every_run(cuda, bh, n, dtype):
     q, k, v, go = _bwd_inputs(bh, n, 24, 24, 11, dtype)
     runs = [linear_attention_backward(q, k, v, go) for _ in range(3)]
