@@ -1,7 +1,7 @@
 """Where the linear-attention backward kernel K2' (``csrc/linear_attention_bwd.cu``)
 spends its time, on one GPU.
 
-    python -m recnext_tpu_torch.tools.k2_bwd_phases
+    python -m recnext_tpu_torch.tools.k2_bwd_phases [--against OTHER.cu]
 
 At recnext_a1's four training shapes (batch 128, bf16, the model's NCHW entry
 ``linear_attention_nchw_backward``; D = DV = 24), device ms per call from CUDA
@@ -24,6 +24,10 @@ time per call is hidden:
   end, for K2' again after 30 more profiler sessions in the same process (as
   ``chip_smoke.py`` runs many before it times K2').
 
+With ``--against``, a build of another version of the source (same C interface) is
+timed beside the kernel as built, in turns (this, other, other, this), at every
+shape: ``against_ms``.
+
 Prints registers and local bytes of each build's kernels, one JSON line per shape and the
 card's name and power limit. Builds go to a temporary directory; nothing of the
 package is changed.
@@ -31,6 +35,7 @@ package is changed.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
@@ -158,13 +163,20 @@ def _inputs(nh: int, side: int, gen: torch.Generator):
     return (t.to("cuda", torch.bfloat16) for t in (qk, v, g))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", type=Path, default=None,
+                        help="another version of csrc/linear_attention_bwd.cu to time beside it")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k2_bwd_phases: no CUDA device; this script runs on the GPU")
     src = bwd.SOURCE.read_text()
     names = phases_of(src)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = _build({"full": src, **{p: without(src, p) for p in names}}, Path(tmp))
+        sources = {"full": src, **{p: without(src, p) for p in names}}
+        if args.against:
+            sources["against"] = args.against.read_text()
+        libs = _build(sources, Path(tmp))
         builds = {}
         for name, (lib, _) in libs.items():
             bwd.LIBRARY._lib = lib
@@ -180,10 +192,15 @@ def main() -> int:
                 n = side * side
                 qk, v, g = _inputs(nh, side, gen)
                 run = lambda: linear_attention_nchw_backward(qk, v, g, nh)  # noqa: E731
-                phases = {}
+                phases, against = {}, {}
                 for name, (lib, _) in libs.items():
                     bwd.LIBRARY._lib = lib
-                    phases[name] = queued_ms(run)
+                    if name != "against":
+                        phases[name] = queued_ms(run)
+                if args.against:
+                    for name in ("full", "against", "against", "full"):
+                        bwd.LIBRARY._lib = libs[name][0]
+                        against.setdefault(name, []).append(queued_ms(run))
                 bwd.LIBRARY._lib = libs["full"][0]
                 configs = {}
                 for label, cfg in bwd.candidates(n, HEAD_DIM, HEAD_DIM, 2, "n").items():
@@ -203,7 +220,8 @@ def main() -> int:
                     "stage": stage, "bh": BATCH * nh, "n": n, "d": HEAD_DIM, "dv": HEAD_DIM,
                     "launch": {k: v for k, v in cfg._asdict().items() if k != "geometry"},
                     "resident_blocks": bwd.resident_blocks(cfg, torch.bfloat16),
-                    "phases_ms": phases, "configs_ms": configs, "profiler": prof}),
+                    "phases_ms": phases, "configs_ms": configs, "profiler": prof,
+                    **({"against_ms": against} if against else {})}),
                     flush=True)
             nh, side = A1[2]
             qk, v, g = _inputs(nh, side, gen)

@@ -2,8 +2,10 @@
 
 The plain backward (autograd over the kv-first form in fp32) against ``jax.vjp`` of
 ``recnext_tpu.ops.attention.linear_attention_kv_first`` and ``_qk_first``; a numpy
-transcription of the backward kernel's three passes (its tiles, its formulas and
-their order) against the same ``jax.vjp``; the kernel's launch layout; the entries
+transcription of the backward kernel on the route ``launch_config`` picks (the
+resident routes in their shared-memory layout, the tiled walk in its tiles; the
+formulas and their order) against the same ``jax.vjp``; the tiled walk's launch
+layout (tests/test_torch_attention_bwd_plan.py tests every route's); the entries
 under grad on CPU tensors (the plain version under autograd; the Function that carries
 both kernels takes CUDA tensors only); and the LinearAttention and RecAttn2d mixers'
 parameter and input gradients against ``jax.grad`` of the flax modules on the same
