@@ -90,7 +90,7 @@ def _raise(lib, what: str, err: int):
                        f"{lib.linear_attention_backward_error_string(err).decode()} ({err})")
 
 
-def kernel_attributes(dtype: torch.dtype, route: str = "packed") -> dict:
+def kernel_attributes(dtype: torch.dtype, route: str) -> dict:
     """Registers per thread and local (spill and stack) bytes per thread of the
     route's kernel built for ``dtype``, as the CUDA runtime reports them."""
     lib = load_library()
@@ -239,11 +239,10 @@ def tiled_layout(n: int, d: int, dv: int, tile: int) -> dict:
     return out
 
 
-def tiled_config(n: int, d: int, dv: int, layout: str, team: int | None = None) -> LaunchConfig:
-    """The tiled route: a block of ``team`` threads (``tiled_team(n)`` by default) a
-    head; N cut into the fewest tiles of at most ``MAX_TILE`` positions, evenly, that
-    fit in shared memory."""
-    team = team or tiled_team(n)
+def tiled_config(n: int, d: int, dv: int, layout: str) -> LaunchConfig:
+    """The tiled route: a block of ``tiled_team(n)`` threads a head; N cut into the
+    fewest tiles of at most ``MAX_TILE`` positions, evenly, that fit in shared memory."""
+    team = tiled_team(n)
     blocks = -(-d // BLOCK) * -(-dv // BLOCK)
     splits = 1
     while splits < 32 and 2 * splits * blocks <= team:
