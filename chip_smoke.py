@@ -97,7 +97,34 @@ and read just after:
               --teacher-model regnety_160: 23 K2 launches and 23 K2' calls per train
               step, 23 K2 launches per fused eval forward, nothing of K1 or K1';
 18. train_throughput  phase 14 for recnext_a1, without and with the regnety_160
-              hard teacher, and the distilled step's cost over the plain one.
+              hard teacher, and the distilled step's cost over the plain one;
+   recnext_m1 training beyond the main paths (planes larger than K1′'s shared memory
+   through the peeled level's backward kernels, csrc/recconv_level_bwd.cu, and the
+   384^2 finetune recipe):
+19. large_plane_backward  K1′'s peeled route at 128^2 L4 (C 48, batch 2: a 512^2
+              input's stage 0, one level peeled) and 200x334 L4 (C 48, batch 1: COCO's,
+              two levels) against its plain version, f32 and bf16, bilinear and
+              nearest, at K1′'s bounds, with the launches and peels made and the same
+              bits on three runs; then each of the three level kernels (the input
+              gradient at stride 1 and 2, the weight gradient at stride 1 with z = x +
+              up(y) and at stride 2, the up-step's adjoint) against its plain version
+              at the outer level's shapes of both planes, timed with CUDA events
+              around queued calls beside its bound, its plain version and one PyTorch
+              call of the same function (torch.nn.grad.conv2d_input / conv2d_weight
+              with groups=C, aten.upsample_*2d_backward), and its registers;
+20. train_grad recnext_m1 at 512^2, batch 2, f32: phase 12 at the size where stage
+              0's three mixers peel a level in their backward: every K1' call, each
+              of the three level kernels and the recomputed inner pyramids counted;
+21. finetune  the trainer finetunes recnext_m1 (full width and depth) at 384^2 on FAKE
+              data of 100 classes (the 1000-class head dropped and reinitialised),
+              warm-started from phase 13's checkpoint and from a fused archive of its
+              EMA weights, with --grad-accum 2 --remat --mesa 1.0
+              --mesa-start-ratio 0 for 4 micro-steps: 69 K1 launches a micro-step (the
+              forward, its recomputation, the EMA model's), 23 K1' calls, 23 K1
+              launches a fused eval forward; validate.py --fused --results-file scores
+              the result and its CSV row is read back; then the recipe's step timed
+              (bench.train_throughput at 384^2, batch 64) with a profiler trace: img/s,
+              the idle share, K1 and K1' launches a micro-step.
 Then each phase's seconds.
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
@@ -111,13 +138,19 @@ backward kernel's (rec_conv2d_backward) launches are its calls in the train phas
 first run, and its times the sums over one m1 train step's 23 calls at batch 128 in
 bf16; K2' (linear_attention_backward) likewise, for a1's train phase and train
 step (times back to back; the phase also gives them with L2 flushed before each
-call). The last lines are the kernel record, the card's name and power limit, and
+call). The peeled level's backward kernels (rec_conv2d_level_dgrad, _wgrad,
+rec_conv2d_up_adjoint) run only where a plane's backward is too large for K1': their
+launches are those of phase 20's kernel path (m1 at 512^2, batch 2), and their times
+the sums over that step's launches (3 peeled mixers, each 2 input-gradient, 2
+weight-gradient and 1 adjoint launches at 128^2, batch 2, C 48). The last lines are
+the kernel record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -130,9 +163,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from recnext_tpu_torch import bench
+from recnext_tpu_torch import validate as validate_main
 from recnext_tpu_torch.export import publish_fused
 from recnext_tpu_torch.fusion import fuse_params
 from recnext_tpu_torch.models.registry import create_model
@@ -149,16 +184,25 @@ from recnext_tpu_torch.ops.cuda import linear_attention as attention_cuda
 from recnext_tpu_torch.ops.cuda import linear_attention_bwd as attention_bwd_cuda
 from recnext_tpu_torch.ops.cuda import recconv as recconv_cuda
 from recnext_tpu_torch.ops.cuda import recconv_bwd as recconv_bwd_cuda
+from recnext_tpu_torch.ops.cuda import recconv_level_bwd as level_bwd_cuda
 from recnext_tpu_torch.ops.recconv import (
     rec_conv2d,
     rec_conv2d_backward,
     rec_conv2d_backward_plain,
     rec_conv2d_fused,
     rec_conv2d_level,
+    rec_conv2d_level_dgrad,
+    rec_conv2d_level_dgrad_plain,
     rec_conv2d_level_plain,
+    rec_conv2d_level_wgrad,
+    rec_conv2d_level_wgrad_plain,
+    rec_conv2d_up_adjoint,
+    rec_conv2d_up_adjoint_plain,
 )
+from recnext_tpu_torch.ops.resize import resize
 from recnext_tpu_torch.serve import ServingModel, make_server
 from recnext_tpu_torch.train import main as train_main
+from recnext_tpu_torch.train.finetune import read_weights
 from recnext_tpu_torch.train.step import train_loss
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s outside
@@ -175,11 +219,13 @@ A1_HEAD_DIM = 24
 COUNTERS = {"rec_conv2d": rec_conv2d_fused, "rec_conv2d_level": rec_conv2d_level,
             "linear_attention": linear_attention_fused,
             "rec_conv2d_backward": rec_conv2d_backward,
-            "linear_attention_backward": linear_attention_backward}
-EXPECTED = {"recnext_m1": {"rec_conv2d": 23, "rec_conv2d_level": 0, "linear_attention": 0,
-                           "rec_conv2d_backward": 0, "linear_attention_backward": 0},
-            "recnext_a1": {"rec_conv2d": 0, "rec_conv2d_level": 0, "linear_attention": 23,
-                           "rec_conv2d_backward": 0, "linear_attention_backward": 0}}
+            "linear_attention_backward": linear_attention_backward,
+            "rec_conv2d_level_dgrad": rec_conv2d_level_dgrad,
+            "rec_conv2d_level_wgrad": rec_conv2d_level_wgrad,
+            "rec_conv2d_up_adjoint": rec_conv2d_up_adjoint}
+LEVEL_BWD = ("rec_conv2d_level_dgrad", "rec_conv2d_level_wgrad", "rec_conv2d_up_adjoint")
+EXPECTED = {"recnext_m1": dict.fromkeys(COUNTERS, 0) | {"rec_conv2d": 23},
+            "recnext_a1": dict.fromkeys(COUNTERS, 0) | {"linear_attention": 23}}
 # each training path's kernels: (forward kernel, its backward), 23 calls each a step
 TRAIN_KERNELS = {"recnext_m1": ("rec_conv2d", "rec_conv2d_backward"),
                  "recnext_a1": ("linear_attention", "linear_attention_backward")}
@@ -195,6 +241,22 @@ TEACHER = "regnety_160"
 TRAIN_STEPS_PER_EPOCH, EVAL_FORWARDS_PER_EPOCH = 3, 2 * 3
 # m1 at 640^2: its 3 stage-0 mixers (160^2, level 4) each peel one level
 M1_640_LEVEL_LAUNCHES = 6
+# m1's train step at 512^2, batch 2, f32: the 3 stage-0 mixers (128^2, level 4) peel one
+# level of their backward, which recomputes d (a level-kernel launch) and the inner
+# pyramid (a K1 launch), and calls K1' on the 64^2 plane at level 3 and each level
+# kernel of the peeled level: 2 input gradients, 2 weight gradients, 1 adjoint
+M1_512_TRAIN = dict.fromkeys(COUNTERS, 0) | {
+    "rec_conv2d": 23 + 3, "rec_conv2d_level": 3, "rec_conv2d_backward": 23,
+    "rec_conv2d_level_dgrad": 6, "rec_conv2d_level_wgrad": 6, "rec_conv2d_up_adjoint": 3}
+# the peeled backward's planes: a 512^2 input's stage 0 and COCO 1333x800's (n, c, h, w)
+LARGE_BWD = ((2, 48, 128, 128), (1, 48, 200, 334))
+# the finetune phase: m1 at 384^2 on 100 classes, batch 32, 4 micro-steps of 2 an
+# update, remat and MESA from the start; each epoch's eval scores 4 batches twice
+FINETUNE_ARGS = ["--model", "recnext_m1", "--data-set", "FAKE", "--simple-aug",
+                 "--input-size", "384", "--fake-classes", "100", "--batch-size", "32",
+                 "--epochs", "1", "--steps-per-epoch", "4", "--log-every", "1",
+                 "--grad-accum", "2", "--remat", "--mesa", "1.0", "--mesa-start-ratio", "0"]
+FINETUNE_STEPS, FINETUNE_EVALS = 4, 2 * 4
 
 
 def emit(obj) -> None:
@@ -426,6 +488,9 @@ def phase_large_planes():
                 max_abs_err = max(max_abs_err, err)
                 times = time_pair(lambda: rec_conv2d_level(x, w, **kw),
                                   lambda: rec_conv2d_level_plain(x, w, **kw))
+                if up is None:  # one PyTorch call computes the down conv
+                    times["library_ms"] = device_ms(lambda: F.conv2d(
+                        x.float(), w, stride=2, padding=2, groups=48))
                 nbytes, flops = level_work(2, 48, 160, 160, 5, stride, up is not None, 2,
                                            out_dtype.itemsize)
                 bms, by = bound(nbytes, flops)
@@ -958,11 +1023,14 @@ def phase_backward():
     return total, max_abs_err
 
 
-def phase_train_grad(name="recnext_m1"):
-    """``name`` (recnext_m1 or recnext_a1) at full width and depth, 224^2, batch 8,
-    f32, in train mode: every parameter's gradient of the loss through the kernel
-    path (the forward kernel and its backward in every mixer: K1 and K1', or K2 and
-    K2') against the plain path (autograd over forward_plain).
+def phase_train_grad(name="recnext_m1", side=224, batch=8, expected=None, peeled=0):
+    """``name`` (recnext_m1 or recnext_a1) at full width and depth, ``side``^2,
+    ``batch``, f32, in train mode: every parameter's gradient of the loss through the
+    kernel path (the forward kernel and its backward in every mixer: K1 and K1', or K2
+    and K2'; at 512^2 K1′'s peeled route in stage 0) against the plain path (autograd
+    over forward_plain). The counts are set to 0 just before the kernel path and read
+    just after: ``expected`` (by default 23 of the forward kernel and of its backward,
+    nothing else) and ``peeled`` backward calls that peeled.
     Tolerance 1e-3 max|ref| of each tensor: fp32 sums in another order, carried
     back through ~100 train-mode BatchNorms. A tensor whose exact gradient is 0 (a
     shift that a BatchNorm follows) holds rounding noise on both paths: its
@@ -971,27 +1039,31 @@ def phase_train_grad(name="recnext_m1"):
 
     gen = torch.Generator().manual_seed(8)
     model = create_model(name, device="cuda", generator=gen).train()
-    x = torch.randn(8, 3, 224, 224, generator=gen).cuda()
-    y = torch.randint(0, 1000, (8,), generator=gen).cuda()
-    out = {"phase": "train_grad", "model": name, "input": [8, 3, 224, 224]}
+    x = torch.randn(batch, 3, side, side, generator=gen).cuda()
+    y = torch.randint(0, 1000, (batch,), generator=gen).cuda()
+    out = {"phase": "train_grad", "model": name, "input": [batch, 3, side, side]}
     fwd, bwd = TRAIN_KERNELS[name]
+    expected = expected or dict.fromkeys(COUNTERS, 0) | {fwd: 23, bwd: 23}
     grads = {}
     for path in ("kernel_path", "plain_path"):
         m = copy.deepcopy(model)
         restore = plain_path(m) if path == "plain_path" else None
-        before = counts()
+        for fn in COUNTERS.values():  # the main path starts here
+            fn.launches = 0
+        rec_conv2d_backward.peeled = 0
         loss = train_loss(m, x, y, dtype=torch.float32)
         loss.backward()
         torch.cuda.synchronize()
-        launches = {k: v - before[k] for k, v in counts().items()}
+        launches, peels = counts(), rec_conv2d_backward.peeled  # ... and ends here
         if restore:
             restore()
-        calls = 23 if path == "kernel_path" else 0
-        want = {k: (calls if k in (fwd, bwd) else 0) for k in COUNTERS}
-        if launches != want:
-            raise AssertionError(f"{path}: launches {launches}, expected {want}")
+        want = expected if path == "kernel_path" else dict.fromkeys(COUNTERS, 0)
+        want_peels = peeled if path == "kernel_path" else 0
+        if launches != want or peels != want_peels:
+            raise AssertionError(f"{path}: launches {launches} and {peels} peeled, expected "
+                                 f"{want} and {want_peels}")
         grads[path] = {n: p.grad for n, p in m.named_parameters()}
-        out[path] = {"loss": loss.item(), "launches": launches}
+        out[path] = {"loss": loss.item(), "launches": launches, "backward_peeled": peels}
     if not abs(out["kernel_path"]["loss"] - out["plain_path"]["loss"]) <= \
             1e-5 * abs(out["plain_path"]["loss"]):
         raise AssertionError(f"losses differ: {out}")
@@ -1012,16 +1084,18 @@ def phase_train_grad(name="recnext_m1"):
     out.update(parameters=len(grads["plain_path"]), zero_gradient_tensors=zero,
                worst_err_over_max_ref=worst[0], worst_parameter=worst[1], tol=1e-3)
     emit(out)
+    return out["kernel_path"]["launches"]
 
 
-def phase_train(name="recnext_m1", args=TRAIN_ARGS):
+def phase_train(name="recnext_m1", args=TRAIN_ARGS, keep=None):
     """The trainer, ``recnext_tpu_torch.train.main.main``, on the card with ``args``:
     ``name`` (recnext_m1; recnext_a1 with hard distillation from a seeded regnety_160),
     FAKE, --simple-aug, 224^2, batch 64, 2 epochs of 3 steps, then a rerun to 3 epochs
     that resumes. Every count set to 0 just before the first run and read just after:
     23 launches of the model's forward kernel (K1 or K2) and 23 calls of its backward
     (K1' or K2') per train step, 23 forward-kernel launches per fused eval forward,
-    nothing else (the teacher launches no kernel of the port)."""
+    nothing else (the teacher launches no kernel of the port). The last checkpoint is
+    copied to ``keep`` where given."""
     import contextlib
     import io
 
@@ -1063,6 +1137,8 @@ def phase_train(name="recnext_m1", args=TRAIN_ARGS):
             if run["resumed"] != (epochs == 3):
                 raise AssertionError(f"train run to {epochs} epochs: resume {run['resumed']}")
         rec["runs"] = runs
+        if keep is not None:
+            keep.write_bytes((Path(run_dir) / "ckpt" / "epoch_0002.pt").read_bytes())
     emit(rec)
     return runs[0]["launches"]
 
@@ -1106,6 +1182,224 @@ def phase_train_throughput(name="recnext_m1", teacher=None):
     return ips
 
 
+def level_bwd_work(kind, n, c, h, w, k, *, stride=1, up=False, add=False, in_bytes=4,
+                   g_bytes=4, out_bytes=4):
+    """(bytes, flops) of one peeled level's backward kernel, each input read and each
+    output written once: ``dgrad`` reads g (the stride-``stride`` output of an h x w
+    input; ``add`` the fp32 fine gradient) and writes dx, 2k^2 flops per element of g;
+    ``wgrad`` reads x (and the fp32 coarse plane where ``up``, 10 flops a fine element
+    to add its upsample) and g and writes the fp32 k x k gradients, 2k^2 flops per
+    element of g; ``up_adjoint`` reads the fp32 fine gradient and writes the coarse
+    one, 10 flops a fine element (the adjoint of three lerps)."""
+    oh, ow = (h, w) if stride == 1 else ((h + 1) // 2, (w + 1) // 2)
+    fine, coarse, out = n * c * h * w, n * c * ((h + 1) // 2) * ((w + 1) // 2), n * c * oh * ow
+    if kind == "dgrad":
+        return (g_bytes * out + 4 * c * k * k + (4 * fine if add else 0) + out_bytes * fine,
+                2 * k * k * out + (fine if add else 0))
+    if kind == "wgrad":
+        return (in_bytes * fine + (4 * coarse if up else 0) + g_bytes * out + 4 * c * k * k,
+                2 * k * k * out + (10 * fine if up else 0))
+    return 4 * fine + 4 * coarse, 10 * fine
+
+
+def _check_close(name, got, want, tol):
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: {err} > {tol} * {scale}")
+    return err, scale
+
+
+def phase_large_plane_backward():
+    """K1′'s peeled route on planes whose backward exceeds K1′'s shared memory, against
+    the plain version; then each of the three level kernels alone, against its plain
+    version, timed beside its bound, its plain version and one PyTorch call."""
+    gen = torch.Generator().manual_seed(11)
+    errs_by_kernel = dict.fromkeys(LEVEL_BWD, 0.0)
+    step_totals = {}  # per kernel: sums over one m1 train step at 512^2, batch 2
+    for n, c, h, w in LARGE_BWD:
+        level = 4
+        x = torch.randn(n, c, h, w, generator=gen)
+        g = torch.randn(n, c, h, w, generator=gen)
+        ws = [torch.randn(c, 1, 5, 5, generator=gen) / 5 for _ in range(level + 2)]
+        rec = {"phase": "large_plane_backward", "shape": [n, c, h, w], "level": level,
+               "levels_peeled": recconv_bwd_cuda.levels_to_peel_backward(h, w, level, 5)}
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, gd = x.to("cuda", dtype), g.to("cuda", dtype)
+            wd = [t.to("cuda", dtype) for t in ws]
+            for mode in ("bilinear", "nearest"):
+                before, peels = counts(), rec_conv2d_backward.peeled
+                errs, _ = _check_backward(xd, wd, gd, level, mode)
+                key = f"{'f32' if dtype == torch.float32 else 'bf16'}_{mode}"
+                rec[f"{key}_err_over_max_ref"] = errs
+                rec[f"{key}_launches"] = {k: v - before[k] for k, v in counts().items()
+                                          if v != before[k]}
+                if rec_conv2d_backward.peeled - peels != 1:
+                    raise AssertionError(f"{key}: the backward did not peel once")
+            first = rec_conv2d_backward(xd, wd[0], wd[1:], gd, level=level)
+            for _ in range(2):
+                again = rec_conv2d_backward(xd, wd[0], wd[1:], gd, level=level)
+                if not all(torch.equal(a, b) for a, b in zip([first[0], first[1], *first[2]],
+                                                              [again[0], again[1], *again[2]])):
+                    raise AssertionError(f"{rec['shape']} {dtype}: runs differ")
+            rec[f"{'f32' if dtype == torch.float32 else 'bf16'}_same_bits_on_3_runs"] = True
+        emit(rec)
+
+        # the peeled outer level's kernels at this plane, as the bf16 train step runs
+        # them: g and x bf16, the recomputed inner plane y, its gradient dd and dz fp32
+        dh, dw_ = (h + 1) // 2, (w + 1) // 2
+        xb, gb = x.to("cuda", torch.bfloat16), g.to("cuda", torch.bfloat16)
+        w_l, w_down = ws[-1].cuda(), ws[0].cuda()
+        y = torch.randn(n, c, dh, dw_, generator=gen).cuda()
+        dd = torch.randn(n, c, dh, dw_, generator=gen).cuda()
+        dz = torch.randn(n, c, h, w, generator=gen).cuda()
+        z = xb.float() + resize(y, (h, w))  # the library call's input: z written out
+        cgrad = torch.nn.grad
+        up_bwd = {"bilinear": lambda t: torch.ops.aten.upsample_bilinear2d_backward(
+                      t, [h, w], [n, c, dh, dw_], False),
+                  "nearest": lambda t: torch.ops.aten.upsample_nearest2d_backward(
+                      t, [h, w], [n, c, dh, dw_])}
+        cases = [
+            ("rec_conv2d_level_dgrad", "stride 1: dz = conv_L^T(g), bf16 g -> f32", 2e-5,
+             lambda: rec_conv2d_level_dgrad(gb, w_l, size=(h, w)),
+             lambda: rec_conv2d_level_dgrad_plain(gb, w_l, size=(h, w)),
+             lambda: cgrad.conv2d_input((n, c, h, w), w_l, gb.float(), padding=2, groups=c),
+             level_bwd_work("dgrad", n, c, h, w, 5, g_bytes=2)),
+            ("rec_conv2d_level_dgrad", "stride 2: dx = dz + down^T(dd), f32 -> bf16", 1e-2,
+             lambda: rec_conv2d_level_dgrad(dd, w_down, size=(h, w), stride=2, add=dz,
+                                            out_dtype=torch.bfloat16),
+             lambda: rec_conv2d_level_dgrad_plain(dd, w_down, size=(h, w), stride=2, add=dz),
+             lambda: cgrad.conv2d_input((n, c, h, w), w_down, dd, stride=2, padding=2,
+                                        groups=c) + dz,
+             level_bwd_work("dgrad", n, c, h, w, 5, stride=2, add=True, out_bytes=2)),
+            ("rec_conv2d_level_wgrad", "stride 1: dW_L = sum (x + up(y)) * g, bf16", 1e-4,
+             lambda: rec_conv2d_level_wgrad(xb, gb, k=5, up=y),
+             lambda: rec_conv2d_level_wgrad_plain(xb, gb, k=5, up=y),
+             lambda: cgrad.conv2d_weight(z, (c, 1, 5, 5), gb.float(), padding=2, groups=c),
+             level_bwd_work("wgrad", n, c, h, w, 5, up=True, in_bytes=2, g_bytes=2)),
+            ("rec_conv2d_level_wgrad", "stride 2: dW_down += sum x *_2 dd", 1e-4,
+             lambda: rec_conv2d_level_wgrad(xb, dd, k=5, stride=2),
+             lambda: rec_conv2d_level_wgrad_plain(xb, dd, k=5, stride=2),
+             lambda: cgrad.conv2d_weight(xb.float(), (c, 1, 5, 5), dd, stride=2, padding=2,
+                                         groups=c),
+             level_bwd_work("wgrad", n, c, h, w, 5, stride=2, in_bytes=2)),
+            ("rec_conv2d_up_adjoint", "dy = up^T(dz), bilinear", 2e-5,
+             lambda: rec_conv2d_up_adjoint(dz),
+             lambda: rec_conv2d_up_adjoint_plain(dz),
+             lambda: up_bwd["bilinear"](dz),
+             level_bwd_work("up_adjoint", n, c, h, w, 5)),
+            ("rec_conv2d_up_adjoint", "dy = up^T(dz), nearest", 2e-5,
+             lambda: rec_conv2d_up_adjoint(dz, mode="nearest"),
+             lambda: rec_conv2d_up_adjoint_plain(dz, mode="nearest"),
+             lambda: up_bwd["nearest"](dz), None)]
+        for kernel, what, tol, run, plain, library, work in cases:
+            before = COUNTERS[kernel].launches
+            got = run()
+            if COUNTERS[kernel].launches != before + 1:
+                raise AssertionError(f"{kernel} {what}: launches not counted")
+            want = plain()
+            err, scale = _check_close(f"{kernel} {what} at {[n, c, h, w]}", got, want, tol)
+            errs_by_kernel[kernel] = max(errs_by_kernel[kernel], err)
+            out = {"phase": "level_backward_kernel", "kernel": kernel, "what": what,
+                   "shape": [n, c, h, w], "max_abs_err": err, "max_abs_ref": scale,
+                   "tol": tol * scale,
+                   "library_max_abs_diff": (library().float() - want.float()).abs().max().item()}
+            if work is not None:  # the train step's mode: timed
+                times = {"kernel_ms": queued_ms(run), "plain_ms": queued_ms(plain, iters=5),
+                         "library_ms": queued_ms(library)}
+                bms, by = bound(*work)
+                out.update(times, bound_ms=bms, bound_by=by, bytes=work[0], flops=work[1])
+                if (n, c, h, w) == LARGE_BWD[0]:  # 3 peeled mixers of m1's 512^2 step
+                    tot = step_totals.setdefault(kernel, dict.fromkeys(
+                        ("kernel_ms", "plain_ms", "library_ms", "bytes", "flops"), 0.0))
+                    for key, val in (*times.items(), ("bytes", work[0]), ("flops", work[1])):
+                        tot[key] += 3 * val
+            emit(out)
+    regs = {kind: level_bwd_cuda.kernel_attributes(kind, 5, stride, dts)
+            for kind, stride, dts in (("dgrad", 1, (torch.bfloat16, torch.float32)),
+                                      ("wgrad", 1, (torch.bfloat16, torch.bfloat16)),
+                                      ("up_adjoint", 1, (torch.float32, torch.float32)))}
+    emit({"phase": "level_backward_registers", "k": 5, **regs})
+    for tot in step_totals.values():
+        tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["flops"])
+    return step_totals, errs_by_kernel
+
+
+def phase_finetune(checkpoint: Path, work_dir: Path):
+    """The 384^2 finetune recipe through the trainer: recnext_m1 warm-started from
+    ``checkpoint`` (the train phase's) and from a fused archive of its EMA weights onto
+    100 classes, with --grad-accum 2 --remat --mesa 1.0 --mesa-start-ratio 0; each run
+    with every count set to 0 just before it and read just after. Then validate.py
+    --fused scores the finetuned checkpoint into a CSV, and the recipe's step is timed
+    and traced at batch 64."""
+    import contextlib
+    import io
+
+    archive = work_dir / "archive"
+    publish_fused("recnext_m1", read_weights(str(checkpoint)), str(archive))
+    rec = {"phase": "finetune", "args": FINETUNE_ARGS}
+    for source, path in (("checkpoint", checkpoint),
+                         ("fused_archive", archive / "recnext_m1_fused.pt")):
+        out_dir = work_dir / f"run_{source}"
+        for fn in COUNTERS.values():  # the main path starts here
+            fn.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = train_main.main(FINETUNE_ARGS + ["--finetune", str(path),
+                                                   "--output-dir", str(out_dir)])
+        torch.cuda.synchronize()
+        launches = counts()  # ... and ends here
+        text = buf.getvalue()
+        losses = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                  if ": loss " in line]
+        stats = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+        k1 = (launches["rec_conv2d"] - 23 * FINETUNE_EVALS) / FINETUNE_STEPS
+        k1b = launches["rec_conv2d_backward"] / FINETUNE_STEPS
+        run = {"seconds": time.perf_counter() - t0, "losses": losses, "epoch_lines": stats,
+               "launches": launches, "k1_launches_per_micro_step": k1,
+               "k1_backward_calls_per_micro_step": k1b,
+               "heads_dropped": text.count("Removing key"),
+               "updates": res["state"].optimizer.count, "micro_steps": res["state"].step}
+        rec[source] = run
+        others = {k: v for k, v in launches.items()
+                  if k not in ("rec_conv2d", "rec_conv2d_backward")}
+        if (len(losses) != FINETUNE_STEPS or not all(np.isfinite(losses)) or len(stats) != 1
+                or k1 != 69 or k1b != 23 or any(others.values()) or run["heads_dropped"] != 4
+                or run["updates"] != FINETUNE_STEPS // 2):
+            raise AssertionError(f"finetune from the {source}: {run}")
+    csv_path = work_dir / "results.csv"
+    result = validate_main.main(["--model", "recnext_m1", "--checkpoint",
+                                 str(work_dir / "run_checkpoint" / "ckpt" / "epoch_0000.pt"),
+                                 "--fused", "--ema", "--data-set", "FAKE", "--fake-classes",
+                                 "100", "--input-size", "384", "--batch-size", "32",
+                                 "--max-batches", "2", "--dtype", "bfloat16",
+                                 "--results-file", str(csv_path)])
+    row = csv_path.read_text().splitlines()
+    if len(row) != 2 or result["count"] != 64 or not np.isfinite(result["top1"]):
+        raise AssertionError(f"validate: {result}, {row}")
+    rec["validate"] = {"result": result, "csv": row}
+    kw = dict(image_size=384, grad_accum=2, remat=True, mesa=1.0)
+    ips, batch, spread = bench.train_throughput("recnext_m1", 64, repeats=3, timed_s=3.0, **kw)
+    fn, _ = bench.train_bench_step("recnext_m1", 64, **kw)
+    kernels = trace(fn, iters=4, warmup=2)
+    busy = sum(k["ms"] for k in kernels)
+    step_ms = batch / ips * 1e3
+    launches = {kn: sum(k["launches"] for k in kernels if kn in k["name"])
+                for kn in TRACE_KERNELS["recnext_m1"]}
+    if launches != {"recconv_kernel": 69, "recconv_bwd_kernel": 23,
+                    "recconv_bwd_sum_kernel": 23} or busy > step_ms:
+        raise AssertionError(f"finetune step trace: {launches}, busy {busy} of {step_ms} ms")
+    rec["step_384"] = {"batch": batch, "options": "grad_accum 2, remat, MESA 1.0",
+                       "images_per_s_median": ips, "spread": spread,
+                       "micro_step_ms": step_ms, "device_busy_ms_per_micro_step": busy,
+                       "device_idle_share": 1 - busy / step_ms,
+                       "kernel_launches_per_micro_step": launches,
+                       "top_kernels": kernels[:8]}
+    emit(rec)
+
+
 def forward_totals(per_shape, table):
     """Sums over one forward's launches (launch counts from ``table``)."""
     total = {key: sum(table[s][2] * per_shape[s][key] for s in table)
@@ -1119,7 +1413,7 @@ def kernel_record(name, source, replaces, launches, max_abs_err, total):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": total["kernel_ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": total["bound_by"], "library_ms": None}
+            "bound_by": total["bound_by"], "library_ms": total.get("library_ms")}
 
 
 def main() -> int:
@@ -1129,7 +1423,7 @@ def main() -> int:
     card = nvidia_smi()
     start = t0 = time.perf_counter()
     libraries = (recconv_cuda.LIBRARY, attention_cuda.LIBRARY, recconv_bwd_cuda.LIBRARY,
-                 attention_bwd_cuda.LIBRARY)
+                 attention_bwd_cuda.LIBRARY, level_bwd_cuda.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
         list(pool.map(lambda lib: lib.load(), libraries))
     emit({"phase": "env", "nvidia_smi": card, "torch": torch.__version__,
@@ -1170,9 +1464,11 @@ def main() -> int:
     del unfused, serving
 
     # recnext_m1 training: K1 and the backward kernel
+    work_dir = Path(tempfile.mkdtemp(dir=Path(__file__).resolve().parent / "recnext_tpu_torch"
+                                     / "_build"))
     bwd_total, bwd_err = timed("backward", phase_backward)
     timed("train_grad", phase_train_grad)
-    train_launches = timed("train", phase_train)
+    train_launches = timed("train", phase_train, keep=work_dir / "m1_224.pt")
     timed("train_throughput", phase_train_throughput)
 
     # recnext_a1 training with the reference recipe's distillation: K2 and K2'
@@ -1185,6 +1481,12 @@ def main() -> int:
           "images_per_s": {"plain": plain_ips, "hard_distilled": distilled_ips},
           "step_ms": {"plain": 128e3 / plain_ips, "hard_distilled": 128e3 / distilled_ips},
           "distilled_over_plain": plain_ips / distilled_ips})
+    # recnext_m1 training beyond the main paths: K1′'s peeled route, the 384^2 finetune
+    level_totals, level_errs = timed("large_plane_backward", phase_large_plane_backward)
+    m1_512 = timed("train_grad", phase_train_grad, side=512, batch=2, expected=M1_512_TRAIN,
+                   peeled=3)
+    timed("finetune", phase_finetune, work_dir / "m1_224.pt", work_dir)
+    shutil.rmtree(work_dir)
     emit({"phase": "seconds", **seconds, "script": time.perf_counter() - start})
 
     emit({"kernels": [
@@ -1204,7 +1506,11 @@ def main() -> int:
                       "recnext_tpu_torch/csrc/linear_attention_bwd.cu",
                       "gradient of recnext_tpu/ops/attention.py:linear_attention_kv_first; "
                       "no Pallas backward",
-                      a1_train_launches["linear_attention_backward"], abwd_err, abwd_total)]})
+                      a1_train_launches["linear_attention_backward"], abwd_err, abwd_total),
+        *(kernel_record(kernel, "recnext_tpu_torch/csrc/recconv_level_bwd.cu",
+                        "gradient of recnext_tpu/ops/recconv.py:rec_conv2d (a peeled level); "
+                        "no Pallas backward", m1_512[kernel], level_errs[kernel],
+                        level_totals[kernel]) for kernel in LEVEL_BWD)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

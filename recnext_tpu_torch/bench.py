@@ -15,7 +15,8 @@ reference's upload.py), at 224^2 only. Three modes:
   ``--batch``, ``--repeats`` timed windows, the median and the spread; with
   ``--teacher regnety_160`` (or another RegNetY or registry model, seeded weights)
   the distilled step of the reference recipe (``--distillation`` hard or soft), the
-  teacher's eval forward included.
+  teacher's eval forward included; ``--grad-accum``, ``--remat`` and ``--mesa`` time
+  the finetune recipe's step (a call is one micro-step; MESA active from the start).
 
 Weights are random, from a seeded generator; the inputs are random, made on the
 device. Every mode runs on the GPU unless ``--device cpu``, and names the device it
@@ -122,12 +123,15 @@ def latency_ms(model_name: str, *, dtype=torch.bfloat16, iters: int = 200,
 
 def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
                      image_size: int = 224, device=None, teacher: str | None = None,
-                     distillation: str = "hard", **overrides):
+                     distillation: str = "hard", grad_accum: int = 1, remat: bool = False,
+                     mesa: float = 0.0, **overrides):
     """One training step of ``model_name`` at ``batch`` as a function of no arguments
     (mixup/cutmix, forward, backward, AGC + AdamW, EMA), on random inputs made on the
     device, and the device it runs on. With ``teacher`` (a RegNetY or registry model
     name, seeded weights), the dual-head student learns from its logits
-    (``distillation``: "hard" or "soft")."""
+    (``distillation``: "hard" or "soft"). ``grad_accum``, ``remat`` and ``mesa`` are
+    the train step's options (MESA from step 0); with ``grad_accum`` k a call is one
+    micro-step, every k-th updating."""
     from recnext_tpu_torch.device import resolve_device
     from recnext_tpu_torch.models.registry import create_model
     from recnext_tpu_torch.train.optim import cosine_schedule, make_optimizer
@@ -138,7 +142,8 @@ def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
     dev = resolve_device(device)
     model = create_model(model_name, device=dev, generator=torch.Generator().manual_seed(0),
                          distillation=teacher is not None, **overrides)
-    opt = make_optimizer(model.named_parameters(), cosine_schedule(1e-3, 1000))
+    opt = make_optimizer(model.named_parameters(), cosine_schedule(1e-3, 1000),
+                         grad_accum=grad_accum)
     state = TrainState.create(model, opt)
     num_classes = model.cfg.num_classes
     teacher_apply = None
@@ -147,7 +152,8 @@ def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
             create_teacher(teacher, num_classes=num_classes, device=dev), dtype)
     step = make_train_step(num_classes=num_classes, mixup=True, dtype=dtype,
                            teacher_apply=teacher_apply,
-                           distillation=distillation if teacher is not None else "none")
+                           distillation=distillation if teacher is not None else "none",
+                           grad_accum=grad_accum, remat=remat, mesa=mesa)
     g = torch.Generator(dev).manual_seed(0)
     data = {"image": torch.randn(batch, 3, image_size, image_size, device=dev, generator=g),
             "label": torch.randint(0, num_classes, (batch,), device=dev, generator=g)}
@@ -158,13 +164,14 @@ def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
 def train_throughput(model_name: str, batch: int, *, dtype=torch.bfloat16,
                      timed_s: float = 6.0, image_size: int = 224, repeats: int = 1,
                      device=None, teacher: str | None = None, distillation: str = "hard",
+                     grad_accum: int = 1, remat: bool = False, mesa: float = 0.0,
                      **overrides):
     """Training-step images per second (``train_bench_step``, distilled from
-    ``teacher`` where given) at ``batch``: (median over ``repeats`` timed windows,
-    batch, spread) with spread = {"min", "max", "runs"}."""
+    ``teacher`` where given, with its step options) at ``batch``: (median over
+    ``repeats`` timed windows, batch, spread) with spread = {"min", "max", "runs"}."""
     fn, dev = train_bench_step(model_name, batch, dtype=dtype, image_size=image_size,
                                device=device, teacher=teacher, distillation=distillation,
-                               **overrides)
+                               grad_accum=grad_accum, remat=remat, mesa=mesa, **overrides)
     iters = _calibrated_iters(fn, dev, 0.0, timed_s, most=500)
     runs = [iters * batch / _timed_loop(fn, dev, iters) for _ in range(max(repeats, 1))]
     med = statistics.median(runs)
@@ -190,6 +197,12 @@ def main(argv=None):
                    help="--train only: distil from this teacher (regnety_160, ...; seeded)")
     p.add_argument("--distillation", default="hard", choices=["hard", "soft"],
                    help="--train --teacher only: the distillation loss")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="--train only: micro-batches an update")
+    p.add_argument("--remat", action="store_true",
+                   help="--train only: recompute each block in the backward")
+    p.add_argument("--mesa", type=float, default=0.0,
+                   help="--train only: MESA's weight (self-distillation from the EMA)")
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--timed", type=float, default=10.0)
     p.add_argument("--warmup", type=float, default=5.0)
@@ -209,12 +222,15 @@ def main(argv=None):
                                               timed_s=args.timed, image_size=size,
                                               repeats=args.repeats, device=args.device,
                                               teacher=args.teacher or None,
-                                              distillation=args.distillation, **kw)
+                                              distillation=args.distillation,
+                                              grad_accum=args.grad_accum, remat=args.remat,
+                                              mesa=args.mesa, **kw)
         rec = {"metric": f"{args.model}_train_bf16_{size}_images_per_sec",
                "value": round(ips, 2), "unit": "images/sec", "vs_baseline": None,
                "batch": batch, "step_ms": round(batch / ips * 1e3, 3),
                "teacher": args.teacher or None,
                "distillation": args.distillation if args.teacher else "none",
+               "grad_accum": args.grad_accum, "remat": args.remat, "mesa": args.mesa,
                "spread": {k: (round(v, 1) if not isinstance(v, list)
                               else [round(r, 1) for r in v]) for k, v in spread.items()}}
     else:

@@ -79,3 +79,53 @@ def fuse_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tenso
         if k not in done:
             out[k] = v
     return out
+
+
+def _identity_bn(out: Dict[str, torch.Tensor], p: str, scale: torch.Tensor,
+                 shift: torch.Tensor) -> None:
+    """A BN at prefix p that computes scale * x + shift: running statistics mean 0,
+    var 1 - eps, so that weight / sqrt(var + eps) is the weight exactly."""
+    out[f"{p}.weight"], out[f"{p}.bias"] = scale, shift
+    out[f"{p}.running_mean"] = torch.zeros_like(scale)
+    out[f"{p}.running_var"] = torch.full_like(scale, 1.0 - EPS)
+    out[f"{p}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def defuse_params(fused: Mapping[str, torch.Tensor],
+                  template: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The inverse embedding of ``fuse_params``: a fused state dict -> the unfused
+    model's, every folded BatchNorm back as an identity BN (weight 1, bias the fused
+    bias, mean 0, var 1 - eps), so ``fuse_params(defuse_params(f, t)) == f`` and the
+    unfused model computes the fused one's function: the warm start from a published
+    fused archive (``recnext_tpu/fusion.py:defuse_params``). ``template`` (an unfused
+    state dict) gives the structure only; values and shapes come from ``fused``, so a
+    classifier whose class count changed is left for the warm start to drop. A key the
+    fused dict lacks keeps the template's value."""
+    fd = {k: (v.detach().float() if v.is_floating_point() else v.detach())
+          for k, v in fused.items()}
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in template.items():
+        if k.endswith(".norm.running_mean"):
+            parent = k[: -len(".norm.running_mean")]
+            if f"{parent}.conv.weight" in template and f"{parent}.weight" in fd:
+                # ConvNorm -> conv X.conv and an identity BN carrying the fused bias
+                out[f"{parent}.conv.weight"] = fd[f"{parent}.weight"]
+                if f"{parent}.conv.bias" in template:
+                    out[f"{parent}.conv.bias"] = torch.zeros_like(fd[f"{parent}.bias"])
+                bias = fd[f"{parent}.bias"]
+                _identity_bn(out, f"{parent}.norm", torch.ones_like(bias), bias)
+            elif f"{parent}.linear.weight" in template:
+                # NormLinear; the dual heads P.head + P.head_dist both take the averaged
+                # fused Linear P, which keeps the deployed function exactly
+                src = parent if f"{parent}.weight" in fd else parent.rsplit(".", 1)[0]
+                if f"{src}.weight" in fd:
+                    w, b = fd[f"{src}.weight"], fd[f"{src}.bias"]
+                    out[f"{parent}.linear.weight"], out[f"{parent}.linear.bias"] = w, b
+                    feat = torch.zeros(w.shape[1], dtype=w.dtype)
+                    _identity_bn(out, f"{parent}.norm", feat + 1.0, feat)
+    for k, v in template.items():
+        if k not in out:
+            # a standalone BN (fused: already an identity-statistics affine), the
+            # mixers' convs and every other leaf of the same name; else the template's
+            out[k] = fd.get(k, v)
+    return out

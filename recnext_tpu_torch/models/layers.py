@@ -9,11 +9,28 @@ is fused. ``fusion.py`` maps one state dict onto the other.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5  # torch.nn.BatchNorm default, the reference's
+
+_RECOMPUTING = contextvars.ContextVar("recomputing", default=False)
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of a forward recomputed for its backward (``torch.utils.
+    checkpoint``): BatchNorm in train mode normalises by the batch's statistics
+    again but leaves its running statistics, which the first forward updated."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -32,9 +49,17 @@ class _ParamDtypeNorm:
     takes x's dtype, as the JAX package's BatchNorm does; where x already has the
     parameters' dtype (the inference models) it is the plain torch BatchNorm. In
     train mode torch's BatchNorm is the JAX one: the batch's biased variance
-    normalises, the unbiased one enters the running statistics with momentum 0.1."""
+    normalises, the unbiased one enters the running statistics with momentum 0.1;
+    inside ``recomputing()`` the running statistics are not touched."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and _RECOMPUTING.get():
+            # the first forward's op, with copies of the statistics to update: the
+            # recomputation saves the same tensors for the backward
+            xf = x if self.weight is None else x.to(self.weight.dtype)
+            y = F.batch_norm(xf, self.running_mean.clone(), self.running_var.clone(),
+                             self.weight, self.bias, True, self.momentum, self.eps)
+            return y.to(x.dtype)
         if self.weight is None or x.dtype == self.weight.dtype:
             return super().forward(x)
         return super().forward(x.to(self.weight.dtype)).to(x.dtype)

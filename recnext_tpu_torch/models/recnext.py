@@ -11,12 +11,16 @@ comes in a later slice.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Tuple
 
 import torch
 import torch.nn as nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from recnext_tpu_torch.models.layers import (
     GELU,
@@ -25,8 +29,40 @@ from recnext_tpu_torch.models.layers import (
     batch_norm2d,
     conv_norm,
     mlp,
+    recomputing,
 )
 from recnext_tpu_torch.models.mixers import RecAttn2d, RecConv2dMixer
+
+_REMAT = contextvars.ContextVar("remat", default=False)
+
+
+@contextlib.contextmanager
+def remat_blocks():
+    """Within it, a forward under grad keeps only each block's input and recomputes
+    the block in the backward (``torch.utils.checkpoint``, non-reentrant): the JAX
+    step's ``remat`` (``jax.checkpoint``). The recomputed forward leaves BatchNorm's
+    running statistics alone (``layers.recomputing``), and runs the mixers' kernels
+    a second time."""
+    token = _REMAT.set(True)
+    try:
+        yield
+    finally:
+        _REMAT.reset(token)
+
+
+def _checkpointed(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)``, recomputed in the backward. The block's parameters as they stand
+    (under ``functional_call``, the compute-dtype casts) are inputs of the
+    checkpointed function, so the recomputation sees them and their gradients flow
+    back through the casts."""
+    params = dict(block.named_parameters())
+    names = list(params)
+
+    def run(x, *tensors):
+        return functional_call(block, dict(zip(names, tensors)), (x,))
+
+    return checkpoint(run, x, *params.values(), use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,8 +164,9 @@ class Stage(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.downsample(x)
+        remat = _REMAT.get() and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            x = _checkpointed(blk, x) if remat else blk(x)
         return x
 
 

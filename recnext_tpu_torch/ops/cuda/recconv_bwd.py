@@ -13,8 +13,10 @@ kernel reads as a struct (level sizes, row pitches, buffer offsets, plan offsets
 ``transposed_plan_table`` packs the adjoint of every up-step as a gather: for each
 coarse index, the fine indices and weights that read it (at most ``MAX_FAN`` per
 axis), built from the same ``_axis_plan`` as the forward kernel's
-``lerp_plan_table``. Planes whose backward does not fit in one
-block's shared memory raise (``check_fits``), chosen by shape before any launch.
+``lerp_plan_table``. ``levels_to_peel_backward`` says how many outer levels a
+plane whose backward does not fit in one block's shared memory must leave to
+``ops/recconv.py:rec_conv2d_peeled_backward`` (the peeled levels' kernels are
+``csrc/recconv_level_bwd.cu``), chosen by shape before any launch.
 """
 
 from __future__ import annotations
@@ -47,8 +49,6 @@ MAX_FAN = 4  # fine indices that read one coarse index, per axis (bilinear 4, ne
 # the dynamic shared memory a block may take: the H100's 227 KB less the kernel's
 # static copy of its geometry (csrc/recconv_bwd.cu: Geometry, 58 ints), rounded up
 MAX_DYNAMIC_SMEM = MAX_SMEM_BYTES - 256
-TILED_ITEM = ("ROADMAP.md Queue 2 (a tiled or peeled RecConv2d backward for planes "
-              "larger than shared memory)")
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -268,20 +268,31 @@ def _check(level: int, k: int) -> None:
 def launch_config(h: int, w: int, level: int, k: int) -> LaunchConfig:
     """Team size, planes per block, shared bytes and geometry of the backward of an
     h x w plane. Raises ValueError where one plane's backward does not fit in shared
-    memory."""
+    memory (``levels_to_peel_backward`` says how many levels to take off)."""
     _check(level, k)
     cfg = _layout(h, w, level, k)
     if cfg.smem_bytes > MAX_DYNAMIC_SMEM:
         raise ValueError(f"recconv backward: a {h}x{w} plane at level {level} (k={k}) needs "
                          f"{cfg.smem_bytes} bytes of shared memory, more than "
-                         f"{MAX_DYNAMIC_SMEM}; the backward has no route for such planes "
-                         f"yet, see {TILED_ITEM}")
+                         f"{MAX_DYNAMIC_SMEM}; peel levels_to_peel_backward({h}, {w}, "
+                         f"{level}, {k}) outer levels first")
     return cfg
 
 
-def check_fits(h: int, w: int, level: int, k: int) -> None:
-    """Raise (ValueError) where the backward kernel cannot take an h x w plane."""
-    launch_config(h, w, level, k)
+@functools.lru_cache(maxsize=None)
+def levels_to_peel_backward(h: int, w: int, level: int, k: int) -> int:
+    """The fewest outer levels of an h x w plane's pyramid whose backward runs
+    outside the kernel (``ops/recconv.py:rec_conv2d_peeled_backward``) so that the
+    kernel's plane (``pyramid_sizes(h, w, level)[p]`` at level ``level - p``) fits in
+    shared memory: 0 where the plane fits as it is, ``level`` where only the coarsest
+    conv is left (then no call of the kernel). The counterpart of
+    ``ops/cuda/recconv.py:levels_to_peel``; the kernel keeps fp32 planes, so the
+    dtype does not enter."""
+    _check(level, k)
+    for p, (ph, pw) in enumerate(pyramid_sizes(h, w, level)[:level]):
+        if _layout(ph, pw, level - p, k).smem_bytes <= MAX_DYNAMIC_SMEM:
+            return p
+    return level
 
 
 def recconv_backward_cuda(x: torch.Tensor, down_w: torch.Tensor,

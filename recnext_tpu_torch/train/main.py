@@ -14,11 +14,16 @@ per-epoch JSON line and ``log.txt`` keep the JAX CLI's key names.
 The teacher's ``--teacher-ckpt`` is a ``.pth``/``.pt`` state dict (timm's layout for a
 RegNetY, the published DeiT ``regnety_160`` one included; the port's own for a
 registry model), loaded strictly; without one the teacher is a seeded init, as the
-JAX CLI's ``init(PRNGKey(1))``. Other data sets, the full train transform
-(RandAugment, ThreeAugment, erasing) and the JAX package's teacher checkpoints
-(orbax, msgpack) raise, naming their ROADMAP item; the JAX CLI's other options
-(MESA, JSD, gradient accumulation, remat, the repeated-augmentation sampler, the
-unfused eval) are not flags here yet.
+JAX CLI's ``init(PRNGKey(1))``. ``--finetune`` warm-starts the model's weights
+from a checkpoint (``train/finetune.py``: a reference ``.pth``, this trainer's
+checkpoint, a fused archive; a head of another class count is dropped);
+``--grad-accum`` averages that many micro-batches an update, ``--remat``
+recomputes each block in the backward, ``--mesa`` adds MESA's self-distillation
+from the EMA model after ``--mesa-start-ratio`` of the epochs. Other data sets, the
+full train transform (RandAugment, ThreeAugment, erasing), ``--jsd-loss`` (its
+``--aug-splits`` views come from the loader) and the JAX package's checkpoints
+(orbax, msgpack) raise, naming their ROADMAP item; the JAX CLI's other options (the
+repeated-augmentation sampler, the unfused eval, frozen BN) are not flags here yet.
 
 Smoke run on the CPU (a small M config; it resumes from the checkpoints that
 --output-dir already holds, so empty it first):
@@ -27,6 +32,14 @@ Smoke run on the CPU (a small M config; it resumes from the checkpoints that
       --model-kwargs embed_dim=16:32:64:128,depth=1:1:2:1 --data-set FAKE \\
       --simple-aug --input-size 32 --batch-size 4 --epochs 2 --steps-per-epoch 2 \\
       --fake-classes 11 --dtype float32 --output-dir runs/smoke
+
+The 384^2 finetune recipe on recnext_m1 from a checkpoint of the 224^2 run, on a
+data set of another class count, two micro-batches an update, blocks recomputed in
+the backward, MESA from the start:
+  python -m recnext_tpu_torch.train.main --model recnext_m1 --finetune \
+      runs/m1/ckpt/epoch_0299.pt --input-size 384 --data-set FAKE --simple-aug \
+      --fake-classes 100 --batch-size 32 --grad-accum 2 --remat --mesa 1.0 \
+      --mesa-start-ratio 0 --epochs 30 --output-dir runs/m1_384
 
 recnext_a1 with the reference recipe's hard distillation from a (seeded) regnety_160
 teacher on the GPU:
@@ -47,9 +60,9 @@ from pathlib import Path
 import torch
 
 from recnext_tpu_torch.data.datasets import DATA_ITEM
+from recnext_tpu_torch.train.finetune import CKPT_ITEM
 
 CKPT_KEEP = 3
-CKPT_ITEM = "ROADMAP.md Queue 1 item 9 (checkpoint import)"
 
 
 def parse_args(argv=None):
@@ -84,6 +97,23 @@ def parse_args(argv=None):
                    help="the teacher: regnety_160/040/016 or a registry model")
     p.add_argument("--model-ema-decay", type=float, default=0.99996)
     p.add_argument("--no-model-ema", action="store_true")
+    p.add_argument("--mesa", type=float, default=0.0,
+                   help="weight of the EMA-teacher self-distillation loss (softCE against "
+                        "the EMA model's softmax); 0 = off")
+    p.add_argument("--mesa-start-ratio", type=float, default=0.25,
+                   help="fraction of the epochs after which MESA starts")
+    p.add_argument("--finetune", default="",
+                   help="warm-start the model weights from a checkpoint (.pth/.pt/.bin: a "
+                        "reference state dict, this trainer's checkpoint, a fused "
+                        "archive); leaves of another shape (the head) are dropped")
+    p.add_argument("--jsd-loss", action="store_true",
+                   help="JSD consistency loss over --aug-splits views")
+    p.add_argument("--aug-splits", type=int, default=0,
+                   help="augmented views a sample in the loader (not ported)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="micro-batches averaged into one update (optax.MultiSteps)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block's forward in the backward")
     p.add_argument("--data-set", default="IMNET",
                    choices=["IMNET", "CIFAR", "FOLDER", "FAKE", "IMNETEE", "FLOWERS", "INAT",
                             "INAT19"])
@@ -105,6 +135,15 @@ def _refuse_unported(args) -> None:
                                   f"{DATA_ITEM}")
     if args.distillation_type != "none" and not args.teacher_model:
         raise SystemExit("--distillation-type requires --teacher-model")
+    if args.jsd_loss or args.aug_splits > 1:
+        # the train step takes the JSD loss on given views; the views come from the
+        # loader's augmentation splits
+        raise NotImplementedError(f"--jsd-loss needs the loader's --aug-splits views, which "
+                                  f"are not ported yet; see {DATA_ITEM}")
+    if args.mesa > 0 and args.no_model_ema:
+        raise SystemExit("--mesa needs the EMA model as its teacher (drop --no-model-ema)")
+    if args.mesa > 0 and args.distillation_type != "none":
+        raise SystemExit("--mesa is incompatible with distillation")
     if args.teacher_ckpt and not args.teacher_ckpt.endswith((".pth", ".pt")):
         raise NotImplementedError(f"teacher checkpoint {args.teacher_ckpt!r}: the port reads "
                                   ".pth/.pt state dicts; the JAX package's orbax directories "
@@ -202,6 +241,12 @@ def main(argv=None):
         overrides["distillation"] = True  # the dual-head student
     model = create_model(args.model, device=device,
                          generator=torch.Generator().manual_seed(args.seed), **overrides)
+    if args.finetune:
+        # weights only; the optimizer, schedule and epoch start fresh
+        from recnext_tpu_torch.train.finetune import load_pretrained
+
+        model.load_state_dict(load_pretrained(args.finetune, model.state_dict(), log=log),
+                              strict=True)
     n_parameters = sum(p.numel() for p in model.parameters())
     log(f"model {args.model}: {n_parameters / 1e6:.2f}M params, {nb_classes} classes")
 
@@ -209,8 +254,12 @@ def main(argv=None):
     sched = cosine_schedule(scaled_lr(args.lr, args.batch_size), steps_per_epoch, args.epochs,
                             args.warmup_epochs, args.cooldown_epochs, args.warmup_lr,
                             args.min_lr)
-    optimizer = make_optimizer(model.named_parameters(), sched, args.weight_decay,
-                               args.clip_grad)
+    # the optimizer reads the schedule at its update count: under accumulation map it
+    # back to micro-steps, as the JAX CLI does
+    k = args.grad_accum
+    sched_opt = sched if k <= 1 else (lambda u: sched(u * k))
+    optimizer = make_optimizer(model.named_parameters(), sched_opt, args.weight_decay,
+                               args.clip_grad, grad_accum=k)
     state = TrainState.create(model, optimizer, ema=not args.no_model_ema)
 
     # either alpha 0 disables that branch alone; both 0 disable mixing
@@ -226,7 +275,9 @@ def main(argv=None):
         smoothing=args.smoothing, ema_decay=args.model_ema_decay, dtype=dtype,
         teacher_apply=teacher_apply,
         distillation=args.distillation_type if teacher_apply else "none",
-        alpha=args.distillation_alpha, tau=args.distillation_tau)
+        alpha=args.distillation_alpha, tau=args.distillation_tau, remat=args.remat,
+        grad_accum=k, mesa=args.mesa,
+        mesa_start_step=int(args.mesa_start_ratio * args.epochs * steps_per_epoch))
     cfg = get_config(args.model, **overrides)
     eval_step = make_fused_eval_step(cfg, dtype=dtype)
     eval_ema = None
@@ -297,8 +348,8 @@ def main(argv=None):
             acc1, acc5, test_loss = run_evals(eval_step)[0]
         max_acc = max(max_acc, acc1)
         elapsed = time.time() - t0
-        # the schedule at the update count, as the JAX CLI logs it
-        stats = {"train_lr": sched(state.step), "train_loss": train_loss,
+        # the lr the optimizer applies, as the JAX CLI logs it
+        stats = {"train_lr": sched_opt(state.step // k), "train_loss": train_loss,
                  "test_loss": round(test_loss, 6), "test_acc1": acc1, "test_acc5": acc5,
                  "epoch": epoch, "n_parameters": n_parameters,
                  "epoch_time_s": round(elapsed, 1),

@@ -18,6 +18,10 @@ adamw(0)))`` on torch parameters:
   ``eps_root`` 0), and the decay ``lr * wd * p`` uses the parameters before the
   update and the scheduled lr, as ``add_decayed_weights`` before
   ``scale_by_learning_rate``. The schedule is read at the update count, 0 first.
+* ``grad_accum`` k > 1 is ``optax.MultiSteps``: each ``step()`` folds the
+  parameters' gradients into their running mean (``acc + (g - acc) / (i + 1)``, as
+  optax does), and every k-th applies AGC and AdamW to that mean; the update count,
+  and so the schedule, advances once per k micro-steps.
 """
 
 from __future__ import annotations
@@ -28,7 +32,6 @@ from typing import Callable, Iterable, Tuple
 import numpy as np
 import torch
 
-TRAIN_ITEM = "ROADMAP.md Queue 1 item 6 (training: grad_accum, MESA, JSD, remat)"
 
 
 def scaled_lr(base_lr: float, global_batch: int) -> float:
@@ -102,13 +105,19 @@ class Optimizer:
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Callable[[int], float], weight_decay: float = 0.025,
-                 agc_clip: float = 0.02, betas: Tuple[float, float] = (0.9, 0.999)):
+                 agc_clip: float = 0.02, betas: Tuple[float, float] = (0.9, 0.999),
+                 grad_accum: int = 1):
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         named = [(n, p) for n, p in named_params if p.requires_grad]
         labels = param_labels(named)
         self.params = [p for _, p in named]
         self.schedule = schedule
         self.agc_clip = agc_clip
-        self.count = 0
+        self.count = 0  # updates applied
+        self.grad_accum = grad_accum
+        self.mini_step = 0  # micro-steps folded into ``acc`` since the last update
+        self.acc = None  # the running mean of the micro-gradients (grad_accum > 1)
         groups = [{"params": [p for n, p in named if labels[n] == "decay"],
                    "weight_decay": weight_decay},
                   {"params": [p for n, p in named if labels[n] == "no_decay"],
@@ -122,7 +131,31 @@ class Optimizer:
         """The lr of the next update."""
         return self.schedule(self.count)
 
-    def step(self) -> None:
+    @torch.no_grad()
+    def _accumulate(self) -> bool:
+        """Fold the micro-step's gradients into ``acc``; on the k-th, put the mean in
+        ``.grad`` and return True."""
+        if self.acc is None:
+            self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        i = self.mini_step
+        for a, p in zip(self.acc, self.params):
+            if p.grad is not None:
+                a.add_((p.grad.float() - a) / (i + 1))
+            else:  # a zero gradient
+                a.sub_(a / (i + 1))
+        self.mini_step = (i + 1) % self.grad_accum
+        if self.mini_step:
+            return False
+        for a, p in zip(self.acc, self.params):
+            p.grad = a.to(p.dtype).clone()
+            a.zero_()
+        return True
+
+    def step(self) -> bool:
+        """One micro-step: returns whether the parameters were updated (always, at
+        ``grad_accum`` 1)."""
+        if self.grad_accum > 1 and not self._accumulate():
+            return False
         if self.agc_clip and self.agc_clip > 0:
             adaptive_grad_clip_(self.params, self.agc_clip)
         lr = self.lr()
@@ -130,23 +163,29 @@ class Optimizer:
             group["lr"] = lr
         self.adamw.step()
         self.count += 1
+        return True
 
     def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict(), "count": self.count}
+        return {"adamw": self.adamw.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": self.acc}
 
     def load_state_dict(self, state: dict) -> None:
         self.adamw.load_state_dict(state["adamw"])
         self.count = int(state["count"])
+        self.mini_step = int(state.get("mini_step", 0))
+        acc = state.get("acc")
+        self.acc = None if acc is None else [
+            a.to(p.device) for a, p in zip(acc, self.params)]
 
 
 def make_optimizer(named_params, learning_rate: Callable[[int], float],
                    weight_decay: float = 0.025, agc_clip: float = 0.02,
                    betas: Tuple[float, float] = (0.9, 0.999),
                    grad_accum: int = 1) -> Optimizer:
-    """AGC -> AdamW (decay on >=2-D parameters only), the RecNeXt recipe. The JAX
-    package's global-norm clip (the MLLA recipe) comes with the MLLA family;
-    ``grad_accum`` > 1 (optax.MultiSteps there) is not ported yet and raises."""
-    if grad_accum > 1:
-        raise NotImplementedError(f"gradient accumulation (grad_accum={grad_accum}) is not "
-                                  f"ported yet; see {TRAIN_ITEM}")
-    return Optimizer(named_params, learning_rate, weight_decay, agc_clip, betas)
+    """AGC -> AdamW (decay on >=2-D parameters only), the RecNeXt recipe, applied to
+    the mean of every ``grad_accum`` micro-steps' gradients (optax.MultiSteps in the
+    JAX package). ``learning_rate`` is read at the update count: under accumulation
+    the caller maps it back to micro-steps (``sched(u * grad_accum)``), as the JAX CLI
+    does. The JAX package's global-norm clip (the MLLA recipe) comes with the MLLA
+    family."""
+    return Optimizer(named_params, learning_rate, weight_decay, agc_clip, betas, grad_accum)

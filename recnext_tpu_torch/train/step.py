@@ -21,12 +21,17 @@ model) scores the mixed batch in eval mode, without gradient, in the compute dty
 and the dual-head student's second head learns its hard labels or its softened
 distribution (``train/losses.py:distillation_loss``).
 
-Not ported yet, each raising with its ROADMAP item: MESA, the JSD loss, ``remat``
-and ``grad_accum > 1``.
+The JAX step's other options: ``grad_accum`` (the optimizer's mean of k micro-
+steps, ``train/optim.py``; the EMA moves only on the steps that update), ``remat``
+(each block's forward recomputed in the backward by ``torch.utils.checkpoint``,
+``models/recnext.py:remat_blocks``), MESA (self-distillation from the EMA model's
+eval-mode softmax from ``mesa_start_step`` on) and the JSD loss on a batch of
+``jsd_splits`` given views.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Dict, Optional
 
@@ -36,9 +41,9 @@ from torch.func import functional_call
 
 from recnext_tpu_torch.data.mixup import mixup_cutmix
 from recnext_tpu_torch.fusion import fuse_params
-from recnext_tpu_torch.models.recnext import RecNext, RecNextConfig
+from recnext_tpu_torch.models.recnext import RecNext, RecNextConfig, remat_blocks
 from recnext_tpu_torch.train import losses as L
-from recnext_tpu_torch.train.optim import TRAIN_ITEM, global_norm
+from recnext_tpu_torch.train.optim import global_norm
 from recnext_tpu_torch.train.state import TrainState, ema_update
 
 PACKED_ITEM = "ROADMAP.md Queue 1 item 12 (models/packed_infer.py)"
@@ -99,15 +104,42 @@ def make_teacher_apply(teacher: nn.Module, dtype: torch.dtype = torch.bfloat16) 
 def train_loss(model: nn.Module, x: torch.Tensor, targets: torch.Tensor, *,
                dtype: torch.dtype = torch.bfloat16, smoothing: float = 0.1,
                teacher_logits: Optional[torch.Tensor] = None, distillation: str = "none",
-               alpha: float = 0.5, tau: float = 1.0) -> torch.Tensor:
-    """Forward in ``dtype`` and the fp32 loss: soft-target CE on mixup targets,
-    label-smoothing CE on integer labels, blended with the distillation loss on the
-    dual-head model's second head where ``distillation`` is "hard" or "soft"."""
-    outputs = forward_model(model, x, dtype)
+               alpha: float = 0.5, tau: float = 1.0, remat: bool = False,
+               jsd_splits: int = 0, jsd_alpha: float = 12.0,
+               mesa_targets: Optional[torch.Tensor] = None,
+               mesa: float = 0.0) -> torch.Tensor:
+    """Forward in ``dtype`` (each block rematerialised in the backward where
+    ``remat``) and the fp32 loss: the JSD loss over ``jsd_splits`` views where it is
+    > 1; else soft-target CE on mixup targets, label-smoothing CE on integer labels,
+    blended with the distillation loss on the dual-head model's second head where
+    ``distillation`` is "hard" or "soft", plus ``mesa`` times the soft-target CE
+    against ``mesa_targets`` where they are given."""
+    with remat_blocks() if remat else contextlib.nullcontext():
+        outputs = forward_model(model, x, dtype)
+    if jsd_splits > 1:
+        return L.jsd_cross_entropy(outputs, targets, num_splits=jsd_splits, alpha=jsd_alpha,
+                                   smoothing=smoothing)
     base = (L.soft_target_cross_entropy if targets.dim() == 2 else
             functools.partial(L.label_smoothing_cross_entropy, smoothing=smoothing))
-    return L.distillation_loss(outputs, targets, teacher_logits, base_criterion=base,
+    loss = L.distillation_loss(outputs, targets, teacher_logits, base_criterion=base,
                                kind=distillation, alpha=alpha, tau=tau)
+    if mesa_targets is not None:
+        loss = loss + mesa * L.soft_target_cross_entropy(outputs, mesa_targets)
+    return loss
+
+
+def ema_softmax(model: nn.Module, x: torch.Tensor, ema: Dict[str, torch.Tensor],
+                dtype: torch.dtype) -> torch.Tensor:
+    """MESA's targets: the fp32 softmax of the EMA model's logits on x, from an
+    eval-mode forward without gradient."""
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            logits = forward_model(model, x, dtype, ema)
+    finally:
+        model.train(was)
+    return torch.softmax(logits.float(), dim=-1)
 
 
 def make_train_step(*, num_classes: int = 1000, mixup: bool = True,
@@ -115,7 +147,8 @@ def make_train_step(*, num_classes: int = 1000, mixup: bool = True,
                     ema_decay: float = 0.99996, dtype: torch.dtype = torch.bfloat16,
                     teacher_apply: Optional[Callable] = None, distillation: str = "none",
                     alpha: float = 0.5, tau: float = 1.0, remat: bool = False,
-                    jsd_splits: int = 0, grad_accum: int = 1, mesa: float = 0.0):
+                    jsd_splits: int = 0, jsd_alpha: float = 12.0, grad_accum: int = 1,
+                    mesa: float = 0.0, mesa_start_step: int = 0):
     """Returns ``train_step(state, batch, generator) -> {"loss", "grad_norm"}``: the
     state (``train/state.py``) carries the model and the optimizer.
 
@@ -124,39 +157,47 @@ def make_train_step(*, num_classes: int = 1000, mixup: bool = True,
     ``distillation`` "hard" or "soft", ``teacher_apply(x) -> logits``
     (``make_teacher_apply``) scores the mixed batch and the state's model is the
     dual-head one (``distillation=True``); ``alpha`` and ``tau`` blend the losses as
-    the JAX step does. The last four arguments are the JAX step's options that are
-    not ported yet: any but their default raises."""
-    if mesa > 0:
-        raise NotImplementedError(f"MESA self-distillation is not ported yet; see "
-                                  f"{TRAIN_ITEM}")
-    if jsd_splits > 1:
-        raise NotImplementedError(f"the JSD loss is not ported yet; see {TRAIN_ITEM}")
-    if remat:
-        raise NotImplementedError(f"remat is not ported yet; see {TRAIN_ITEM}")
-    if grad_accum > 1:
-        raise NotImplementedError(f"gradient accumulation is not ported yet; see "
-                                  f"{TRAIN_ITEM}")
+    the JAX step does. ``grad_accum`` must be the state's optimizer's: the EMA decays
+    only on the micro-steps that update. ``remat`` recomputes each block's forward in
+    the backward. ``mesa`` > 0 adds MESA's term once ``state.step >=
+    mesa_start_step`` (it needs the state's EMA; not with distillation or JSD).
+    ``jsd_splits`` > 1: the batch holds that many views of the same samples, the
+    clean one first, and the loss is the JSD loss (no mixup, no distillation)."""
     if distillation not in ("none", "hard", "soft"):
         raise ValueError(f"unknown distillation kind {distillation!r} (none, hard, soft)")
     if distillation != "none" and teacher_apply is None:
         raise ValueError(f"{distillation} distillation needs a teacher (teacher_apply)")
+    if mesa > 0 and (distillation != "none" or jsd_splits > 1):
+        raise ValueError("MESA self-distillation requires a single-logits model (no "
+                         "dual-head distillation) and is incompatible with JSD")
+    if jsd_splits > 1 and (mixup or distillation != "none"):
+        raise ValueError("the JSD loss excludes mixup and distillation")
     mk = dict(num_classes=num_classes, smoothing=smoothing, **(mixup_kwargs or {}))
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
+        if state.optimizer.grad_accum != grad_accum:
+            raise ValueError(f"the step accumulates {grad_accum} micro-steps, the "
+                             f"optimizer {state.optimizer.grad_accum}")
         state.model.train()
         x, y = batch["image"], batch["label"]
         targets = y
         if mixup:
             x, targets = mixup_cutmix(generator, x, y, **mk)
         teacher_logits = teacher_apply(x) if distillation != "none" else None
+        mesa_targets = None
+        if mesa > 0 and state.step >= mesa_start_step:
+            if state.ema is None:
+                raise ValueError("MESA needs the EMA model as its teacher")
+            mesa_targets = ema_softmax(state.model, x, state.ema, dtype)
         state.optimizer.zero_grad()
         loss = train_loss(state.model, x, targets, dtype=dtype, smoothing=smoothing,
                           teacher_logits=teacher_logits, distillation=distillation,
-                          alpha=alpha, tau=tau)
+                          alpha=alpha, tau=tau, remat=remat, jsd_splits=jsd_splits,
+                          jsd_alpha=jsd_alpha, mesa_targets=mesa_targets, mesa=mesa)
         loss.backward()
         gnorm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
-        state.optimizer.step()
-        if state.ema is not None:
+        updated = state.optimizer.step()
+        if updated and state.ema is not None:
             ema_update(state.ema, state.model, ema_decay)
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": gnorm}

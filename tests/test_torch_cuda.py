@@ -21,13 +21,20 @@ from recnext_tpu_torch.ops.attention import (
 )
 from recnext_tpu_torch.models.mixers import LinearAttention, RecConv2dMixer
 from recnext_tpu_torch.ops.cuda import linear_attention_bwd as attention_bwd_cuda
+from recnext_tpu_torch.ops.cuda import recconv_bwd as recconv_bwd_cuda
 from recnext_tpu_torch.ops.recconv import (
     rec_conv2d,
     rec_conv2d_backward,
     rec_conv2d_backward_plain,
     rec_conv2d_fused,
     rec_conv2d_level,
+    rec_conv2d_level_dgrad,
+    rec_conv2d_level_dgrad_plain,
     rec_conv2d_level_plain,
+    rec_conv2d_level_wgrad,
+    rec_conv2d_level_wgrad_plain,
+    rec_conv2d_up_adjoint,
+    rec_conv2d_up_adjoint_plain,
 )
 from recnext_tpu_torch.train.step import compute_params, forward_model
 
@@ -193,13 +200,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         rec_conv2d_fused(x.half(), ws[0].half(), [t.half() for t in ws[1:]], level=2)
     with pytest.raises(ValueError, match="contiguous"):
         rec_conv2d_fused(x.transpose(2, 3), ws[0], ws[1:], level=2)
-    # under grad the call goes through the backward kernel's Function, which refuses,
-    # before any launch, a plane too large for the backward's shared memory
+    # under grad the call goes through the backward kernel's Function, which takes a
+    # plane too large for the backward's shared memory: its backward peels one level
     big, bws = _inputs(1, 2, 160, 160, 4)
-    before = rec_conv2d_fused.launches
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        rec_conv2d_fused(big.requires_grad_(), bws[0], bws[1:], level=4)
-    assert rec_conv2d_fused.launches == before
+    peeled = rec_conv2d_backward.peeled
+    out = rec_conv2d_fused(big.requires_grad_(), bws[0], bws[1:], level=4)
+    out.float().sum().backward()
+    assert rec_conv2d_backward.peeled == peeled + 1 and big.grad.shape == big.shape
 
 
 def test_model_kernel_path_matches_plain_path(cuda):
@@ -443,11 +450,126 @@ def test_backward_kernel_gives_the_same_bits_on_every_run(cuda, c, side, level):
 
 
 def test_backward_refuses_a_plane_too_large_for_shared_memory(cuda):
+    """The kernel's layout refuses the 160^2 plane at level 4; the backward peels one
+    level before any launch and gives K1' the 80^2 plane at level 3."""
     x, ws = _inputs(1, 2, 160, 160, 4)
-    before = rec_conv2d_backward.launches
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        rec_conv2d_backward(x, ws[0], ws[1:], x, level=4)
-    assert rec_conv2d_backward.launches == before
+    with pytest.raises(ValueError, match="levels_to_peel_backward"):
+        recconv_bwd_cuda.launch_config(160, 160, 4, 5)
+    before = (rec_conv2d_backward.launches, rec_conv2d_backward.peeled)
+    _check_backward(x, [t / 5 for t in ws], x, 4, "bilinear")
+    assert (rec_conv2d_backward.launches, rec_conv2d_backward.peeled) == (before[0] + 1,
+                                                                          before[1] + 1)
+
+
+LEVEL_BWD_COUNTS = (rec_conv2d_level_dgrad, rec_conv2d_level_wgrad, rec_conv2d_up_adjoint)
+
+
+# the peeled route at the shapes it exists for (a 512^2 input's stage 0, COCO's
+# 200x334), odd planes, k 3 and 7, and peel counts 1 and 2: (n, c, h, w, level, k,
+# peel, K1' launches, dgrad, wgrad and up-adjoint launches)
+PEELED_CASES = [(2, 4, 128, 128, 4, 5, 1, 1, 2, 2, 1), (1, 3, 200, 334, 4, 5, 2, 1, 4, 4, 2),
+                (2, 3, 151, 129, 4, 3, 1, 1, 2, 2, 1), (1, 2, 160, 160, 4, 7, 1, 1, 2, 2, 1)]
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,level,k,peel,bw,dg,wg,ua", PEELED_CASES)
+def test_peeled_backward_matches_plain(cuda, n, c, h, w, level, k, peel, bw, dg, wg, ua,
+                                       dtype, mode):
+    assert recconv_bwd_cuda.levels_to_peel_backward(h, w, level, k) == peel
+    x, ws = _inputs(n, c, h, w, level, k=k, dtype=dtype, seed=h)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(4)).to("cuda", dtype)
+    before = [f.launches for f in (rec_conv2d_backward, *LEVEL_BWD_COUNTS)]
+    _check_backward(x, [t / k for t in ws], g, level, mode)
+    after = [f.launches for f in (rec_conv2d_backward, *LEVEL_BWD_COUNTS)]
+    assert [a - b for a, b in zip(after, before)] == [bw, dg, wg, ua]
+
+
+def test_peeled_backward_gives_the_same_bits_on_every_run(cuda):
+    x, ws = _inputs(2, 4, 200, 334, 4, dtype=torch.bfloat16, seed=3)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)).to("cuda",
+                                                                             torch.bfloat16)
+    first = rec_conv2d_backward(x, ws[0], ws[1:], g, level=4)
+    for _ in range(2):
+        again = rec_conv2d_backward(x, ws[0], ws[1:], g, level=4)
+        for a, b in zip([first[0], first[1], *first[2]], [again[0], again[1], *again[2]]):
+            assert torch.equal(a, b)
+
+
+def _level_close(got, want, tol):
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+# (h, w, k, stride, g dtype, out dtype): odd sizes, several tiles, k 3/5/7
+@pytest.mark.parametrize("h,w,k,stride,gdt,odt", [
+    (128, 128, 5, 1, torch.bfloat16, torch.float32), (128, 128, 5, 2, torch.float32,
+                                                      torch.bfloat16),
+    (200, 334, 5, 2, torch.float32, torch.float32), (33, 21, 3, 2, torch.float32,
+                                                     torch.float32),
+    (67, 45, 7, 1, torch.float32, torch.float32), (1, 9, 5, 2, torch.bfloat16,
+                                                   torch.bfloat16)])
+def test_level_dgrad_kernel_matches_plain(cuda, h, w, k, stride, gdt, odt):
+    gen = torch.Generator().manual_seed(h + k)
+    g = torch.randn(2, 3, -(-h // stride), -(-w // stride), generator=gen).to("cuda", gdt)
+    wt = torch.randn(3, 1, k, k, generator=gen).cuda()
+    add = torch.randn(2, 3, h, w, generator=gen).cuda() if stride == 2 else None
+    before = rec_conv2d_level_dgrad.launches
+    got = rec_conv2d_level_dgrad(g, wt, size=(h, w), stride=stride, add=add, out_dtype=odt)
+    assert rec_conv2d_level_dgrad.launches == before + 1 and got.dtype == odt
+    want = rec_conv2d_level_dgrad_plain(g, wt, size=(h, w), stride=stride, add=add)
+    _level_close(got, want, 2e-5 if odt == torch.float32 and gdt == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("h,w,k,stride,mode,xdt,gdt", [
+    (128, 128, 5, 1, "bilinear", torch.bfloat16, torch.bfloat16),
+    (128, 128, 5, 2, None, torch.bfloat16, torch.float32),
+    (200, 334, 5, 1, "nearest", torch.float32, torch.float32),
+    (100, 167, 5, 2, None, torch.float32, torch.float32),
+    (33, 21, 3, 1, "bilinear", torch.float32, torch.float32),
+    (67, 45, 7, 2, None, torch.float32, torch.bfloat16)])
+def test_level_wgrad_kernel_matches_plain(cuda, h, w, k, stride, mode, xdt, gdt):
+    gen = torch.Generator().manual_seed(h * k)
+    x = torch.randn(2, 3, h, w, generator=gen).to("cuda", xdt)
+    uh, uw = (h + 1) // 2, (w + 1) // 2
+    up = torch.randn(2, 3, uh, uw, generator=gen).cuda() if mode else None
+    oh, ow = (h, w) if stride == 1 else (uh, uw)
+    g = torch.randn(2, 3, oh, ow, generator=gen).to("cuda", gdt)
+    before = rec_conv2d_level_wgrad.launches
+    got = rec_conv2d_level_wgrad(x, g, k=k, stride=stride, up=up, mode=mode or "bilinear")
+    assert rec_conv2d_level_wgrad.launches == before + 1 and got.shape == (3, 1, k, k)
+    want = rec_conv2d_level_wgrad_plain(x, g, k=k, stride=stride, up=up,
+                                        mode=mode or "bilinear")
+    _level_close(got, want, 1e-4)
+    again = rec_conv2d_level_wgrad(x, g, k=k, stride=stride, up=up, mode=mode or "bilinear")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("h,w", [(128, 128), (200, 334), (33, 21), (1, 1)])
+def test_up_adjoint_kernel_matches_plain(cuda, h, w, mode):
+    dz = torch.randn(2, 3, h, w, generator=torch.Generator().manual_seed(h)).cuda()
+    before = rec_conv2d_up_adjoint.launches
+    got = rec_conv2d_up_adjoint(dz, mode=mode)
+    assert rec_conv2d_up_adjoint.launches == before + 1
+    _level_close(got, rec_conv2d_up_adjoint_plain(dz, mode=mode), 2e-5)
+
+
+def test_level_backward_kernels_reject_what_they_do_not_take(cuda):
+    g = torch.randn(1, 2, 8, 8, device="cuda")
+    wt = torch.randn(2, 1, 5, 5, device="cuda")
+    with pytest.raises(ValueError, match="stride-2 output"):
+        rec_conv2d_level_dgrad(g, wt, size=(20, 20), stride=2)
+    with pytest.raises(ValueError, match="contiguous NCHW"):
+        rec_conv2d_level_dgrad(g.half(), wt, size=(16, 16), stride=2)
+    with pytest.raises(ValueError, match="g must be"):
+        rec_conv2d_level_wgrad(g, g, k=5, stride=2)
+    g4 = g[..., :4, :4].contiguous()  # the stride-2 output of 8^2
+    with pytest.raises(ValueError, match="up must be"):
+        rec_conv2d_level_wgrad(g, g4, k=5, stride=2, up=g4)  # an up-step at stride 1 only
+    with pytest.raises(ValueError, match="contiguous"):
+        rec_conv2d_up_adjoint(g.half())
 
 
 def test_mixer_under_grad_launches_k1_and_the_backward_kernel_once(cuda):

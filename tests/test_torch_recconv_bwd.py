@@ -113,10 +113,12 @@ def test_launch_config_at_m1_shapes_and_refusal():
         assert cfg.smem_bytes <= bwd.MAX_DYNAMIC_SMEM
         assert len(cfg.geometry) == 58 and cfg.geometry[0] == level
     assert bwd.launch_config(96, 96, 4, 5).smem_bytes <= bwd.MAX_DYNAMIC_SMEM  # 384^2 finetune
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        bwd.check_fits(160, 160, 4, 5)
+    # a plane whose backward does not fit is refused by the layout, which names the
+    # route the caller takes first: peeling outer levels
+    with pytest.raises(ValueError, match="levels_to_peel_backward"):
+        bwd.launch_config(160, 160, 4, 5)
     with pytest.raises(ValueError, match="kernel size"):
-        bwd.check_fits(14, 14, 2, 4)
+        bwd.launch_config(14, 14, 2, 4)
 
 
 def _emulate(x, ws, g, level, mode, sm=None):

@@ -66,8 +66,12 @@ def test_the_block_fits_in_shared_memory(side, level, k):
 
 @pytest.mark.parametrize("k", [3, 5, 7])
 def test_a_160_plane_at_level_4_still_raises(k):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        bwd.check_fits(160, 160, 4, k)
+    """The kernel's layout still refuses the plane; the backward peels one level first,
+    and the kernel takes the 80^2 plane at level 3."""
+    with pytest.raises(ValueError, match="levels_to_peel_backward"):
+        bwd.launch_config(160, 160, 4, k)
+    assert bwd.levels_to_peel_backward(160, 160, 4, k) == 1
+    assert bwd.launch_config(80, 80, 3, k).smem_bytes <= bwd.MAX_DYNAMIC_SMEM
 
 
 @pytest.mark.parametrize("k", [3, 5, 7])

@@ -236,6 +236,32 @@ def test_three_steps_of_agc_adamw_match_optax():
 
 
 def test_grad_accum_raises_naming_the_roadmap_item():
+    """Gradient accumulation is ported (it raised, naming ROADMAP Queue 1 item 6): six
+    micro-steps of 2 against optax.MultiSteps over the same chain, the schedule read
+    at the update count; only a count below 1 still raises."""
     p = torch.nn.Parameter(torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        topt.make_optimizer([("p", p)], lambda s: 1e-3, grad_accum=2)
+    with pytest.raises(ValueError, match="grad_accum"):
+        topt.make_optimizer([("p", p)], lambda s: 1e-3, grad_accum=0)
+    params, grads = _params_and_grads(3, steps=6)
+    jsched, tsched = jopt.cosine_schedule(1e-3, 1, 10, 0), topt.cosine_schedule(1e-3, 1, 10, 0)
+    tx = jopt.make_optimizer(lambda u: jsched(u * 2), weight_decay=0.025, agc_clip=0.02,
+                             grad_accum=2)
+    jp = {k: jnp.asarray(_to_jax(k, v)) for k, v in params.items()}
+    state = tx.init(jp)
+    tparams = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in params.items()}
+    opt = topt.make_optimizer(tparams.items(), lambda u: tsched(u * 2), weight_decay=0.025,
+                              agc_clip=0.02, grad_accum=2)
+    for i, g in enumerate(grads):
+        upd, state = tx.update({k: jnp.asarray(_to_jax(k, v)) for k, v in g.items()},
+                               state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for k, q in tparams.items():
+            q.grad = torch.from_numpy(g[k].copy())
+        assert opt.step() == (i % 2 == 1)  # an update on every second micro-step
+        # the means are equal to the bit; torch's AdamW and optax's round their
+        # bias corrections apart, which an element whose mean nearly cancels carries
+        # to ~1e-5 of its lr-sized step: atol 1e-4 lr
+        for k, q in tparams.items():
+            np.testing.assert_allclose(_to_jax(k, q.detach().numpy()), np.asarray(jp[k]),
+                                       rtol=RTOL, atol=1e-7, err_msg=(i, k))
+    assert opt.count == 3 and opt.mini_step == 0
