@@ -104,8 +104,10 @@ and read just after:
 19. large_plane_backward  K1′'s peeled route at 128^2 L4 (C 48, batch 2: a 512^2
               input's stage 0, one level peeled) and 200x334 L4 (C 48, batch 1: COCO's,
               two levels) against its plain version, f32 and bf16, bilinear and
-              nearest, at K1′'s bounds, with the launches and peels made and the same
-              bits on three runs; then each of the three level kernels (the input
+              nearest, at K1′'s bounds, each call's peels (1 and 2) and launches
+              (per peeled level: the level kernel and K1 recomputing d and y, KL′1
+              and KL′2 twice, KL′3 once; then one K1′ call) asserted, and the same
+              bits on three runs in every dtype and mode; then each of the three level kernels (the input
               gradient at stride 1 and 2, the weight gradient at stride 1 with z = x +
               up(y) and at stride 2, the up-step's adjoint) against its plain version
               at the outer level's shapes of both planes, timed with CUDA events
@@ -1211,6 +1213,37 @@ def _check_close(name, got, want, tol):
     return err, scale
 
 
+def peeled_backward_launches(h, w, level, k):
+    """The launches one ``rec_conv2d_backward`` call makes on an h x w plane that
+    peels: per peeled level, the stride-2 level kernel for d and K1 for y (whose own
+    forward peels its plane if it must, two level-kernel launches a peeled level), or
+    the level kernel alone for y where the inner level is 0; KL′1 and KL′2 twice
+    (stride 1 and stride 2) and KL′3 once; then K1′ once at the inner plane, or the
+    level backward (KL′1, KL′2) where the inner level is 0."""
+    peel = recconv_bwd_cuda.levels_to_peel_backward(h, w, level, k)
+    sizes = recconv_cuda.pyramid_sizes(h, w, level)
+    want = dict.fromkeys(("rec_conv2d", "rec_conv2d_level", "rec_conv2d_backward",
+                          *LEVEL_BWD), 0)
+    for i in range(peel):
+        inner = level - 1 - i
+        want["rec_conv2d_level"] += 1
+        if inner == 0:
+            want["rec_conv2d_level"] += 1
+        else:
+            want["rec_conv2d"] += 1
+            want["rec_conv2d_level"] += 2 * recconv_cuda.levels_to_peel(*sizes[i + 1], inner,
+                                                                        k, 4)
+        want["rec_conv2d_level_dgrad"] += 2
+        want["rec_conv2d_level_wgrad"] += 2
+        want["rec_conv2d_up_adjoint"] += 1
+    if level > peel:
+        want["rec_conv2d_backward"] += 1
+    else:
+        want["rec_conv2d_level_dgrad"] += 1
+        want["rec_conv2d_level_wgrad"] += 1
+    return {name: n for name, n in want.items() if n}
+
+
 def phase_large_plane_backward():
     """K1′'s peeled route on planes whose backward exceeds K1′'s shared memory, against
     the plain version; then each of the three level kernels alone, against its plain
@@ -1223,27 +1256,33 @@ def phase_large_plane_backward():
         x = torch.randn(n, c, h, w, generator=gen)
         g = torch.randn(n, c, h, w, generator=gen)
         ws = [torch.randn(c, 1, 5, 5, generator=gen) / 5 for _ in range(level + 2)]
+        peel = recconv_bwd_cuda.levels_to_peel_backward(h, w, level, 5)
+        if peel != {(128, 128): 1, (200, 334): 2}[(h, w)]:
+            raise AssertionError(f"{h}x{w} L{level}: {peel} levels peel")
+        want_launches = peeled_backward_launches(h, w, level, 5)
         rec = {"phase": "large_plane_backward", "shape": [n, c, h, w], "level": level,
-               "levels_peeled": recconv_bwd_cuda.levels_to_peel_backward(h, w, level, 5)}
+               "levels_peeled": peel, "launches_per_call": want_launches}
         for dtype in (torch.float32, torch.bfloat16):
             xd, gd = x.to("cuda", dtype), g.to("cuda", dtype)
             wd = [t.to("cuda", dtype) for t in ws]
             for mode in ("bilinear", "nearest"):
+                key = f"{'f32' if dtype == torch.float32 else 'bf16'}_{mode}"
                 before, peels = counts(), rec_conv2d_backward.peeled
                 errs, _ = _check_backward(xd, wd, gd, level, mode)
-                key = f"{'f32' if dtype == torch.float32 else 'bf16'}_{mode}"
                 rec[f"{key}_err_over_max_ref"] = errs
-                rec[f"{key}_launches"] = {k: v - before[k] for k, v in counts().items()
-                                          if v != before[k]}
-                if rec_conv2d_backward.peeled - peels != 1:
-                    raise AssertionError(f"{key}: the backward did not peel once")
-            first = rec_conv2d_backward(xd, wd[0], wd[1:], gd, level=level)
-            for _ in range(2):
-                again = rec_conv2d_backward(xd, wd[0], wd[1:], gd, level=level)
-                if not all(torch.equal(a, b) for a, b in zip([first[0], first[1], *first[2]],
-                                                              [again[0], again[1], *again[2]])):
-                    raise AssertionError(f"{rec['shape']} {dtype}: runs differ")
-            rec[f"{'f32' if dtype == torch.float32 else 'bf16'}_same_bits_on_3_runs"] = True
+                got = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+                if rec_conv2d_backward.peeled - peels != 1 or got != want_launches:
+                    raise AssertionError(f"{key}: {rec_conv2d_backward.peeled - peels} "
+                                         f"peeled calls, launches {got}, want 1 and "
+                                         f"{want_launches}")
+                first = rec_conv2d_backward(xd, wd[0], wd[1:], gd, level=level, mode=mode)
+                for _ in range(2):
+                    again = rec_conv2d_backward(xd, wd[0], wd[1:], gd, level=level,
+                                                mode=mode)
+                    if not all(torch.equal(a, b) for a, b in zip(
+                            [first[0], first[1], *first[2]], [again[0], again[1], *again[2]])):
+                        raise AssertionError(f"{rec['shape']} {key}: runs differ")
+                rec[f"{key}_same_bits_on_3_runs"] = True
         emit(rec)
 
         # the peeled outer level's kernels at this plane, as the bf16 train step runs

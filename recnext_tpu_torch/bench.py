@@ -15,8 +15,9 @@ reference's upload.py), at 224^2 only. Three modes:
   ``--batch``, ``--repeats`` timed windows, the median and the spread; with
   ``--teacher regnety_160`` (or another RegNetY or registry model, seeded weights)
   the distilled step of the reference recipe (``--distillation`` hard or soft), the
-  teacher's eval forward included; ``--grad-accum``, ``--remat`` and ``--mesa`` time
-  the finetune recipe's step (a call is one micro-step; MESA active from the start).
+  teacher's eval forward included. ``train_throughput``'s ``grad_accum``, ``remat``
+  and ``mesa`` time the finetune recipe's step (a call is one micro-step; MESA
+  active from the start), as ``chip_smoke.py``'s finetune phase does.
 
 Weights are random, from a seeded generator; the inputs are random, made on the
 device. Every mode runs on the GPU unless ``--device cpu``, and names the device it
@@ -197,12 +198,6 @@ def main(argv=None):
                    help="--train only: distil from this teacher (regnety_160, ...; seeded)")
     p.add_argument("--distillation", default="hard", choices=["hard", "soft"],
                    help="--train --teacher only: the distillation loss")
-    p.add_argument("--grad-accum", type=int, default=1,
-                   help="--train only: micro-batches an update")
-    p.add_argument("--remat", action="store_true",
-                   help="--train only: recompute each block in the backward")
-    p.add_argument("--mesa", type=float, default=0.0,
-                   help="--train only: MESA's weight (self-distillation from the EMA)")
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--timed", type=float, default=10.0)
     p.add_argument("--warmup", type=float, default=5.0)
@@ -222,15 +217,12 @@ def main(argv=None):
                                               timed_s=args.timed, image_size=size,
                                               repeats=args.repeats, device=args.device,
                                               teacher=args.teacher or None,
-                                              distillation=args.distillation,
-                                              grad_accum=args.grad_accum, remat=args.remat,
-                                              mesa=args.mesa, **kw)
+                                              distillation=args.distillation, **kw)
         rec = {"metric": f"{args.model}_train_bf16_{size}_images_per_sec",
                "value": round(ips, 2), "unit": "images/sec", "vs_baseline": None,
                "batch": batch, "step_ms": round(batch / ips * 1e3, 3),
                "teacher": args.teacher or None,
                "distillation": args.distillation if args.teacher else "none",
-               "grad_accum": args.grad_accum, "remat": args.remat, "mesa": args.mesa,
                "spread": {k: (round(v, 1) if not isinstance(v, list)
                               else [round(r, 1) for r in v]) for k, v in spread.items()}}
     else:

@@ -12,7 +12,6 @@ comes in a later slice.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import dataclasses
 import math
 from typing import Tuple
@@ -33,25 +32,12 @@ from recnext_tpu_torch.models.layers import (
 )
 from recnext_tpu_torch.models.mixers import RecAttn2d, RecConv2dMixer
 
-_REMAT = contextvars.ContextVar("remat", default=False)
-
-
-@contextlib.contextmanager
-def remat_blocks():
-    """Within it, a forward under grad keeps only each block's input and recomputes
-    the block in the backward (``torch.utils.checkpoint``, non-reentrant): the JAX
-    step's ``remat`` (``jax.checkpoint``). The recomputed forward leaves BatchNorm's
-    running statistics alone (``layers.recomputing``), and runs the mixers' kernels
-    a second time."""
-    token = _REMAT.set(True)
-    try:
-        yield
-    finally:
-        _REMAT.reset(token)
-
-
 def _checkpointed(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``block(x)``, recomputed in the backward. The block's parameters as they stand
+    """``block(x)``, keeping only x and recomputing the block in the backward
+    (``torch.utils.checkpoint``, non-reentrant): the JAX step's ``remat``
+    (``jax.checkpoint``). The recomputed forward leaves BatchNorm's running statistics
+    alone (``layers.recomputing``) and runs the mixers' kernels a second time. The
+    block's parameters as they stand
     (under ``functional_call``, the compute-dtype casts) are inputs of the
     checkpointed function, so the recomputation sees them and their gradients flow
     back through the casts."""
@@ -162,9 +148,10 @@ class Stage(nn.Module):
         self.downsample = downsample if downsample is not None else nn.Identity()
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``remat``: each block is recomputed in the backward (under grad)."""
         x = self.downsample(x)
-        remat = _REMAT.get() and torch.is_grad_enabled()
+        remat = remat and torch.is_grad_enabled()
         for blk in self.blocks:
             x = _checkpointed(blk, x) if remat else blk(x)
         return x
@@ -230,19 +217,19 @@ class RecNext(nn.Module):
             self.head = RecNextClassifier(cfg.num_features, cfg.num_classes,
                                           cfg.distillation, cfg.drop_rate)
 
-    def features(self, x: torch.Tensor) -> list:
+    def features(self, x: torch.Tensor, remat: bool = False) -> list:
         x = self.stem(x)
         outs = []
         for stage in self.stages:
-            x = stage(x)
+            x = stage(x, remat)
             outs.append(x)
         return outs
 
-    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
-        return self.features(x)[-1]
+    def forward_features(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        return self.features(x, remat)[-1]
 
-    def forward(self, x: torch.Tensor):
-        x = self.forward_features(x)
+    def forward(self, x: torch.Tensor, remat: bool = False):
+        x = self.forward_features(x, remat)
         x = x.float().mean(dim=(2, 3)).to(x.dtype)
         return self.head(x)
 

@@ -88,7 +88,7 @@ def read_weights(path: str, log: Callable[[str], None] = print,
                                   f"and orbax directories are not read by the port; see "
                                   f"{CKPT_ITEM}")
     if p.suffix not in (".pth", ".pt", ".bin"):
-        raise SystemExit(f"--finetune: unrecognized checkpoint {path}")
+        raise SystemExit(f"unrecognized checkpoint {path}")
     ckpt = torch.load(p, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and isinstance(ckpt.get("state"), dict):
         state = ckpt["state"]
@@ -101,7 +101,7 @@ def read_weights(path: str, log: Callable[[str], None] = print,
         return dict(ckpt["model"])
     if isinstance(ckpt, dict):
         return dict(ckpt)
-    raise SystemExit(f"--finetune: unrecognized checkpoint layout at {path}")
+    raise SystemExit(f"unrecognized checkpoint layout at {path}")
 
 
 def load_pretrained(path: str, template: Mapping[str, torch.Tensor],

@@ -60,7 +60,7 @@ from pathlib import Path
 import torch
 
 from recnext_tpu_torch.data.datasets import DATA_ITEM
-from recnext_tpu_torch.train.finetune import CKPT_ITEM
+from recnext_tpu_torch.train.finetune import CKPT_ITEM, read_weights
 
 CKPT_KEEP = 3
 
@@ -150,15 +150,6 @@ def _refuse_unported(args) -> None:
                                   f"and .msgpack files are not ported; see {CKPT_ITEM}")
 
 
-def load_state_dict_file(path: str) -> dict:
-    """A ``.pth``/``.pt`` state dict: as saved, inside a ``{"model": ...}`` checkpoint
-    (timm's, the published DeiT teacher's), or inside this trainer's checkpoint
-    (``{"state": {"model": ...}}``)."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    state = state.get("state", state)
-    return state.get("model", state)
-
-
 def build_teacher(args, num_classes: int, device: torch.device, dtype: torch.dtype, log):
     """``teacher_apply`` for the train step: ``--teacher-model`` with the weights of
     ``--teacher-ckpt`` (strict), or seeded."""
@@ -166,7 +157,7 @@ def build_teacher(args, num_classes: int, device: torch.device, dtype: torch.dty
 
     teacher = create_teacher(args.teacher_model, num_classes=num_classes, device=device)
     if args.teacher_ckpt:
-        teacher.load_state_dict(load_state_dict_file(args.teacher_ckpt), strict=True)
+        teacher.load_state_dict(read_weights(args.teacher_ckpt, ema=False), strict=True)
     n = sum(p.numel() for p in teacher.parameters())
     log(f"teacher {args.teacher_model}: {n / 1e6:.2f}M params, "
         f"{args.teacher_ckpt or 'seeded weights (no --teacher-ckpt)'}")

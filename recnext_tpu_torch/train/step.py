@@ -24,14 +24,13 @@ distribution (``train/losses.py:distillation_loss``).
 The JAX step's other options: ``grad_accum`` (the optimizer's mean of k micro-
 steps, ``train/optim.py``; the EMA moves only on the steps that update), ``remat``
 (each block's forward recomputed in the backward by ``torch.utils.checkpoint``,
-``models/recnext.py:remat_blocks``), MESA (self-distillation from the EMA model's
+``RecNext.forward(x, remat=True)``), MESA (self-distillation from the EMA model's
 eval-mode softmax from ``mesa_start_step`` on) and the JSD loss on a batch of
 ``jsd_splits`` given views.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Callable, Dict, Optional
 
@@ -41,7 +40,7 @@ from torch.func import functional_call
 
 from recnext_tpu_torch.data.mixup import mixup_cutmix
 from recnext_tpu_torch.fusion import fuse_params
-from recnext_tpu_torch.models.recnext import RecNext, RecNextConfig, remat_blocks
+from recnext_tpu_torch.models.recnext import RecNext, RecNextConfig
 from recnext_tpu_torch.train import losses as L
 from recnext_tpu_torch.train.optim import global_norm
 from recnext_tpu_torch.train.state import TrainState, ema_update
@@ -66,12 +65,14 @@ def compute_params(model: nn.Module, dtype: torch.dtype,
 
 
 def forward_model(model: nn.Module, x: torch.Tensor, dtype: torch.dtype,
-                  source: Optional[Dict[str, torch.Tensor]] = None):
+                  source: Optional[Dict[str, torch.Tensor]] = None, remat: bool = False):
     """The model's output on x in the compute ``dtype`` (parameters kept in fp32),
-    with the tensors of ``source`` (an EMA copy) in place of the model's."""
+    with the tensors of ``source`` (an EMA copy) in place of the model's; ``remat``
+    is the RecNext forward's (each block recomputed in the backward)."""
     tensors = dict(source or {})
     tensors.update(compute_params(model, dtype, source))
-    return functional_call(model, tensors, (x.to(dtype),), strict=False)
+    return functional_call(model, tensors, (x.to(dtype),), {"remat": True} if remat else None,
+                           strict=False)
 
 
 def create_teacher(name: str, *, num_classes: int, device=None) -> nn.Module:
@@ -114,8 +115,7 @@ def train_loss(model: nn.Module, x: torch.Tensor, targets: torch.Tensor, *,
     blended with the distillation loss on the dual-head model's second head where
     ``distillation`` is "hard" or "soft", plus ``mesa`` times the soft-target CE
     against ``mesa_targets`` where they are given."""
-    with remat_blocks() if remat else contextlib.nullcontext():
-        outputs = forward_model(model, x, dtype)
+    outputs = forward_model(model, x, dtype, remat=remat)
     if jsd_splits > 1:
         return L.jsd_cross_entropy(outputs, targets, num_splits=jsd_splits, alpha=jsd_alpha,
                                    smoothing=smoothing)

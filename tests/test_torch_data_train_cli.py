@@ -19,6 +19,7 @@ from recnext_tpu_torch.data import transforms as ttf
 from recnext_tpu_torch.models import regnet as tregnet
 from recnext_tpu_torch.models.registry import create_model
 from recnext_tpu_torch.train import main as tmain
+from recnext_tpu_torch.train.finetune import read_weights
 
 SMALL = "embed_dim=16:32:64:128,depth=1:1:2:1"
 
@@ -240,7 +241,7 @@ def test_train_cli_loads_the_teacher_checkpoint_strictly(tmp_path, capsys, tiny_
     _distill_cli(tmp_path / "run", 1, "--teacher-model", tiny_teacher,
                  "--teacher-ckpt", str(ckpt))
     assert f"teacher {tiny_teacher}: " in capsys.readouterr().out
-    loaded = tmain.load_state_dict_file(str(ckpt))
+    loaded = read_weights(str(ckpt), ema=False)
     assert all(torch.equal(loaded[k], v) for k, v in teacher.state_dict().items())
     # a registry model in the port's own layout: as saved, and in this trainer's checkpoint
     reg = create_model("recnext_m0", device="cpu", num_classes=11,
@@ -249,7 +250,7 @@ def test_train_cli_loads_the_teacher_checkpoint_strictly(tmp_path, capsys, tiny_
     torch.save({"epoch": 0, "state": {"step": 2, "model": reg.state_dict()}},
                tmp_path / "epoch_0000.pt")
     for name in ("m0.pt", "epoch_0000.pt"):
-        loaded = tmain.load_state_dict_file(str(tmp_path / name))
+        loaded = read_weights(str(tmp_path / name), ema=False)
         assert all(torch.equal(loaded[k], v) for k, v in reg.state_dict().items())
     # strict: a checkpoint that lacks a key is refused
     bad = {k: v for k, v in teacher.state_dict().items() if k != "head.fc.bias"}

@@ -15,7 +15,7 @@ import torch
 from recnext_tpu import validate as jvalidate
 from recnext_tpu_torch import validate as tvalidate
 from recnext_tpu_torch.export import publish_fused
-from recnext_tpu_torch.models.registry import create_model
+from recnext_tpu_torch.models.registry import create_model, parse_kv_overrides
 from recnext_tpu_torch.train import main as tmain
 from recnext_tpu_torch.train.finetune import read_weights
 
@@ -161,12 +161,11 @@ def test_validate_matches_the_jax_cli_on_a_reference_pth(tmp_path, monkeypatch):
             assert got[key] == want[key], key
 
 
-def test_bench_times_the_finetune_step_on_the_cpu(capsys):
+def test_bench_times_the_finetune_step_on_the_cpu():
     from recnext_tpu_torch import bench
 
-    rec = bench.main(["--train", "--device", "cpu", "--model", "recnext_m0", "--model-kwargs",
-                      SMALL + ",num_classes=11", "--batch", "4", "--image-size", "48",
-                      "--timed", "0.05", "--repeats", "1", "--grad-accum", "2", "--remat",
-                      "--mesa", "1.0"])
-    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
-    assert rec["value"] > 0 and (rec["grad_accum"], rec["remat"], rec["mesa"]) == (2, True, 1.0)
+    ips, batch, spread = bench.train_throughput(
+        "recnext_m0", 4, timed_s=0.05, image_size=48, repeats=1, device="cpu",
+        grad_accum=2, remat=True, mesa=1.0, num_classes=11,
+        **parse_kv_overrides(SMALL))
+    assert ips > 0 and batch == 4 and spread
