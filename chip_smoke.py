@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
-source, started together), then drives four paths, each with every kernel launch
+source, started together), then drives five paths, each with every kernel launch
 count set to 0 just before its main phase (serving; for training, the trainer)
 and read just after:
 
@@ -127,6 +127,20 @@ and read just after:
               the result and its CSV row is read back; then the recipe's step timed
               (bench.train_throughput at 384^2, batch 64) with a profiler trace: img/s,
               the idle share, K1 and K1' launches a micro-step.
+   the data pipeline (recnext_tpu_torch/data/; no kernel of its own):
+22. input_pipeline  the host's CPU count and affinity and /dev/shm, and whether the
+              native decoder (native/recnext_io.cpp, g++ and libjpeg) builds; 1,280
+              500x375 JPEGs of 10 classes (bench.make_folder), listed 4 times, and a
+              copy with PNGs; the loader's img/s at 224^2 for PIL and native, full and
+              simple transform, at workers 0 and W = min(16, CPUs); the same bits in
+              the first 3 batches at workers 0 and W on each route that builds, and
+              the native fallback's count (0 on JPEGs, above 0 with PNGs); the trainer
+              on m1 from the folder with the full recipe, RA, batch 128, one epoch of
+              40 steps, with --workers W, then --native-loader, then both (where the
+              decoder does not build, those two must raise NativeBuildError): 23 K1
+              launches and 23 K1' calls a train step, its img/s beside phase 14's
+              step alone and the idle share from that phase's busy time a step;
+              validate.py --fused --ema on the val split, PIL and native.
 Then each phase's seconds.
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
@@ -1181,7 +1195,7 @@ def phase_train_throughput(name="recnext_m1", teacher=None):
           "backward_kernel_share_of_busy": sum(ours[kn] for kn in TRACE_KERNELS[name][1:])
           / busy,
           "top_kernels": kernels[:8]})
-    return ips
+    return ips, busy
 
 
 def level_bwd_work(kind, n, c, h, w, k, *, stride=1, up=False, add=False, in_bytes=4,
@@ -1439,6 +1453,207 @@ def phase_finetune(checkpoint: Path, work_dir: Path):
     emit(rec)
 
 
+INPUT_IMAGES, INPUT_COPIES, INPUT_VAL, INPUT_CLASSES, INPUT_PNGS = 1280, 4, 256, 10, 3
+INPUT_BATCH = 128
+INPUT_STEPS = INPUT_IMAGES * INPUT_COPIES // INPUT_BATCH  # RA keeps n // 256 * 256: all
+INPUT_EVAL_FORWARDS = 2 * (INPUT_VAL // INPUT_BATCH)  # the model and its EMA, 2 batches
+
+
+def write_input_folders(root: Path):
+    """The phase's data: ``INPUT_IMAGES`` 500x375 JPEGs in ``INPUT_CLASSES`` classes
+    (``bench.make_folder``), listed ``INPUT_COPIES`` times under hard links in
+    ``root``/jpeg/train (so an epoch is ``INPUT_STEPS`` steps of a batch, each copy a
+    sample of its own draws), the first ``INPUT_VAL`` in jpeg/val; and a copy of 64 of
+    them in which ``INPUT_PNGS`` are PNGs (pngs/train). Returns the folder of the
+    distinct JPEGs, the FOLDER root and the PNG folder."""
+    from PIL import Image
+
+    unique = root / "unique"
+    bench.make_folder(unique, INPUT_IMAGES, classes=INPUT_CLASSES)
+    files = sorted(unique.rglob("*.jpg"))
+    for copy in range(INPUT_COPIES):
+        for f in files:
+            d = root / "jpeg" / "train" / f.parent.name
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f"{copy}_{f.name}").hardlink_to(f)
+    for f in files:
+        if int(f.stem) < INPUT_VAL:
+            d = root / "jpeg" / "val" / f.parent.name
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f.name).hardlink_to(f)
+    for f in files[:64]:
+        d = root / "pngs" / "train" / f.parent.name
+        d.mkdir(parents=True, exist_ok=True)
+        if int(f.stem) % 20 == 0 and len(list(root.glob("pngs/train/*/*.png"))) < INPUT_PNGS:
+            Image.open(f).save(d / f"{f.stem}.png", "PNG")
+        else:
+            (d / f.name).hardlink_to(f)
+    return unique, root / "jpeg", root / "pngs" / "train"
+
+
+def phase_input_pipeline(work_dir: Path, step_ips: float, step_busy_ms: float):
+    """The data pipeline on the card's host, then m1 trained from a folder of JPEGs.
+
+    1. the host: its CPU count and affinity, /dev/shm's size (worker batches pass
+       through it), and whether the native decoder builds (and why not);
+    2. ``bench.loader_bench`` over the distinct JPEGs at 224^2, batch 32: PIL and
+       native, the full and the simple train transform, at workers 0 and W = min(16,
+       CPUs);
+    3. the first 3 batches of 128 (the full transform, the RA sampler) at workers 0 and
+       W carry the same bits, on each route that builds; native_fallback_batches is 0
+       on the JPEGs and above 0 on the folder with PNGs;
+    4. the trainer (``train.main.main``) on m1, FOLDER, the full reference transform,
+       the RA sampler, batch 128, one epoch of ``INPUT_STEPS`` steps: with --workers W,
+       then --native-loader, then both; each run with every count set to 0 just
+       before it and read just after: 23 K1 launches and 23 K1' calls a train step, 23
+       K1 launches a fused eval forward, nothing else. Where the native decoder does
+       not build, the two native runs must raise ``NativeBuildError``. Its img/s (the
+       epoch's, and steady: after the first batch) beside the step alone's
+       (``step_ips``, from the train_throughput phase of this run), and the device's
+       idle share in the loop from the step's busy time in that phase's trace
+       (``step_busy_ms``, device time a step, which does not depend on the host);
+    5. validate.py on the val split with the trained checkpoint: the PIL route, and
+       --native-loader against its top-1 (within 4 of 256 images: the routes' pixels
+       differ by PIL's uint8 rounding), or raising where the decoder does not build."""
+    import contextlib
+    import io
+
+    from recnext_tpu_torch.data import native as native_io
+    from recnext_tpu_torch.data.datasets import ImageFolder
+    from recnext_tpu_torch.data.loader import train_loader
+    from recnext_tpu_torch.data.transforms import TrainTransform
+
+    cpus = bench.host_cpus()
+    workers = min(16, cpus["cpu_count"])
+    shm = shutil.disk_usage("/dev/shm")
+    try:
+        native_io.load()
+        native_error = None
+    except native_io.NativeBuildError as e:
+        native_error = str(e)
+    rec = {"phase": "input_pipeline", **cpus, "workers": workers,
+           "dev_shm_bytes": shm.total, "native_built": native_error is None,
+           "native_error": native_error and native_error[-400:]}
+    t0 = time.perf_counter()
+    unique, root, pngs = write_input_folders(work_dir / "input")
+    rec["write_folders_s"] = time.perf_counter() - t0
+
+    rec["loader"] = bench.loader_bench(ImageFolder(unique), size=224, batch=32,
+                                       workers=(0, workers), pin_memory=True)
+    for r in rec["loader"]:
+        if r["value"] is None and (native_error is None or not r["pipeline"].startswith(
+                "native")):
+            raise AssertionError(f"input_pipeline: {r}")
+
+    def first_batches(ds, native, w, n=3, batch=INPUT_BATCH):
+        loader = train_loader(ds, TrainTransform(224), batch_size=batch, epoch=0,
+                              native=native, workers=w, pin_memory=True)
+        out = []
+        for batch_ in loader:
+            out.append(batch_)
+            if len(out) == n:
+                break
+        return out, loader
+
+    train_ds = ImageFolder(root / "train")
+    rec["same_bits"] = {}
+    for native in ((False, True) if native_error is None else (False,)):
+        (a, la), (b, lb) = (first_batches(train_ds, native, 0),
+                            first_batches(train_ds, native, workers))
+        same = all(torch.equal(x["image"], y["image"]) and torch.equal(x["label"], y["label"])
+                   for x, y in zip(a, b)) and len(a) == len(b) == 3
+        route = "native" if native else "pil"
+        rec["same_bits"][route] = {"workers": [0, workers], "batches": 3, "same": same,
+                                   "routes": [la.route, lb.route],
+                                   "fallback_batches": [la.native_fallback_batches,
+                                                        lb.native_fallback_batches]}
+        if not same or la.route != route or la.native_fallback_batches:
+            raise AssertionError(f"input_pipeline bits: {rec['same_bits'][route]}")
+    if native_error is None:
+        _, lp = first_batches(ImageFolder(pngs), True, workers, n=6, batch=32)
+        rec["png_fallback_batches"] = lp.native_fallback_batches
+        if lp.native_fallback_batches == 0:
+            raise AssertionError("input_pipeline: no batch of the PNG folder fell back")
+
+    args = ["--model", "recnext_m1", "--data-set", "FOLDER", "--data-path", str(root),
+            "--input-size", "224", "--batch-size", str(INPUT_BATCH), "--epochs", "1",
+            "--log-every", "10", "--seed", "0"]
+    runs, ckpt = {}, None
+    for name, extra in (("workers", ["--workers", str(workers)]),
+                        ("native", ["--native-loader"]),
+                        ("native_workers", ["--native-loader", "--workers", str(workers)])):
+        out_dir = work_dir / f"input_{name}"
+        if native_error is not None and "--native-loader" in extra:
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    train_main.main(args + extra + ["--output-dir", str(out_dir)])
+            except native_io.NativeBuildError as e:
+                runs[name] = {"raised": type(e).__name__}
+                continue
+            raise AssertionError(f"input_pipeline: {name} trained without the native decoder")
+        for fn in COUNTERS.values():  # the main path starts here
+            fn.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_main.main(args + extra + ["--output-dir", str(out_dir)])
+        torch.cuda.synchronize()
+        launches = counts()  # ... and ends here
+        text = buf.getvalue()
+        (stats,) = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+        losses = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                  if ": loss " in line]
+        per_step = {"rec_conv2d": (launches["rec_conv2d"] - 23 * INPUT_EVAL_FORWARDS)
+                    / INPUT_STEPS, "rec_conv2d_backward": launches["rec_conv2d_backward"]
+                    / INPUT_STEPS}
+        others = {k: v for k, v in launches.items() if k not in per_step}
+        steady_s = stats["train_s"] - stats["loader_first_batch_s"]
+        steady_ips = (INPUT_STEPS - 1) * INPUT_BATCH / steady_s
+        run = {"seconds": time.perf_counter() - t0, "losses": losses, "epoch_line": stats,
+               "launches": launches, "launches_per_train_step": per_step,
+               "images_per_s_epoch": stats["train_images_per_sec"],
+               "images_per_s_after_first_batch": steady_ips,
+               "step_alone_images_per_s": step_ips,
+               "loader_wait_share_after_first_batch":
+                   (stats["loader_wait_s"] - stats["loader_first_batch_s"]) / steady_s,
+               "device_idle_share_after_first_batch":
+                   1 - step_busy_ms * (INPUT_STEPS - 1) / 1e3 / steady_s,
+               "device_idle_share_step_alone": 1 - step_busy_ms * step_ips / INPUT_BATCH / 1e3}
+        runs[name] = run
+        want_route = "native" if "--native-loader" in extra else "pil"
+        if (per_step != {"rec_conv2d": 23, "rec_conv2d_backward": 23} or any(others.values())
+                or len(losses) != INPUT_STEPS // 10 or not all(np.isfinite(losses))
+                or not np.isfinite(stats["train_loss"])
+                or stats["loader_route"] != want_route
+                or stats["eval_loader_route"] != want_route
+                or stats["native_fallback_batches"] != 0):
+            raise AssertionError(f"input_pipeline train {name}: {run}")
+        ckpt = ckpt or out_dir / "ckpt" / "epoch_0000.pt"
+    rec["train"] = runs
+
+    vargs = ["--model", "recnext_m1", "--checkpoint", str(ckpt), "--ema", "--fused",
+             "--data-set", "FOLDER", "--data-path", str(root), "--input-size", "224",
+             "--batch-size", str(INPUT_BATCH), "--dtype", "bfloat16"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        pil = validate_main.main(vargs)
+        if native_error is None:
+            nat = validate_main.main(vargs + ["--native-loader"])
+        else:
+            try:
+                validate_main.main(vargs + ["--native-loader"])
+                raise AssertionError("validate --native-loader ran without the decoder")
+            except native_io.NativeBuildError as e:
+                nat = {"raised": type(e).__name__}
+    rec["validate"] = {"pil": pil, "native": nat}
+    if pil["count"] != INPUT_VAL or pil["loader_route"] != "pil" or not (
+            native_error is not None or (nat["count"] == INPUT_VAL
+                                         and nat["loader_route"] == "native"
+                                         and abs(nat["top1"] - pil["top1"])
+                                         <= 100 * 4 / INPUT_VAL)):
+        raise AssertionError(f"input_pipeline validate: {rec['validate']}")
+    emit(rec)
+
+
 def forward_totals(per_shape, table):
     """Sums over one forward's launches (launch counts from ``table``)."""
     total = {key: sum(table[s][2] * per_shape[s][key] for s in table)
@@ -1508,14 +1723,14 @@ def main() -> int:
     bwd_total, bwd_err = timed("backward", phase_backward)
     timed("train_grad", phase_train_grad)
     train_launches = timed("train", phase_train, keep=work_dir / "m1_224.pt")
-    timed("train_throughput", phase_train_throughput)
+    m1_step = timed("train_throughput", phase_train_throughput)
 
     # recnext_a1 training with the reference recipe's distillation: K2 and K2'
     abwd_total, abwd_err = timed("attention_backward", phase_attention_backward)
     timed("train_grad", phase_train_grad, "recnext_a1")
     a1_train_launches = timed("train", phase_train, "recnext_a1", A1_TRAIN_ARGS)
-    plain_ips = timed("train_throughput", phase_train_throughput, "recnext_a1")
-    distilled_ips = timed("train_throughput", phase_train_throughput, "recnext_a1", TEACHER)
+    plain_ips, _ = timed("train_throughput", phase_train_throughput, "recnext_a1")
+    distilled_ips, _ = timed("train_throughput", phase_train_throughput, "recnext_a1", TEACHER)
     emit({"phase": "distillation_cost", "model": "recnext_a1", "teacher": TEACHER,
           "images_per_s": {"plain": plain_ips, "hard_distilled": distilled_ips},
           "step_ms": {"plain": 128e3 / plain_ips, "hard_distilled": 128e3 / distilled_ips},
@@ -1525,6 +1740,8 @@ def main() -> int:
     m1_512 = timed("train_grad", phase_train_grad, side=512, batch=2, expected=M1_512_TRAIN,
                    peeled=3)
     timed("finetune", phase_finetune, work_dir / "m1_224.pt", work_dir)
+    # the data pipeline: m1 trained from a folder of JPEGs
+    timed("input_pipeline", phase_input_pipeline, work_dir, *m1_step)
     shutil.rmtree(work_dir)
     emit({"phase": "seconds", **seconds, "script": time.perf_counter() - start})
 

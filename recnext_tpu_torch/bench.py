@@ -17,7 +17,15 @@ reference's upload.py), at 224^2 only. Three modes:
   the distilled step of the reference recipe (``--distillation`` hard or soft), the
   teacher's eval forward included. ``train_throughput``'s ``grad_accum``, ``remat``
   and ``mesa`` time the finetune recipe's step (a call is one micro-step; MESA
-  active from the start), as ``chip_smoke.py``'s finetune phase does.
+  active from the start), as ``chip_smoke.py``'s finetune phase does;
+* ``--loader``: the host's input pipeline (``loader_bench``, the counterpart of
+  ``recnext_tpu/benchmark/bench_loader.py``): a folder of ``--images`` 500x375 JPEGs
+  (``make_folder``), then the train loader's images per second for PIL and the
+  native decoder, each with the full and the simple train transform, at workers 0
+  and ``--workers``, batches of ``--batch`` (32) at ``--image-size``; one JSON line
+  a pipeline with the host's ``os.cpu_count()`` and CPU affinity. A native pipeline
+  whose decoder cannot be built prints why, in place of a rate. Batches are pinned
+  on the GPU's host, as the trainer's are.
 
 Weights are random, from a seeded generator; the inputs are random, made on the
 device. Every mode runs on the GPU unless ``--device cpu``, and names the device it
@@ -28,9 +36,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from recnext_tpu_torch.models.registry import parse_kv_overrides
@@ -180,6 +192,81 @@ def train_throughput(model_name: str, batch: int, *, dtype=torch.bfloat16,
     return med, batch, spread
 
 
+def make_folder(root: Path, n: int, *, classes: int = 1, w: int = 500, h: int = 375) -> None:
+    """``n`` photo-like images (smooth gradients and noise, the size of a real JPEG) in
+    ``root``/c<k>/, image i in class i % ``classes``: bench_loader.py's content. The
+    noise is drawn in order here; threads encode and write."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for c in range(min(classes, n)):
+        (root / f"c{c}").mkdir(parents=True, exist_ok=True)
+
+    def write(i, noise):
+        arr = np.stack([(xx * 2 + i * 17) % 256, (yy * 3 + 50 * np.sin(xx / 40 + i)) % 256,
+                        noise], -1).astype(np.uint8)
+        Image.fromarray(arr).save(root / f"c{i % classes}" / f"{i:04d}.jpg", "JPEG",
+                                  quality=90)
+
+    threads = min(8, os.cpu_count() or 1)
+    with ThreadPoolExecutor(threads) as pool:
+        for start in range(0, n, 4 * threads):  # a bounded number of images in flight
+            futures = [pool.submit(write, i, rng.integers(0, 256, (h, w)).astype(np.uint8))
+                       for i in range(start, min(n, start + 4 * threads))]
+            for f in futures:
+                f.result()
+
+
+def host_cpus() -> dict:
+    return {"cpu_count": os.cpu_count(), "affinity": len(os.sched_getaffinity(0))}
+
+
+def loader_throughput(loader, warm_batches: int) -> float:
+    """Images per second of ``loader`` after its first ``warm_batches`` batches (at
+    most half of them)."""
+    it = iter(loader)
+    for _ in range(min(warm_batches, len(loader) // 2)):
+        next(it)
+    t0 = time.perf_counter()
+    seen = sum(int(b["label"].shape[0]) for b in it)
+    return seen / (time.perf_counter() - t0)
+
+
+LOADER_PIPELINES = ("pil_full_aug", "pil_simple", "native_full_aug", "native_simple")
+
+
+def loader_bench(dataset, *, size: int = 224, batch: int = 32, workers=(0,),
+                 pin_memory: bool = False) -> list:
+    """The train loader's images per second over ``dataset`` for each pipeline of
+    ``LOADER_PIPELINES`` at each worker count, after a batch a worker (at least 2):
+    one record each."""
+    from recnext_tpu_torch.data.loader import train_loader
+    from recnext_tpu_torch.data.native import NativeBuildError
+    from recnext_tpu_torch.data.transforms import SimpleTrainTransform, TrainTransform
+
+    records = []
+    for name in LOADER_PIPELINES:
+        tf = TrainTransform(size) if name.endswith("full_aug") else SimpleTrainTransform(size)
+        for w in workers:
+            rec = {"metric": "loader_images_per_sec", "pipeline": name, "workers": w,
+                   "batch": batch, "size": size, "images": len(dataset), **host_cpus()}
+            try:
+                loader = train_loader(dataset, tf, batch_size=batch, epoch=0,
+                                      native=name.startswith("native"), workers=w,
+                                      pin_memory=pin_memory)
+            except NativeBuildError as e:
+                records.append({**rec, "value": None, "native_unavailable": str(e)[:300]})
+                continue
+            ips = loader_throughput(loader, warm_batches=max(2, w))
+            records.append({**rec, "value": ips, "unit": "images/sec",
+                            "route": loader.route,
+                            "native_fallback_batches": loader.native_fallback_batches})
+    return records
+
+
 def _device_name(device) -> str:
     dev = torch.device(device or "cuda")
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -188,7 +275,8 @@ def _device_name(device) -> str:
 def main(argv=None):
     p = argparse.ArgumentParser("RecNext benchmark (PyTorch/CUDA port)")
     p.add_argument("--model", default="recnext_m1")
-    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--batch", type=int, default=None,
+                   help="default: 256 (model modes), 32 (--loader)")
     p.add_argument("--latency", action="store_true", help="batch-1 latency mode")
     p.add_argument("--latency-iters", type=int, default=200)
     p.add_argument("--train", action="store_true", help="training-step throughput mode")
@@ -198,6 +286,11 @@ def main(argv=None):
                    help="--train only: distil from this teacher (regnety_160, ...; seeded)")
     p.add_argument("--distillation", default="hard", choices=["hard", "soft"],
                    help="--train --teacher only: the distillation loss")
+    p.add_argument("--loader", action="store_true", help="input pipeline throughput mode")
+    p.add_argument("--images", type=int, default=256,
+                   help="--loader only: JPEGs in the generated folder")
+    p.add_argument("--workers", type=int, default=min(16, os.cpu_count() or 1),
+                   help="--loader only: the worker count timed beside 0")
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--timed", type=float, default=10.0)
     p.add_argument("--warmup", type=float, default=5.0)
@@ -207,6 +300,19 @@ def main(argv=None):
     args = p.parse_args(argv)
     kw = parse_kv_overrides(args.model_kwargs)
     size = args.image_size
+    if args.loader:
+        from recnext_tpu_torch.data.datasets import ImageFolder
+        from recnext_tpu_torch.device import resolve_device
+
+        pin = resolve_device(args.device).type == "cuda"
+        with tempfile.TemporaryDirectory() as td:
+            make_folder(Path(td), args.images)
+            records = loader_bench(ImageFolder(td), size=size, batch=args.batch or 32,
+                                   workers=(0, args.workers), pin_memory=pin)
+        for rec in records:
+            print(json.dumps(rec), flush=True)
+        return records
+    args.batch = args.batch or 256
     if args.latency:
         ms = latency_ms(args.model, iters=args.latency_iters, image_size=size,
                         device=args.device, **kw)

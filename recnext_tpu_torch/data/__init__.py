@@ -1,2 +1,3 @@
-"""Host-side data handling: the FAKE data set, the train and eval transforms, the
-loaders and mixup/cutmix."""
+"""Host-side data handling: the data sets, samplers, train and eval transforms, the
+native decoder's binding, the loaders (PIL or native, in worker processes) and
+mixup/cutmix."""

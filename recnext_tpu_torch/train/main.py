@@ -2,14 +2,25 @@
 
 Counterpart of ``recnext_tpu/train/main.py`` for the subset the port runs so far:
 one device (the GPU unless ``--device cpu``), the M and A families (on the GPU
-through their kernels and the kernels' backward), FAKE data with the simple train
-transform and the loader's seeded permutation, mixup/cutmix and label smoothing,
-hard or soft distillation from a teacher (``--distillation-type``, ``--teacher-model``
-regnety_160/040/016 or a registry model, ``--teacher-ckpt``), AGC + AdamW with the
-reference cosine schedule, EMA, bf16 compute with fp32 parameters (``--dtype``), a
-per-epoch BN-fused eval of the model and of its EMA, a checkpoint each epoch
-(``torch.save``; the last 3 and the best kept) and auto-resume from the newest. The
-per-epoch JSON line and ``log.txt`` keep the JAX CLI's key names.
+through their kernels and the kernels' backward), every data set of the JAX CLI
+(``--data-set``, ``--data-path``; FAKE is synthetic) through the reference recipe's
+train transform (RandomResizedCrop, flip, RandAugment rand-m9-mstd0.5-inc1 or
+``--ThreeAugment`` or jitter alone under ``--no-aa``, RandomErasing ``--reprob``;
+``--simple-aug`` for crop, flip and normalize only) and the repeated-augmentation
+sampler (``--no-repeated-aug``: a seeded permutation), decoded by PIL or by the C++
+decoder (``--native-loader``, which raises where it cannot be built) in one thread
+or ``--workers`` processes, each batch copied to the card from pinned memory;
+mixup/cutmix and label smoothing, hard or soft distillation from a teacher
+(``--distillation-type``, ``--teacher-model`` regnety_160/040/016 or a registry model,
+``--teacher-ckpt``), AGC + AdamW with the reference cosine schedule, EMA, bf16
+compute with fp32 parameters (``--dtype``), a per-epoch BN-fused eval of the model
+and of its EMA, a checkpoint each epoch (``torch.save``; the last 3 and the best
+kept) and auto-resume from the newest. The
+per-epoch JSON line and ``log.txt`` keep the JAX CLI's key names, and add the train
+loop's seconds and images per second, the seconds it waited on the loader (and on its
+first batch, which includes starting the workers), the loaders' routes ("native",
+"pil", or "pil (...)" where the native route was asked for and does not apply) and
+the batches that fell back from the native decoder to PIL.
 
 The teacher's ``--teacher-ckpt`` is a ``.pth``/``.pt`` state dict (timm's layout for a
 RegNetY, the published DeiT ``regnety_160`` one included; the port's own for a
@@ -19,11 +30,13 @@ from a checkpoint (``train/finetune.py``: a reference ``.pth``, this trainer's
 checkpoint, a fused archive; a head of another class count is dropped);
 ``--grad-accum`` averages that many micro-batches an update, ``--remat``
 recomputes each block in the backward, ``--mesa`` adds MESA's self-distillation
-from the EMA model after ``--mesa-start-ratio`` of the epochs. Other data sets, the
-full train transform (RandAugment, ThreeAugment, erasing), ``--jsd-loss`` (its
-``--aug-splits`` views come from the loader) and the JAX package's checkpoints
-(orbax, msgpack) raise, naming their ROADMAP item; the JAX CLI's other options (the
-repeated-augmentation sampler, the unfused eval, frozen BN) are not flags here yet.
+from the EMA model after ``--mesa-start-ratio`` of the epochs, ``--jsd-loss`` the JSD
+loss over ``--aug-splits`` views of each sample (the first through the simple
+transform). The JAX package's checkpoints (orbax, msgpack) raise, naming their
+ROADMAP item; the JAX CLI's other options (the unfused eval, frozen BN) are not flags
+here yet. The JAX CLI's ``--loader grain --workers N`` is ``--workers N`` here (the
+default 0 is the JAX CLI's default, one prefetch thread); grain's own sampling order
+is not ported.
 
 Smoke run on the CPU (a small M config; it resumes from the checkpoints that
 --output-dir already holds, so empty it first):
@@ -40,6 +53,12 @@ the backward, MESA from the start:
       runs/m1/ckpt/epoch_0299.pt --input-size 384 --data-set FAKE --simple-aug \
       --fake-classes 100 --batch-size 32 --grad-accum 2 --remat --mesa 1.0 \
       --mesa-start-ratio 0 --epochs 30 --output-dir runs/m1_384
+
+recnext_m1 with the reference recipe on a folder of JPEGs (<path>/train/<class>/...,
+<path>/val/<class>/...), decoded in C++ by 8 worker processes:
+  python -m recnext_tpu_torch.train.main --model recnext_m1 --data-set FOLDER \
+      --data-path <path> --native-loader --workers 8 --batch-size 128 \
+      --output-dir runs/m1_folder
 
 recnext_a1 with the reference recipe's hard distillation from a (seeded) regnety_160
 teacher on the GPU:
@@ -59,7 +78,6 @@ from pathlib import Path
 
 import torch
 
-from recnext_tpu_torch.data.datasets import DATA_ITEM
 from recnext_tpu_torch.train.finetune import CKPT_ITEM, read_weights
 
 CKPT_KEEP = 3
@@ -84,9 +102,17 @@ def parse_args(argv=None):
     p.add_argument("--smoothing", type=float, default=0.1)
     p.add_argument("--mixup", type=float, default=0.8)
     p.add_argument("--cutmix", type=float, default=1.0)
+    p.add_argument("--ThreeAugment", action="store_true")
     p.add_argument("--simple-aug", action="store_true",
-                   help="RRC + flip + normalize (the only train transform ported so far)")
+                   help="RRC + flip + normalize only (no RA/jitter/erasing)")
     p.add_argument("--fake-classes", type=int, default=1000)
+    p.add_argument("--aa-magnitude", type=float, default=9.0)
+    p.add_argument("--no-aa", action="store_true",
+                   help="disable RandAugment (the reference's --aa ''); color jitter then "
+                        "applies")
+    p.add_argument("--color-jitter", type=float, default=0.4)
+    p.add_argument("--reprob", type=float, default=0.25)
+    p.add_argument("--no-repeated-aug", action="store_true")
     p.add_argument("--distillation-type", default="none", choices=["none", "hard", "soft"])
     p.add_argument("--distillation-alpha", type=float, default=0.5)
     p.add_argument("--distillation-tau", type=float, default=1.0)
@@ -109,7 +135,8 @@ def parse_args(argv=None):
     p.add_argument("--jsd-loss", action="store_true",
                    help="JSD consistency loss over --aug-splits views")
     p.add_argument("--aug-splits", type=int, default=0,
-                   help="augmented views a sample in the loader (not ported)")
+                   help="augmentation splits per batch (0/1 = off); split 0 is the clean "
+                        "view")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="micro-batches averaged into one update (optax.MultiSteps)")
     p.add_argument("--remat", action="store_true",
@@ -117,6 +144,12 @@ def parse_args(argv=None):
     p.add_argument("--data-set", default="IMNET",
                    choices=["IMNET", "CIFAR", "FOLDER", "FAKE", "IMNETEE", "FLOWERS", "INAT",
                             "INAT19"])
+    p.add_argument("--data-path", default="")
+    p.add_argument("--native-loader", action="store_true",
+                   help="C++ fused decode + RandomResizedCrop + flip train path and fused "
+                        "bicubic eval path (class folders; raises where it cannot be built)")
+    p.add_argument("--workers", type=int, default=0,
+                   help="loader worker processes (0: one prefetch thread)")
     p.add_argument("--output-dir", default="runs/default")
     p.add_argument("--eval", action="store_true", help="evaluate the newest checkpoint")
     p.add_argument("--seed", type=int, default=0)
@@ -129,17 +162,12 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if not args.simple_aug:
-        raise NotImplementedError("the full train transform (RandAugment, ThreeAugment, "
-                                  f"erasing) is not ported yet: pass --simple-aug; see "
-                                  f"{DATA_ITEM}")
     if args.distillation_type != "none" and not args.teacher_model:
         raise SystemExit("--distillation-type requires --teacher-model")
-    if args.jsd_loss or args.aug_splits > 1:
-        # the train step takes the JSD loss on given views; the views come from the
-        # loader's augmentation splits
-        raise NotImplementedError(f"--jsd-loss needs the loader's --aug-splits views, which "
-                                  f"are not ported yet; see {DATA_ITEM}")
+    if args.jsd_loss and args.aug_splits < 2:
+        raise SystemExit("--jsd-loss requires --aug-splits >= 2")
+    if args.jsd_loss and args.distillation_type != "none":
+        raise SystemExit("--jsd-loss is incompatible with distillation")
     if args.mesa > 0 and args.no_model_ema:
         raise SystemExit("--mesa needs the EMA model as its teacher (drop --no-model-ema)")
     if args.mesa > 0 and args.distillation_type != "none":
@@ -205,7 +233,8 @@ def main(argv=None):
 
     from recnext_tpu_torch.data.datasets import build_dataset
     from recnext_tpu_torch.data.loader import eval_loader, train_loader
-    from recnext_tpu_torch.data.transforms import EvalTransform, SimpleTrainTransform
+    from recnext_tpu_torch.data.transforms import (EvalTransform, SimpleTrainTransform,
+                                                   TrainTransform)
     from recnext_tpu_torch.device import resolve_device
     from recnext_tpu_torch.models.registry import create_model, get_config, parse_kv_overrides
     from recnext_tpu_torch.train.optim import cosine_schedule, make_optimizer, scaled_lr
@@ -223,9 +252,10 @@ def main(argv=None):
 
     log(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                if device.type == "cuda" else ""))
-    train_ds, nb_classes = build_dataset(True, args.data_set, "", args.input_size,
+    train_ds, nb_classes = build_dataset(True, args.data_set, args.data_path, args.input_size,
                                          args.fake_classes)
-    val_ds, _ = build_dataset(False, args.data_set, "", args.input_size, args.fake_classes)
+    val_ds, _ = build_dataset(False, args.data_set, args.data_path, args.input_size,
+                              args.fake_classes)
     distill = args.distillation_type != "none"
     overrides = dict(parse_kv_overrides(args.model_kwargs), num_classes=nb_classes)
     if distill:
@@ -253,8 +283,10 @@ def main(argv=None):
                                args.clip_grad, grad_accum=k)
     state = TrainState.create(model, optimizer, ema=not args.no_model_ema)
 
-    # either alpha 0 disables that branch alone; both 0 disable mixing
-    use_mix = args.mixup > 0 or args.cutmix > 0
+    # either alpha 0 disables that branch alone; both 0 disable mixing; the JSD loss
+    # takes its views unmixed
+    use_mix = (args.mixup > 0 or args.cutmix > 0) and not args.jsd_loss
+    splits = args.aug_splits if args.jsd_loss else 0
     switch_prob = 0.5 if args.mixup > 0 and args.cutmix > 0 else (
         1.0 if args.cutmix > 0 else 0.0)
     teacher_apply = (build_teacher(args, nb_classes, device, dtype, log)
@@ -267,7 +299,7 @@ def main(argv=None):
         teacher_apply=teacher_apply,
         distillation=args.distillation_type if teacher_apply else "none",
         alpha=args.distillation_alpha, tau=args.distillation_tau, remat=args.remat,
-        grad_accum=k, mesa=args.mesa,
+        jsd_splits=splits, grad_accum=k, mesa=args.mesa,
         mesa_start_step=int(args.mesa_start_ratio * args.epochs * steps_per_epoch))
     cfg = get_config(args.model, **overrides)
     eval_step = make_fused_eval_step(cfg, dtype=dtype)
@@ -284,19 +316,24 @@ def main(argv=None):
         start_epoch = latest + 1
         log(f"auto-resumed at epoch {start_epoch}")
 
+    pin = device.type == "cuda"
+    routes = {}
+
     def run_evals(*fns):
         """Summed over the eval split (one pass scores every weight set)."""
         tots = [{"correct1": 0, "correct5": 0, "count": 0, "loss_sum": 0.0} for _ in fns]
         loader = eval_loader(val_ds, EvalTransform(args.input_size),
-                             batch_size=args.batch_size)
+                             batch_size=args.batch_size, native=args.native_loader,
+                             workers=args.workers, pin_memory=pin)
         for i, batch in enumerate(loader):
             if args.steps_per_epoch and i >= args.steps_per_epoch:
                 break
-            batch = {k: v.to(device) for k, v in batch.items()}
+            batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
             for tot, fn in zip(tots, fns):
                 m = fn(state, batch)
                 for k in tot:
                     tot[k] += m[k].item()
+        routes["eval_loader_route"] = loader.route
         return [(100.0 * t["correct1"] / max(t["count"], 1),
                  100.0 * t["correct5"] / max(t["count"], 1),
                  t["loss_sum"] / max(t["count"], 1)) for t in tots]
@@ -306,15 +343,31 @@ def main(argv=None):
         log(json.dumps({"test_loss": test_loss, "test_acc1": acc1, "test_acc5": acc5}))
         return {"acc1": acc1, "acc5": acc5, "test_loss": test_loss}
 
-    tt = SimpleTrainTransform(args.input_size)
+    if args.simple_aug:
+        tt = SimpleTrainTransform(args.input_size)
+    else:
+        tt = TrainTransform(args.input_size, three_augment=args.ThreeAugment,
+                            auto_augment=not args.no_aa, ra_magnitude=args.aa_magnitude,
+                            jitter=args.color_jitter, reprob=args.reprob)
     max_acc = max(ckpts.metrics.values(), default=0.0)
     for epoch in range(start_epoch, args.epochs + args.cooldown_epochs):
         t0 = time.time()
-        loader = train_loader(train_ds, tt, batch_size=args.batch_size, epoch=epoch,
-                              seed=args.seed)
-        losses, seen = [], 0
-        for i, batch in enumerate(loader):
-            if args.steps_per_epoch and i >= args.steps_per_epoch:
+        loader = train_loader(train_ds, tt,
+                              batch_size=args.batch_size // splits if splits > 1
+                              else args.batch_size, epoch=epoch,
+                              repeated_aug=not args.no_repeated_aug, seed=args.seed,
+                              aug_splits=splits,
+                              clean_transform=SimpleTrainTransform(args.input_size)
+                              if splits > 1 else None,
+                              native=args.native_loader, workers=args.workers,
+                              pin_memory=pin)
+        losses, seen, waits = [], 0, []
+        batches = iter(loader)
+        for i in range(args.steps_per_epoch or len(loader)):
+            t = time.perf_counter()
+            batch = next(batches, None)
+            waits.append(time.perf_counter() - t)  # the host blocked on the loader
+            if batch is None:
                 break
             batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
             # the mixup draws of step s: a generator seeded by (seed, s), so a resumed
@@ -327,7 +380,11 @@ def main(argv=None):
                     raise SystemExit(f"Loss is {loss}, stopping training")
                 log(f"epoch {epoch} step {i + 1}: loss {loss:.4f}")
             losses.append(metrics["loss"])
-            seen += args.batch_size
+            seen += int(batch["label"].shape[0])
+        batches.close()  # the workers end before the eval's start
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        train_s = time.time() - t0
         train_loss = torch.stack(losses).mean().item() if losses else float("nan")
         if not math.isfinite(train_loss):
             raise SystemExit(f"Loss is {train_loss}, stopping training")
@@ -344,7 +401,12 @@ def main(argv=None):
                  "test_loss": round(test_loss, 6), "test_acc1": acc1, "test_acc5": acc5,
                  "epoch": epoch, "n_parameters": n_parameters,
                  "epoch_time_s": round(elapsed, 1),
-                 "images_per_sec": round(seen / max(elapsed, 1e-9), 1), **ema_stats}
+                 "images_per_sec": round(seen / max(elapsed, 1e-9), 1),
+                 "train_images_per_sec": round(seen / max(train_s, 1e-9), 1),
+                 "train_s": round(train_s, 3), "loader_wait_s": round(sum(waits), 3),
+                 "loader_first_batch_s": round(waits[0], 3) if waits else None, **ema_stats,
+                 "loader_route": loader.route, **routes, "workers": args.workers,
+                 "native_fallback_batches": loader.native_fallback_batches}
         log(json.dumps(stats))
         with open(out_dir / "log.txt", "a") as f:
             f.write(json.dumps(stats) + "\n")

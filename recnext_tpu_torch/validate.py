@@ -8,11 +8,13 @@ score a checkpoint on a data set, with the crop-pct, a CSV results row and, with
 ``<model>_fused.pt``, or the file; ``--fused`` needed). Without ``--checkpoint`` the
 model is a seeded init. ``--real-labels`` scores against reassessed label sets,
 ``--valid-labels`` restricts the classes, ``--test-pool`` pools the classifier over
-windows of the native 7x7 map at inputs above 224.
+windows of the native 7x7 map at inputs above 224. Every data set of the trainer
+(``--data-set``, ``--data-path``), decoded by PIL or, with ``--native-loader``, by
+the C++ decoder's fused crop-resample (``data/native.py``; it raises where it cannot
+be built), over ``distributed_eval_indices``' split.
 
-Not here: ``--packed`` (the TPU's lane-packed executor, ``PACKED_ITEM``),
-``--native-loader`` and every data set but FAKE (``DATA_ITEM``); the JAX CLI's
-``--compile-cache`` is XLA's and has no counterpart.
+Not here: ``--packed`` (the TPU's lane-packed executor, ``PACKED_ITEM``); the JAX
+CLI's ``--compile-cache`` is XLA's and has no counterpart.
 
   python -m recnext_tpu_torch.validate --model recnext_m1 --checkpoint runs/m1_384/pub \\
       --fused --data-set FAKE --input-size 384 --crop-pct 1.0 --results-file results.csv
@@ -56,7 +58,7 @@ def parse_args(argv=None):
     p.add_argument("--results-file", default="", help="append a CSV row here")
     p.add_argument("--max-batches", type=int, default=0)
     p.add_argument("--native-loader", action="store_true",
-                   help="the C++ decode path (not ported)")
+                   help="the C++ fused decode + crop-resample path (class folders)")
     p.add_argument("--real-labels", default="",
                    help="JSON of reassessed labels: the real.json list (ImageNet val "
                         "order) or a {basename: [labels]} dict")
@@ -123,7 +125,7 @@ def load_weights(args, template: dict) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    from recnext_tpu_torch.data.datasets import DATA_ITEM, build_dataset
+    from recnext_tpu_torch.data.datasets import build_dataset
     from recnext_tpu_torch.data.loader import eval_loader
     from recnext_tpu_torch.data.transforms import EvalTransform
     from recnext_tpu_torch.device import resolve_device
@@ -132,8 +134,6 @@ def main(argv=None):
 
     if args.packed:
         raise NotImplementedError(f"the packed executor is not ported; see {PACKED_ITEM}")
-    if args.native_loader:
-        raise NotImplementedError(f"the native loader is not ported yet; see {DATA_ITEM}")
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     ds, nb_classes = build_dataset(False, args.data_set, args.data_path, args.input_size,
@@ -186,7 +186,7 @@ def main(argv=None):
     c1 = c5 = n = 0
     t0 = time.time()
     loader = eval_loader(ds, EvalTransform(args.input_size, args.crop_pct),
-                         batch_size=args.batch_size)
+                         batch_size=args.batch_size, native=args.native_loader)
     with torch.inference_mode():
         for i, batch in enumerate(loader):
             if args.max_batches and i >= args.max_batches:
@@ -209,7 +209,9 @@ def main(argv=None):
               "img_size": args.input_size, "crop_pct": args.crop_pct, "count": n,
               "images_per_sec": round(n / max(dt, 1e-9), 1), "fused": args.fused,
               "ema": args.ema, "packed": args.packed, "test_pool": test_pool,
-              "real_labels": real is not None, "device": str(device)}
+              "real_labels": real is not None, "loader_route": loader.route,
+              "native_fallback_batches": loader.native_fallback_batches,
+              "device": str(device)}
     print(json.dumps(result), flush=True)
     if args.results_file:
         path = Path(args.results_file)

@@ -818,3 +818,36 @@ def test_linear_attention_under_grad_launches_k2_and_its_backward_once(cuda, var
             assert a.abs().max().item() < 1e-5
             continue
         assert (a - b).abs().max().item() <= 1e-3 * scale
+
+
+def test_pinned_batches_from_two_workers_train_two_m1_steps(cuda, tmp_path):
+    """The data pipeline feeding the card: JPEGs through the reference recipe's train
+    transform in 2 worker processes, pinned, copied with non_blocking, then 2 m1 train
+    steps at 64^2: each step 23 K1 launches and 23 K1' calls, finite losses."""
+    from recnext_tpu_torch import bench
+    from recnext_tpu_torch.data.datasets import ImageFolder
+    from recnext_tpu_torch.data.loader import train_loader
+    from recnext_tpu_torch.data.transforms import TrainTransform
+    from recnext_tpu_torch.train.optim import cosine_schedule, make_optimizer
+    from recnext_tpu_torch.train.state import TrainState
+    from recnext_tpu_torch.train.step import make_train_step
+
+    bench.make_folder(tmp_path, 16, classes=4, w=120, h=90)
+    loader = train_loader(ImageFolder(tmp_path), TrainTransform(64), batch_size=8, epoch=0,
+                          workers=2, pin_memory=True)
+    model = create_model("recnext_m1", device="cuda", num_classes=4,
+                         generator=torch.Generator().manual_seed(0))
+    state = TrainState.create(model, make_optimizer(model.named_parameters(),
+                                                    cosine_schedule(1e-3, 10)))
+    step = make_train_step(num_classes=4)
+    losses = []
+    for i, batch in enumerate(loader):
+        if i == 2:
+            break
+        assert batch["image"].is_pinned() and batch["image"].shape == (8, 3, 64, 64)
+        batch = {k: v.to("cuda", non_blocking=True) for k, v in batch.items()}
+        k1, bw = rec_conv2d_fused.launches, rec_conv2d_backward.launches
+        losses.append(step(state, batch, torch.Generator().manual_seed(i))["loss"].item())
+        torch.cuda.synchronize()
+        assert (rec_conv2d_fused.launches - k1, rec_conv2d_backward.launches - bw) == (23, 23)
+    assert len(losses) == 2 and all(np.isfinite(losses)) and state.step == 2

@@ -1,7 +1,8 @@
 """The port's FAKE data set, simple train transform and loaders against the JAX
 package's (indices and pixels, NHWC -> NCHW), the training CLI on the CPU (two
 epochs, a checkpoint, auto-resume; hard distillation from a teacher and its
-checkpoint) and the bench's train mode on the CPU, with and without a teacher."""
+checkpoint; the full train transform; a class folder) and the bench's train and
+loader modes on the CPU, with and without a teacher."""
 
 import json
 
@@ -45,9 +46,16 @@ def test_fake_data_matches_jax():
         np.testing.assert_array_equal(np.asarray(ti), np.asarray(ji))
 
 
-def test_other_data_sets_raise_naming_the_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        tds.build_dataset(True, "IMNET", "/nonexistent")
+def test_other_data_sets_raise_naming_the_item(tmp_path):
+    """IMNET (once a raise naming the data pipeline's item) reads <path>/train as the
+    JAX package does; an unknown data set raises naming it."""
+    bench.make_folder(tmp_path / "train", 6, classes=2, w=40, h=30)
+    (td, tn), (jd, jn) = (tds.build_dataset(True, "IMNET", str(tmp_path)),
+                          jds.build_dataset(True, "IMNET", str(tmp_path)))
+    assert (tn, len(td), td.samples[3][1]) == (jn, len(jd), jd.samples[3][1]) == (1000, 6, 1)
+    np.testing.assert_array_equal(np.asarray(td[3][0]), np.asarray(jd[3][0]))
+    with pytest.raises(ValueError, match="'SVHN'"):
+        tds.build_dataset(True, "SVHN", str(tmp_path))
 
 
 def test_simple_train_transform_matches_jax():
@@ -68,15 +76,21 @@ def test_train_loader_matches_jax_for_two_epochs():
         jb = list(jloader.train_loader(ds, jtf.SimpleTrainTransform(16), batch_size=4,
                                        epoch=epoch, repeated_aug=False, seed=3))
         tb = list(tloader.train_loader(tds.FakeData(24, 20, 5), ttf.SimpleTrainTransform(16),
-                                       batch_size=4, epoch=epoch, seed=3))
+                                       batch_size=4, epoch=epoch, repeated_aug=False, seed=3))
         assert len(tb) == len(jb) == 6
         for j, t in zip(jb, tb):
             assert t["image"].dtype == torch.float32 and t["label"].dtype == torch.int64
             np.testing.assert_array_equal(t["label"].numpy(), j["label"])
             np.testing.assert_array_equal(t["image"].numpy().transpose(0, 2, 3, 1), j["image"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tloader.train_loader(ds, ttf.SimpleTrainTransform(16), batch_size=4, epoch=0,
-                             repeated_aug=True)
+        # the repeated-augmentation sampler (the default of both): 3 copies of each index
+        jb = list(jloader.train_loader(ds, jtf.SimpleTrainTransform(16), batch_size=4,
+                                       epoch=epoch, seed=3))
+        tb = list(tloader.train_loader(tds.FakeData(24, 20, 5), ttf.SimpleTrainTransform(16),
+                                       batch_size=4, epoch=epoch, seed=3))
+        assert len(tb) == len(jb) == 18
+        for j, t in zip(jb, tb):
+            np.testing.assert_array_equal(t["label"].numpy(), j["label"])
+            np.testing.assert_array_equal(t["image"].numpy().transpose(0, 2, 3, 1), j["image"])
 
 
 def test_eval_loader_matches_jax():
@@ -152,13 +166,25 @@ def test_checkpoints_keep_the_last_three_and_the_best(tmp_path):
     assert again.epochs() == [1, 3, 4, 5]
 
 
-def test_train_cli_refuses_what_is_not_ported(tmp_path):
-    base = ["--device", "cpu", "--data-set", "FAKE", "--output-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmain.main(base)  # the full train transform
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmain.main(["--device", "cpu", "--data-set", "IMNET", "--simple-aug",
-                    "--output-dir", str(tmp_path)])
+def test_train_cli_refuses_what_is_not_ported(tmp_path, capsys):
+    """What the trainer once refused (the full train transform; every data set but
+    FAKE) now trains; a data set missing from --data-path still raises."""
+    base = ["--device", "cpu", "--model", "recnext_m0", "--model-kwargs", SMALL,
+            "--input-size", "32", "--batch-size", "4", "--epochs", "1", "--steps-per-epoch",
+            "1", "--dtype", "float32"]
+    tmain.main(base + ["--data-set", "FAKE", "--fake-classes", "11", "--output-dir",
+                       str(tmp_path / "full")])  # the full train transform
+    for split in ("train", "val"):
+        bench.make_folder(tmp_path / "imnet" / split, 8, classes=2, w=40, h=30)
+    res = tmain.main(base + ["--data-set", "IMNET", "--data-path", str(tmp_path / "imnet"),
+                             "--simple-aug", "--output-dir", str(tmp_path / "imnet_run")])
+    stats = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert len(stats) == 2 and all(np.isfinite(s["train_loss"]) for s in stats)
+    assert res["state"].model.cfg.num_classes == 1000  # IMNET's classes
+    with pytest.raises(FileNotFoundError):
+        tmain.main(base + ["--data-set", "IMNET", "--data-path", str(tmp_path / "none"),
+                           "--output-dir", str(tmp_path / "missing")])
 
 
 def test_bench_train_mode_on_the_cpu(capsys):
@@ -174,6 +200,20 @@ def test_bench_train_mode_on_the_cpu(capsys):
     assert len(lines) == 1 and json.loads(lines[0]) == rec
     assert rec["metric"] == "recnext_m0_train_bf16_32_images_per_sec" and rec["device"] == "cpu"
     assert {"value", "unit", "vs_baseline", "spread", "step_ms"} <= set(rec)
+
+
+def test_bench_loader_mode_on_the_cpu(capsys):
+    """Every pipeline at workers 0 and 1, a rate each, with the host's CPU count."""
+    recs = bench.main(["--loader", "--device", "cpu", "--images", "12", "--batch", "4",
+                       "--workers", "1", "--image-size", "32"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    assert lines == recs and len(recs) == 8
+    assert [(r["pipeline"], r["workers"]) for r in recs] == [
+        (p, w) for p in bench.LOADER_PIPELINES for w in (0, 1)]
+    for r in recs:
+        assert r["value"] > 0 and r["cpu_count"] >= 1 and r["affinity"] >= 1
+        assert r["route"] == ("native" if r["pipeline"].startswith("native") else "pil")
+        assert r["native_fallback_batches"] == 0 and r["images"] == 12 and r["batch"] == 4
 
 
 def test_bench_default_and_latency_modes_on_the_cpu(capsys):

@@ -25,6 +25,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                                        "recnext_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        # the data pipeline's modules are among them
+        data = {"recnext_tpu_torch.data." + m for m in
+                ("samplers", "transforms", "datasets", "native", "loader", "browse")}
+        assert data <= set(names), data - set(names)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "recnext_tpu"))
         print(len(names), bad)
@@ -33,7 +37,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 15  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 18  # every module was imported
 
 
 @pytest.fixture

@@ -298,14 +298,20 @@ def test_eval_steps_match_jax(run, ema):
         assert float(g["loss_sum"]) == pytest.approx(float(w["loss_sum"]), rel=1e-5)
 
 
-def test_unported_options_raise_naming_their_item(tmp_path):
-    # MESA, JSD, remat and grad_accum are the step's now (tests/test_torch_train_options.py);
-    # the JSD loss's views come from the loader, which is not ported
+def test_unported_options_raise_naming_their_item(tmp_path, capsys):
+    # MESA, JSD, remat and grad_accum are the step's (tests/test_torch_train_options.py);
+    # the JSD loss's views come from the loader (once a raise naming its item): the
+    # trainer takes a step on 3 views of 2 samples
     from recnext_tpu_torch.train import main as tmain
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        tmain.main(["--device", "cpu", "--data-set", "FAKE", "--simple-aug", "--jsd-loss",
-                    "--aug-splits", "3", "--output-dir", str(tmp_path)])
+    res = tmain.main(["--device", "cpu", "--model", NAME, "--model-kwargs",
+                      "embed_dim=16:32:64:128,depth=1:1:2:1", "--data-set", "FAKE",
+                      "--fake-classes", "11", "--simple-aug", "--jsd-loss", "--aug-splits",
+                      "3", "--input-size", "32", "--batch-size", "6", "--epochs", "1",
+                      "--steps-per-epoch", "1", "--dtype", "float32",
+                      "--output-dir", str(tmp_path)])
+    assert res["state"].step == 1
+    assert '"loader_route": "pil"' in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 12"):
         tstep.make_fused_eval_step(get_config(NAME, **OVR), packed=True)
 
