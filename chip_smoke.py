@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
-source, started together), then drives five paths, each with every kernel launch
+source, started together), then drives seven paths, each with every kernel launch
 count set to 0 just before its main phase (serving; for training, the trainer)
 and read just after:
 
@@ -56,6 +56,19 @@ and read just after:
               a1's shapes at batch 256 bf16, as phase 2 does;
 8-10.         phases 4-6 for recnext_a1 (at 224^2): exactly 23 linear-attention and
               0 RecConv2d launches per forward, and 23 per batch served;
+   the L family (recnext_t/b/t_share_channel; K2 at one head per image, D up to 96,
+   DV != D in LA3, whose v is a channel slice of the block's input; no RecConv2d):
+7l. attention_l  K2 at the seven L shapes (L_ATTENTION) through the NCHW entry (the
+              slice read in place: its batch stride is C*H*W) and the (BH, N, D)
+              entry at batch 8 and 256, at phase 7's bounds, the same bits on three
+              runs; each shape's launch configuration; device times at batch 256
+              bf16 on the checked inputs beside bound and plain version (K2 must not
+              be slower), and the sums
+              over each L model's forward;
+8l-10l.       phase 4 for recnext_t, recnext_b and recnext_t_share_channel at full
+              width (RepVGGDW fused): exactly 20 / 30 / 18 K2 launches and 0
+              RecConv2d and level-kernel launches per forward; phases 5-6 for
+              recnext_t: 20 K2 launches per batch served;
    recnext_m1 training (K1 and the RecConv2d backward kernel, csrc/recconv_bwd.cu):
 11. backward  the backward kernel against its plain version (autograd over
               rec_conv2d in fp32, cuDNN TF32 off) at m1's four training shapes, batch
@@ -98,6 +111,16 @@ and read just after:
               step, 23 K2 launches per fused eval forward, nothing of K1 or K1';
 18. train_throughput  phase 14 for recnext_a1, without and with the regnety_160
               hard teacher, and the distilled step's cost over the plain one;
+   recnext_t training (K2 and K2' at the L shapes):
+18l. attention_backward_l  K2' at the seven L shapes through the NCHW entry, LA3's v
+              a channel slice, at batch 16 and, at recnext_t's three shapes, 128
+              (phase 15's bounds, the same bits on three runs), each launch
+              configuration, device times at recnext_t's three shapes at batch 128
+              bf16 on the checked inputs beside bound and plain, and their sum over a
+              step's 20 calls;
+19l-21l.      phases 12-14 for recnext_t: its full-size gradients through K2 and
+              K2'; the trainer (20 K2 and 20 K2' a train step, 20 K2 a fused eval
+              forward); train throughput at batch 128 (3 repeats of 2 s);
    recnext_m1 training beyond the main paths (planes larger than K1′'s shared memory
    through the peeled level's backward kernels, csrc/recconv_level_bwd.cu, and the
    384^2 finetune recipe):
@@ -128,20 +151,21 @@ and read just after:
               (bench.train_throughput at 384^2, batch 64) with a profiler trace: img/s,
               the idle share, K1 and K1' launches a micro-step.
    the data pipeline (recnext_tpu_torch/data/; no kernel of its own):
-22. input_pipeline  the host's CPU count and affinity and /dev/shm, and whether the
-              native decoder (native/recnext_io.cpp, g++ and libjpeg) builds; 1,280
+22. input_pipeline  the host's CPU count and affinity and /dev/shm, and the native
+              decoder's build (native/recnext_io.cpp, g++, the repository's jpeg62
+              headers and Pillow's libjpeg), which must succeed; 1,280
               500x375 JPEGs of 10 classes (bench.make_folder), listed 4 times, and a
               copy with PNGs; the loader's img/s at 224^2 for PIL and native, full and
               simple transform, at workers 0 and W = min(16, CPUs); the same bits in
               the first 3 batches at workers 0 and W on each route that builds, and
               the native fallback's count (0 on JPEGs, above 0 with PNGs); the trainer
               on m1 from the folder with the full recipe, RA, batch 128, one epoch of
-              40 steps, with --workers W, then --native-loader, then both (where the
-              decoder does not build, those two must raise NativeBuildError): 23 K1
+              40 steps, with --workers W, with --native-loader at workers 0 and at
+              W: 23 K1
               launches and 23 K1' calls a train step, its img/s beside phase 14's
               step alone and the idle share from that phase's busy time a step;
               validate.py --fused --ema on the val split, PIL and native.
-Then each phase's seconds.
+Then each phase's seconds, and the L path's launch counts and K2 / K2' totals.
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
 In the kernel record, "launches" counts the launches of the kernel's serving
@@ -158,7 +182,8 @@ call). The peeled level's backward kernels (rec_conv2d_level_dgrad, _wgrad,
 rec_conv2d_up_adjoint) run only where a plane's backward is too large for K1': their
 launches are those of phase 20's kernel path (m1 at 512^2, batch 2), and their times
 the sums over that step's launches (3 peeled mixers, each 2 input-gradient, 2
-weight-gradient and 1 adjoint launches at 128^2, batch 2, C 48). The last lines are
+weight-gradient and 1 adjoint launches at 128^2, batch 2, C 48). The L path's K2 and
+K2' numbers are on the l_path line, not in the kernel record. The last lines are
 the kernel record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -188,6 +213,7 @@ from recnext_tpu_torch.export import publish_fused
 from recnext_tpu_torch.fusion import fuse_params
 from recnext_tpu_torch.models.registry import create_model
 from recnext_tpu_torch.ops.attention import (
+    _nchw_views,
     linear_attention_backward,
     linear_attention_backward_plain,
     linear_attention_fused,
@@ -231,6 +257,23 @@ M1_MIXERS = {  # level -> (channels, plane side, launches per m1 forward) at 224
 # 224^2; the head width is 24 at every stage
 A1_ATTENTION = {0: (2, 28, 3, 1), 1: (4, 14, 3, 1), 2: (8, 7, 15, 1), 3: (16, 4, 2, 2)}
 A1_HEAD_DIM = 24
+# the L family's attention shapes at 224^2, one head per image: (side of the map, D,
+# DV, variant, channels of the block's input whose first DV channels are v: LA3 reads
+# v as a channel slice; 0 where v is a tensor of its own) -> launches per forward of
+# each L model on the main path
+L_ATTENTION = {
+    (7, 32, 32, 2, 0): {"recnext_t": 2, "recnext_t_share_channel": 2},
+    (4, 64, 64, 2, 0): {"recnext_t": 8},
+    (4, 64, 128, 2, 512): {"recnext_t": 10, "recnext_b": 12, "recnext_t_share_channel": 8},
+    (14, 32, 32, 1, 0): {"recnext_b": 2},
+    (7, 64, 64, 2, 0): {"recnext_b": 8},
+    (4, 96, 96, 2, 0): {"recnext_b": 8},
+    (7, 32, 64, 2, 256): {"recnext_t_share_channel": 8},
+}
+L_MODELS = ("recnext_t", "recnext_b", "recnext_t_share_channel")
+# K2 launches per forward (and K2' calls per train step) of each model
+MIXERS = {"recnext_m1": 23, "recnext_a1": 23} | {
+    name: sum(uses.get(name, 0) for uses in L_ATTENTION.values()) for name in L_MODELS}
 # every launch count; each path's serving phase sets them all to 0 before it runs
 COUNTERS = {"rec_conv2d": rec_conv2d_fused, "rec_conv2d_level": rec_conv2d_level,
             "linear_attention": linear_attention_fused,
@@ -240,11 +283,14 @@ COUNTERS = {"rec_conv2d": rec_conv2d_fused, "rec_conv2d_level": rec_conv2d_level
             "rec_conv2d_level_wgrad": rec_conv2d_level_wgrad,
             "rec_conv2d_up_adjoint": rec_conv2d_up_adjoint}
 LEVEL_BWD = ("rec_conv2d_level_dgrad", "rec_conv2d_level_wgrad", "rec_conv2d_up_adjoint")
-EXPECTED = {"recnext_m1": dict.fromkeys(COUNTERS, 0) | {"rec_conv2d": 23},
-            "recnext_a1": dict.fromkeys(COUNTERS, 0) | {"linear_attention": 23}}
-# each training path's kernels: (forward kernel, its backward), 23 calls each a step
+EXPECTED = {"recnext_m1": dict.fromkeys(COUNTERS, 0) | {"rec_conv2d": 23}} | {
+    name: dict.fromkeys(COUNTERS, 0) | {"linear_attention": MIXERS[name]}
+    for name in ("recnext_a1", *L_MODELS)}
+# each training path's kernels: (forward kernel, its backward), MIXERS[name] calls
+# each a step
 TRAIN_KERNELS = {"recnext_m1": ("rec_conv2d", "rec_conv2d_backward"),
-                 "recnext_a1": ("linear_attention", "linear_attention_backward")}
+                 "recnext_a1": ("linear_attention", "linear_attention_backward"),
+                 "recnext_t": ("linear_attention", "linear_attention_backward")}
 # the train phases' runs: FAKE, 224^2, batch 64, 2 epochs of 3 steps; each epoch's eval
 # scores 3 batches (capped by --steps-per-epoch) with the model and the EMA. recnext_a1
 # trains with the reference recipe's hard distillation from a (seeded) regnety_160
@@ -253,6 +299,7 @@ TRAIN_ARGS = ["--model", "recnext_m1", "--data-set", "FAKE", "--simple-aug",
               "--log-every", "1", "--seed", "0"]
 A1_TRAIN_ARGS = [a if a != "recnext_m1" else "recnext_a1" for a in TRAIN_ARGS] + [
     "--distillation-type", "hard", "--teacher-model", "regnety_160"]
+T_TRAIN_ARGS = [a if a != "recnext_m1" else "recnext_t" for a in TRAIN_ARGS]
 TEACHER = "regnety_160"
 TRAIN_STEPS_PER_EPOCH, EVAL_FORWARDS_PER_EPOCH = 3, 2 * 3
 # m1 at 640^2: its 3 stage-0 mixers (160^2, level 4) each peel one level
@@ -765,6 +812,185 @@ def phase_attention_backward():
     return total, max_abs_err
 
 
+def _l_inputs(gen, b, side, d, dv, vc, dtype):
+    """One head per image: qk (B, 2D, H, W) of elu(x)+1-like values and v (B, DV, H,
+    W), a channel slice of a (B, vc, H, W) tensor where vc (LA3), else its own."""
+    qk = torch.randn(b, 2 * d, side, side, generator=gen).abs() + 0.1
+    wide = torch.randn(b, vc or dv, side, side, generator=gen)
+    v = wide.to("cuda", dtype)[:, :dv]
+    if vc and not (v.stride(0) == vc * side * side and not v.is_contiguous()):
+        raise AssertionError(f"v is not a channel slice: strides {v.stride()}")
+    return qk.to("cuda", dtype), v
+
+
+def _l_views_in_place(qk, v):
+    """The NCHW entry's views of v are v's memory (no copy), one span a head."""
+    q4, k4, v4, _ = _nchw_views(qk, v, 1)
+    if v4.data_ptr() != v.data_ptr() or attention_cuda.head_layout(q4, k4, v4) != "n":
+        raise AssertionError("the NCHW entry does not view v in place")
+
+
+def _check_k2_l(gen, key, b, dtype):
+    """K2 at one L shape, batch ``b``, through the model's NCHW entry (the slice read
+    in place) and the (BH, N, D) entry: f32 within 1e-3 + 1e-3 |ref|, bf16 within
+    1e-2 max|ref| of the plain version in f32 on the same values, the same bits on
+    three runs. Returns the errors and the NCHW inputs."""
+    side, d, dv, variant, vc = key
+    n, dt = side * side, "f32" if dtype == torch.float32 else "bf16"
+    qk, v = _l_inputs(gen, b, side, d, dv, vc, dtype)
+    _l_views_in_place(qk, v)
+    want = linear_attention_nchw_plain(qk.float(), v.float(), 1, variant=variant)
+    runs = [linear_attention_nchw(qk, v, 1, variant=variant) for _ in range(3)]
+    rows = [t.float().reshape(b, t.shape[1], n).transpose(1, 2).contiguous().to(dtype)
+            for t in (qk[:, :d], qk[:, d:], v)]
+    want_bh = linear_attention_kv_first(*(t.float() for t in rows))
+    got_bh = linear_attention_fused(*rows).float()
+    torch.cuda.synchronize()
+    if not all(torch.equal(r, runs[0]) for r in runs[1:]):
+        raise AssertionError(f"attention_l: not the same bits on 3 runs at {key} {dt} "
+                             f"batch {b}")
+    out = {f"{dt}_same_bits_3_runs": True}
+    for entry, g, w in (("nchw", runs[0].float(), want), ("bh", got_bh, want_bh)):
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        ok = (bool(((g - w).abs() <= 1e-3 + 1e-3 * w.abs()).all())
+              if dtype == torch.float32 else err <= 1e-2 * scale)
+        out[f"{dt}_{entry}_max_abs_err"], out[f"{dt}_{entry}_max_abs_ref"] = err, scale
+        if not ok:
+            raise AssertionError(f"attention_l {dt} {entry} mismatch at {key} batch {b}: "
+                                 f"{err} (max|ref| {scale})")
+    return out, (qk, v)
+
+
+def phase_attention_l():
+    """K2 at the L family's shapes (``L_ATTENTION``: one head per image, D up to 96,
+    DV != D in LA3, whose v is a channel slice of the block's input), checked by
+    ``_check_k2_l`` in f32 and bf16 at batch 8 and at batch 256, the serving path's
+    size; each shape's launch configuration; device times at batch 256, bf16, on the
+    checked inputs, beside the bound and the plain version, and their sums over each
+    L model's forward. K2 must not lose to the plain version in CUDA events around
+    calls queued behind other work (the profiler has listed half of the plain
+    version's kernels in a long process)."""
+    gen = torch.Generator().manual_seed(13)
+    per_shape, max_abs_err = {}, 0.0
+    for key, uses in L_ATTENTION.items():
+        side, d, dv, variant, vc = key
+        n = side * side
+        rec = {"phase": "attention_l", "n": n, "d": d, "dv": dv, "variant": variant,
+               "v_channel_slice_of": vc, "launches_per_forward": uses,
+               "launch": {f"{dt}_{lay}": {k: v for k, v in attention_cuda.launch_config(
+                   n, d, dv, eb, lay)._asdict().items() if k != "geometry"}
+                   for dt, eb in (("bf16", 2), ("f32", 4)) for lay in ("n", "d")},
+               "batch_256_checks": {}}
+        for dtype in (torch.float32, torch.bfloat16):
+            rec.update(_check_k2_l(gen, key, 8, dtype)[0])
+            errs, (qkt, vt) = _check_k2_l(gen, key, 256, dtype)
+            rec["batch_256_checks"].update(errs)
+        max_abs_err = max(max_abs_err, rec["bf16_nchw_max_abs_err"], rec["bf16_bh_max_abs_err"],
+                          rec["batch_256_checks"]["bf16_nchw_max_abs_err"])
+        # timing at the serving path's size on the bf16 inputs just checked
+        kernel = lambda: linear_attention_nchw(qkt, vt, 1, variant=variant)  # noqa: E731
+        plain = lambda: linear_attention_nchw_plain(qkt, vt, 1, variant=variant)  # noqa: E731
+        times = dict(time_pair(kernel, plain), kernel_queued_ms=queued_ms(kernel),
+                     plain_queued_ms=queued_ms(plain, iters=10))
+        nbytes, flops = attention_work(256, 1, n, d, dv, 2)
+        bms, by = bound(nbytes, flops)
+        per_shape[key] = dict(times, bytes=nbytes, flops=flops)
+        rec["batch_256_bf16"] = dict(times, bound_ms=bms, bound_by=by, bytes=nbytes,
+                                     flops=flops, library_ms=None,
+                                     kernel_over_plain=times["kernel_queued_ms"]
+                                     / times["plain_queued_ms"])
+        emit(rec)
+        if not times["kernel_queued_ms"] <= times["plain_queued_ms"]:
+            raise AssertionError(f"attention_l: K2 slower than its plain version at {key}: "
+                                 f"{times}")
+    totals = {}
+    for name in L_MODELS:
+        table = {key: (None, None, uses[name]) for key, uses in L_ATTENTION.items()
+                 if name in uses}
+        totals[name] = forward_totals(per_shape, table)
+        totals[name].update({k: sum(uses * per_shape[key][k] for key, (_, _, uses)
+                                    in table.items())
+                             for k in ("kernel_queued_ms", "plain_queued_ms")})
+        emit({"phase": "attention_l_forward", "model": name, "launches": MIXERS[name],
+              **totals[name]})
+    return totals, max_abs_err
+
+
+def phase_attention_backward_l():
+    """K2' at the L family's shapes (one head per image), through the model's NCHW
+    entry with LA3's v a channel slice read in place: each gradient against the plain
+    version in f32 on the same values (f32 within 2e-5 max|ref|, bf16 within 1e-2
+    max|ref|), the same bits on three runs, at batch 16 and, at recnext_t's shapes,
+    at batch 128, the train step's size; each shape's launch configuration; device
+    times at recnext_t's shapes at batch 128, bf16, on the checked inputs (CUDA
+    events around queued calls, as the a1 phase times them) beside bound and plain,
+    and their sum over one recnext_t train step's calls."""
+    gen = torch.Generator().manual_seed(14)
+
+    def rows(t, r):  # (B, R, H, W) -> (B, N, R)
+        return t.reshape(t.shape[0], r, -1).transpose(1, 2)
+
+    def check(key, b, dtype, dt):
+        side, d, dv, _, vc = key
+        qk, v = _l_inputs(gen, b, side, d, dv, vc, dtype)
+        g = torch.randn(b, dv, side, side, generator=gen).to("cuda", dtype)
+        _l_views_in_place(qk, v)
+        want = linear_attention_backward_plain(
+            *(rows(t.float(), r) for t, r in ((qk[:, :d], d), (qk[:, d:], d), (v, dv),
+                                              (g, dv))))
+        runs = [linear_attention_nchw_backward(qk, v, g, 1) for _ in range(3)]
+        torch.cuda.synchronize()
+        dqk, dvn = runs[0]
+        got = (rows(dqk[:, :d], d), rows(dqk[:, d:], d), rows(dvn, dv))
+        errs, rels = _check_attention_grads(got, want, dtype, (key, dt, b))
+        if not all(torch.equal(x, y) for run in runs[1:] for x, y in zip(run, runs[0])):
+            raise AssertionError(f"attention_backward_l: not the same bits on 3 runs "
+                                 f"at {key} {dt} batch {b}")
+        return {f"{dt}_max_abs_err": errs, f"{dt}_err_over_max_ref": rels,
+                f"{dt}_same_bits_3_runs": True}, (qk, v, g)
+
+    per_shape, max_abs_err = {}, 0.0
+    for key, uses in L_ATTENTION.items():
+        side, d, dv, _, vc = key
+        n = side * side
+        rec = {"phase": "attention_backward_l", "n": n, "d": d, "dv": dv,
+               "v_channel_slice_of": vc, "calls_per_step": uses, "launch": {}}
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            cfg = attention_bwd_cuda.launch_config(n, d, dv, dtype.itemsize, "n")
+            rec["launch"][dt] = {
+                **{k: v for k, v in cfg._asdict().items() if k != "geometry"},
+                "resident_blocks": attention_bwd_cuda.resident_blocks(cfg, dtype)}
+        timed = "recnext_t" in uses
+        if timed:
+            rec["batch_128_checks"] = {}
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            rec.update(check(key, 16, dtype, dt)[0])
+            if timed:
+                errs, (qk, v, g) = check(key, 128, dtype, dt)
+                rec["batch_128_checks"].update(errs)
+        max_abs_err = max(max_abs_err, *rec["bf16_max_abs_err"].values())
+        if timed:  # timing at the train step's size on the bf16 inputs just checked
+            max_abs_err = max(max_abs_err, *rec["batch_128_checks"]["bf16_max_abs_err"].values())
+            call = lambda: linear_attention_nchw_backward(qk, v, g, 1)  # noqa: E731
+            q3, k3, v3, g3 = (rows(t, r).contiguous() for t, r in (
+                (qk[:, :d], d), (qk[:, d:], d), (v, dv), (g, dv)))
+            times = {"kernel_ms": queued_ms(call),
+                     "plain_ms": device_ms(
+                         lambda: linear_attention_backward_plain(q3, k3, v3, g3), iters=5)}
+            nbytes, flops = attention_bwd_work(128, 1, n, d, dv, 2)
+            bms, by = bound(nbytes, flops)
+            per_shape[key] = dict(times, bytes=nbytes, flops=flops)
+            rec["batch_128_bf16"] = dict(times, bound_ms=bms, bound_by=by, bytes=nbytes,
+                                         flops=flops, library_ms=None)
+        emit(rec)
+    total = {k: sum(L_ATTENTION[key]["recnext_t"] * per_shape[key][k] for key in per_shape)
+             for k in ("kernel_ms", "plain_ms", "bytes", "flops")}
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["flops"])
+    emit({"phase": "attention_backward_l_step", "model": "recnext_t",
+          "calls": MIXERS["recnext_t"], **total})
+    return total, max_abs_err
+
+
 def calibrated(name, **overrides):
     """``name`` with seeded weights and non-trivial BN: affine drawn from the
     generator, running statistics those of one random batch."""
@@ -1040,13 +1266,14 @@ def phase_backward():
 
 
 def phase_train_grad(name="recnext_m1", side=224, batch=8, expected=None, peeled=0):
-    """``name`` (recnext_m1 or recnext_a1) at full width and depth, ``side``^2,
-    ``batch``, f32, in train mode: every parameter's gradient of the loss through the
-    kernel path (the forward kernel and its backward in every mixer: K1 and K1', or K2
-    and K2'; at 512^2 K1′'s peeled route in stage 0) against the plain path (autograd
-    over forward_plain). The counts are set to 0 just before the kernel path and read
-    just after: ``expected`` (by default 23 of the forward kernel and of its backward,
-    nothing else) and ``peeled`` backward calls that peeled.
+    """``name`` (recnext_m1, recnext_a1 or recnext_t) at full width and depth,
+    ``side``^2, ``batch``, f32, in train mode: every parameter's gradient of the loss
+    through the kernel path (the forward kernel and its backward in every mixer: K1
+    and K1', or K2 and K2'; at 512^2 K1′'s peeled route in stage 0) against the plain
+    path (autograd over forward_plain). The counts are set to 0 just before the kernel
+    path and read just after: ``expected`` (by default MIXERS[name] of the forward
+    kernel and of its backward, nothing else) and ``peeled`` backward calls that
+    peeled.
     Tolerance 1e-3 max|ref| of each tensor: fp32 sums in another order, carried
     back through ~100 train-mode BatchNorms. A tensor whose exact gradient is 0 (a
     shift that a BatchNorm follows) holds rounding noise on both paths: its
@@ -1059,7 +1286,7 @@ def phase_train_grad(name="recnext_m1", side=224, batch=8, expected=None, peeled
     y = torch.randint(0, 1000, (batch,), generator=gen).cuda()
     out = {"phase": "train_grad", "model": name, "input": [batch, 3, side, side]}
     fwd, bwd = TRAIN_KERNELS[name]
-    expected = expected or dict.fromkeys(COUNTERS, 0) | {fwd: 23, bwd: 23}
+    expected = expected or dict.fromkeys(COUNTERS, 0) | {fwd: MIXERS[name], bwd: MIXERS[name]}
     grads = {}
     for path in ("kernel_path", "plain_path"):
         m = copy.deepcopy(model)
@@ -1105,13 +1332,14 @@ def phase_train_grad(name="recnext_m1", side=224, batch=8, expected=None, peeled
 
 def phase_train(name="recnext_m1", args=TRAIN_ARGS, keep=None):
     """The trainer, ``recnext_tpu_torch.train.main.main``, on the card with ``args``:
-    ``name`` (recnext_m1; recnext_a1 with hard distillation from a seeded regnety_160),
-    FAKE, --simple-aug, 224^2, batch 64, 2 epochs of 3 steps, then a rerun to 3 epochs
-    that resumes. Every count set to 0 just before the first run and read just after:
-    23 launches of the model's forward kernel (K1 or K2) and 23 calls of its backward
-    (K1' or K2') per train step, 23 forward-kernel launches per fused eval forward,
-    nothing else (the teacher launches no kernel of the port). The last checkpoint is
-    copied to ``keep`` where given."""
+    ``name`` (recnext_m1 or recnext_t; recnext_a1 with hard distillation from a seeded
+    regnety_160), FAKE, --simple-aug, 224^2, batch 64, 2 epochs of 3 steps, then a
+    rerun to 3 epochs that resumes. Every count set to 0 just before the first run and
+    read just after: MIXERS[name] launches of the model's forward kernel (K1 or K2)
+    and as many calls of its backward (K1' or K2') per train step, as many
+    forward-kernel launches per fused eval forward, nothing else (the teacher
+    launches no kernel of the port). The last checkpoint is copied to ``keep`` where
+    given."""
     import contextlib
     import io
 
@@ -1119,6 +1347,7 @@ def phase_train(name="recnext_m1", args=TRAIN_ARGS, keep=None):
     build.mkdir(parents=True, exist_ok=True)
     rec = {"phase": "train", "model": name, "args": args}
     fwd, bwd = TRAIN_KERNELS[name]
+    mixers = MIXERS[name]
     with tempfile.TemporaryDirectory(dir=build) as run_dir:
         runs = []
         for epochs in (2, 3):
@@ -1137,7 +1366,8 @@ def phase_train(name="recnext_m1", args=TRAIN_ARGS, keep=None):
             losses = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
                       if ": loss " in line]
             stats = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
-            per_step = {fwd: (launches[fwd] - 23 * evals) / steps, bwd: launches[bwd] / steps}
+            per_step = {fwd: (launches[fwd] - mixers * evals) / steps,
+                        bwd: launches[bwd] / steps}
             others = {k: v for k, v in launches.items() if k not in (fwd, bwd)}
             run = {"epochs": epochs, "seconds": time.perf_counter() - t0, "losses": losses,
                    "epoch_lines": stats, "launches": launches,
@@ -1148,7 +1378,7 @@ def phase_train(name="recnext_m1", args=TRAIN_ARGS, keep=None):
             if (len(losses) != steps or not all(np.isfinite(losses))
                     or len(stats) != ran or not all(np.isfinite(s["train_loss"]) for s in stats)):
                 raise AssertionError(f"train run to {epochs} epochs: {run}")
-            if per_step != {fwd: 23, bwd: 23} or any(others.values()):
+            if per_step != {fwd: mixers, bwd: mixers} or any(others.values()):
                 raise AssertionError(f"train run to {epochs} epochs: launches {launches}")
             if run["resumed"] != (epochs == 3):
                 raise AssertionError(f"train run to {epochs} epochs: resume {run['resumed']}")
@@ -1162,15 +1392,18 @@ def phase_train(name="recnext_m1", args=TRAIN_ARGS, keep=None):
 TRACE_KERNELS = {  # CUDA function names of each training path's kernels: (forward,
     # backward, ...)
     "recnext_m1": ("recconv_kernel", "recconv_bwd_kernel", "recconv_bwd_sum_kernel"),
-    "recnext_a1": ("linear_attention_kernel", "linear_attention_bwd_")}  # K2' either route
+    "recnext_a1": ("linear_attention_kernel", "linear_attention_bwd_"),  # K2' either route
+    "recnext_t": ("linear_attention_kernel", "linear_attention_bwd_")}
 
 
-def phase_train_throughput(name="recnext_m1", teacher=None):
-    """bench.train_throughput(name, 128) with 3 repeats (distilled from a seeded
-    ``teacher`` where given), then a profiler trace of 3 steps of the same step: the
-    top kernels, the backward kernel's share and the device's idle share. The trace
-    must list 23 launches a step of each of the port's kernels."""
-    ips, batch, spread = bench.train_throughput(name, 128, repeats=3, teacher=teacher)
+def phase_train_throughput(name="recnext_m1", teacher=None, timed_s=6.0):
+    """bench.train_throughput(name, 128) with 3 repeats of ``timed_s`` seconds
+    (distilled from a seeded ``teacher`` where given), then a profiler trace of 3
+    steps of the same step: the top kernels, the backward kernel's share and the
+    device's idle share. The trace must list MIXERS[name] launches a step of each of
+    the port's kernels."""
+    ips, batch, spread = bench.train_throughput(name, 128, repeats=3, teacher=teacher,
+                                                timed_s=timed_s)
     step_ms = batch / ips * 1e3
     fn, _ = bench.train_bench_step(name, 128, teacher=teacher)
     kernels = trace(fn, iters=3, warmup=2)
@@ -1182,10 +1415,10 @@ def phase_train_throughput(name="recnext_m1", teacher=None):
     ours = {kn: sum(k["ms"] for k in kernels if kn in k["name"]) for kn in TRACE_KERNELS[name]}
     launches = {kn: sum(k["launches"] for k in kernels if kn in k["name"])
                 for kn in TRACE_KERNELS[name]}
-    if any(n != 23 for n in launches.values()):  # each runs once a mixer: 23 a step
+    if any(n != MIXERS[name] for n in launches.values()):  # each runs once a mixer
         raise AssertionError(f"train_throughput: the trace lists {launches} launches a "
-                             f"step of the port's kernels, not 23 each: it lost some, so "
-                             f"its busy time and idle share would be wrong")
+                             f"step of the port's kernels, not {MIXERS[name]} each: it "
+                             f"lost some, so its busy time and idle share would be wrong")
     emit({"phase": "train_throughput", "model": name, "teacher": teacher,
           "distillation": "hard" if teacher else "none", "batch": batch,
           "dtype": "bf16 compute, fp32 parameters", "images_per_s_median": ips,
@@ -1495,7 +1728,8 @@ def phase_input_pipeline(work_dir: Path, step_ips: float, step_busy_ms: float):
     """The data pipeline on the card's host, then m1 trained from a folder of JPEGs.
 
     1. the host: its CPU count and affinity, /dev/shm's size (worker batches pass
-       through it), and whether the native decoder builds (and why not);
+       through it), and the native decoder's build against Pillow's libjpeg (which
+       must succeed);
     2. ``bench.loader_bench`` over the distinct JPEGs at 224^2, batch 32: PIL and
        native, the full and the simple train transform, at workers 0 and W = min(16,
        CPUs);
@@ -1504,17 +1738,17 @@ def phase_input_pipeline(work_dir: Path, step_ips: float, step_busy_ms: float):
        on the JPEGs and above 0 on the folder with PNGs;
     4. the trainer (``train.main.main``) on m1, FOLDER, the full reference transform,
        the RA sampler, batch 128, one epoch of ``INPUT_STEPS`` steps: with --workers W,
-       then --native-loader, then both; each run with every count set to 0 just
-       before it and read just after: 23 K1 launches and 23 K1' calls a train step, 23
-       K1 launches a fused eval forward, nothing else. Where the native decoder does
-       not build, the two native runs must raise ``NativeBuildError``. Its img/s (the
+       with --native-loader (the decoder's C++ threads in the trainer's own
+       process), then with --native-loader and --workers W; each run with every count set to 0
+       just before it and read just after: 23 K1 launches and 23 K1' calls a train
+       step, 23 K1 launches a fused eval forward, nothing else. Its img/s (the
        epoch's, and steady: after the first batch) beside the step alone's
        (``step_ips``, from the train_throughput phase of this run), and the device's
        idle share in the loop from the step's busy time in that phase's trace
        (``step_busy_ms``, device time a step, which does not depend on the host);
     5. validate.py on the val split with the trained checkpoint: the PIL route, and
        --native-loader against its top-1 (within 4 of 256 images: the routes' pixels
-       differ by PIL's uint8 rounding), or raising where the decoder does not build."""
+       differ by PIL's uint8 rounding)."""
     import contextlib
     import io
 
@@ -1526,14 +1760,12 @@ def phase_input_pipeline(work_dir: Path, step_ips: float, step_busy_ms: float):
     cpus = bench.host_cpus()
     workers = min(16, cpus["cpu_count"])
     shm = shutil.disk_usage("/dev/shm")
-    try:
-        native_io.load()
-        native_error = None
-    except native_io.NativeBuildError as e:
-        native_error = str(e)
+    t0 = time.perf_counter()
+    native_io.load()  # raises NativeBuildError where it cannot build: the phase fails
     rec = {"phase": "input_pipeline", **cpus, "workers": workers,
-           "dev_shm_bytes": shm.total, "native_built": native_error is None,
-           "native_error": native_error and native_error[-400:]}
+           "dev_shm_bytes": shm.total, "native_build_s": time.perf_counter() - t0,
+           "native_library": native_io.library_path().name,
+           "native_libjpeg": str(native_io.pillow_libjpeg())}
     t0 = time.perf_counter()
     unique, root, pngs = write_input_folders(work_dir / "input")
     rec["write_folders_s"] = time.perf_counter() - t0
@@ -1541,8 +1773,7 @@ def phase_input_pipeline(work_dir: Path, step_ips: float, step_busy_ms: float):
     rec["loader"] = bench.loader_bench(ImageFolder(unique), size=224, batch=32,
                                        workers=(0, workers), pin_memory=True)
     for r in rec["loader"]:
-        if r["value"] is None and (native_error is None or not r["pipeline"].startswith(
-                "native")):
+        if r["value"] is None:
             raise AssertionError(f"input_pipeline: {r}")
 
     def first_batches(ds, native, w, n=3, batch=INPUT_BATCH):
@@ -1557,7 +1788,7 @@ def phase_input_pipeline(work_dir: Path, step_ips: float, step_busy_ms: float):
 
     train_ds = ImageFolder(root / "train")
     rec["same_bits"] = {}
-    for native in ((False, True) if native_error is None else (False,)):
+    for native in (False, True):
         (a, la), (b, lb) = (first_batches(train_ds, native, 0),
                             first_batches(train_ds, native, workers))
         same = all(torch.equal(x["image"], y["image"]) and torch.equal(x["label"], y["label"])
@@ -1569,11 +1800,10 @@ def phase_input_pipeline(work_dir: Path, step_ips: float, step_busy_ms: float):
                                                         lb.native_fallback_batches]}
         if not same or la.route != route or la.native_fallback_batches:
             raise AssertionError(f"input_pipeline bits: {rec['same_bits'][route]}")
-    if native_error is None:
-        _, lp = first_batches(ImageFolder(pngs), True, workers, n=6, batch=32)
-        rec["png_fallback_batches"] = lp.native_fallback_batches
-        if lp.native_fallback_batches == 0:
-            raise AssertionError("input_pipeline: no batch of the PNG folder fell back")
+    _, lp = first_batches(ImageFolder(pngs), True, workers, n=6, batch=32)
+    rec["png_fallback_batches"] = lp.native_fallback_batches
+    if lp.native_fallback_batches == 0:
+        raise AssertionError("input_pipeline: no batch of the PNG folder fell back")
 
     args = ["--model", "recnext_m1", "--data-set", "FOLDER", "--data-path", str(root),
             "--input-size", "224", "--batch-size", str(INPUT_BATCH), "--epochs", "1",
@@ -1583,14 +1813,6 @@ def phase_input_pipeline(work_dir: Path, step_ips: float, step_busy_ms: float):
                         ("native", ["--native-loader"]),
                         ("native_workers", ["--native-loader", "--workers", str(workers)])):
         out_dir = work_dir / f"input_{name}"
-        if native_error is not None and "--native-loader" in extra:
-            try:
-                with contextlib.redirect_stdout(io.StringIO()):
-                    train_main.main(args + extra + ["--output-dir", str(out_dir)])
-            except native_io.NativeBuildError as e:
-                runs[name] = {"raised": type(e).__name__}
-                continue
-            raise AssertionError(f"input_pipeline: {name} trained without the native decoder")
         for fn in COUNTERS.values():  # the main path starts here
             fn.launches = 0
         buf = io.StringIO()
@@ -1636,20 +1858,11 @@ def phase_input_pipeline(work_dir: Path, step_ips: float, step_busy_ms: float):
              "--batch-size", str(INPUT_BATCH), "--dtype", "bfloat16"]
     with contextlib.redirect_stdout(io.StringIO()):
         pil = validate_main.main(vargs)
-        if native_error is None:
-            nat = validate_main.main(vargs + ["--native-loader"])
-        else:
-            try:
-                validate_main.main(vargs + ["--native-loader"])
-                raise AssertionError("validate --native-loader ran without the decoder")
-            except native_io.NativeBuildError as e:
-                nat = {"raised": type(e).__name__}
+        nat = validate_main.main(vargs + ["--native-loader"])
     rec["validate"] = {"pil": pil, "native": nat}
-    if pil["count"] != INPUT_VAL or pil["loader_route"] != "pil" or not (
-            native_error is not None or (nat["count"] == INPUT_VAL
-                                         and nat["loader_route"] == "native"
-                                         and abs(nat["top1"] - pil["top1"])
-                                         <= 100 * 4 / INPUT_VAL)):
+    if (pil["count"] != INPUT_VAL or pil["loader_route"] != "pil" or nat["count"] != INPUT_VAL
+            or nat["loader_route"] != "native"
+            or abs(nat["top1"] - pil["top1"]) > 100 * 4 / INPUT_VAL):
         raise AssertionError(f"input_pipeline validate: {rec['validate']}")
     emit(rec)
 
@@ -1717,6 +1930,18 @@ def main() -> int:
           "linear_attention_kernel", a1_total["kernel_ms"])
     del unfused, serving
 
+    # the L family (recnext_t, recnext_b, recnext_t_share_channel): K2 at one head per
+    # image, LA3's v a channel slice; RepVGGDW fused; no RecConv2d
+    l_totals, _ = timed("attention_l", phase_attention_l)
+    l_launches = {}
+    for name in L_MODELS[1:]:
+        _, l_launches[name] = timed("model_l", phase_model, name)
+    unfused, l_launches["recnext_t"] = timed("model_l", phase_model, "recnext_t")
+    serving, t_served = timed("serving_l", phase_serving, "recnext_t", unfused)
+    timed("throughput_l", phase_throughput, "recnext_t", serving.model,
+          "linear_attention_kernel", l_totals["recnext_t"]["kernel_ms"])
+    del unfused, serving
+
     # recnext_m1 training: K1 and the backward kernel
     work_dir = Path(tempfile.mkdtemp(dir=Path(__file__).resolve().parent / "recnext_tpu_torch"
                                      / "_build"))
@@ -1735,6 +1960,11 @@ def main() -> int:
           "images_per_s": {"plain": plain_ips, "hard_distilled": distilled_ips},
           "step_ms": {"plain": 128e3 / plain_ips, "hard_distilled": 128e3 / distilled_ips},
           "distilled_over_plain": plain_ips / distilled_ips})
+    # recnext_t training: K2 and K2' at the L shapes
+    t_bwd_total, _ = timed("attention_backward_l", phase_attention_backward_l)
+    timed("train_grad_l", phase_train_grad, "recnext_t")
+    t_train_launches = timed("train_l", phase_train, "recnext_t", T_TRAIN_ARGS)
+    timed("train_throughput_l", phase_train_throughput, "recnext_t", timed_s=2.0)
     # recnext_m1 training beyond the main paths: K1′'s peeled route, the 384^2 finetune
     level_totals, level_errs = timed("large_plane_backward", phase_large_plane_backward)
     m1_512 = timed("train_grad", phase_train_grad, side=512, batch=2, expected=M1_512_TRAIN,
@@ -1744,6 +1974,10 @@ def main() -> int:
     timed("input_pipeline", phase_input_pipeline, work_dir, *m1_step)
     shutil.rmtree(work_dir)
     emit({"phase": "seconds", **seconds, "script": time.perf_counter() - start})
+    # the L path's launches and K2 / K2' totals (the kernel record below is a1's)
+    emit({"phase": "l_path", "k2_launches_per_forward": l_launches,
+          "k2_launches_served_recnext_t": t_served, "recnext_t_train": t_train_launches,
+          "k2_forward_totals": l_totals, "k2_backward_step_total_recnext_t": t_bwd_total})
 
     emit({"kernels": [
         kernel_record("rec_conv2d", "recnext_tpu_torch/csrc/recconv.cu",

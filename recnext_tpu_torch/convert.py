@@ -3,7 +3,7 @@ trees (nested dicts of numpy arrays) -> the port's torch state dicts.
 
 The port's own copy of the reverse converter in ``recnext_tpu/convert.py``
 (``_flatten_tree``, ``_inv_path``, ``_inv_leaf``, ``_inv_transform``,
-``flax_to_torch``, ``flax_fused_to_torch``), for the M and A families: flax
+``flax_to_torch``, ``flax_fused_to_torch``), for the M, A and L families: flax
 HWIO kernels become OIHW, Dense (in, out) kernels become Linear (out, in), and
 paths are renamed to the reference module tree the port's models share.
 ``jax_regnet_to_torch`` does the same for the RegNetY teacher, into timm's names:
@@ -20,7 +20,7 @@ import torch
 
 from recnext_tpu_torch.fusion import EPS
 
-_STEM_INV = {"conv1": "0", "conv2": "2"}
+_STEM_INV = {"conv1": "0", "conv2": "2", "conv3": "4"}  # conv3: the L stem's
 _BLOCK_RE = re.compile(r"stage(\d+)_block(\d+)")
 _DS_RE = re.compile(r"downsample_(\d+)")
 _CONVK_RE = re.compile(r"conv(\d+)_(kernel|bias)")

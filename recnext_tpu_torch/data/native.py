@@ -3,9 +3,16 @@
 The source is the JAX package's, read as it is: libjpeg decode, then a fused
 PIL-convention antialiased crop-resize, horizontal flip and (for the float entry)
 ImageNet normalization into an NHWC batch, over a pool of C++ threads. It is built
-at first use with ``g++ -O3 -shared -fPIC ... -ljpeg -lpthread`` into
-``recnext_tpu_torch/_build/`` (git-ignored), under a name that carries a hash of the
-source and the flags, so an edited source is never served from a stale build. The
+at first use with ``g++ -O3 -shared -fPIC -I data/jpeg62 ... <Pillow's libjpeg>
+-Wl,-rpath,<its directory> -lpthread`` into ``recnext_tpu_torch/_build/``
+(git-ignored). libjpeg is the one Pillow bundles (``pillow.libs/libjpeg-*.so.62*``,
+libjpeg-turbo with the jpeg62 ABI), linked by its full path, and its headers are the
+port's copy of libjpeg-turbo 2.1.5's jpeg62 headers (``data/jpeg62/``, with their
+license): one route on every machine that has Pillow, so the bits the CPU tests
+check are the bits a GPU host decodes, with no system libjpeg or ``jpeglib.h``
+needed. Where Pillow bundles no libjpeg, the build raises. The library's name
+carries a hash of the source, the headers, the flags and the libjpeg path, so an
+edited source is never served from a stale build. The
 build holds a file lock and writes a temporary file that ``os.replace`` renames, so
 processes that build at once (test workers) never see a half-written library. A
 build or ABI failure raises ``NativeBuildError``: the caller that asked for the
@@ -36,8 +43,8 @@ from recnext_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 PKG = Path(__file__).resolve().parents[1]
 SOURCE = PKG.parent / "native" / "recnext_io.cpp"
 BUILD_DIR = PKG / "_build"
+JPEG_HEADERS = PKG / "data" / "jpeg62"  # libjpeg-turbo 2.1.5, JPEG_LIB_VERSION 62
 FLAGS = ["-O3", "-shared", "-fPIC"]
-LIBS = ["-ljpeg", "-lpthread"]
 ABI_VERSION = 3  # rn_version() of the source
 BICUBIC = 1  # the source's filter code (0 is bilinear, which no caller takes)
 THREADS = 4  # C++ decode threads a batch (the JAX loader's)
@@ -51,10 +58,32 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+def pillow_libjpeg() -> Path:
+    """The libjpeg that Pillow's wheel bundles (``pillow.libs/libjpeg-*.so.62*``);
+    raises ``NativeBuildError`` where there is none."""
+    try:
+        import PIL
+    except ImportError as e:
+        raise NativeBuildError(f"Pillow is not installed: {e}") from e
+    libs = Path(PIL.__file__).resolve().parent.parent / "pillow.libs"
+    found = sorted(libs.glob("libjpeg-*.so.62*")) if libs.is_dir() else []
+    if not found:
+        raise NativeBuildError(f"Pillow {PIL.__version__} bundles no libjpeg "
+                               f"(no libjpeg-*.so.62* in {libs})")
+    return found[-1]
+
+
+def _libs(libjpeg: Path) -> list:
+    return [str(libjpeg), f"-Wl,-rpath,{libjpeg.parent}", "-lpthread"]
+
+
 def library_path() -> Path:
     if not SOURCE.exists():
         raise NativeBuildError(f"the native decoder's source {SOURCE} is missing")
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS + LIBS).encode())
+    digest = hashlib.sha256(SOURCE.read_bytes())
+    for header in sorted(JPEG_HEADERS.glob("*.h")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(FLAGS + _libs(pillow_libjpeg())).encode())
     return BUILD_DIR / f"librecnext_io-{digest.hexdigest()[:12]}.so"
 
 
@@ -66,7 +95,8 @@ def _build(out: Path) -> None:
         if out.exists():  # another process built it while this one waited
             return
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = ["g++", *FLAGS, str(SOURCE), "-o", str(tmp), *LIBS]
+        cmd = ["g++", *FLAGS, f"-I{JPEG_HEADERS}", str(SOURCE), "-o", str(tmp),
+               *_libs(pillow_libjpeg())]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         except (OSError, subprocess.TimeoutExpired) as e:

@@ -5,6 +5,9 @@ same model built with ``fused=True``. The math is ``recnext_tpu/fusion.py``'s:
 
 * ConvNorm ``X.conv`` + ``X.norm`` -> conv ``X``:
   w' = gamma/sqrt(var+eps) * w, b' = beta - gamma*mu/sqrt(var+eps) (+ folded conv bias);
+* RepVGGDW ``X.lk`` + ``X.sk`` + identity -> one 3x3 depthwise conv ``X``: lk's
+  fused kernel, plus sk's at the centre tap, plus 1 at the centre tap; bias
+  lk's + sk's;
 * NormLinear ``X.norm`` + ``X.linear``: the input-side BN folded into the linear;
 * classifier ``P.head`` + ``P.head_dist``: both folded, then averaged into ``P``;
 * a standalone BN (block and downsample ``norm``) is kept as a BN with the folded
@@ -78,7 +81,20 @@ def fuse_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tenso
     for k, v in sd.items():
         if k not in done:
             out[k] = v
+    for p in sorted(k[: -len(".lk.weight")] for k in out if k.endswith(".lk.weight")):
+        _fuse_repvggdw(out, p)
     return out
+
+
+def _fuse_repvggdw(out: Dict[str, torch.Tensor], p: str) -> None:
+    """RepVGGDW at prefix p, its lk (3x3) and sk (1x1) ConvNorms already folded:
+    into one depthwise 3x3 conv p (``recnext_tpu/fusion.py:_fuse_repvggdw``)."""
+    lk_w, lk_b = out.pop(f"{p}.lk.weight"), out.pop(f"{p}.lk.bias")
+    sk_w, sk_b = out.pop(f"{p}.sk.weight"), out.pop(f"{p}.sk.bias")
+    kernel = lk_w.clone()  # (C, 1, 3, 3)
+    kernel[:, :, 1, 1] += sk_w[:, :, 0, 0]
+    kernel[:, 0, 1, 1] += 1.0  # the identity branch
+    out[f"{p}.weight"], out[f"{p}.bias"] = kernel, lk_b + sk_b
 
 
 def _identity_bn(out: Dict[str, torch.Tensor], p: str, scale: torch.Tensor,
@@ -105,7 +121,11 @@ def defuse_params(fused: Mapping[str, torch.Tensor],
           for k, v in fused.items()}
     out: Dict[str, torch.Tensor] = {}
     for k, v in template.items():
-        if k.endswith(".norm.running_mean"):
+        if k.endswith(".lk.norm.running_mean"):
+            p = k[: -len(".lk.norm.running_mean")]
+            if f"{p}.weight" in fd:
+                _defuse_repvggdw(out, fd, template, p)
+        elif k.endswith(".norm.running_mean"):
             parent = k[: -len(".norm.running_mean")]
             if f"{parent}.conv.weight" in template and f"{parent}.weight" in fd:
                 # ConvNorm -> conv X.conv and an identity BN carrying the fused bias
@@ -129,3 +149,20 @@ def defuse_params(fused: Mapping[str, torch.Tensor],
             # mixers' convs and every other leaf of the same name; else the template's
             out[k] = fd.get(k, v)
     return out
+
+
+def _defuse_repvggdw(out: Dict[str, torch.Tensor], fd: Mapping[str, torch.Tensor],
+                     template: Mapping[str, torch.Tensor], p: str) -> None:
+    """A fused RepVGGDW conv p -> its lk and sk ConvNorms
+    (``recnext_tpu/fusion.py:_defuse``): lk takes the kernel less the identity at the
+    centre tap and an identity BN carrying the bias, sk a zero kernel and an
+    identity BN with bias 0, both conv biases 0."""
+    kernel, bias = fd[f"{p}.weight"].clone(), fd[f"{p}.bias"]
+    kernel[:, 0, 1, 1] -= 1.0  # peel the identity branch back off
+    zero = torch.zeros_like(bias)
+    out[f"{p}.lk.conv.weight"] = kernel
+    out[f"{p}.sk.conv.weight"] = torch.zeros_like(kernel[:, :, :1, :1])
+    for br, shift in (("lk", bias), ("sk", zero)):
+        if f"{p}.{br}.conv.bias" in template:
+            out[f"{p}.{br}.conv.bias"] = zero
+        _identity_bn(out, f"{p}.{br}.norm", zero + 1.0, shift)

@@ -1,10 +1,11 @@
-"""Structural layers: GELU, BatchNorm, ConvNorm, NormLinear, Mlp, DropPath.
+"""Structural layers: GELU, BatchNorm, ConvNorm, RepVGGDW, NormLinear, Mlp, DropPath.
 
 Counterparts of ``recnext_tpu/models/layers.py`` in NCHW. Every layer has an
 unfused (train/eval) and a fused (inference) structure, and the parameter names
 are the torch keys that ``recnext_tpu/convert.py`` emits: ``X.conv.weight`` and
 ``X.norm.*`` for an unfused ConvNorm, a plain ``X.weight``/``X.bias`` conv once it
-is fused. ``fusion.py`` maps one state dict onto the other.
+is fused (a RepVGGDW's ``X.lk.*`` and ``X.sk.*`` likewise become one conv ``X``).
+``fusion.py`` maps one state dict onto the other.
 """
 
 from __future__ import annotations
@@ -78,13 +79,14 @@ def batch_norm2d(channels: int) -> nn.BatchNorm2d:
 
 
 class ConvNorm(nn.Module):
-    """Conv2d (bias-free, the M/A form) + BatchNorm2d."""
+    """Conv2d + BatchNorm2d; the conv is bias-free in the M/A form and has a bias in
+    the L form (``bias=True``)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 1, stride: int = 1,
-                 padding: int = 0, groups: int = 1):
+                 padding: int = 0, groups: int = 1, bias: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride, padding, groups=groups,
-                              bias=False)
+                              bias=bias)
         self.norm = batch_norm2d(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -92,11 +94,33 @@ class ConvNorm(nn.Module):
 
 
 def conv_norm(cin: int, cout: int, kernel_size: int = 1, stride: int = 1,
-              padding: int = 0, groups: int = 1, *, fused: bool = False) -> nn.Module:
-    """ConvNorm, or its fused form: one conv with a bias."""
+              padding: int = 0, groups: int = 1, *, bias: bool = False,
+              fused: bool = False) -> nn.Module:
+    """ConvNorm, or its fused form: one conv with a bias (a conv bias of the unfused
+    form folds into it)."""
     if fused:
         return nn.Conv2d(cin, cout, kernel_size, stride, padding, groups=groups, bias=True)
-    return ConvNorm(cin, cout, kernel_size, stride, padding, groups)
+    return ConvNorm(cin, cout, kernel_size, stride, padding, groups, bias)
+
+
+class RepVGGDW(nn.Module):
+    """The L family's reparameterisable depthwise block: ``lk(x) + sk(x) + x``, with
+    ``lk`` a 3x3 and ``sk`` a 1x1 depthwise ConvNorm, both with a conv bias."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.lk = ConvNorm(dim, dim, 3, 1, 1, groups=dim, bias=True)
+        self.sk = ConvNorm(dim, dim, 1, groups=dim, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.lk(x) + self.sk(x) + x
+
+
+def rep_vgg_dw(dim: int, *, fused: bool = False) -> nn.Module:
+    """RepVGGDW, or its fused form: one 3x3 depthwise conv with a bias."""
+    if fused:
+        return nn.Conv2d(dim, dim, 3, 1, 1, groups=dim, bias=True)
+    return RepVGGDW(dim)
 
 
 class NormLinear(nn.Module):
@@ -111,11 +135,13 @@ class NormLinear(nn.Module):
         return self.linear(self.norm(x))
 
 
-def mlp(channels: int, hidden: int, *, fused: bool = False) -> nn.Sequential:
-    """1x1 ConvNorm -> GELU -> 1x1 ConvNorm channel mixer (no internal residual).
-    Keys ``0.*`` and ``2.*``, as the reference's Sequential."""
-    return nn.Sequential(conv_norm(channels, hidden, fused=fused), GELU(),
-                         conv_norm(hidden, channels, fused=fused))
+def mlp(channels: int, hidden: int, *, bias: bool = False,
+        fused: bool = False) -> nn.Sequential:
+    """1x1 ConvNorm -> GELU -> 1x1 ConvNorm channel mixer (no internal residual;
+    conv biases in the L form). Keys ``0.*`` and ``2.*``, as the reference's
+    Sequential."""
+    return nn.Sequential(conv_norm(channels, hidden, bias=bias, fused=fused), GELU(),
+                         conv_norm(hidden, channels, bias=bias, fused=fused))
 
 
 class DropPath(nn.Module):

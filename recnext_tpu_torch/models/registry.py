@@ -1,8 +1,8 @@
 """Model registry: named variants -> RecNextConfig, and create_model().
 
 The table is a copy of ``recnext_tpu/models/registry.py:MODEL_CONFIGS``. Drop-path
-defaults apply only without distillation. The M and A families build in this
-port; the L family raises until its slice lands.
+defaults apply only without distillation (the L family ramps them over its depth).
+Every family of the table builds in this port: M, A and L.
 """
 
 from __future__ import annotations

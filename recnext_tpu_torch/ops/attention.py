@@ -1,4 +1,4 @@
-"""Linear attention (positive feature map, mean-normalised), the A family's core.
+"""Linear attention (positive feature map, mean-normalised), the A and L families' core.
 
 Counterpart of ``recnext_tpu/ops/attention.py``. With q, k = feature_map(qk) and v:
 
@@ -103,7 +103,8 @@ def linear_attention_nchw_plain(qk: torch.Tensor, v: torch.Tensor, num_heads: in
     kv-first form, variant 2 the qk-first form, as the JAX mixer does."""
     q, k = _split_qk(qk, v, num_heads)
     if variant not in (1, 2):
-        raise ValueError(f"linear attention variant {variant} is not ported (1, 2)")
+        raise ValueError(f"linear attention variant {variant}: the entry takes 1 "
+                         "(kv-first) or 2 (qk-first; LinearAttention's variant 3 runs it)")
     fn = linear_attention_kv_first if variant == 1 else linear_attention_qk_first
     o = fn(_heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads), eps)
     return o.transpose(1, 2).reshape(v.shape)
@@ -194,7 +195,8 @@ def linear_attention_nchw(qk: torch.Tensor, v: torch.Tensor, num_heads: int, *,
     if _check_device(qk, "linear_attention_nchw"):
         return linear_attention_nchw_plain(qk, v, num_heads, variant=variant, eps=eps)
     if variant not in (1, 2):
-        raise ValueError(f"linear attention variant {variant} is not ported (1, 2)")
+        raise ValueError(f"linear attention variant {variant}: the entry takes 1 "
+                         "(kv-first) or 2 (qk-first; LinearAttention's variant 3 runs it)")
     if _needs_grad(qk, v):
         return LinearAttentionFunction.apply(num_heads, eps, qk, v)
     return _nchw_kernel(qk, v, num_heads, eps)

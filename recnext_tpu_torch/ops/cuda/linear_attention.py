@@ -84,12 +84,17 @@ class LaunchConfig(NamedTuple):
     geometry: tuple       # csrc/linear_attention.cu:Geometry, field by field
 
 
-def team_size(n: int) -> int:
-    """Threads per head, from the number of positions: 16 up to 16 positions, 32 up
-    to 64, 128 up to 1024, else 256 (measured at recnext_a1's shapes: PERF.md,
-    section 6)."""
-    return next(t for t, most in ((16, 16), (32, 64), (128, 1024), (256, None))
+def team_size(n: int, d: int, dv: int) -> int:
+    """Threads per head: from the number of positions, 16 up to 16 positions, 32 up
+    to 64, 128 up to 1024, else 256 (measured at recnext_a1's shapes, D = DV = 24:
+    PERF.md, section 6); and at least one lane per 8x8 block of pass 1's kv, up to
+    128, so that no lane sums two blocks one after the other (the L family's D 64,
+    DV 128 heads: 128 blocks, 3.0x faster than a team of 16; PERF.md, section 6)."""
+    by_n = next(t for t, most in ((16, 16), (32, 64), (128, 1024), (256, None))
                 if most is None or n <= most)
+    blocks = -(-d // KV_BLOCK) * -(-dv // KV_BLOCK)
+    by_work = next(t for t in TEAM_SIZES if t >= min(blocks, 128))
+    return max(by_n, by_work)
 
 
 def _span_bytes(elems: int, elem_bytes: int) -> int:
@@ -156,7 +161,7 @@ def launch_config(n: int, d: int, dv: int, elem_bytes: int, layout: str) -> Laun
                          f"takes 1 <= D, DV <= {MAX_DIM} and N >= 1")
     if layout not in LAYOUTS:
         raise ValueError(f"linear_attention_cuda: layout {layout!r} not in {LAYOUTS}")
-    team = team_size(n)
+    team = team_size(n, d, dv)
     # pass 1's kv blocks and the lanes that share one (a power of two of at most a
     # warp, so that shuffles sum their blocks); the lanes left over sum k's rows
     blocks = -(-d // KV_BLOCK) * -(-dv // KV_BLOCK)

@@ -9,10 +9,11 @@ Counterpart of ``recnext_tpu/serve.py`` with the same HTTP surface
 
 Requests are queued, and one worker thread coalesces them into batches padded to
 ``max_batch``, so every forward has the same shape. The model is BN-fused, in
-bf16, of the M family (each RecConv2d mixer one launch of the RecConv2d kernel)
-or the A family (each RecAttn2d mixer one launch of the linear-attention
-kernel); the kernel library its family launches is built before the first
-request.
+bf16, of the M family (each RecConv2d mixer one launch of the RecConv2d kernel),
+the A family (each RecAttn2d mixer one launch of the linear-attention kernel) or
+the L family (each block's attention, a RecAttn2d or a variant-3 LinearAttention,
+one launch of the linear-attention kernel; its RepVGGDW one fused depthwise conv);
+the kernel library its family launches is built before the first request.
 
 CLI:
     python -m recnext_tpu_torch.serve --archive published/ --model recnext_m1 --port 8080
@@ -67,7 +68,7 @@ class ServingModel:
             # build the family's kernel now, not inside the first request
             if self.cfg.family == "m":
                 from recnext_tpu_torch.ops.cuda.recconv import load_library
-            else:
+            else:  # the A and the L family: both run their attention through K2
                 from recnext_tpu_torch.ops.cuda.linear_attention import load_library
             load_library()
         self._lock = threading.Lock()

@@ -1,10 +1,12 @@
 """Where kernel K2 (``csrc/linear_attention.cu``) spends its time, on one GPU.
 
-    python -m recnext_tpu_torch.tools.k2_phases
+    python -m recnext_tpu_torch.tools.k2_phases            # recnext_a1's shapes
+    python -m recnext_tpu_torch.tools.k2_phases --shapes l  # the L family's
 
-At recnext_a1's four attention shapes (batch 256, bf16, the model's NCHW entry),
-device times from a torch.profiler trace (ms per launch; CUDA events would also
-count the host's time between launches, which bounds the small shapes):
+At recnext_a1's four attention shapes, or at the L family's seven (one head per
+image; LA3's v a channel slice of the block's input), batch 256, bf16, the model's
+NCHW entry, device times from a torch.profiler trace (ms per launch; CUDA events
+would also count the host's time between launches, which bounds the small shapes):
 
 * ``phases``: the kernel as built, and builds of it with one part taken out each
   (the cp.async copies, pass 1's work, its shuffle sums, pass 2's work, its
@@ -13,7 +15,8 @@ count the host's time between launches, which bounds the small shapes):
 * ``teams``: the kernel as built with every team size that fits, in place of
   ``ops/cuda/linear_attention.py:team_size``'s choice;
 * ``block_share``: the kernel with a block's share of shared memory at a half and
-  at twice ``BLOCK_SMEM_BYTES`` (which sets the heads per block and the tiles).
+  at twice ``BLOCK_SMEM_BYTES`` (which sets the heads per block and the tiles);
+* ``plain``: the plain version's time (``linear_attention_nchw_plain``), beside.
 
 Prints the registers and spills of each build, one JSON line per shape and the
 card's name and power limit. Builds go to a temporary directory; nothing of the
@@ -22,6 +25,7 @@ package is changed.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -32,11 +36,17 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from recnext_tpu_torch.ops.attention import linear_attention_nchw
+from recnext_tpu_torch.ops.attention import linear_attention_nchw, linear_attention_nchw_plain
 from recnext_tpu_torch.ops.cuda import build
 from recnext_tpu_torch.ops.cuda import linear_attention as la
 
-A1 = {0: (2, 28), 1: (4, 14), 2: (8, 7), 3: (16, 4)}  # stage: (heads, side); D = DV = 24
+# (heads, side, D, DV, variant, channels whose first heads*DV are v; 0: v its own)
+A1 = {f"a1_stage{st}": (nh, side, 24, 24, 2 if st == 3 else 1, 0)
+      for st, (nh, side) in enumerate(((2, 28), (4, 14), (8, 7), (16, 4)))}
+L = {"l_n49_d32": (1, 7, 32, 32, 2, 0), "l_n16_d64": (1, 4, 64, 64, 2, 0),
+     "l_n16_d64_dv128_la3": (1, 4, 64, 128, 2, 512), "l_n196_d32": (1, 14, 32, 32, 1, 0),
+     "l_n49_d64": (1, 7, 64, 64, 2, 0), "l_n16_d96": (1, 4, 96, 96, 2, 0),
+     "l_n49_d32_dv64_la3": (1, 7, 32, 64, 2, 256)}
 # part: (text in csrc/linear_attention.cu, the text that takes it out)
 PARTS = {
     "copies": ("                                           int n0, int len, const Geometry& g, "
@@ -97,9 +107,27 @@ def _ms(fn, iters: int = 20, attempts: int = 3) -> float:
     raise RuntimeError(f"k2_phases: the profiler saw no time of the kernel in {attempts} traces")
 
 
-def main() -> int:
+def _device_ms(fn, iters: int = 10) -> float:
+    """Device ms per call of every kernel ``fn`` launches (the plain version's several)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3 / iters
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--shapes", choices=["a1", "l"], default="a1")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k2_phases: no CUDA device; this script runs on the GPU")
+    shapes = A1 if args.shapes == "a1" else L
     src = la.SOURCE.read_text()
     chosen, share = la.team_size, la.BLOCK_SMEM_BYTES
     with tempfile.TemporaryDirectory() as tmp:
@@ -108,12 +136,14 @@ def main() -> int:
               flush=True)
         gen = torch.Generator().manual_seed(0)
         try:
-            for stage, (nh, side) in A1.items():
-                qk = (torch.randn(256, 2 * nh * 24, side, side, generator=gen).abs()
+            for stage, (nh, side, d, dv, variant, vc) in shapes.items():
+                qk = (torch.randn(256, 2 * nh * d, side, side, generator=gen).abs()
                       + 0.1).to("cuda", torch.bfloat16)
-                v = torch.randn(256, nh * 24, side, side, generator=gen).to("cuda",
-                                                                            torch.bfloat16)
+                v = torch.randn(256, vc or nh * dv, side, side, generator=gen).to(
+                    "cuda", torch.bfloat16)[:, : nh * dv]
                 run = lambda: linear_attention_nchw(qk, v, nh)  # noqa: E731
+                plain = _device_ms(
+                    lambda: linear_attention_nchw_plain(qk, v, nh, variant=variant))
                 phases = {}
                 for name, (lib, _) in built.items():
                     la.LIBRARY._lib = lib
@@ -121,7 +151,7 @@ def main() -> int:
                 la.LIBRARY._lib = built["full"][0]
                 teams = {}
                 for team in la.TEAM_SIZES:
-                    la.team_size = lambda n, team=team: team
+                    la.team_size = lambda *shape, team=team: team
                     la.launch_config.cache_clear()
                     la._launch_args.cache_clear()
                     teams[team] = _ms(run)
@@ -131,17 +161,18 @@ def main() -> int:
                     la.BLOCK_SMEM_BYTES = int(share * scale)
                     la.launch_config.cache_clear()
                     la._launch_args.cache_clear()
-                    cfg = la.launch_config(side * side, 24, 24, 2, "n")
+                    cfg = la.launch_config(side * side, d, dv, 2, "n")
                     shares[scale] = {"ms": _ms(run), "heads_per_block": cfg.heads_per_block,
                                      "tiles": cfg.tiles}
                 la.BLOCK_SMEM_BYTES = share
                 la.launch_config.cache_clear()
                 la._launch_args.cache_clear()
-                cfg = la.launch_config(side * side, 24, 24, 2, "n")
-                print(json.dumps({"stage": stage, "shape": [256 * nh, side * side, 24, 24],
-                                  "team": cfg.team, "heads_per_block": cfg.heads_per_block,
+                cfg = la.launch_config(side * side, d, dv, 2, "n")
+                print(json.dumps({"shape_name": stage, "shape": [256 * nh, side * side, d, dv],
+                                  "v_channel_slice_of": vc, "team": cfg.team,
+                                  "heads_per_block": cfg.heads_per_block,
                                   "tiles": cfg.tiles, "phases_ms": phases, "teams_ms": teams,
-                                  "block_share": shares}), flush=True)
+                                  "block_share": shares, "plain_ms": plain}), flush=True)
         finally:
             la.team_size, la.BLOCK_SMEM_BYTES = chosen, share
             la.launch_config.cache_clear()

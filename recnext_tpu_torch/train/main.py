@@ -1,7 +1,7 @@
 """Training CLI: ``python -m recnext_tpu_torch.train.main``.
 
 Counterpart of ``recnext_tpu/train/main.py`` for the subset the port runs so far:
-one device (the GPU unless ``--device cpu``), the M and A families (on the GPU
+one device (the GPU unless ``--device cpu``), the M, A and L families (on the GPU
 through their kernels and the kernels' backward), every data set of the JAX CLI
 (``--data-set``, ``--data-path``; FAKE is synthetic) through the reference recipe's
 train transform (RandomResizedCrop, flip, RandAugment rand-m9-mstd0.5-inc1 or
@@ -65,6 +65,10 @@ teacher on the GPU:
   python -m recnext_tpu_torch.train.main --model recnext_a1 --distillation-type hard \
       --teacher-model regnety_160 --data-set FAKE --simple-aug --batch-size 64 \
       --epochs 2 --steps-per-epoch 3 --output-dir runs/a1_distill
+
+recnext_t (the L family, through K2 and K2') on FAKE data on the GPU:
+  python -m recnext_tpu_torch.train.main --model recnext_t --data-set FAKE --simple-aug \\
+      --batch-size 128 --epochs 2 --steps-per-epoch 3 --output-dir runs/t_fake
 """
 
 from __future__ import annotations

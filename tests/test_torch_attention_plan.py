@@ -50,7 +50,7 @@ def _geometry(n, d, dv, eb, layout):
 def test_launch_config_fits_a_block(n, d, dv, eb, layout):
     cfg, g = _geometry(n, d, dv, eb, layout)
     assert (g.n, g.d, g.dv, g.n_fastest) == (n, d, dv, int(layout == "n"))
-    assert cfg.team == g.team == la.team_size(n) and cfg.team in la.TEAM_SIZES
+    assert cfg.team == g.team == la.team_size(n, d, dv) and cfg.team in la.TEAM_SIZES
     # teams divide the block; a team larger than a warp is the whole block
     assert cfg.heads_per_block == g.heads_per_block >= 1
     assert cfg.team * cfg.heads_per_block <= 256
@@ -81,6 +81,24 @@ def test_launch_config_fits_a_block(n, d, dv, eb, layout):
 def test_launch_config_of_the_a1_shapes(n, team, heads, tiles):
     cfg = la.launch_config(n, 24, 24, 2, "n")
     assert (cfg.team, cfg.heads_per_block, cfg.tiles) == (team, heads, tiles)
+
+
+# the L family's shapes (N, D, DV): a team has a lane per 8x8 kv block (up to 128);
+# recnext_a1's D = DV = 24 (9 blocks) keep their teams by N
+L_SHAPES = [((49, 32, 32), 32), ((16, 64, 64), 64), ((16, 64, 128), 128),
+            ((196, 32, 32), 128), ((49, 64, 64), 64), ((16, 96, 96), 128),
+            ((49, 32, 64), 32)]
+
+
+@pytest.mark.parametrize("shape,team", L_SHAPES)
+def test_launch_config_of_the_l_shapes(shape, team):
+    n, d, dv = shape
+    for eb in (2, 4):
+        cfg, g = _geometry(n, d, dv, eb, "n")
+        assert cfg.team == team and (team <= 32 or cfg.heads_per_block == 1)
+        blocks = -(-d // 8) * -(-dv // 8)
+        assert g.splits * blocks <= g.team or blocks > 128  # one kv block a lane at most
+    assert [la.team_size(n, 24, 24) for n, _, _ in A1] == [128, 128, 32, 16]
 
 
 @pytest.mark.parametrize("n,d,dv,match", [(16, 129, 16, "D=129"), (16, 16, 129, "DV=129"),

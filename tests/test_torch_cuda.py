@@ -851,3 +851,114 @@ def test_pinned_batches_from_two_workers_train_two_m1_steps(cuda, tmp_path):
         torch.cuda.synchronize()
         assert (rec_conv2d_fused.launches - k1, rec_conv2d_backward.launches - bw) == (23, 23)
     assert len(losses) == 2 and all(np.isfinite(losses)) and state.step == 2
+
+
+# the L family's attention shapes at 224^2, one head per image: (side, D, DV, variant,
+# channels of the tensor whose first DV are v; 0: v is a tensor of its own)
+L_SHAPES = [(7, 32, 32, 2, 0), (4, 64, 64, 2, 0), (4, 64, 128, 2, 512), (14, 32, 32, 1, 0),
+            (7, 64, 64, 2, 0), (4, 96, 96, 2, 0), (7, 32, 64, 2, 256)]
+
+
+def _l_inputs(b, side, d, dv, vc, dtype, seed):
+    """qk (B, 2D, H, W) and v (B, DV, H, W), v a channel slice of a (B, vc, H, W)
+    tensor where vc (LA3), and g like v."""
+    g = torch.Generator().manual_seed(seed)
+    qk = _positive((b, 2 * d, side, side), g).to("cuda", dtype)
+    v = torch.randn(b, vc or dv, side, side, generator=g).to("cuda", dtype)[:, :dv]
+    go = torch.randn(b, dv, side, side, generator=g).to("cuda", dtype)
+    return qk, v, go
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side,d,dv,variant,vc", L_SHAPES)
+def test_attention_kernel_at_l_shapes(cuda, side, d, dv, variant, vc, dtype):
+    """K2 through the NCHW entry at each L shape, LA3's v a channel slice read in place
+    (batch stride vc*H*W): one launch, f32 within 1e-3 + 1e-3 |ref|, bf16 within 1e-2
+    max|ref| of the plain version in f32 on the same values."""
+    qk, v, _ = _l_inputs(16, side, d, dv, vc, dtype, side + d)
+    if vc:
+        assert v.stride(0) == vc * side * side and not v.is_contiguous()
+    want = linear_attention_nchw_plain(qk.float(), v.float(), 1, variant=variant)
+    before = linear_attention_fused.launches
+    got = linear_attention_nchw(qk, v, 1, variant=variant).float()
+    torch.cuda.synchronize()
+    assert linear_attention_fused.launches == before + 1
+    if dtype == torch.float32:
+        assert ((got - want).abs() <= 1e-3 + 1e-3 * want.abs()).all()
+    else:
+        assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side,d,dv,variant,vc", L_SHAPES)
+def test_attention_backward_at_l_shapes(cuda, side, d, dv, variant, vc, dtype):
+    """K2' through the NCHW entry at each L shape, v a channel slice where LA3's is:
+    one launch, each gradient at K2''s bounds, the same bits on a second run."""
+    qk, v, go = _l_inputs(16, side, d, dv, vc, dtype, side + dv)
+    rows = lambda t, r: t.reshape(16, r, side * side).transpose(1, 2)  # noqa: E731
+    want = linear_attention_backward_plain(
+        *(rows(t.float(), r) for t, r in ((qk[:, :d], d), (qk[:, d:], d), (v, dv), (go, dv))))
+    before = linear_attention_backward.launches
+    dqk, dv_ = linear_attention_nchw_backward(qk, v, go, 1)
+    again = linear_attention_nchw_backward(qk, v, go, 1)
+    torch.cuda.synchronize()
+    assert linear_attention_backward.launches == before + 2
+    assert torch.equal(dqk, again[0]) and torch.equal(dv_, again[1])
+    _check_attention_backward((rows(dqk[:, :d], d), rows(dqk[:, d:], d), rows(dv_, dv)),
+                              want, dtype)
+
+
+def test_la3_under_grad_reads_the_slice_and_launches_k2_and_k2_once(cuda):
+    """LinearAttention variant 3 on x[:, :split] (the L block's partial channels), under
+    grad: one K2 and one K2' launch, gradients against autograd over the plain path.
+    A conv bias before a train-mode BatchNorm has a gradient of 0 in exact arithmetic:
+    rounding noise on both paths, held under 1e-5."""
+    torch.manual_seed(0)
+    mixer = LinearAttention(128, 2, 3, bias=True).cuda().train()
+    x = torch.randn(4, 512, 4, 4, device="cuda", requires_grad=True)
+    g = torch.randn(4, 128, 4, 4, device="cuda")
+    k2, bw = linear_attention_fused.launches, linear_attention_backward.launches
+    got = torch.autograd.grad(mixer(x[:, :128]), (x, *mixer.parameters()), g)
+    torch.cuda.synchronize()
+    assert (linear_attention_fused.launches - k2, linear_attention_backward.launches - bw) == (1, 1)
+    want = torch.autograd.grad(mixer.forward_plain(x[:, :128]), (x, *mixer.parameters()), g)
+    for a, b in zip(got, want):
+        scale = b.abs().max().item()
+        if scale < 1e-6:
+            assert a.abs().max().item() < 1e-5
+        else:
+            assert (a - b).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("name,launches", [("recnext_t", 20), ("recnext_b", 30),
+                                           ("recnext_t_share_channel", 18)])
+def test_l_fused_model_launches_k2_once_an_attention(cuda, name, launches):
+    """The fused L model at full width on the card: one K2 launch per attention (20,
+    30, 18 a forward), no RecConv2d, logits equal to its plain path's. Its BatchNorms
+    take the statistics of a random batch before fusion (at init the L family's
+    residual branches grow the logits to ~1e14, past what kv-first sums hold in fp32)."""
+    from recnext_tpu_torch.fusion import fuse_params
+
+    gen = torch.Generator().manual_seed(0)
+    unfused = create_model(name, device="cuda", generator=gen)
+    for bn in unfused.modules():
+        if isinstance(bn, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+            bn.reset_running_stats()
+            bn.momentum = None  # cumulative: the statistics of the one batch
+    with torch.no_grad():
+        unfused.train()(torch.randn(16, 3, 224, 224, generator=gen).cuda())
+    model = create_model(name, fused=True, device="cuda")
+    model.load_state_dict(fuse_params(unfused.state_dict()), strict=True)
+    x = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(1)).cuda()
+    mixers = [m for m in model.modules() if hasattr(m, "forward_plain")]
+    with torch.inference_mode():
+        before, before_k1 = linear_attention_fused.launches, rec_conv2d_fused.launches
+        got = model(x)
+        torch.cuda.synchronize()
+        assert linear_attention_fused.launches - before == len(mixers) == launches
+        assert rec_conv2d_fused.launches == before_k1
+        for m in mixers:
+            m.forward = m.forward_plain
+        want = model(x)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())

@@ -133,9 +133,3 @@ def check_fused_model(jax_variables, name):
 
 def test_fused_model_matches_jax_fused_apply(jax_variables):
     check_fused_model(jax_variables, "recnext_m0")
-
-
-def test_l_family_is_not_ported_yet():
-    for name in ("recnext_t", "recnext_b_share_channel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            create_model(name, device="cpu")

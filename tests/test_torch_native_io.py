@@ -2,7 +2,9 @@
 loaders against the JAX package's on the CPU: bit for bit against the JAX binding
 and loaders, within ``tests/test_native_io.py``'s bounds against the PIL route; the
 fallback to PIL on files the decoder refuses, the tar and augmentation-split routes,
-worker processes, builds that race, and the errors a failed build raises.
+worker processes, builds that race, and the errors a failed build raises. The
+library links the libjpeg that Pillow bundles, not a system one, and decodes the
+same bits as the JAX package's build (``-ljpeg``, the system's libjpeg).
 
 The JAX binding is pointed at the port's build of the same source with the same
 flags: the JAX package builds into ``native/build/`` with no lock and no atomic
@@ -60,6 +62,78 @@ def test_the_library_is_built_into_the_port_s_build_directory():
     path = tnative.library_path()
     assert path.parent == REPO / "recnext_tpu_torch" / "_build" and path.exists()
     assert path.name.startswith("librecnext_io-") and tnative.load().rn_version() == 3
+
+
+def test_the_library_links_pillow_s_libjpeg():
+    """Pillow's libjpeg by its full path, found through the rpath; no system libjpeg."""
+    tnative.load()
+    path = tnative.library_path()
+    libjpeg = tnative.pillow_libjpeg()
+    assert libjpeg.parent.name == "pillow.libs" and ".so.62" in libjpeg.name
+    dynamic = subprocess.run(["readelf", "-d", str(path)], capture_output=True, text=True,
+                             check=True).stdout
+    needed = [line.split("[", 1)[1].rstrip("]") for line in dynamic.splitlines()
+              if "(NEEDED)" in line]
+    assert [n for n in needed if "jpeg" in n] == [libjpeg.name]
+    assert str(libjpeg.parent) in dynamic  # the RUNPATH
+    resolved = subprocess.run(["ldd", str(path)], capture_output=True, text=True,
+                              check=True).stdout
+    jpeg_lines = [line for line in resolved.splitlines() if "jpeg" in line]
+    assert len(jpeg_lines) == 1 and str(libjpeg) in jpeg_lines[0], resolved
+
+
+def test_without_pillow_s_libjpeg_the_build_raises(unbuilt, monkeypatch, tmp_path):
+    import PIL
+
+    monkeypatch.setattr(PIL, "__file__", str(tmp_path / "site" / "PIL" / "__init__.py"))
+    with pytest.raises(tnative.NativeBuildError, match="bundles no libjpeg"):
+        tnative.load()
+    assert not list(unbuilt.glob("*.so"))
+
+
+def test_pillow_libjpeg_build_decodes_the_system_build_s_bits(tmp_path):
+    """The source built as the JAX package builds it (``-ljpeg``: the system's libjpeg
+    and headers) decodes, crops and resizes the same bits as the port's build, on
+    JPEGs of quality 50-95, 4:4:4, 4:2:2 and 4:2:0 subsampling, 48x64 to 500x375; the
+    system build runs in a process of its own, so that the two libjpegs never share
+    one."""
+    system = tmp_path / "librecnext_io-system.so"
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", str(tnative.SOURCE), "-o",
+                    str(system), "-ljpeg", "-lpthread"], check=True, timeout=300)
+    cases = [(50, 0, 64, 48), (75, 1, 500, 375), (90, 2, 130, 97), (95, 2, 33, 200),
+             (85, 1, 48, 64), (60, 0, 321, 211)]
+    blobs = []
+    for i, (quality, subsampling, w, h) in enumerate(cases):
+        b = io.BytesIO()
+        Image.fromarray(_arr(i, w, h)).save(b, "JPEG", quality=quality,
+                                            subsampling=subsampling)
+        blobs.append(b.getvalue())
+    crops = np.array([[3.5, 2.25, 20.0, 17.5, 1], [0, 0, 0, 0, 0]] * 3, np.float32)
+    np.savez(tmp_path / "in.npz", *[np.frombuffer(b, np.uint8) for b in blobs])
+    code = textwrap.dedent(f"""
+        import ctypes
+        import numpy as np
+        from recnext_tpu_torch.data import native
+        lib = ctypes.CDLL({str(system)!r})
+        native._declare(lib)
+        native._lib = lib
+        blobs = [a.tobytes() for a in np.load({str(tmp_path / "in.npz")!r}).values()]
+        crops = np.array({crops.tolist()!r}, np.float32)
+        out = {{f"decode{{i}}": native.decode_jpeg(b) for i, b in enumerate(blobs)}}
+        out["crop"] = native.batch_decode_crop(blobs, crops, 40)
+        out["crop_u8"] = native.batch_decode_crop_u8(blobs, crops, 40)
+        np.savez({str(tmp_path / "out.npz")!r}, **out)
+    """)
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
+    want = np.load(tmp_path / "out.npz")
+    for i, b in enumerate(blobs):
+        got = tnative.decode_jpeg(b)
+        assert got.shape == (cases[i][3], cases[i][2], 3)
+        np.testing.assert_array_equal(got, want[f"decode{i}"])
+        np.testing.assert_array_equal(got, np.asarray(Image.open(io.BytesIO(b)).convert("RGB")))
+    np.testing.assert_array_equal(tnative.batch_decode_crop(blobs, crops, 40), want["crop"])
+    np.testing.assert_array_equal(tnative.batch_decode_crop_u8(blobs, crops, 40),
+                                  want["crop_u8"])
 
 
 def test_decode_matches_jax_and_pil():

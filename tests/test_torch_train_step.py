@@ -1,10 +1,11 @@
 """One train step of the port against the JAX package's ``make_train_step``, from
 the same weights (a JAX init carried across with jax_to_torch) and the same batch,
 in f32 with mixup off and drop-path 0: the loss, every gradient, the BN running
-statistics, the updated parameters and the EMA; for a small M model, and for a
-small A model plain and with hard and soft distillation from a tiny RegNetY teacher
-on both sides (its JAX weights carried across with jax_regnet_to_torch). Then the
-eval metrics, the unfused eval step and the fused eval step against JAX's."""
+statistics, the updated parameters and the EMA; for a small M model, for a small A
+model plain and with hard and soft distillation from a tiny RegNetY teacher on both
+sides (its JAX weights carried across with jax_regnet_to_torch), and for a small L
+model plain and hard-distilled. Then the eval metrics, the unfused eval step and the
+fused eval step against JAX's (M and L), and the L model's weight-decay labels."""
 
 import copy
 import functools
@@ -152,14 +153,23 @@ def run():
 # two stages attend over 1x1 maps, where the gradients of q and k are 0 in exact
 # arithmetic and a train-mode BatchNorm normalises 4 values
 A0 = "recnext_a0"
+# a small L model (recnext_t's family at the small widths and depths: LA1 at stage 0,
+# LA2 at stages 1-2, LA3 at stage 3, every ConvNorm with a conv bias), at 128^2: the L
+# stem's stride is 8, so that stage 3 attends over 2x2 maps
+L = "recnext_t"
 OTHER_STEPS = {"a0": (A0, "none", 1.0, 64), "hard": (A0, "hard", 1.0, 64),
-               "soft": (A0, "soft", 2.0, 64)}
+               "soft": (A0, "soft", 2.0, 64), "l": (L, "none", 1.0, 128),
+               "l_hard": (L, "hard", 1.0, 128)}
+
+
+# each step runs once, however many fixtures ask for it
+_cached_step = functools.lru_cache(maxsize=None)(_run_step)
 
 
 @pytest.fixture(scope="module", params=sorted(OTHER_STEPS))
 def other_run(request):
     name, distillation, tau, side = OTHER_STEPS[request.param]
-    return _run_step(name, distillation, tau=tau, side=side)
+    return _cached_step(name, distillation, tau=tau, side=side)
 
 
 def _ref(run, params, stats):
@@ -189,14 +199,28 @@ def test_other_steps_every_gradient_matches_jax(other_run):
     _check_every_gradient(other_run)
 
 
+def _bias_before_bn(name, keys):
+    """Whether ``name`` is the conv bias of a ConvNorm (the L family's): a shift that
+    the train-mode BatchNorm right after it removes, so its exact gradient is 0 and
+    each side's is fp32 rounding noise, whose sign and size nothing pins."""
+    return name.endswith(".conv.bias") and name[: -len("conv.bias")] + "norm.weight" in keys
+
+
 def _check_every_gradient(run):
     ref = _ref(run, run["jax_grads"], run["variables"]["batch_stats"])
     assert set(run["grads"]) <= set(ref)
-    zero = 0
+    zero = biases = 0
     for name, g in run["grads"].items():
         want = ref[name].numpy()
         scale = np.abs(want).max()
         err = np.abs(g.numpy() - want).max()
+        if _bias_before_bn(name, ref):
+            # noise of ~1e-6 on both sides (the sums of a 128^2 batch's terms): held
+            # under 1e-5, chip_smoke.py's bound for a gradient that is 0 in exact
+            # arithmetic
+            assert max(np.abs(g.numpy()).max(), scale) < 1e-5, name
+            biases += 1
+            continue
         if scale < 1e-6:
             # a shift that a train-mode BatchNorm follows (a block's BN bias before the
             # MLP's first ConvNorm, a conv bias before BN): the exact gradient is 0 and
@@ -205,7 +229,7 @@ def _check_every_gradient(run):
             zero += 1
             continue
         assert err <= 1e-4 * scale, (name, err, scale)
-    assert zero < len(run["grads"]) // 4
+    assert zero < (len(run["grads"]) - biases) // 4
 
 
 def test_bn_statistics_params_and_ema_match_jax(run):
@@ -222,6 +246,7 @@ def _check_bn_statistics_params_and_ema(run):
     # the gradient Adam sees: the reference's, after AGC
     grads = _ref(run, run["jax_clipped"], run["variables"]["batch_stats"])
     raw = _ref(run, run["jax_grads"], run["variables"]["batch_stats"])
+    family = run["jax_model"].cfg.family
     sd = run["model"].state_dict()
     stats = [k for k in sd if k.endswith(("running_mean", "running_var"))]
     assert stats
@@ -238,16 +263,32 @@ def _check_bn_statistics_params_and_ema(run):
         # 1e-6. Two cases reach that regime: AGC scales a unit whose parameters are
         # near 0 (a BN bias at init) to a norm of 0.02 * 1e-3, and an element whose
         # raw gradient is within the gradient check's own tolerance of 0 (1e-4 of its
-        # tensor's max) has no pinned sign either.
+        # tensor's max) has no pinned sign either. The L model adds a third case:
+        # where the clipped gradient c is a few times eps in a tensor whose max is far
+        # larger (the RepVGGDW 1x1 weights, whose scale the BatchNorm after them all
+        # but removes), the step's slope eps / (c + eps)^2 lets that same tolerance d
+        # move it by more than 1e-6, by lr * (s(c) - s(c - d)) at most, s(v) =
+        # v / (|v| + eps): there it is held to that move. Without it the hard-distilled
+        # L step fails by one element (1.13e-6 at c = 1.7e-7, max 3.9e-4); the M and A
+        # steps pass the first two and keep them alone.
         g = raw[name].numpy()
-        tiny = np.abs(grads[name].numpy()) < 1e-7
+        c = np.abs(grads[name].numpy())
+        tiny = c < 1e-7
         unpinned = (np.abs(g) < 1e-4 * np.abs(g).max()) & ~tiny
         tol = np.where(tiny | unpinned, 2 * LR, 1e-6)
+        if family == "l":
+            s = lambda v: v / (np.abs(v) + 1e-8)  # noqa: E731
+            moved = LR * (s(c) - s(c - 1e-4 * c.max()))
+            unpinned |= (moved > 1e-6) & ~tiny
+            tol = np.maximum(tol, moved)
+        if _bias_before_bn(name, after):  # a gradient of noise on both sides: see above
+            tol = np.full(g.shape, 2 * LR)
         tols[name] = tol
         err = np.abs(p.detach().numpy() - want)
         assert (err <= tol).all(), (name, err.max())
-        total += g.size
-        n_unpinned += int(unpinned.sum())
+        if not _bias_before_bn(name, after):
+            total += g.size
+            n_unpinned += int(unpinned.sum())
     assert n_unpinned < 0.01 * total  # the second case is rare
     ema = _ref(run, new.ema_params, new.ema_batch_stats)
     for name, e in run["state"].ema.items():
@@ -274,11 +315,38 @@ def test_eval_metrics_match_jax():
     assert float(got["loss_sum"]) == pytest.approx(float(want["loss_sum"]), rel=1e-6)
 
 
+@pytest.fixture(scope="module")
+def l_run():
+    return _cached_step(*OTHER_STEPS["l"][:2], tau=OTHER_STEPS["l"][2], side=128)
+
+
 @pytest.mark.parametrize("ema", [False, True])
 def test_eval_steps_match_jax(run, ema):
+    _check_eval_steps(run, NAME, ema)
+
+
+@pytest.mark.parametrize("ema", [False, True])
+def test_l_eval_steps_match_jax(l_run, ema):
+    _check_eval_steps(l_run, L, ema)
+
+
+def test_l_conv_biases_take_no_decay_as_in_jax(l_run):
+    """Every 1-D parameter (the L family's many conv biases among them) in no_decay,
+    every kernel in decay: the JAX package's labels, carried across by name."""
+    labels = topt.param_labels(l_run["model"].named_parameters())
+    params = l_run["jax_state"].params
+    decay = jax.tree.map(lambda p, lab: np.full(p.shape, lab == "decay", np.float32),
+                         params, jopt.param_labels(params))
+    ref = _ref(l_run, decay, l_run["variables"]["batch_stats"])
+    assert labels == {n: "decay" if ref[n].flatten()[0] == 1 else "no_decay" for n in labels}
+    biases = [n for n in labels if n.endswith(".conv.bias")]
+    assert biases and all(labels[n] == "no_decay" for n in biases)
+
+
+def _check_eval_steps(run, name, ema):
     """On the same weights: the JAX state after its step, carried across."""
     new = run["jax_state"]
-    model = create_model(NAME, device="cpu", **OVR)
+    model = create_model(name, device="cpu", **OVR)
     model.load_state_dict(_ref(run, new.params, new.batch_stats), strict=True)
     state = TrainState.create(model, topt.make_optimizer(model.named_parameters(),
                                                          _sched(topt)))
@@ -286,11 +354,11 @@ def test_eval_steps_match_jax(run, ema):
                       if k in state.ema})
     want = jstep.make_eval_step(run["jax_model"], ema=ema)(new, run["jax_batch"])
     got = tstep.make_eval_step(model, ema=ema, dtype=torch.float32)(state, run["batch"])
-    cfg = jax_get_config(NAME, **OVR)
-    fused_jax = jax_create_model(NAME, fused=True, **OVR)
+    cfg = jax_get_config(name, **OVR)
+    fused_jax = jax_create_model(name, fused=True, **OVR)
     want_fused = jstep.make_fused_eval_step(cfg, ema=ema, fused_model=fused_jax, packed=False,
                                             dtype=jnp.float32)(new, run["jax_batch"])
-    got_fused = tstep.make_fused_eval_step(get_config(NAME, **OVR), ema=ema,
+    got_fused = tstep.make_fused_eval_step(get_config(name, **OVR), ema=ema,
                                            dtype=torch.float32)(state, run["batch"])
     for w, g in ((want, got), (want_fused, got_fused)):
         for k in ("correct1", "correct5", "count"):
