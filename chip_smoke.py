@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
-source, started together), then drives seven paths, each with every kernel launch
+source, started together), then drives eight paths, each with every kernel launch
 count set to 0 just before its main phase (serving; for training, the trainer)
 and read just after:
 
@@ -165,7 +165,33 @@ and read just after:
               launches and 23 K1' calls a train step, its img/s beside phase 14's
               step alone and the idle share from that phase's busy time a step;
               validate.py --fused --ema on the val split, PIL and native.
-Then each phase's seconds, and the L path's launch counts and K2 / K2' totals.
+   the MLLA graft family (mlla_mini at 256^2; K1 and K1′ in nearest mode in
+   mlla_mini_recconv, K2 and K2′ in mlla_mini_recattn_simple, mlla_mini_recattn's RoPE
+   attention plain PyTorch), run last, in a process of their own:
+23. mlla_kernels  K1 and K1′ at mlla_mini_recconv's four shapes (MLLA_K1: 64^2x60 L4 up
+              to 8^2x480 L1) and K2 and K2′ at mlla_mini_recattn_simple's seven
+              (MLLA_K2: N 1024 D 24 down to N 16, D 24 and 48), each against its plain
+              version at phases 2, 7, 11 and 15's bounds on the inputs it is then timed
+              on (forward batch 256, f32 and bf16, and batch 8; backward batch 128; K2′
+              the same bits on three runs), each shape's launch configuration (K2′'s
+              route and cluster), device times beside bound and plain version (each
+              kernel must beat its plain version), and the sums over a forward / step;
+24. mlla_model  the three mini variants at full width, batch 8, eval mode, unfused:
+              logits through the kernels against the plain path (f32 and bf16) with 21
+              K1 / 21 K2 / 0 launches a forward; in train mode (f32), every gradient
+              through K1 and K1′ or K2 and K2′ against the plain path, 21 calls of
+              each a step;
+25. mlla_throughput  mlla_mini_recconv and _recattn_simple, bf16, batch 256 and 1: ms
+              and img/s, the device's busy time and idle share, the kernel's and the
+              layout copies' time, the top kernels;
+26. mlla_train  bench.train_throughput at batch 128 with the MLLA recipe (norm clip
+              5.0, MESA 1.0) for both, with a trace (42 forward-kernel launches and 21
+              backward calls a step); then the trainer from --config
+              configs/mlla_mini_300e.yaml on mlla_mini_recconv (FAKE, batch 64, PyYAML
+              unimportable), 2 epochs of 3 steps and a resume: 21 K1′ calls a step, 21
+              K1 launches per train, MESA and eval forward.
+Then each phase's seconds, the L path's launch counts and K2 / K2' totals, and the
+MLLA path's (the mlla_path line).
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
 In the kernel record, "launches" counts the launches of the kernel's serving
@@ -183,7 +209,8 @@ rec_conv2d_up_adjoint) run only where a plane's backward is too large for K1': t
 launches are those of phase 20's kernel path (m1 at 512^2, batch 2), and their times
 the sums over that step's launches (3 peeled mixers, each 2 input-gradient, 2
 weight-gradient and 1 adjoint launches at 128^2, batch 2, C 48). The L path's K2 and
-K2' numbers are on the l_path line, not in the kernel record. The last lines are
+K2' numbers are on the l_path line, the MLLA path's on the mlla_path line, not in
+the kernel record. The last lines are
 the kernel record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -191,6 +218,7 @@ the kernel record, the card's name and power limit, and
 from __future__ import annotations
 
 import json
+import multiprocessing
 import shutil
 import statistics
 import subprocess
@@ -211,6 +239,7 @@ from recnext_tpu_torch import bench
 from recnext_tpu_torch import validate as validate_main
 from recnext_tpu_torch.export import publish_fused
 from recnext_tpu_torch.fusion import fuse_params
+from recnext_tpu_torch.models.mlla import create_mlla
 from recnext_tpu_torch.models.registry import create_model
 from recnext_tpu_torch.ops.attention import (
     _nchw_views,
@@ -320,6 +349,29 @@ FINETUNE_ARGS = ["--model", "recnext_m1", "--data-set", "FAKE", "--simple-aug",
                  "--epochs", "1", "--steps-per-epoch", "4", "--log-every", "1",
                  "--grad-accum", "2", "--remat", "--mesa", "1.0", "--mesa-start-ratio", "0"]
 FINETUNE_STEPS, FINETUNE_EVALS = 4, 2 * 4
+# the MLLA graft family's main path: mlla_mini (embed 48, depths 2/4/8/4) at 256^2.
+# K1 (nearest) in mlla_mini_recconv: level -> (channels, plane side, launches a forward)
+MLLA_K1 = {4: (60, 64, 2), 3: (120, 32, 5), 2: (240, 16, 9), 1: (480, 8, 5)}
+# K2 in mlla_mini_recattn_simple: (heads, side of the attention map, D = DV) -> launches
+MLLA_K2 = {(2, 32, 24): 2, (2, 16, 48): 1, (4, 16, 24): 4, (4, 8, 48): 1, (8, 8, 24): 8,
+           (8, 4, 48): 1, (16, 4, 24): 4}
+MLLA_SIDE, MLLA_BATCH, MLLA_TRAIN_BATCH = 256, 256, 128
+# each variant's kernels (forward, backward): 21 launches of each a forward / step;
+# recattn's RoPE attention is plain PyTorch (no kernel)
+MLLA_KERNELS = {"recconv": ("rec_conv2d", "rec_conv2d_backward"),
+                "recattn_simple": ("linear_attention", "linear_attention_backward"),
+                "recattn": ()}
+MLLA_MIXERS = 21
+MLLA_TRACE = {"recconv": ("recconv_kernel", "recconv_bwd_kernel", "recconv_bwd_sum_kernel"),
+              "recattn_simple": ("linear_attention_kernel", "linear_attention_bwd_")}
+# the trainer with the MLLA recipe's preset (no PyYAML on its path): FAKE, 256^2, the
+# preset's augmentation, batch 64, 2 epochs of 3 steps, then a resume to 3. MESA starts
+# at int(0.25 * epochs * 3): steps 1-5 of the first run and all 3 of the resume take
+# the EMA model's forward too; each epoch's eval scores 3 batches with model and EMA
+MLLA_TRAIN_ARGS = ["--config", "configs/mlla_mini_300e.yaml", "--model", "mlla_mini_recconv",
+                   "--data-set", "FAKE", "--batch-size", "64", "--steps-per-epoch", "3",
+                   "--log-every", "1"]
+MLLA_MESA_FORWARDS = {2: 5, 3: 3}
 
 
 def emit(obj) -> None:
@@ -1396,7 +1448,7 @@ TRACE_KERNELS = {  # CUDA function names of each training path's kernels: (forwa
     "recnext_t": ("linear_attention_kernel", "linear_attention_bwd_")}
 
 
-def phase_train_throughput(name="recnext_m1", teacher=None, timed_s=6.0):
+def phase_train_throughput(name="recnext_m1", teacher=None, timed_s=3.0):
     """bench.train_throughput(name, 128) with 3 repeats of ``timed_s`` seconds
     (distilled from a seeded ``teacher`` where given), then a profiler trace of 3
     steps of the same step: the top kernels, the backward kernel's share and the
@@ -1867,6 +1919,389 @@ def phase_input_pipeline(work_dir: Path, step_ips: float, step_busy_ms: float):
     emit(rec)
 
 
+def _mlla_expected(variant, per_forward=1, per_step=0):
+    """Every count 0 but ``variant``'s kernels: its forward kernel ``per_forward`` x 21
+    launches, its backward ``per_step`` x 21 calls."""
+    out = dict.fromkeys(COUNTERS, 0)
+    if MLLA_KERNELS[variant]:
+        fwd, bwd = MLLA_KERNELS[variant]
+        out[fwd], out[bwd] = MLLA_MIXERS * per_forward, MLLA_MIXERS * per_step
+    return out
+
+
+def _heads_rows(t, heads):
+    """(B, nh*R, H, W) -> (B*nh, N, R), contiguous."""
+    b, c, h, w = t.shape
+    return t.reshape(b * heads, c // heads, h * w).transpose(1, 2).contiguous()
+
+
+def phase_mlla_kernels():
+    """K1 and K1′ (nearest) at mlla_mini_recconv's four shapes and K2 and K2′ at
+    mlla_mini_recattn_simple's seven, each against its plain version on the inputs it
+    is timed on (forward: batch 256, f32 and bf16; backward: batch 128), at phase 2's,
+    7's, 11's and 15's bounds (K1 and K2 also at batch 8); each shape's launch
+    configuration; device times (CUDA events around calls queued behind other work:
+    the profiler has seen no device time in a long process) beside the bound and the
+    plain version, and their sums over a forward (K1, K2) or a train step (K1′, K2′).
+    Every kernel must beat its plain version."""
+    gen = torch.Generator().manual_seed(21)
+    totals = {k: [] for k in ("rec_conv2d", "rec_conv2d_backward", "linear_attention",
+                              "linear_attention_backward")}
+    errs = dict.fromkeys(totals, 0.0)
+
+    def add(kernel, uses, times, nbytes, flops):
+        totals[kernel].append((uses, times, nbytes, flops))
+        if not times["kernel_ms"] <= times["plain_ms"]:
+            raise AssertionError(f"mlla_kernels: {kernel} slower than its plain version: {times}")
+
+    for level, (c, side, uses) in MLLA_K1.items():
+        cfg = recconv_cuda.launch_config(side, side, level, 5, 2)
+        bcfg = recconv_bwd_cuda.launch_config(side, side, level, 5)._asdict()
+        del bcfg["geometry"]
+        rec = {"phase": "mlla_kernels", "kernel": "rec_conv2d", "mode": "nearest",
+               "channels": c, "side": side, "level": level, "launches_per_forward": uses,
+               "launch": {"team": cfg.team, "planes_per_block": cfg.planes_per_block,
+                          "shared_bytes": cfg.smem_bytes},
+               "backward_launch": dict(bcfg, resident_blocks_per_sm=(
+                   recconv_bwd_cuda.resident_blocks(side, side, level, 5, torch.bfloat16)))}
+        x, ws = _recconv_inputs(gen, 8, c, side, side, level, torch.float32)
+        rec["batch_8"] = _check_recconv(x, ws, level, "nearest")
+        x, ws = _recconv_inputs(gen, MLLA_BATCH, c, side, side, level, torch.float32)
+        rec["batch_256"] = _check_recconv(x, ws, level, "nearest")  # then timed in bf16
+        errs["rec_conv2d"] = max(errs["rec_conv2d"], rec["batch_256"]["bf16_max_abs_err"])
+        xt, wst = x.bfloat16(), [t.bfloat16() for t in ws]
+        times = {"kernel_ms": queued_ms(lambda: rec_conv2d_fused(
+                     xt, wst[0], wst[1:], level=level, mode="nearest")),
+                 "plain_ms": queued_ms(lambda: rec_conv2d(
+                     xt, wst[0], wst[1:], level=level, mode="nearest"), iters=5)}
+        nbytes, flops = recconv_work(MLLA_BATCH, c, side, side, level, 5, 2)
+        add("rec_conv2d", uses, times, nbytes, flops)
+        rec["batch_256_bf16"] = dict(times, bound_ms=bound(nbytes, flops)[0],
+                                     bound_by=bound(nbytes, flops)[1], library_ms=None)
+        # K1′ at the train step's batch, f32 and bf16, timed in bf16
+        xb = torch.randn(MLLA_TRAIN_BATCH, c, side, side, generator=gen)
+        gb = torch.randn(MLLA_TRAIN_BATCH, c, side, side, generator=gen)
+        wb = [torch.randn(c, 1, 5, 5, generator=gen) / 5 for _ in range(level + 2)]
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, gd = xb.to("cuda", dtype), gb.to("cuda", dtype)
+            wd = [t.to("cuda", dtype) for t in wb]
+            errs_b, worst = _check_backward(xd, wd, gd, level, "nearest")
+            rec[f"backward_{str(dtype)[6:]}_err_over_max_ref"] = errs_b
+            if dtype == torch.bfloat16:
+                errs["rec_conv2d_backward"] = max(errs["rec_conv2d_backward"], worst)
+        bt = {"kernel_ms": queued_ms(lambda: rec_conv2d_backward(
+                  xd, wd[0], wd[1:], gd, level=level, mode="nearest"), iters=10),
+              "plain_ms": queued_ms(lambda: rec_conv2d_backward_plain(
+                  xd, wd[0], wd[1:], gd, level=level, mode="nearest"), iters=3)}
+        nbytes, flops = recconv_bwd_work(MLLA_TRAIN_BATCH, c, side, side, level, 5, 2)
+        add("rec_conv2d_backward", uses, bt, nbytes, flops)
+        rec["backward_batch_128_bf16"] = dict(bt, bound_ms=bound(nbytes, flops)[0],
+                                              bound_by=bound(nbytes, flops)[1], library_ms=None)
+        emit(rec)
+
+    for (heads, side, d), uses in MLLA_K2.items():
+        n = side * side
+        lcfg = {k: v for k, v in attention_cuda.launch_config(n, d, d, 2, "n")._asdict().items()
+                if k != "geometry"}
+        bcfg = attention_bwd_cuda.launch_config(n, d, d, 2, "n")
+        rec = {"phase": "mlla_kernels", "kernel": "linear_attention", "heads": heads, "n": n,
+               "d": d, "dv": d, "launches_per_forward": uses, "launch": lcfg,
+               "backward_launch": {
+                   **{k: v for k, v in bcfg._asdict().items() if k != "geometry"},
+                   **attention_bwd_cuda.kernel_attributes(torch.bfloat16, bcfg.route),
+                   "resident_blocks": attention_bwd_cuda.resident_blocks(bcfg, torch.bfloat16)}}
+
+        def inputs(b):  # elu(x)+1-like q and k in one tensor, v
+            qk = torch.randn(b, 2 * heads * d, side, side, generator=gen).abs() + 0.1
+            return qk.cuda(), torch.randn(b, heads * d, side, side, generator=gen).cuda()
+
+        for b in (8, MLLA_BATCH):
+            qk, v = inputs(b)
+            for dtype in (torch.float32, torch.bfloat16):
+                qkx, vx = qk.to(dtype), v.to(dtype)
+                want = linear_attention_nchw_plain(qkx.float(), vx.float(), heads)
+                got = linear_attention_nchw(qkx, vx, heads).float()
+                torch.cuda.synchronize()
+                err, scale = (got - want).abs().max().item(), want.abs().max().item()
+                ok = (bool(((got - want).abs() <= 1e-3 + 1e-3 * want.abs()).all())
+                      if dtype == torch.float32 else err <= 1e-2 * scale)
+                rec[f"batch_{b}_{str(dtype)[6:]}_max_abs_err"] = err
+                rec[f"batch_{b}_{str(dtype)[6:]}_max_abs_ref"] = scale
+                if not ok:
+                    raise AssertionError(f"mlla_kernels: K2 {dtype} mismatch at {(heads, side, d)} "
+                                         f"batch {b}: {err} (max|ref| {scale})")
+        errs["linear_attention"] = max(errs["linear_attention"],
+                                       rec[f"batch_{MLLA_BATCH}_bfloat16_max_abs_err"])
+        qkt, vt = qk.bfloat16(), v.bfloat16()  # the batch-256 inputs just checked
+        kernel = lambda: linear_attention_nchw(qkt, vt, heads)  # noqa: E731
+        plain = lambda: linear_attention_nchw_plain(qkt, vt, heads)  # noqa: E731
+        times = {"kernel_ms": queued_ms(kernel), "plain_ms": queued_ms(plain, iters=10)}
+        nbytes, flops = attention_work(MLLA_BATCH, heads, n, d, d, 2)
+        add("linear_attention", uses, times, nbytes, flops)
+        rec["batch_256_bf16"] = dict(times, bound_ms=bound(nbytes, flops)[0],
+                                     bound_by=bound(nbytes, flops)[1], library_ms=None)
+        # K2′ at the train step's batch, f32 and bf16 (the same bits on three runs)
+        qk, v = inputs(MLLA_TRAIN_BATCH)
+        g = torch.randn(v.shape, generator=gen).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            qkx, vx, gx = qk.to(dtype), v.to(dtype), g.to(dtype)
+            want = linear_attention_backward_plain(*(_heads_rows(t.float(), heads) for t in (
+                qkx[:, : heads * d], qkx[:, heads * d:], vx, gx)))
+            runs = [linear_attention_nchw_backward(qkx, vx, gx, heads) for _ in range(3)]
+            torch.cuda.synchronize()
+            dqk, dv = runs[0]
+            got = tuple(_heads_rows(t, heads)
+                        for t in (dqk[:, : heads * d], dqk[:, heads * d:], dv))
+            e, r = _check_attention_grads(got, want, dtype, ((heads, side, d), str(dtype)))
+            if not all(torch.equal(a, b) for run in runs[1:] for a, b in zip(run, runs[0])):
+                raise AssertionError(f"mlla_kernels: K2′ not the same bits on 3 runs at "
+                                     f"{(heads, side, d)} {dtype}")
+            rec[f"backward_{str(dtype)[6:]}_max_abs_err"] = e
+            rec[f"backward_{str(dtype)[6:]}_err_over_max_ref"] = r
+        errs["linear_attention_backward"] = max(errs["linear_attention_backward"],
+                                                *rec["backward_bfloat16_max_abs_err"].values())
+        rows = [_heads_rows(t, heads) for t in (qkx[:, : heads * d], qkx[:, heads * d:], vx, gx)]
+        bt = {"kernel_ms": queued_ms(lambda: linear_attention_nchw_backward(qkx, vx, gx, heads)),
+              "plain_ms": queued_ms(lambda: linear_attention_backward_plain(*rows), iters=5)}
+        nbytes, flops = attention_bwd_work(MLLA_TRAIN_BATCH, heads, n, d, d, 2)
+        add("linear_attention_backward", uses, bt, nbytes, flops)
+        rec["backward_batch_128_bf16"] = dict(bt, bound_ms=bound(nbytes, flops)[0],
+                                              bound_by=bound(nbytes, flops)[1], library_ms=None)
+        emit(rec)
+
+    out = {}
+    for kernel, rows in totals.items():
+        t = {key: sum(u * times[key] for u, times, _, _ in rows)
+             for key in ("kernel_ms", "plain_ms")}
+        t["bytes"] = sum(u * nb for u, _, nb, _ in rows)
+        t["flops"] = sum(u * fl for u, _, _, fl in rows)
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"])
+        t["library_ms"] = None
+        out[kernel] = t
+        emit({"phase": "mlla_kernels_total", "kernel": kernel, "launches": MLLA_MIXERS,
+              "per": "forward, batch 256" if "backward" not in kernel else "train step, batch 128",
+              **t})
+    return out, errs
+
+
+def phase_mlla_model(variant, batch=8):
+    """mlla_mini_<variant> at full width and depth, 256^2, batch ``batch``, seeded
+    weights: the eval-mode (unfused) logits through the kernels against the plain path
+    in f32 (1e-4 max|ref|) and bf16 (1e-1 max|ref| of the f32 plain path's, and of the
+    bf16 plain path's), with 21 launches of the variant's kernel a forward (none for
+    recattn); then, in train mode, f32, every parameter's gradient through the
+    kernels (the forward kernel and its backward) against the plain path at 1e-3
+    max|ref|, the same drop-path masks on both paths. Counts are set to 0 just before
+    each kernel path and read just after."""
+    import copy
+
+    name = f"mlla_mini_{variant}"
+    gen = torch.Generator().manual_seed(22)
+    model = create_mlla(name, device="cuda", generator=gen)
+    x = torch.randn(batch, 3, MLLA_SIDE, MLLA_SIDE, generator=gen).cuda()
+    out = {"phase": "mlla_model", "model": name, "input": [batch, 3, MLLA_SIDE, MLLA_SIDE]}
+    want = _mlla_expected(variant)
+    with torch.inference_mode():
+        restore = plain_path(model)
+        ref = model(x).float()
+        restore()
+        for label, dtype, tol in (("f32", torch.float32, 1e-4), ("bf16", torch.bfloat16, 1e-1)):
+            m = copy.deepcopy(model).to(dtype)
+            xin = x.to(dtype)
+            for fn in COUNTERS.values():  # the path starts here
+                fn.launches = 0
+            got = m(xin).float()
+            torch.cuda.synchronize()
+            launches = counts()  # ... and ends here
+            if launches != want:
+                raise AssertionError(f"{name} {label}: launches {launches}, expected {want}")
+            restore = plain_path(m)
+            plain = m(xin).float()
+            restore()
+            if got.shape != (batch, 1000) or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {label}: bad logits {tuple(got.shape)}")
+            scale = ref.abs().max().item()
+            e_ref, e_plain = (got - ref).abs().max().item(), (got - plain).abs().max().item()
+            out[label] = {"launches_per_forward": launches, "max_abs_err_vs_f32_plain": e_ref,
+                          "max_abs_err_vs_plain_path": e_plain, "max_abs_logit": scale,
+                          "top1_agree_vs_f32_plain":
+                              (got.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+                          "tol": tol * scale}
+            if not (e_ref <= tol * scale and e_plain <= tol * scale):
+                raise AssertionError(f"{name} {label} logits disagree: {out[label]}")
+    y = torch.randint(0, 1000, (batch,), generator=gen).cuda()
+    model.train()
+    grads = {}
+    for path in ("kernel_path", "plain_path"):
+        m = copy.deepcopy(model)
+        restore = plain_path(m) if path == "plain_path" else None
+        torch.manual_seed(5)  # the same drop-path masks on both paths
+        for fn in COUNTERS.values():  # the path starts here
+            fn.launches = 0
+        loss = train_loss(m, x, y, dtype=torch.float32)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = counts()  # ... and ends here
+        if restore:
+            restore()
+        expect = (_mlla_expected(variant, 1, 1) if path == "kernel_path"
+                  else dict.fromkeys(COUNTERS, 0))
+        if launches != expect:
+            raise AssertionError(f"{name} {path}: launches {launches}, expected {expect}")
+        grads[path] = {n: p.grad for n, p in m.named_parameters()}
+        out[f"train_{path}"] = {"loss": loss.item(), "launches": launches}
+    worst, zero = (0.0, ""), 0
+    for pname, ref_g in grads["plain_path"].items():
+        got_g, scale = grads["kernel_path"][pname], ref_g.abs().max().item()
+        if scale < 1e-6:
+            zero += 1
+            if not got_g.abs().max().item() < 1e-5:
+                raise AssertionError(f"{name} {pname}: gradient where the plain path's is 0")
+            continue
+        ratio = (got_g - ref_g).abs().max().item() / scale
+        worst = max(worst, (ratio, pname))
+        if not ratio <= 1e-3:
+            raise AssertionError(f"{name} {pname}: kernel-path gradient off by {ratio} max|ref|")
+    out["train_grad"] = {"parameters": len(grads["plain_path"]), "zero_gradient_tensors": zero,
+                         "worst_err_over_max_ref": worst[0], "worst_parameter": worst[1],
+                         "tol": 1e-3}
+    emit(out)
+    return out["bf16"]["launches_per_forward"], out["train_kernel_path"]["launches"]
+
+
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "transpose", "copy_kernel", "CatArrayBatchedCopy")
+
+
+def phase_mlla_throughput(variant, kernel_sum_ms):
+    """mlla_mini_<variant> in eval mode, bf16, unfused (bench.py's MLLA model), at 256^2,
+    batch 256 and batch 1: ms a forward by CUDA events, img/s, and from a profiler
+    trace the device's busy time and idle share, the kernel's time in it, the layout
+    copies' (transposes between NCHW and channels-last, copies), and the top kernels."""
+    name = f"mlla_mini_{variant}"
+    model = bench.inference_model(name, torch.bfloat16, torch.device("cuda"))
+    gen = torch.Generator().manual_seed(24)
+    x256 = torch.randn(MLLA_BATCH, 3, MLLA_SIDE, MLLA_SIDE, generator=gen).to(
+        "cuda", torch.bfloat16)
+    x1 = x256[:1].contiguous()
+    out = {"phase": "mlla_throughput", "model": name, "dtype": "bfloat16", "fused": False}
+    kname = MLLA_TRACE[variant][0]
+    with torch.inference_mode():
+        ms256 = cuda_ms(lambda: model(x256), iters=10, warmup=3)
+        ms1 = cuda_ms(lambda: model(x1), iters=30, warmup=5)
+        out.update(batch_256_ms=ms256, images_per_s=MLLA_BATCH * 1e3 / ms256,
+                   batch_1_latency_ms=ms1)
+        for batch, x, ms in ((MLLA_BATCH, x256, ms256), (1, x1, ms1)):
+            kernels = trace(lambda: model(x), iters=3 if batch > 1 else 10)
+            busy = sum(k["ms"] for k in kernels)
+            ours = [k for k in kernels if kname in k["name"]]
+            layout = [k for k in kernels if any(s in k["name"] for s in LAYOUT_KERNELS)]
+            out[f"batch_{batch}_trace"] = {
+                "device_busy_ms": busy, "device_idle_share": 1 - busy / ms,
+                "kernel_ms": sum(k["ms"] for k in ours),
+                "kernel_launches": sum(k["launches"] for k in ours),
+                "kernel_share_of_busy": sum(k["ms"] for k in ours) / busy,
+                "layout_copies_ms": sum(k["ms"] for k in layout),
+                "layout_copy_launches": sum(k["launches"] for k in layout),
+                "top_kernels": kernels[:12]}
+            if sum(k["launches"] for k in ours) != MLLA_MIXERS:
+                raise AssertionError(f"{name}: the trace lists {ours} for the kernel, not "
+                                     f"{MLLA_MIXERS} launches a forward")
+    out["kernel_sum_ms"] = kernel_sum_ms
+    out["kernel_share"] = kernel_sum_ms / ms256
+    emit(out)
+    return out
+
+
+def phase_mlla_train_throughput(variant):
+    """bench.train_throughput("mlla_mini_<variant>", 128, mesa=1.0): the MLLA recipe's
+    step (mixup, bf16 compute, global-norm clip 5.0, AdamW, EMA, MESA's EMA forward)
+    at 256^2, 3 repeats of 2 s; then a profiler trace of 3 steps: 42 launches a step of
+    the forward kernel (the model's and the EMA model's forward) and 21 of the
+    backward's, the device's busy time and idle share, the top kernels."""
+    name = f"mlla_mini_{variant}"
+    ips, batch, spread = bench.train_throughput(name, MLLA_TRAIN_BATCH, repeats=3,
+                                                timed_s=2.0, mesa=1.0)
+    step_ms = batch / ips * 1e3
+    fn, _ = bench.train_bench_step(name, MLLA_TRAIN_BATCH, mesa=1.0)
+    kernels = trace(fn, iters=3, warmup=2)
+    busy = sum(k["ms"] for k in kernels)
+    ours = {kn: sum(k["ms"] for k in kernels if kn in k["name"]) for kn in MLLA_TRACE[variant]}
+    launches = {kn: sum(k["launches"] for k in kernels if kn in k["name"])
+                for kn in MLLA_TRACE[variant]}
+    want = {kn: 2 * MLLA_MIXERS if i == 0 else MLLA_MIXERS
+            for i, kn in enumerate(MLLA_TRACE[variant])}
+    if launches != want or busy > step_ms:
+        raise AssertionError(f"mlla_train_throughput {name}: launches a step {launches} "
+                             f"(expected {want}), busy {busy} ms of {step_ms}")
+    rec = {"phase": "mlla_train_throughput", "model": name, "batch": batch,
+           "recipe": "mixup, norm clip 5.0, AdamW wd 0.05, EMA, MESA 1.0 from step 0",
+           "images_per_s_median": ips, "spread": spread, "step_ms": step_ms,
+           "device_busy_ms_per_step": busy, "device_idle_share": 1 - busy / step_ms,
+           "kernel_ms_per_step": ours, "kernel_launches_per_step": launches,
+           "top_kernels": kernels[:10]}
+    emit(rec)
+    return rec
+
+
+def phase_mlla_train():
+    """The trainer with the MLLA recipe's preset, ``--config configs/mlla_mini_300e.yaml
+    --model mlla_mini_recconv --data-set FAKE`` (batch 64, 3 steps an epoch), PyYAML
+    made unimportable for the run: 2 epochs, then a rerun to 3 that resumes. Counts set
+    to 0 just before each run and read just after: 21 K1′ calls a train step, and 21
+    K1 launches for each train step, MESA forward (the EMA model's) and unfused eval
+    forward; nothing else."""
+    import contextlib
+    import io
+
+    build = Path(__file__).resolve().parent / "recnext_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    rec = {"phase": "mlla_train", "args": MLLA_TRAIN_ARGS}
+    saved_yaml = sys.modules.get("yaml")
+    with tempfile.TemporaryDirectory(dir=build) as run_dir:
+        runs = []
+        for epochs in (2, 3):
+            for fn in COUNTERS.values():  # the path starts here
+                fn.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            sys.modules["yaml"] = None  # an `import yaml` on the path raises
+            try:
+                with contextlib.redirect_stdout(buf):
+                    train_main.main(MLLA_TRAIN_ARGS + ["--epochs", str(epochs),
+                                                       "--output-dir", run_dir])
+            finally:
+                if saved_yaml is None:
+                    del sys.modules["yaml"]
+                else:
+                    sys.modules["yaml"] = saved_yaml
+            torch.cuda.synchronize()
+            launches = counts()  # ... and ends here
+            text = buf.getvalue()
+            ran = epochs - (2 if epochs == 3 else 0)
+            steps = TRAIN_STEPS_PER_EPOCH * ran
+            forwards = steps + MLLA_MESA_FORWARDS[epochs] + EVAL_FORWARDS_PER_EPOCH * ran
+            losses = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                      if ": loss " in line]
+            stats = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+            want = dict.fromkeys(COUNTERS, 0) | {"rec_conv2d": MLLA_MIXERS * forwards,
+                                                 "rec_conv2d_backward": MLLA_MIXERS * steps}
+            run = {"epochs": epochs, "seconds": time.perf_counter() - t0, "losses": losses,
+                   "epoch_lines": stats, "launches": launches, "expected": want,
+                   "resumed": "auto-resumed at epoch 2" in text,
+                   "checkpoints": sorted(p.name for p in (Path(run_dir) / "ckpt").iterdir())}
+            runs.append(run)
+            if (len(losses) != steps or not all(np.isfinite(losses)) or len(stats) != ran
+                    or launches != want or run["resumed"] != (epochs == 3)):
+                raise AssertionError(f"mlla train run to {epochs} epochs: {run}")
+            args = json.loads((Path(run_dir) / "args.json").read_text())
+            preset = ("clip_mode", "clip_grad", "mesa", "weight_decay", "warmup_epochs")
+            if tuple(args[k] for k in preset) != ("norm", 5.0, 1.0, 0.05, 20):
+                raise AssertionError(f"the preset was not read: {args}")
+        rec["runs"] = runs
+    emit(rec)
+    return runs[0]["launches"]
+
+
 def forward_totals(per_shape, table):
     """Sums over one forward's launches (launch counts from ``table``)."""
     total = {key: sum(table[s][2] * per_shape[s][key] for s in table)
@@ -1881,6 +2316,43 @@ def kernel_record(name, source, replaces, launches, max_abs_err, total):
             "launches": launches, "max_abs_err": max_abs_err, "ms": total["kernel_ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": total["bound_by"], "library_ms": total.get("library_ms")}
+
+
+def run_mlla():
+    """The MLLA phases; returns the mlla_path line's launch counts and kernel totals,
+    and each phase's seconds. Run in a process of its own (``mlla_process``)."""
+    torch.backends.cudnn.allow_tf32 = False  # f32 references in full fp32
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return result
+
+    totals, errs = timed("mlla_kernels", phase_mlla_kernels)
+    launches = {v: timed("mlla_model", phase_mlla_model, v) for v in MLLA_KERNELS}
+    ips = {}
+    for variant, kernel in (("recconv", "rec_conv2d"), ("recattn_simple", "linear_attention")):
+        ips[variant] = {"forward": timed("mlla_throughput", phase_mlla_throughput, variant,
+                                         totals[kernel]["kernel_ms"]),
+                        "train": timed("mlla_train", phase_mlla_train_throughput, variant)}
+    trainer = timed("mlla_train", phase_mlla_train)
+    return {"launches_forward_and_step": launches, "trainer_launches": trainer,
+            "kernel_totals": totals, "bf16_max_abs_err": errs,
+            "images_per_s": {v: {"forward_batch_256": r["forward"]["images_per_s"],
+                                 "train_batch_128": r["train"]["images_per_s_median"]}
+                             for v, r in ips.items()}}, seconds
+
+
+def mlla_process():
+    """``run_mlla`` in a fresh process (spawned; the kernels' libraries load from the
+    build the parent made): in a process that had already traced many profiler
+    sessions, the profiler saw no device time at all (my chip runs, PR 14), so the
+    MLLA phases' traces run in a process of their own. The pool ends with the call."""
+    torch.cuda.empty_cache()  # the parent's cached blocks back to the card
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(run_mlla)
 
 
 def main() -> int:
@@ -1973,11 +2445,16 @@ def main() -> int:
     # the data pipeline: m1 trained from a folder of JPEGs
     timed("input_pipeline", phase_input_pipeline, work_dir, *m1_step)
     shutil.rmtree(work_dir)
+    # the MLLA graft family (mlla_mini at 256^2): K1 and K1' (recconv, nearest), K2 and
+    # K2' (recattn_simple), the RoPE attention in plain PyTorch (recattn)
+    mlla, mlla_seconds = timed("mlla", mlla_process)
+    seconds.update(mlla_seconds)
     emit({"phase": "seconds", **seconds, "script": time.perf_counter() - start})
     # the L path's launches and K2 / K2' totals (the kernel record below is a1's)
     emit({"phase": "l_path", "k2_launches_per_forward": l_launches,
           "k2_launches_served_recnext_t": t_served, "recnext_t_train": t_train_launches,
           "k2_forward_totals": l_totals, "k2_backward_step_total_recnext_t": t_bwd_total})
+    emit({"phase": "mlla_path", **mlla})
 
     emit({"kernels": [
         kernel_record("rec_conv2d", "recnext_tpu_torch/csrc/recconv.cu",

@@ -18,6 +18,10 @@ reference's upload.py), at 224^2 only. Three modes:
   teacher's eval forward included. ``train_throughput``'s ``grad_accum``, ``remat``
   and ``mesa`` time the finetune recipe's step (a call is one micro-step; MESA
   active from the start), as ``chip_smoke.py``'s finetune phase does;
+* the MLLA graft family (``--model mlla_*``): the eval-mode unfused model (it has no
+  fused form) in bf16 at 256^2 by default, as ``recnext_tpu/benchmark/bench_mlla.py``
+  times it; ``--train`` runs the MLLA recipe's step (global-norm clip 5.0, weight
+  decay 0.05; ``--mesa`` adds MESA's EMA-model forward from the first step);
 * ``--loader``: the host's input pipeline (``loader_bench``, the counterpart of
   ``recnext_tpu/benchmark/bench_loader.py``): a folder of ``--images`` 500x375 JPEGs
   (``make_folder``), then the train loader's images per second for PIL and the
@@ -94,21 +98,39 @@ def _calibrated_iters(fn, device: torch.device, warmup_s: float, timed_s: float,
     return max(3, min(most, int(timed_s / max(est, 1e-4))))
 
 
-def _fused_model(model_name: str, dtype, device, **overrides):
+def is_mlla(model_name: str) -> bool:
+    return model_name.startswith("mlla")
+
+
+def native_size(model_name: str) -> int:
+    """The input side a model is timed at by default: 256 for MLLA (its recattn grafts
+    need even stage sizes), 224 for the RecNeXt families."""
+    return 256 if is_mlla(model_name) else 224
+
+
+def inference_model(model_name: str, dtype, device, **overrides):
+    """The model that serves ``model_name``: BN-fused for the RecNeXt families, the
+    eval-mode unfused model for MLLA (which has no fused form); seeded weights."""
+    from recnext_tpu_torch.models.mlla import create_mlla
     from recnext_tpu_torch.models.registry import create_model
 
-    return create_model(model_name, fused=True, device=device, dtype=dtype,
-                        generator=torch.Generator().manual_seed(0), **overrides)
+    gen = torch.Generator().manual_seed(0)
+    if is_mlla(model_name):
+        return create_mlla(model_name, device=device, dtype=dtype, generator=gen, **overrides)
+    return create_model(model_name, fused=True, device=device, dtype=dtype, generator=gen,
+                        **overrides)
 
 
 def throughput(model_name: str, batch: int, *, dtype=torch.bfloat16, warmup_s: float = 5.0,
-               timed_s: float = 10.0, image_size: int = 224, device=None,
+               timed_s: float = 10.0, image_size: int | None = None, device=None,
                **overrides) -> float:
-    """Fused inference images per second at ``batch``."""
+    """Inference images per second at ``batch`` (``inference_model``), at
+    ``image_size`` (default ``native_size``)."""
     from recnext_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
-    model = _fused_model(model_name, dtype, dev, **overrides)
+    image_size = image_size or native_size(model_name)
+    model = inference_model(model_name, dtype, dev, **overrides)
     x = torch.randn(batch, 3, image_size, image_size, device=dev,
                     generator=torch.Generator(dev).manual_seed(0)).to(dtype)
     with torch.inference_mode():
@@ -118,13 +140,14 @@ def throughput(model_name: str, batch: int, *, dtype=torch.bfloat16, warmup_s: f
 
 
 def latency_ms(model_name: str, *, dtype=torch.bfloat16, iters: int = 200,
-               image_size: int = 224, device=None, **overrides) -> float:
-    """Fused forward at batch 1: milliseconds per forward over ``iters`` forwards
-    after a warm-up (the host's launch time is part of it)."""
+               image_size: int | None = None, device=None, **overrides) -> float:
+    """``inference_model``'s forward at batch 1: milliseconds per forward over
+    ``iters`` forwards after a warm-up (the host's launch time is part of it)."""
     from recnext_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
-    model = _fused_model(model_name, dtype, dev, **overrides)
+    image_size = image_size or native_size(model_name)
+    model = inference_model(model_name, dtype, dev, **overrides)
     x = torch.randn(1, 3, image_size, image_size, device=dev,
                     generator=torch.Generator(dev).manual_seed(0)).to(dtype)
     with torch.inference_mode():
@@ -135,17 +158,19 @@ def latency_ms(model_name: str, *, dtype=torch.bfloat16, iters: int = 200,
 
 
 def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
-                     image_size: int = 224, device=None, teacher: str | None = None,
+                     image_size: int | None = None, device=None, teacher: str | None = None,
                      distillation: str = "hard", grad_accum: int = 1, remat: bool = False,
                      mesa: float = 0.0, **overrides):
     """One training step of ``model_name`` at ``batch`` as a function of no arguments
-    (mixup/cutmix, forward, backward, AGC + AdamW, EMA), on random inputs made on the
-    device, and the device it runs on. With ``teacher`` (a RegNetY or registry model
-    name, seeded weights), the dual-head student learns from its logits
-    (``distillation``: "hard" or "soft"). ``grad_accum``, ``remat`` and ``mesa`` are
-    the train step's options (MESA from step 0); with ``grad_accum`` k a call is one
-    micro-step, every k-th updating."""
+    (mixup/cutmix, forward, backward, AGC + AdamW, EMA; for MLLA its recipe's
+    global-norm clip 5.0 and weight decay 0.05), on random inputs made on the device,
+    and the device it runs on. With ``teacher`` (a RegNetY or registry model name,
+    seeded weights), the dual-head student learns from its logits (``distillation``:
+    "hard" or "soft"). ``grad_accum``, ``remat`` and ``mesa`` are the train step's
+    options (MESA from step 0); with ``grad_accum`` k a call is one micro-step, every
+    k-th updating."""
     from recnext_tpu_torch.device import resolve_device
+    from recnext_tpu_torch.models.mlla import create_mlla
     from recnext_tpu_torch.models.registry import create_model
     from recnext_tpu_torch.train.optim import cosine_schedule, make_optimizer
     from recnext_tpu_torch.train.state import TrainState
@@ -153,10 +178,20 @@ def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
                                               make_train_step)
 
     dev = resolve_device(device)
-    model = create_model(model_name, device=dev, generator=torch.Generator().manual_seed(0),
-                         distillation=teacher is not None, **overrides)
-    opt = make_optimizer(model.named_parameters(), cosine_schedule(1e-3, 1000),
-                         grad_accum=grad_accum)
+    image_size = image_size or native_size(model_name)
+    gen = torch.Generator().manual_seed(0)
+    if is_mlla(model_name):
+        if teacher is not None:
+            raise ValueError("mlla models have no distillation head")
+        model = create_mlla(model_name, device=dev, generator=gen, **overrides)
+        opt = make_optimizer(model.named_parameters(), cosine_schedule(1e-3, 1000),
+                             weight_decay=0.05, agc_clip=5.0, clip_mode="norm",
+                             grad_accum=grad_accum)
+    else:
+        model = create_model(model_name, device=dev, generator=gen,
+                             distillation=teacher is not None, **overrides)
+        opt = make_optimizer(model.named_parameters(), cosine_schedule(1e-3, 1000),
+                             grad_accum=grad_accum)
     state = TrainState.create(model, opt)
     num_classes = model.cfg.num_classes
     teacher_apply = None
@@ -175,7 +210,7 @@ def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
 
 
 def train_throughput(model_name: str, batch: int, *, dtype=torch.bfloat16,
-                     timed_s: float = 6.0, image_size: int = 224, repeats: int = 1,
+                     timed_s: float = 6.0, image_size: int | None = None, repeats: int = 1,
                      device=None, teacher: str | None = None, distillation: str = "hard",
                      grad_accum: int = 1, remat: bool = False, mesa: float = 0.0,
                      **overrides):
@@ -286,12 +321,16 @@ def main(argv=None):
                    help="--train only: distil from this teacher (regnety_160, ...; seeded)")
     p.add_argument("--distillation", default="hard", choices=["hard", "soft"],
                    help="--train --teacher only: the distillation loss")
+    p.add_argument("--mesa", type=float, default=0.0,
+                   help="--train only: MESA's weight, active from the first step (the MLLA "
+                        "recipe's 1.0 adds the EMA model's forward to each step)")
     p.add_argument("--loader", action="store_true", help="input pipeline throughput mode")
     p.add_argument("--images", type=int, default=256,
                    help="--loader only: JPEGs in the generated folder")
     p.add_argument("--workers", type=int, default=min(16, os.cpu_count() or 1),
                    help="--loader only: the worker count timed beside 0")
-    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--image-size", type=int, default=None,
+                   help="default: 256 for MLLA, 224 otherwise (--loader: 224)")
     p.add_argument("--timed", type=float, default=10.0)
     p.add_argument("--warmup", type=float, default=5.0)
     p.add_argument("--model-kwargs", default="",
@@ -299,8 +338,8 @@ def main(argv=None):
     p.add_argument("--device", default=None, help="default: the GPU (cuda)")
     args = p.parse_args(argv)
     kw = parse_kv_overrides(args.model_kwargs)
-    size = args.image_size
     if args.loader:
+        size = args.image_size or 224
         from recnext_tpu_torch.data.datasets import ImageFolder
         from recnext_tpu_torch.device import resolve_device
 
@@ -313,21 +352,25 @@ def main(argv=None):
             print(json.dumps(rec), flush=True)
         return records
     args.batch = args.batch or 256
+    size = args.image_size or native_size(args.model)
+    form = "bf16" if is_mlla(args.model) else "fused_bf16"  # MLLA has no fused form
     if args.latency:
         ms = latency_ms(args.model, iters=args.latency_iters, image_size=size,
                         device=args.device, **kw)
-        rec = {"metric": f"{args.model}_fused_bf16_{size}_batch1_ms", "value": round(ms, 4),
+        rec = {"metric": f"{args.model}_{form}_{size}_batch1_ms", "value": round(ms, 4),
                "unit": "ms", "vs_baseline": None}
     elif args.train:
         ips, batch, spread = train_throughput(args.model, args.batch,
                                               timed_s=args.timed, image_size=size,
                                               repeats=args.repeats, device=args.device,
                                               teacher=args.teacher or None,
-                                              distillation=args.distillation, **kw)
+                                              distillation=args.distillation, mesa=args.mesa,
+                                              **kw)
         rec = {"metric": f"{args.model}_train_bf16_{size}_images_per_sec",
                "value": round(ips, 2), "unit": "images/sec", "vs_baseline": None,
                "batch": batch, "step_ms": round(batch / ips * 1e3, 3),
-               "teacher": args.teacher or None,
+               "teacher": args.teacher or None, "mesa": args.mesa,
+               "clip": "norm 5.0" if is_mlla(args.model) else "agc 0.02",
                "distillation": args.distillation if args.teacher else "none",
                "spread": {k: (round(v, 1) if not isinstance(v, list)
                               else [round(r, 1) for r in v]) for k, v in spread.items()}}
@@ -335,7 +378,7 @@ def main(argv=None):
         ips = throughput(args.model, args.batch, warmup_s=args.warmup,
                          timed_s=args.timed, image_size=size, device=args.device, **kw)
         base = BASELINES.get(args.model) if size == 224 else None
-        rec = {"metric": f"{args.model}_fused_bf16_{size}_images_per_sec",
+        rec = {"metric": f"{args.model}_{form}_{size}_images_per_sec",
                "value": round(ips, 2), "unit": "images/sec",
                "vs_baseline": round(ips / base, 3) if base else None, "batch": args.batch}
     rec["device"] = _device_name(args.device)

@@ -7,7 +7,10 @@ The port's own copy of the reverse converter in ``recnext_tpu/convert.py``
 HWIO kernels become OIHW, Dense (in, out) kernels become Linear (out, in), and
 paths are renamed to the reference module tree the port's models share.
 ``jax_regnet_to_torch`` does the same for the RegNetY teacher, into timm's names:
-the inverse of ``recnext_tpu/convert.py:regnety_torch_to_flax``.
+the inverse of ``recnext_tpu/convert.py:regnety_torch_to_flax``. ``jax_mlla_to_torch``
+does it for the MLLA family, into the reference MLLA models' names: the port's copy
+of the rules of ``recnext_tpu/convert.py:mlla_flax_to_torch`` (whose output it equals
+key for key), written as a forward rewrite of each flax path.
 """
 
 from __future__ import annotations
@@ -232,6 +235,71 @@ def jax_regnet_to_torch(variables: Mapping[str, Any], model: torch.nn.Module | N
         out[key] = _inv_transform(v.astype(np.float32), tr)
     for path, v in _flatten_tree(dict(variables.get("batch_stats", {}))).items():
         key, _ = _regnet_key(path)
+        out[key] = v.astype(np.float32)
+        if path[-1] == "mean":  # torch BN buffers include num_batches_tracked
+            out[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = np.zeros((), np.int64)
+    return _to_torch(out, model)
+
+
+_MLLA_BLOCK_RE = re.compile(r"layer(\d+)_(block(\d+)|down)")
+_MLLA_STEM = {"conv1": "conv1", "conv2_0": "conv2.0", "conv2_1": "conv2.1",
+              "conv3_0": "conv3.0", "conv3_1": "conv3.1"}
+_MLLA_LINEAR = {"i_proj", "mlp_fc1", "mlp_fc2", "head"}
+_LN_LEAF = {"scale": "weight", "bias": "bias"}
+
+
+def _mlla_key(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """A JAX MLLA leaf path -> (the reference's torch key, transform)."""
+    toks: list = []
+    leaf = path[-1]
+    for i, t in enumerate(path[:-1]):
+        m = _MLLA_BLOCK_RE.fullmatch(t)
+        if m:
+            toks += ["layers", m.group(1)] + (["blocks", m.group(3)] if m.group(3)
+                                              else ["downsample"])
+        elif i == 0 and t == "stem":
+            toks.append("patch_embed")
+        elif path[0] == "stem" and i == 1:
+            toks.append(_MLLA_STEM[t])
+        elif t == "bn":  # a stem ConvLayer's BatchNorm
+            toks.append("norm")
+        elif t == "mlp_fc1" or t == "mlp_fc2":
+            toks += ["mlp", t[4:]]
+        elif t == "down" and path[i - 1] == "agg":  # the attention pyramid's s2 conv
+            toks += ["down", "0"]
+        elif t == "attn":
+            toks += ["down", "1"]
+        else:
+            toks.append(t)
+    m = _CONVK_RE.fullmatch(leaf)
+    if m:  # the RecConv2d aggregator's level kernels
+        return ".".join(toks + ["convs", m.group(1), "weight"]), "conv"
+    if leaf == "down_kernel":
+        return ".".join(toks + ["down", "weight"]), "conv"
+    if path[-2] == "bn":
+        return ".".join(toks + [_NORM_LEAF[leaf]]), "id"
+    if path[-2] in ("norm1", "norm2", "norm"):
+        return ".".join(toks + [_LN_LEAF[leaf]]), "id"
+    name = {"kernel": "weight", "bias": "bias"}[leaf]
+    tr = "id" if leaf == "bias" else ("linear" if path[-2] in _MLLA_LINEAR else "conv")
+    return ".".join(toks + [name]), tr
+
+
+def jax_mlla_to_torch(variables: Mapping[str, Any], model: torch.nn.Module | None = None
+                      ) -> Dict[str, torch.Tensor]:
+    """JAX MLLA ``{params, batch_stats}`` -> the reference's state dict (fp32), without
+    the RoPE tables (the port's are non-persistent buffers). With ``model``, check that
+    keys and shapes are exactly its ``state_dict()``'s."""
+    params = dict(variables.get("params", {}))
+    if not params:
+        raise ValueError("jax_mlla_to_torch expects {'params': ..., 'batch_stats': ...} "
+                         "(got no 'params' collection)")
+    out: Dict[str, np.ndarray] = {}
+    for path, v in _flatten_tree(params).items():
+        key, tr = _mlla_key(path)
+        out[key] = _inv_transform(v.astype(np.float32), tr)
+    for path, v in _flatten_tree(dict(variables.get("batch_stats", {}))).items():
+        key, _ = _mlla_key(path)
         out[key] = v.astype(np.float32)
         if path[-1] == "mean":  # torch BN buffers include num_batches_tracked
             out[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = np.zeros((), np.int64)

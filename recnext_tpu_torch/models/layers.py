@@ -1,6 +1,8 @@
-"""Structural layers: GELU, BatchNorm, ConvNorm, RepVGGDW, NormLinear, Mlp, DropPath.
+"""Structural layers: GELU, BatchNorm, ConvNorm, RepVGGDW, NormLinear, Mlp, DropPath,
+and the MLLA family's LayerNorm and ConvLayer.
 
-Counterparts of ``recnext_tpu/models/layers.py`` in NCHW. Every layer has an
+Counterparts of ``recnext_tpu/models/layers.py`` (and of ``recnext_tpu/models/mlla.py``'s
+``ConvLayer`` and flax's ``nn.LayerNorm``) in NCHW. Every layer has an
 unfused (train/eval) and a fused (inference) structure, and the parameter names
 are the torch keys that ``recnext_tpu/convert.py`` emits: ``X.conv.weight`` and
 ``X.norm.*`` for an unfused ConvNorm, a plain ``X.weight``/``X.bias`` conv once it
@@ -18,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5  # torch.nn.BatchNorm default, the reference's
+LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
 
 _RECOMPUTING = contextvars.ContextVar("recomputing", default=False)
 
@@ -161,3 +164,40 @@ class DropPath(nn.Module):
         mask = torch.empty(shape, device=x.device, dtype=x.dtype).bernoulli_(
             keep, generator=self.generator)
         return x * mask / keep
+
+
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last dimension (the MLLA family's): the
+    statistics, the normalisation, scale and bias in fp32 (flax's
+    ``force_float32_reductions``, whatever dtype the scale and bias were cast to),
+    epsilon 1e-6, and the output cast to x's dtype. Parameters ``weight`` and
+    ``bias``, the reference's names. ``train/step.py:compute_params`` leaves them
+    fp32."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.eps = LN_EPS
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(), self.bias.float(),
+                         self.eps)
+        return y.to(x.dtype)
+
+
+class ConvLayer(nn.Module):
+    """A bias-free Conv2d (``conv``, padding k // 2), BatchNorm (``norm``) and, where
+    ``act``, ReLU: the MLLA stem's building block (``recnext_tpu/models/mlla.py:
+    ConvLayer`` as the stem uses it)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1, *,
+                 act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel_size, stride, kernel_size // 2, bias=False)
+        self.norm = batch_norm2d(cout)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm(self.conv(x))
+        return F.relu(x) if self.act else x

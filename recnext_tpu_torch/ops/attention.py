@@ -23,8 +23,13 @@ The kernel takes each head's q, k, v and out as one contiguous span (a head's
 channels of contiguous planes, or a (BH, N, D) head's rows) and raises on others.
 
 ``linear_attention_fused.launches`` counts the kernel's launches through either.
-``linear_attention_blockdiag`` (a TPU formulation of the same function) is not
-ported.
+``linear_attention_blockdiag`` and ``linear_attention_blockdiag_rope`` (TPU
+formulations of the same functions) are not ported.
+
+The MLLA family's RoPE form (``recnext_tpu/models/mlla.py:MLLALinearAttention`` with
+``rope=True``) is plain PyTorch in fp32 on every device, as the JAX package computes
+it with einsums outside any Pallas kernel: ``rope_rotations`` (the tables),
+``apply_rope`` and ``linear_attention_rope_plain``.
 
 Training on the card goes through ``LinearAttentionFunction``: where a CUDA input
 requires a gradient, both entries run it, its forward one launch of the kernel and
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -107,6 +113,48 @@ def linear_attention_nchw_plain(qk: torch.Tensor, v: torch.Tensor, num_heads: in
                          "(kv-first) or 2 (qk-first; LinearAttention's variant 3 runs it)")
     fn = linear_attention_kv_first if variant == 1 else linear_attention_qk_first
     o = fn(_heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads), eps)
+    return o.transpose(1, 2).reshape(v.shape)
+
+
+def rope_rotations(h: int, w: int, dim: int, base: float = 10000.0):
+    """2-D rotary tables of an h x w map with ``dim`` channels: (cos, sin), each
+    (dim/2, h, w) float32, the angles computed in float64 and rounded once (the port's
+    copy of ``recnext_tpu/models/mlla.py:rope_rotations``, channel-major). Pair j
+    rotates by y * theta_j for j < dim/4 and by x * theta_{j - dim/4} above."""
+    k_max = dim // 4
+    theta = 1.0 / (base ** (np.arange(k_max) / k_max))
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    angles = np.concatenate([ys[..., None] * theta, xs[..., None] * theta], axis=-1)
+    angles = np.ascontiguousarray(angles.transpose(2, 0, 1))
+    return np.cos(angles).astype(np.float32), np.sin(angles).astype(np.float32)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (B, C, H, W) rotated in fp32 as complex numbers on the channel pairs (2j,
+    2j+1), by the (C/2, H, W) tables; returns fp32."""
+    xf = x.float()
+    re, im = xf[:, 0::2], xf[:, 1::2]
+    out = torch.stack([re * cos - im * sin, re * sin + im * cos], dim=2)
+    return out.reshape(xf.shape)
+
+
+def linear_attention_rope_plain(qk: torch.Tensor, v: torch.Tensor, num_heads: int,
+                                cos: torch.Tensor, sin: torch.Tensor,
+                                eps: float = EPS) -> torch.Tensor:
+    """MLLA's RoPE linear attention (``recnext_tpu/models/mlla.py:160-170``) on the
+    NCHW entry's layout: qk (B, 2C, H, W) after the feature map, q its first half, k
+    its second; v (B, C, H, W); channel-major heads. The rotated q and k enter the
+    numerator, the un-rotated ones the normaliser; all in fp32, the output in v's
+    dtype."""
+    q, k = _split_qk(qk, v, num_heads)
+    n = int(v.shape[2]) * int(v.shape[3])
+    s = float(n) ** -0.5
+    qrh, krh = (_heads(apply_rope(t, cos, sin), num_heads) for t in (q, k))
+    qh, kh, vh = (_heads(t.float(), num_heads) for t in (q, k, v))
+    kv = torch.einsum("bnd,bne->bde", krh * s, vh * s)
+    num = torch.einsum("bnd,bde->bne", qrh, kv)
+    denom = torch.einsum("bnd,bd->bn", qh, kh.mean(dim=-2)) + eps
+    o = (num / denom[..., None]).to(v.dtype)
     return o.transpose(1, 2).reshape(v.shape)
 
 

@@ -12,10 +12,11 @@ decoder (``--native-loader``, which raises where it cannot be built) in one thre
 or ``--workers`` processes, each batch copied to the card from pinned memory;
 mixup/cutmix and label smoothing, hard or soft distillation from a teacher
 (``--distillation-type``, ``--teacher-model`` regnety_160/040/016 or a registry model,
-``--teacher-ckpt``), AGC + AdamW with the reference cosine schedule, EMA, bf16
-compute with fp32 parameters (``--dtype``), a per-epoch BN-fused eval of the model
-and of its EMA, a checkpoint each epoch (``torch.save``; the last 3 and the best
-kept) and auto-resume from the newest. The
+``--teacher-ckpt``), AGC (or ``--clip-mode norm``) + AdamW with the reference cosine
+schedule, EMA, bf16 compute with fp32 parameters (``--dtype``), a per-epoch BN-fused
+eval of the model and of its EMA (unfused with ``--no-fused-eval``, and always for
+MLLA), a checkpoint each epoch (``torch.save``; the last 3 and the best kept) and
+auto-resume from the newest. The
 per-epoch JSON line and ``log.txt`` keep the JAX CLI's key names, and add the train
 loop's seconds and images per second, the seconds it waited on the loader (and on its
 first batch, which includes starting the workers), the loaders' routes ("native",
@@ -33,10 +34,9 @@ recomputes each block in the backward, ``--mesa`` adds MESA's self-distillation
 from the EMA model after ``--mesa-start-ratio`` of the epochs, ``--jsd-loss`` the JSD
 loss over ``--aug-splits`` views of each sample (the first through the simple
 transform). The JAX package's checkpoints (orbax, msgpack) raise, naming their
-ROADMAP item; the JAX CLI's other options (the unfused eval, frozen BN) are not flags
-here yet. The JAX CLI's ``--loader grain --workers N`` is ``--workers N`` here (the
-default 0 is the JAX CLI's default, one prefetch thread); grain's own sampling order
-is not ported.
+ROADMAP item; frozen BN (``--set-bn-eval``) raises, naming its item. The JAX CLI's
+``--loader grain --workers N`` is ``--workers N`` here (the default 0 is the JAX
+CLI's default, one prefetch thread); grain's own sampling order is not ported.
 
 Smoke run on the CPU (a small M config; it resumes from the checkpoints that
 --output-dir already holds, so empty it first):
@@ -69,6 +69,15 @@ teacher on the GPU:
 recnext_t (the L family, through K2 and K2') on FAKE data on the GPU:
   python -m recnext_tpu_torch.train.main --model recnext_t --data-set FAKE --simple-aug \\
       --batch-size 128 --epochs 2 --steps-per-epoch 3 --output-dir runs/t_fake
+
+The MLLA graft family (``mlla_{nano,mini}_{recconv,recattn,recattn_simple}``) with its
+recipe from a ``--config`` preset (a flat YAML file, ``train/config.py``: its values are
+the defaults, the command line overrides them): global-norm clipping (``--clip-mode
+norm --clip-grad 5.0``), MESA, 256^2; evaluated unfused (no BatchNorm past the stem),
+no distillation head, no frozen BN:
+  python -m recnext_tpu_torch.train.main --config configs/mlla_mini_300e.yaml \\
+      --model mlla_mini_recconv --data-set FAKE --batch-size 128 --epochs 2 \\
+      --steps-per-epoch 3 --output-dir runs/mlla_mini
 """
 
 from __future__ import annotations
@@ -82,13 +91,21 @@ from pathlib import Path
 
 import torch
 
+from recnext_tpu_torch.train.config import apply_config
 from recnext_tpu_torch.train.finetune import CKPT_ITEM, read_weights
 
 CKPT_KEEP = 3
+FROZEN_BN_ITEM = "ROADMAP.md Queue 1 item 11 (frozen BN with the downstream tasks)"
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser("RecNext training (PyTorch/CUDA port)")
+    """Two stages, as the JAX CLI's: a ``--config`` file gives defaults, the command
+    line overrides them."""
+    cfg_parser = argparse.ArgumentParser(add_help=False)
+    cfg_parser.add_argument("--config", default="",
+                            help="flat YAML of argument defaults (configs/*.yaml)")
+    cfg_args, remaining = cfg_parser.parse_known_args(argv)
+    p = argparse.ArgumentParser("RecNext training (PyTorch/CUDA port)", parents=[cfg_parser])
     p.add_argument("--model", default="recnext_m1")
     p.add_argument("--model-kwargs", default="",
                    help="comma-separated RecNextConfig overrides, tuples with ':', e.g. "
@@ -98,7 +115,10 @@ def parse_args(argv=None):
     p.add_argument("--input-size", type=int, default=224)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--weight-decay", type=float, default=0.025)
-    p.add_argument("--clip-grad", type=float, default=0.02)
+    p.add_argument("--clip-grad", type=float, default=0.02, help="gradient clip value")
+    p.add_argument("--clip-mode", default="agc", choices=["agc", "norm"],
+                   help="'agc': adaptive clip (the RecNeXt recipe); 'norm': global-norm "
+                        "clip (the MLLA recipe, 5.0)")
     p.add_argument("--warmup-epochs", type=int, default=5)
     p.add_argument("--cooldown-epochs", type=int, default=0)
     p.add_argument("--warmup-lr", type=float, default=1e-6)
@@ -136,6 +156,8 @@ def parse_args(argv=None):
                    help="warm-start the model weights from a checkpoint (.pth/.pt/.bin: a "
                         "reference state dict, this trainer's checkpoint, a fused "
                         "archive); leaves of another shape (the head) are dropped")
+    p.add_argument("--set-bn-eval", action="store_true",
+                   help="freeze BatchNorm while finetuning (not ported: raises)")
     p.add_argument("--jsd-loss", action="store_true",
                    help="JSD consistency loss over --aug-splits views")
     p.add_argument("--aug-splits", type=int, default=0,
@@ -156,16 +178,29 @@ def parse_args(argv=None):
                    help="loader worker processes (0: one prefetch thread)")
     p.add_argument("--output-dir", default="runs/default")
     p.add_argument("--eval", action="store_true", help="evaluate the newest checkpoint")
+    p.add_argument("--no-fused-eval", action="store_true",
+                   help="evaluate each epoch through the unfused model (MLLA always is)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--steps-per-epoch", type=int, default=0,
                    help="truncate each epoch (and its eval) to this many batches; 0 = all")
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--device", default=None, help="default: the GPU (cuda)")
-    return p.parse_args(argv)
+    if cfg_args.config:
+        apply_config(p, cfg_args.config)
+    return p.parse_args(remaining)
 
 
 def _refuse_unported(args) -> None:
+    if args.model.startswith("mlla"):
+        if args.distillation_type != "none":
+            raise SystemExit("mlla models have no distillation head; use --mesa for the "
+                             "MLLA recipe's self-distillation")
+        if args.set_bn_eval:
+            raise SystemExit("--set-bn-eval is a RecNext-family finetune knob")
+    if args.set_bn_eval:
+        raise NotImplementedError(f"frozen BN (--set-bn-eval) is not ported; see "
+                                  f"{FROZEN_BN_ITEM}")
     if args.distillation_type != "none" and not args.teacher_model:
         raise SystemExit("--distillation-type requires --teacher-model")
     if args.jsd_loss and args.aug_splits < 2:
@@ -240,10 +275,12 @@ def main(argv=None):
     from recnext_tpu_torch.data.transforms import (EvalTransform, SimpleTrainTransform,
                                                    TrainTransform)
     from recnext_tpu_torch.device import resolve_device
+    from recnext_tpu_torch.models.mlla import create_mlla
     from recnext_tpu_torch.models.registry import create_model, get_config, parse_kv_overrides
     from recnext_tpu_torch.train.optim import cosine_schedule, make_optimizer, scaled_lr
     from recnext_tpu_torch.train.state import TrainState
-    from recnext_tpu_torch.train.step import make_fused_eval_step, make_train_step
+    from recnext_tpu_torch.train.step import (make_eval_step, make_fused_eval_step,
+                                              make_train_step)
 
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -261,11 +298,13 @@ def main(argv=None):
     val_ds, _ = build_dataset(False, args.data_set, args.data_path, args.input_size,
                               args.fake_classes)
     distill = args.distillation_type != "none"
+    mlla = args.model.startswith("mlla")
     overrides = dict(parse_kv_overrides(args.model_kwargs), num_classes=nb_classes)
     if distill:
         overrides["distillation"] = True  # the dual-head student
-    model = create_model(args.model, device=device,
-                         generator=torch.Generator().manual_seed(args.seed), **overrides)
+    model = (create_mlla if mlla else create_model)(
+        args.model, device=device, generator=torch.Generator().manual_seed(args.seed),
+        **overrides)
     if args.finetune:
         # weights only; the optimizer, schedule and epoch start fresh
         from recnext_tpu_torch.train.finetune import load_pretrained
@@ -284,7 +323,7 @@ def main(argv=None):
     k = args.grad_accum
     sched_opt = sched if k <= 1 else (lambda u: sched(u * k))
     optimizer = make_optimizer(model.named_parameters(), sched_opt, args.weight_decay,
-                               args.clip_grad, grad_accum=k)
+                               args.clip_grad, grad_accum=k, clip_mode=args.clip_mode)
     state = TrainState.create(model, optimizer, ema=not args.no_model_ema)
 
     # either alpha 0 disables that branch alone; both 0 disable mixing; the JSD loss
@@ -305,11 +344,14 @@ def main(argv=None):
         alpha=args.distillation_alpha, tau=args.distillation_tau, remat=args.remat,
         jsd_splits=splits, grad_accum=k, mesa=args.mesa,
         mesa_start_step=int(args.mesa_start_ratio * args.epochs * steps_per_epoch))
-    cfg = get_config(args.model, **overrides)
-    eval_step = make_fused_eval_step(cfg, dtype=dtype)
-    eval_ema = None
-    if not args.no_model_ema and not args.eval:
-        eval_ema = make_fused_eval_step(cfg, ema=True, dtype=dtype)
+    # MLLA has no fused form: its eval is the unfused model's, as with --no-fused-eval
+    if mlla or args.no_fused_eval:
+        make_eval = lambda ema: make_eval_step(model, ema=ema, dtype=dtype)  # noqa: E731
+    else:
+        cfg = get_config(args.model, **overrides)
+        make_eval = lambda ema: make_fused_eval_step(cfg, ema=ema, dtype=dtype)  # noqa: E731
+    eval_step = make_eval(False)
+    eval_ema = make_eval(True) if not args.no_model_ema and not args.eval else None
 
     ckpts = Checkpoints(out_dir.resolve() / "ckpt")
     start_epoch = 0

@@ -2,10 +2,11 @@
 
 Counterpart of ``recnext_tpu/train/optim.py``: AdamW (lr 1e-3 x batch/512, weight
 decay 0.025 on >=2-D parameters only), the cosine schedule as the reference runs it,
-and adaptive gradient clipping (AGC, 0.02) before the update.
+and adaptive gradient clipping (AGC, 0.02) before the update, or the MLLA recipe's
+global-norm clipping (``clip_mode="norm"``, 5.0).
 
-``Optimizer`` is optax's ``chain(adaptive_grad_clip, multi_transform(adamw(wd),
-adamw(0)))`` on torch parameters:
+``Optimizer`` is optax's ``chain(clip, multi_transform(adamw(wd), adamw(0)))`` on
+torch parameters, ``clip`` ``adaptive_grad_clip`` or ``clip_by_global_norm``:
 
 * AGC takes unit-wise norms as optax does on the JAX layouts. A vector or scalar
   (and any tensor that squeezes to one) is one unit; an optax (in, out) Dense kernel
@@ -13,6 +14,9 @@ adamw(0)))`` on torch parameters:
   OIHW layouts is a slice along the first axis, so the norm reduces over every axis
   but the first. A unit is rescaled to ``clipping * max(|p|, 1e-3)`` when its
   gradient norm is not below that.
+* the global-norm clip is optax's: where the gradients' global norm n is not below
+  the maximum, every gradient becomes (g / n) * max (no epsilon, unlike
+  ``torch.nn.utils.clip_grad_norm_``); the norms are foreach reductions;
 * ``torch.optim.AdamW`` is optax's ``adamw`` with the same placement of epsilon and
   decay: epsilon is added to sqrt of the bias-corrected second moment (optax
   ``eps_root`` 0), and the decay ``lr * wd * p`` uses the parameters before the
@@ -20,7 +24,7 @@ adamw(0)))`` on torch parameters:
   ``scale_by_learning_rate``. The schedule is read at the update count, 0 first.
 * ``grad_accum`` k > 1 is ``optax.MultiSteps``: each ``step()`` folds the
   parameters' gradients into their running mean (``acc + (g - acc) / (i + 1)``, as
-  optax does), and every k-th applies AGC and AdamW to that mean; the update count,
+  optax does), and every k-th applies the clip and AdamW to that mean; the update count,
   and so the schedule, advances once per k micro-steps.
 """
 
@@ -93,22 +97,45 @@ def adaptive_grad_clip_(params: Iterable[torch.Tensor], clipping: float,
 
 
 @torch.no_grad()
+def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm, in place on the parameters' ``.grad``: where the
+    global norm n >= ``max_norm``, g <- (g / n) * max_norm; else unchanged. Foreach
+    ops throughout, and no host synchronisation (the branch is a select of the
+    divisor and the factor, 1 where the gradients stay)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, max_norm)))
+
+
+@torch.no_grad()
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm)."""
     return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
 
 
+CLIP_MODES = ("agc", "norm")
+
+
 class Optimizer:
-    """AGC, then AdamW with decay on >=2-D parameters only, the lr read from
-    ``schedule`` at the update count. ``step()`` uses and clips the parameters'
+    """AGC (``clip_mode="agc"``) or the global-norm clip (``"norm"``) at ``agc_clip``
+    (none where it is 0), then AdamW with decay on >=2-D parameters only, the lr read
+    from ``schedule`` at the update count. ``step()`` uses and clips the parameters'
     ``.grad`` in place."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Callable[[int], float], weight_decay: float = 0.025,
                  agc_clip: float = 0.02, betas: Tuple[float, float] = (0.9, 0.999),
-                 grad_accum: int = 1):
+                 grad_accum: int = 1, clip_mode: str = "agc"):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        if clip_mode not in CLIP_MODES:
+            raise ValueError(f"unknown clip_mode {clip_mode!r}; one of {CLIP_MODES}")
+        self.clip_mode = clip_mode
         named = [(n, p) for n, p in named_params if p.requires_grad]
         labels = param_labels(named)
         self.params = [p for _, p in named]
@@ -157,7 +184,10 @@ class Optimizer:
         if self.grad_accum > 1 and not self._accumulate():
             return False
         if self.agc_clip and self.agc_clip > 0:
-            adaptive_grad_clip_(self.params, self.agc_clip)
+            if self.clip_mode == "agc":
+                adaptive_grad_clip_(self.params, self.agc_clip)
+            else:
+                clip_by_global_norm_(self.params, self.agc_clip)
         lr = self.lr()
         for group in self.adamw.param_groups:
             group["lr"] = lr
@@ -181,11 +211,12 @@ class Optimizer:
 def make_optimizer(named_params, learning_rate: Callable[[int], float],
                    weight_decay: float = 0.025, agc_clip: float = 0.02,
                    betas: Tuple[float, float] = (0.9, 0.999),
-                   grad_accum: int = 1) -> Optimizer:
-    """AGC -> AdamW (decay on >=2-D parameters only), the RecNeXt recipe, applied to
-    the mean of every ``grad_accum`` micro-steps' gradients (optax.MultiSteps in the
-    JAX package). ``learning_rate`` is read at the update count: under accumulation
-    the caller maps it back to micro-steps (``sched(u * grad_accum)``), as the JAX CLI
-    does. The JAX package's global-norm clip (the MLLA recipe) comes with the MLLA
-    family."""
-    return Optimizer(named_params, learning_rate, weight_decay, agc_clip, betas, grad_accum)
+                   grad_accum: int = 1, clip_mode: str = "agc") -> Optimizer:
+    """The clip -> AdamW (decay on >=2-D parameters only), applied to the mean of
+    every ``grad_accum`` micro-steps' gradients (optax.MultiSteps in the JAX package).
+    ``clip_mode`` "agc" is the RecNeXt recipe (AGC at ``agc_clip``, 0.02), "norm" the
+    MLLA recipe's global-norm clip (``agc_clip`` the maximum norm, 5.0).
+    ``learning_rate`` is read at the update count: under accumulation the caller maps
+    it back to micro-steps (``sched(u * grad_accum)``), as the JAX CLI does."""
+    return Optimizer(named_params, learning_rate, weight_decay, agc_clip, betas, grad_accum,
+                     clip_mode)

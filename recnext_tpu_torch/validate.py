@@ -13,11 +13,18 @@ windows of the native 7x7 map at inputs above 224. Every data set of the trainer
 the C++ decoder's fused crop-resample (``data/native.py``; it raises where it cannot
 be built), over ``distributed_eval_indices``' split.
 
+The MLLA graft family (``--model mlla_*``) is LayerNorm-based: it evaluates unfused
+(``--fused``, ``--packed`` and ``--test-pool`` exit), from a seed or a ``.pth`` in the
+reference MLLA layout (its ``rope.rotations`` buffers are dropped: the port computes
+its own) or the trainer's checkpoint.
+
 Not here: ``--packed`` (the TPU's lane-packed executor, ``PACKED_ITEM``); the JAX
 CLI's ``--compile-cache`` is XLA's and has no counterpart.
 
   python -m recnext_tpu_torch.validate --model recnext_m1 --checkpoint runs/m1_384/pub \\
       --fused --data-set FAKE --input-size 384 --crop-pct 1.0 --results-file results.csv
+  python -m recnext_tpu_torch.validate --model mlla_mini_recconv --checkpoint \\
+      runs/mlla_mini/ckpt/epoch_0001.pt --ema --data-set FAKE --input-size 256
 """
 
 from __future__ import annotations
@@ -132,6 +139,9 @@ def main(argv=None):
     from recnext_tpu_torch.models.registry import create_model, parse_kv_overrides
     from recnext_tpu_torch.train.step import PACKED_ITEM
 
+    mlla = args.model.startswith("mlla")
+    if mlla and (args.fused or args.packed or args.test_pool):
+        raise SystemExit("mlla models have no fused/packed/test-pool path")
     if args.packed:
         raise NotImplementedError(f"the packed executor is not ported; see {PACKED_ITEM}")
     device = resolve_device(args.device)
@@ -139,9 +149,17 @@ def main(argv=None):
     ds, nb_classes = build_dataset(False, args.data_set, args.data_path, args.input_size,
                                    args.fake_classes)
     mkw = dict(parse_kv_overrides(args.model_kwargs), num_classes=nb_classes)
-    template = create_model(args.model, device="cpu", **mkw).state_dict()
-    weights = load_weights(args, template)
-    net = create_model(args.model, fused=args.fused, device="cpu", **mkw)
+    if mlla:
+        from recnext_tpu_torch.models.mlla import create_mlla
+
+        net = create_mlla(args.model, device="cpu", **mkw)
+        weights = load_weights(args, net.state_dict())
+        # the reference's RoPE tables: the port's are computed, non-persistent buffers
+        weights = {k: v for k, v in weights.items() if not k.endswith("rope.rotations")}
+    else:
+        template = create_model(args.model, device="cpu", **mkw).state_dict()
+        weights = load_weights(args, template)
+        net = create_model(args.model, fused=args.fused, device="cpu", **mkw)
     net.load_state_dict(weights, strict=True)
     net = net.to(device=device, dtype=dtype).eval()
 
