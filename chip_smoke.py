@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
-source, started together), then drives eight paths, each with every kernel launch
+source, started together), then drives ten paths, each with every kernel launch
 count set to 0 just before its main phase (serving; for training, the trainer)
 and read just after:
 
@@ -154,13 +154,13 @@ and read just after:
 22. input_pipeline  the host's CPU count and affinity and /dev/shm, and the native
               decoder's build (native/recnext_io.cpp, g++, the repository's jpeg62
               headers and Pillow's libjpeg), which must succeed; 1,280
-              500x375 JPEGs of 10 classes (bench.make_folder), listed 4 times, and a
+              500x375 JPEGs of 10 classes (bench.make_folder), listed 2 times, and a
               copy with PNGs; the loader's img/s at 224^2 for PIL and native, full and
               simple transform, at workers 0 and W = min(16, CPUs); the same bits in
               the first 3 batches at workers 0 and W on each route that builds, and
               the native fallback's count (0 on JPEGs, above 0 with PNGs); the trainer
               on m1 from the folder with the full recipe, RA, batch 128, one epoch of
-              40 steps, with --workers W, with --native-loader at workers 0 and at
+              20 steps, with --workers W, with --native-loader at workers 0 and at
               W: 23 K1
               launches and 23 K1' calls a train step, its img/s beside phase 14's
               step alone and the idle share from that phase's busy time a step;
@@ -190,8 +190,30 @@ and read just after:
               configs/mlla_mini_300e.yaml on mlla_mini_recconv (FAKE, batch 64, PyYAML
               unimportable), 2 epochs of 3 steps and a resume: 21 K1′ calls a step, 21
               K1 launches per train, MESA and eval forward.
-Then each phase's seconds, the L path's launch counts and K2 / K2' totals, and the
-MLLA path's (the mlla_path line).
+   the downstream tasks (recnext_m3 Semantic FPN at 512^2 and RetinaNet at 800^2,
+   batch 16, fp32 as the task CLIs run, each from a seeded classifier with calibrated
+   BN through --init-ckpt; recnext_a3's attention shapes), run last, in a process of
+   their own:
+27. tasks_seg  the train_seg CLI with the seg preset on FAKE: 3 iterations, a --resume
+              to 6, --eval-only, --benchmark 5, each run's launches equal to the
+              planners' (m3_task_launches: a step K1 21 + 3, the level kernel 3, K1′ 21,
+              KL′1-3 6/6/3; a forward K1 21); the backbone's BN statistics the same
+              bits after the steps, the head's moved; one train step traced (ms,
+              img/s, idle share, kernels, peak memory);
+28. tasks_grad  m3's Semantic FPN at batch 2 in train mode: logits and every gradient
+              through the kernels against the plain path (a3's too, phase 31);
+29. tasks_recconv, tasks_level_backward  K1 and K1′ at m3's task shapes (the seg
+              path's four planes, det's stage 0 at 200^2) and KL′1-3 alone at 128^2 x 64
+              and 200^2 x 64, batch 16, fp32, beside bound, plain version and library
+              call;
+30. tasks_det  the train_det CLI, --detector retinanet, the det preset on FAKE: 2
+              epochs of 3 steps and the AP loop over 32 images, a --resume, --eval-only
+              and --benchmark 3 (a forward also 6 level-kernel launches); one step
+              traced; the post-process's ms an image;
+31. tasks_attention  K2 and K2′ at a3's four 512^2 shapes (N 4096 ... 64, D 32),
+              batch 16, f32 and bf16, K2′ the same bits on three runs, timed in f32.
+Then each phase's seconds, the L path's launch counts and K2 / K2' totals, the
+MLLA path's (the mlla_path line) and the tasks' (the tasks_path line).
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
 In the kernel record, "launches" counts the launches of the kernel's serving
@@ -1543,6 +1565,87 @@ def peeled_backward_launches(h, w, level, k):
     return {name: n for name, n in want.items() if n}
 
 
+def level_backward_cases(x, g, ws, gen, dtype):
+    """KL′1-3's cases at the outer level of the plane of x (n, c, h, w), as a train step
+    in ``dtype`` runs them: g and x in ``dtype``, the recomputed inner plane y, its
+    gradient dd and dz fp32. Each case is (kernel, what, tolerance over max|ref|,
+    kernel call, plain call, library call, (bytes, flops) or None where untimed): the
+    input gradient at stride 1 and 2, the weight gradient at stride 1 (z = x + up(y))
+    and 2, the up-step's adjoint, bilinear (timed) and nearest."""
+    n, c, h, w = x.shape
+    dh, dw_ = (h + 1) // 2, (w + 1) // 2
+    eb = dtype.itemsize
+    name = "f32" if dtype == torch.float32 else "bf16"
+    xb, gb = x.to("cuda", dtype), g.to("cuda", dtype)
+    w_l, w_down = ws[-1].cuda(), ws[0].cuda()
+    y = torch.randn(n, c, dh, dw_, generator=gen).cuda()
+    dd = torch.randn(n, c, dh, dw_, generator=gen).cuda()
+    dz = torch.randn(n, c, h, w, generator=gen).cuda()
+    z = xb.float() + resize(y, (h, w))  # the library call's input: z written out
+    cgrad = torch.nn.grad
+    up_bwd = {"bilinear": lambda t: torch.ops.aten.upsample_bilinear2d_backward(
+                  t, [h, w], [n, c, dh, dw_], False),
+              "nearest": lambda t: torch.ops.aten.upsample_nearest2d_backward(
+                  t, [h, w], [n, c, dh, dw_])}
+    return [
+        ("rec_conv2d_level_dgrad", f"stride 1: dz = conv_L^T(g), {name} g -> f32", 2e-5,
+         lambda: rec_conv2d_level_dgrad(gb, w_l, size=(h, w)),
+         lambda: rec_conv2d_level_dgrad_plain(gb, w_l, size=(h, w)),
+         lambda: cgrad.conv2d_input((n, c, h, w), w_l, gb.float(), padding=2, groups=c),
+         level_bwd_work("dgrad", n, c, h, w, 5, g_bytes=eb)),
+        ("rec_conv2d_level_dgrad", f"stride 2: dx = dz + down^T(dd), f32 -> {name}",
+         2e-5 if dtype == torch.float32 else 1e-2,
+         lambda: rec_conv2d_level_dgrad(dd, w_down, size=(h, w), stride=2, add=dz,
+                                        out_dtype=dtype),
+         lambda: rec_conv2d_level_dgrad_plain(dd, w_down, size=(h, w), stride=2, add=dz),
+         lambda: cgrad.conv2d_input((n, c, h, w), w_down, dd, stride=2, padding=2,
+                                    groups=c) + dz,
+         level_bwd_work("dgrad", n, c, h, w, 5, stride=2, add=True, out_bytes=eb)),
+        ("rec_conv2d_level_wgrad", f"stride 1: dW_L = sum (x + up(y)) * g, {name}", 1e-4,
+         lambda: rec_conv2d_level_wgrad(xb, gb, k=5, up=y),
+         lambda: rec_conv2d_level_wgrad_plain(xb, gb, k=5, up=y),
+         lambda: cgrad.conv2d_weight(z, (c, 1, 5, 5), gb.float(), padding=2, groups=c),
+         level_bwd_work("wgrad", n, c, h, w, 5, up=True, in_bytes=eb, g_bytes=eb)),
+        ("rec_conv2d_level_wgrad", "stride 2: dW_down += sum x *_2 dd", 1e-4,
+         lambda: rec_conv2d_level_wgrad(xb, dd, k=5, stride=2),
+         lambda: rec_conv2d_level_wgrad_plain(xb, dd, k=5, stride=2),
+         lambda: cgrad.conv2d_weight(xb.float(), (c, 1, 5, 5), dd, stride=2, padding=2,
+                                     groups=c),
+         level_bwd_work("wgrad", n, c, h, w, 5, stride=2, in_bytes=eb)),
+        ("rec_conv2d_up_adjoint", "dy = up^T(dz), bilinear", 2e-5,
+         lambda: rec_conv2d_up_adjoint(dz),
+         lambda: rec_conv2d_up_adjoint_plain(dz),
+         lambda: up_bwd["bilinear"](dz),
+         level_bwd_work("up_adjoint", n, c, h, w, 5)),
+        ("rec_conv2d_up_adjoint", "dy = up^T(dz), nearest", 2e-5,
+         lambda: rec_conv2d_up_adjoint(dz, mode="nearest"),
+         lambda: rec_conv2d_up_adjoint_plain(dz, mode="nearest"),
+         lambda: up_bwd["nearest"](dz), None)]
+
+
+def level_backward_case(phase, case, shape):
+    """One case of ``level_backward_cases``: the kernel against its plain version (its
+    launch counted), its library call's difference, and where the case has its work
+    (the train step's mode) the kernel's, plain and library times (CUDA events around
+    queued calls) beside the bound. Returns the phase line."""
+    kernel, what, tol, run, plain, library, work = case
+    before = COUNTERS[kernel].launches
+    got = run()
+    if COUNTERS[kernel].launches != before + 1:
+        raise AssertionError(f"{kernel} {what}: launches not counted")
+    want = plain()
+    err, scale = _check_close(f"{kernel} {what} at {shape}", got, want, tol)
+    out = {"phase": phase, "kernel": kernel, "what": what, "shape": shape,
+           "max_abs_err": err, "max_abs_ref": scale, "tol": tol * scale,
+           "library_max_abs_diff": (library().float() - want.float()).abs().max().item()}
+    if work is not None:
+        times = {"kernel_ms": queued_ms(run), "plain_ms": queued_ms(plain, iters=5),
+                 "library_ms": queued_ms(library)}
+        bms, by = bound(*work)
+        out.update(times, bound_ms=bms, bound_by=by, bytes=work[0], flops=work[1])
+    return out
+
+
 def phase_large_plane_backward():
     """K1′'s peeled route on planes whose backward exceeds K1′'s shared memory, against
     the plain version; then each of the three level kernels alone, against its plain
@@ -1584,75 +1687,15 @@ def phase_large_plane_backward():
                 rec[f"{key}_same_bits_on_3_runs"] = True
         emit(rec)
 
-        # the peeled outer level's kernels at this plane, as the bf16 train step runs
-        # them: g and x bf16, the recomputed inner plane y, its gradient dd and dz fp32
-        dh, dw_ = (h + 1) // 2, (w + 1) // 2
-        xb, gb = x.to("cuda", torch.bfloat16), g.to("cuda", torch.bfloat16)
-        w_l, w_down = ws[-1].cuda(), ws[0].cuda()
-        y = torch.randn(n, c, dh, dw_, generator=gen).cuda()
-        dd = torch.randn(n, c, dh, dw_, generator=gen).cuda()
-        dz = torch.randn(n, c, h, w, generator=gen).cuda()
-        z = xb.float() + resize(y, (h, w))  # the library call's input: z written out
-        cgrad = torch.nn.grad
-        up_bwd = {"bilinear": lambda t: torch.ops.aten.upsample_bilinear2d_backward(
-                      t, [h, w], [n, c, dh, dw_], False),
-                  "nearest": lambda t: torch.ops.aten.upsample_nearest2d_backward(
-                      t, [h, w], [n, c, dh, dw_])}
-        cases = [
-            ("rec_conv2d_level_dgrad", "stride 1: dz = conv_L^T(g), bf16 g -> f32", 2e-5,
-             lambda: rec_conv2d_level_dgrad(gb, w_l, size=(h, w)),
-             lambda: rec_conv2d_level_dgrad_plain(gb, w_l, size=(h, w)),
-             lambda: cgrad.conv2d_input((n, c, h, w), w_l, gb.float(), padding=2, groups=c),
-             level_bwd_work("dgrad", n, c, h, w, 5, g_bytes=2)),
-            ("rec_conv2d_level_dgrad", "stride 2: dx = dz + down^T(dd), f32 -> bf16", 1e-2,
-             lambda: rec_conv2d_level_dgrad(dd, w_down, size=(h, w), stride=2, add=dz,
-                                            out_dtype=torch.bfloat16),
-             lambda: rec_conv2d_level_dgrad_plain(dd, w_down, size=(h, w), stride=2, add=dz),
-             lambda: cgrad.conv2d_input((n, c, h, w), w_down, dd, stride=2, padding=2,
-                                        groups=c) + dz,
-             level_bwd_work("dgrad", n, c, h, w, 5, stride=2, add=True, out_bytes=2)),
-            ("rec_conv2d_level_wgrad", "stride 1: dW_L = sum (x + up(y)) * g, bf16", 1e-4,
-             lambda: rec_conv2d_level_wgrad(xb, gb, k=5, up=y),
-             lambda: rec_conv2d_level_wgrad_plain(xb, gb, k=5, up=y),
-             lambda: cgrad.conv2d_weight(z, (c, 1, 5, 5), gb.float(), padding=2, groups=c),
-             level_bwd_work("wgrad", n, c, h, w, 5, up=True, in_bytes=2, g_bytes=2)),
-            ("rec_conv2d_level_wgrad", "stride 2: dW_down += sum x *_2 dd", 1e-4,
-             lambda: rec_conv2d_level_wgrad(xb, dd, k=5, stride=2),
-             lambda: rec_conv2d_level_wgrad_plain(xb, dd, k=5, stride=2),
-             lambda: cgrad.conv2d_weight(xb.float(), (c, 1, 5, 5), dd, stride=2, padding=2,
-                                         groups=c),
-             level_bwd_work("wgrad", n, c, h, w, 5, stride=2, in_bytes=2)),
-            ("rec_conv2d_up_adjoint", "dy = up^T(dz), bilinear", 2e-5,
-             lambda: rec_conv2d_up_adjoint(dz),
-             lambda: rec_conv2d_up_adjoint_plain(dz),
-             lambda: up_bwd["bilinear"](dz),
-             level_bwd_work("up_adjoint", n, c, h, w, 5)),
-            ("rec_conv2d_up_adjoint", "dy = up^T(dz), nearest", 2e-5,
-             lambda: rec_conv2d_up_adjoint(dz, mode="nearest"),
-             lambda: rec_conv2d_up_adjoint_plain(dz, mode="nearest"),
-             lambda: up_bwd["nearest"](dz), None)]
-        for kernel, what, tol, run, plain, library, work in cases:
-            before = COUNTERS[kernel].launches
-            got = run()
-            if COUNTERS[kernel].launches != before + 1:
-                raise AssertionError(f"{kernel} {what}: launches not counted")
-            want = plain()
-            err, scale = _check_close(f"{kernel} {what} at {[n, c, h, w]}", got, want, tol)
-            errs_by_kernel[kernel] = max(errs_by_kernel[kernel], err)
-            out = {"phase": "level_backward_kernel", "kernel": kernel, "what": what,
-                   "shape": [n, c, h, w], "max_abs_err": err, "max_abs_ref": scale,
-                   "tol": tol * scale,
-                   "library_max_abs_diff": (library().float() - want.float()).abs().max().item()}
-            if work is not None:  # the train step's mode: timed
-                times = {"kernel_ms": queued_ms(run), "plain_ms": queued_ms(plain, iters=5),
-                         "library_ms": queued_ms(library)}
-                bms, by = bound(*work)
-                out.update(times, bound_ms=bms, bound_by=by, bytes=work[0], flops=work[1])
-                if (n, c, h, w) == LARGE_BWD[0]:  # 3 peeled mixers of m1's 512^2 step
-                    tot = step_totals.setdefault(kernel, dict.fromkeys(
-                        ("kernel_ms", "plain_ms", "library_ms", "bytes", "flops"), 0.0))
-                    for key, val in (*times.items(), ("bytes", work[0]), ("flops", work[1])):
-                        tot[key] += 3 * val
+        for case in level_backward_cases(x, g, ws, gen, torch.bfloat16):
+            out = level_backward_case("level_backward_kernel", case, [n, c, h, w])
+            errs_by_kernel[case[0]] = max(errs_by_kernel[case[0]], out["max_abs_err"])
+            if "kernel_ms" in out and (n, c, h, w) == LARGE_BWD[0]:
+                # 3 peeled mixers of m1's 512^2 step
+                tot = step_totals.setdefault(case[0], dict.fromkeys(
+                    ("kernel_ms", "plain_ms", "library_ms", "bytes", "flops"), 0.0))
+                for key in tot:
+                    tot[key] += 3 * out[key]
             emit(out)
     regs = {kind: level_bwd_cuda.kernel_attributes(kind, 5, stride, dts)
             for kind, stride, dts in (("dgrad", 1, (torch.bfloat16, torch.float32)),
@@ -1738,7 +1781,7 @@ def phase_finetune(checkpoint: Path, work_dir: Path):
     emit(rec)
 
 
-INPUT_IMAGES, INPUT_COPIES, INPUT_VAL, INPUT_CLASSES, INPUT_PNGS = 1280, 4, 256, 10, 3
+INPUT_IMAGES, INPUT_COPIES, INPUT_VAL, INPUT_CLASSES, INPUT_PNGS = 1280, 2, 256, 10, 3
 INPUT_BATCH = 128
 INPUT_STEPS = INPUT_IMAGES * INPUT_COPIES // INPUT_BATCH  # RA keeps n // 256 * 256: all
 INPUT_EVAL_FORWARDS = 2 * (INPUT_VAL // INPUT_BATCH)  # the model and its EMA, 2 batches
@@ -2302,6 +2345,663 @@ def phase_mlla_train():
     return runs[0]["launches"]
 
 
+# ---------------------------------------------------------------- the downstream tasks
+# recnext_m3 Semantic FPN (crop 512) and RetinaNet (800^2, the detection preset's short
+# side), batch 16, fp32, as the task CLIs run their presets; recnext_a3 Semantic FPN at
+# 512^2 for K2 and K2'
+SEG_PRESET, DET_PRESET = "seg_recnext_m3_fpn_ade20k_40k", "det_recnext_m3_fpn_1x_coco"
+SEG_SIDE, DET_SIDE, TASK_BATCH, DET_BATCH = 512, 800, 16, 16
+M3_STAGES = ((3, 64), (3, 128), (13, 256), (2, 512))  # (depth, channels)
+# a3 at 512^2: stage -> (heads, side of the attention map, variant); D = 32 throughout
+A3_ATTENTION = {0: (2, 64, 1), 1: (4, 32, 1), 2: (8, 16, 1), 3: (16, 8, 2)}
+A3_DEPTHS, A3_HEAD_DIM = (3, 3, 13, 2), 32
+# (part, N) of a3's attention shapes where the kernel is known to lose to its plain
+# version in f32 at batch 16: K2 and K2′'s tiled route give a head one block, and BH 32
+# (N 4096) or 64 (N 1024) blocks leave most of the 132 SMs idle; ROADMAP Queue 2 holds
+# the plan (N split across blocks). Any other shape that loses fails the phase.
+A3_SLOWER_THAN_PLAIN = {("forward", 4096), ("forward", 1024), ("backward", 4096)}
+TASK_TRACE = ("recconv_kernel", "recconv_level_kernel", "recconv_bwd_kernel",
+              "recconv_bwd_sum_kernel", "recconv_level_dgrad_kernel",
+              "recconv_level_wgrad_kernel", "recconv_level_wgrad_sum_kernel",
+              "recconv_up_adjoint_kernel")
+
+
+def m3_task_launches(side):
+    """The launches of one recnext_m3 forward and of one train step (forward and
+    backward) on a side^2 input, from the planners: per mixer (stage i at plane
+    ceil(side / 2^(i+2)), level 4 - i) one K1 launch and two level-kernel launches a
+    peeled level (``levels_to_peel`` at fp32), and in the backward one K1′ call, or
+    where its plane peels (``levels_to_peel_backward``) ``peeled_backward_launches``."""
+    fwd, step = dict.fromkeys(COUNTERS, 0), dict.fromkeys(COUNTERS, 0)
+    plane = ((side + 1) // 2 + 1) // 2
+    for i, (depth, _) in enumerate(M3_STAGES):
+        level = 4 - i
+        f = {"rec_conv2d": 1,
+             "rec_conv2d_level": 2 * recconv_cuda.levels_to_peel(plane, plane, level, 5, 4)}
+        b = (peeled_backward_launches(plane, plane, level, 5)
+             if recconv_bwd_cuda.levels_to_peel_backward(plane, plane, level, 5)
+             else {"rec_conv2d_backward": 1})
+        for k, v in f.items():
+            fwd[k] += depth * v
+            step[k] += depth * v
+        for k, v in b.items():
+            step[k] += depth * v
+        plane = (plane + 1) // 2
+    return fwd, step
+
+
+def a3_task_launches():
+    """recnext_a3's train step: one K2 launch and one K2′ call a mixer."""
+    return dict.fromkeys(COUNTERS, 0) | {"linear_attention": sum(A3_DEPTHS),
+                                         "linear_attention_backward": sum(A3_DEPTHS)}
+
+
+def classifier_checkpoint(name, path: Path) -> Path:
+    """A classification checkpoint of ``name`` for the task recipes' ``--init-ckpt`` (the
+    recipes start from a pretrained backbone): seeded weights, BN affine drawn and
+    running statistics from one random batch (``calibrated``), saved as a bare state
+    dict. With the init's identity statistics a frozen-BN backbone's activations grow
+    without bound through its blocks (recnext_m3's C5 reaches ~1e24 at 512^2), and the
+    head's BatchNorm sees an infinite variance."""
+    torch.save(calibrated(name).state_dict(), path)
+    return path
+
+
+def _times(n, per):
+    return {k: n * v for k, v in per.items()}
+
+
+def _added(*dicts):
+    return {k: sum(d[k] for d in dicts) for k in dicts[0]}
+
+
+def _run_cli(main, argv, expected, what):
+    """``main(argv)`` with every count set to 0 just before and read just after (the
+    main path); its stdout's JSON lines. Raises unless the counts are ``expected``."""
+    import contextlib
+    import io
+
+    for fn in COUNTERS.values():  # the main path starts here
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    torch.cuda.synchronize()
+    launches = counts()  # ... and ends here
+    if launches != expected:
+        raise AssertionError(f"{what}: launches {launches}, expected {expected}")
+    text = buf.getvalue()
+    return {"seconds": time.perf_counter() - t0, "launches": launches, "text": text,
+            "lines": [json.loads(line) for line in text.splitlines() if line.startswith("{")],
+            "result": result}
+
+
+def _step_trace(fn, images, expected, what):
+    """One task train step ``fn``: its launches (counts 0 just before, read just after)
+    against ``expected``, its peak memory, its ms (CUDA events over 3 steps), a
+    profiler trace of 2 steps (device busy time, idle share, the port's kernels and the
+    top kernels by device time)."""
+    fn()
+    torch.cuda.synchronize()
+    for c in COUNTERS.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != expected:
+        raise AssertionError(f"{what} step: launches {launches}, expected {expected}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = cuda_ms(fn, iters=3, warmup=0)
+    kernels = trace(fn, iters=2, warmup=0)
+    busy = sum(k["ms"] for k in kernels)
+    if busy > step_ms * 1.02:  # a trace that counts time twice gives no idle share
+        raise AssertionError(f"{what}: device busy {busy} ms in a step of {step_ms} ms")
+    ours = {kn: {"ms": sum(k["ms"] for k in kernels if kn in k["name"]),
+                 "launches": sum(k["launches"] for k in kernels if kn in k["name"])}
+            for kn in TASK_TRACE}
+    return {"launches_per_step": {k: v for k, v in launches.items() if v},
+            "peak_memory_gib": peak / 2**30, "step_ms": step_ms,
+            "images_per_s": images / step_ms * 1e3, "device_busy_ms_per_step": busy,
+            "device_idle_share": 1 - busy / step_ms, "port_kernels": ours,
+            "top_kernels": kernels[:10]}
+
+
+def phase_tasks_seg(work_dir: Path, init_ckpt: Path):
+    """recnext_m3 Semantic FPN with the seg preset (crop 512, batch 16, fp32, FPN 256,
+    150 classes, frozen backbone BN) through the train_seg CLI on FAKE: 3 iterations
+    (mIoU at the 3rd, a checkpoint), a --resume to 6, --eval-only, --benchmark 5, each
+    run from ``init_ckpt`` (a calibrated classifier, ``--init-ckpt``), each run's
+    launches against the planners' (a step: K1 21 in the forward and 3 more that
+    recompute the peeled levels' inner pyramids, 3 level-kernel launches, K1′ 21, KL′1-3
+    6/6/3; a forward: K1 21); the backbone's running statistics the same bits after
+    the 6 steps, the head's moved. Then one train step traced (ms, img/s, idle share,
+    kernels, peak memory)."""
+    from recnext_tpu_torch.tasks import train_seg
+
+    fwd, step = m3_task_launches(SEG_SIDE)
+    out = work_dir / "seg"
+    base = ["--preset", SEG_PRESET, "--crop", str(SEG_SIDE), "--batch-size", str(TASK_BATCH),
+            "--init-ckpt", str(init_ckpt), "--output-dir", str(out)]
+    runs = {}
+    for name, extra, want in (
+            ("train_3", ["--iters", "3", "--eval-every", "3"], _added(_times(3, step), fwd)),
+            ("resume_to_6", ["--iters", "6", "--eval-every", "3", "--resume"],
+             _added(_times(3, step), fwd)),
+            ("eval_only", ["--eval-only"], fwd),
+            ("benchmark_5", ["--benchmark", "5"], _times(6, fwd))):
+        run = _run_cli(train_seg.main, base + extra, want, f"train_seg {name}")
+        runs[name] = {"seconds": run["seconds"], "lines": run["lines"],
+                      "launches": {k: v for k, v in run["launches"].items() if v}}
+        if name.startswith(("train", "resume")):
+            last = run["lines"][-1]
+            if not (np.isfinite(last["loss"]) and 0 <= last["mIoU"] <= 100):
+                raise AssertionError(f"train_seg {name}: {last}")
+            if name == "resume_to_6":
+                if "resumed at iter 3" not in run["text"] or run["result"]["state"].step != 6:
+                    raise AssertionError(f"train_seg {name} did not resume: {run['text']}")
+                trained = run["result"]["state"].model
+    args = train_seg.parse_args(base)
+    fresh = train_seg.build_state(args, torch.device("cuda")).model.state_dict()
+    moved = {"backbone": 0, "head": 0}
+    for k, v in trained.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            same = torch.equal(v, fresh[k])
+            if k.startswith("backbone.") != same:
+                raise AssertionError(f"frozen BN: {k} {'unchanged' if same else 'moved'}")
+            moved["head" if not same else "backbone"] += 1
+    del trained, fresh
+    runs["frozen_bn"] = {"backbone_statistics_same_bits": moved["backbone"],
+                         "head_statistics_moved": moved["head"]}
+
+    state = train_seg.build_state(args, torch.device("cuda"))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_seg.synthetic_seg_batch(
+        np.random.default_rng(0), TASK_BATCH, SEG_SIDE, 150).items()}
+    gen = torch.Generator("cuda").manual_seed(0)
+    train_step = train_seg.make_seg_train_step()
+    traced = _step_trace(lambda: train_step(state, batch, gen), TASK_BATCH, step, "tasks_seg")
+    del state
+    emit({"phase": "tasks_seg", "model": "recnext_m3 Semantic FPN", "preset": SEG_PRESET,
+          "input": [TASK_BATCH, 3, SEG_SIDE, SEG_SIDE], "dtype": "float32",
+          "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+          "expected_per_forward": {k: v for k, v in fwd.items() if v},
+          "expected_per_step": {k: v for k, v in step.items() if v}, "cli": runs,
+          "step": traced})
+    return step, traced
+
+
+def phase_tasks_recconv():
+    """K1 and K1′ one call at a time at recnext_m3's mixer shapes of the task paths,
+    batch 16, fp32 (the seg path's four planes at 512^2, the detection path's at 800^2,
+    whose stage 0 forward peels a level too): each held against its plain version on
+    the inputs it is then timed on (K1 at 2e-5 max|ref| in f32 and 1e-2 on the inputs
+    rounded to bf16, ``_check_recconv``; K1′'s dx at 2e-5 and dW at 1e-4,
+    ``_check_backward``); device ms (CUDA events around queued calls) beside the bound
+    and the plain version, and the sums over one forward (K1) and one train step (K1′)
+    of each path. A peeled call's time counts every launch it makes (the level kernel,
+    the recomputed pyramid, KL′1-3), its bound the function's bytes and operations."""
+    gen = torch.Generator().manual_seed(14)
+    planes = {path: [(-(-side // (4 << i)), 4 - i, d, c) for i, (d, c) in enumerate(M3_STAGES)]
+              for path, side in (("seg", SEG_SIDE), ("det", DET_SIDE))}
+    totals = {}
+    for path, shapes in planes.items():
+        tot = totals[path] = {k: dict.fromkeys(("kernel_ms", "plain_ms", "bytes", "flops"), 0.0)
+                              for k in ("k1_forward", "k1_bwd_step")}
+        for side, level, depth, c in shapes:
+            x, ws = _recconv_inputs(gen, TASK_BATCH, c, side, side, level, torch.float32)
+            g = torch.randn(x.shape, generator=gen).cuda()
+            rec = {"phase": "tasks_recconv", "path": path, "shape": [TASK_BATCH, c, side, side],
+                   "level": level, "mixers": depth, "dtype": "float32",
+                   "forward_peel": recconv_cuda.levels_to_peel(side, side, level, 5, 4),
+                   "backward_peel": recconv_bwd_cuda.levels_to_peel_backward(side, side,
+                                                                             level, 5),
+                   "k1_forward_check": _check_recconv(x, ws, level, "bilinear"),
+                   "k1_bwd_err_over_max_ref": _check_backward(x, ws, g, level, "bilinear")[0]}
+            for part, run, plain, work in (
+                    ("k1_forward", lambda: rec_conv2d_fused(x, ws[0], ws[1:], level=level),
+                     lambda: rec_conv2d(x, ws[0], ws[1:], level=level),
+                     recconv_work(TASK_BATCH, c, side, side, level, 5, 4)),
+                    ("k1_bwd_step", lambda: rec_conv2d_backward(x, ws[0], ws[1:], g, level=level),
+                     lambda: rec_conv2d_backward_plain(x, ws[0], ws[1:], g, level=level),
+                     recconv_bwd_work(TASK_BATCH, c, side, side, level, 5, 4))):
+                times = {"kernel_ms": queued_ms(run), "plain_ms": queued_ms(plain, iters=3)}
+                bms, by = bound(*work)
+                rec[part] = dict(times, bound_ms=bms, bound_by=by, bytes=work[0], flops=work[1])
+                for key, val in (*times.items(), ("bytes", work[0]), ("flops", work[1])):
+                    tot[part][key] += depth * val
+            emit(rec)
+            del x, g
+        for t in tot.values():
+            t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"])
+    emit({"phase": "tasks_recconv_totals", "batch": TASK_BATCH, "dtype": "float32", **totals})
+    return totals
+
+
+def phase_tasks_level_backward():
+    """KL′1-3 alone at the task paths' peeled planes, fp32, batch 16: 128^2 x 64
+    (stage 0 at 512^2) and 200^2 x 64 (stage 0 at 800^2), each against its plain
+    version, timed beside its bound, its plain version and one cuDNN/ATen call; the
+    sums over one train step's 15 launches (3 peeled mixers)."""
+    gen = torch.Generator().manual_seed(12)
+    totals = {}
+    for side in (SEG_SIDE // 4, DET_SIDE // 4):
+        n, c, h, w = TASK_BATCH, 64, side, side
+        x, g = torch.randn(n, c, h, w, generator=gen), torch.randn(n, c, h, w, generator=gen)
+        ws = [torch.randn(c, 1, 5, 5, generator=gen) / 5 for _ in range(6)]
+        summed = ("kernel_ms", "plain_ms", "library_ms", "bytes", "flops")
+        tot = totals[side] = {k: dict.fromkeys(summed, 0.0) for k in LEVEL_BWD}
+        for case in level_backward_cases(x, g, ws, gen, torch.float32):
+            out = level_backward_case("tasks_level_backward", case, [n, c, h, w])
+            if "kernel_ms" in out:
+                for key in summed:
+                    tot[case[0]][key] += 3 * out[key]  # 3 peeled mixers a step
+            emit(out)
+        for t in tot.values():
+            t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"])
+        del x, g
+    emit({"phase": "tasks_level_backward_step", "batch": TASK_BATCH, "dtype": "float32",
+          "per_plane_side": totals})
+    return totals
+
+
+def _capture_kernel_calls(name):
+    """Record each call that the model's mixers make of their forward kernel (K1 for
+    the M family, K2 for the A family), its inputs and the gradient that reaches its
+    output, by wrapping the entry ``models/mixers.py`` calls. Returns the records and
+    a function that restores the entry."""
+    from recnext_tpu_torch.models import mixers
+
+    entry = "rec_conv2d_fused" if name.startswith("recnext_m") else "linear_attention_nchw"
+    original, calls = getattr(mixers, entry), []
+
+    def wrapper(*args, **kwargs):
+        out = original(*args, **kwargs)
+        rec = {"args": [a.detach() if isinstance(a, torch.Tensor) else
+                        [t.detach() for t in a] if isinstance(a, list) else a for a in args],
+               "kwargs": kwargs}
+        calls.append(rec)
+        out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+        return out
+
+    setattr(mixers, entry, wrapper)
+    return calls, lambda: setattr(mixers, entry, original)
+
+
+def _check_captured_backward(name, calls):
+    """Each captured call's backward kernel (K1′ or K2′) against its plain version on the
+    inputs and output gradient it saw in the model's step, at K1′'s bounds (dx 2e-5,
+    dW 1e-4 max|ref|) or K2′'s (2e-5 max|ref|). Returns the worst error over max|ref|."""
+    worst = 0.0
+    for call in calls:
+        if name.startswith("recnext_m"):
+            x, down, convs = call["args"][:3]
+            errs, _ = _check_backward(x, [down, *convs], call["g"], call["kwargs"]["level"],
+                                      call["kwargs"].get("mode", "bilinear"))
+            worst = max([worst, *errs.values()])
+        else:
+            qk, v, nh = call["args"][:3]
+            d = qk.shape[1] // (2 * nh)
+
+            def heads(t, r):  # (B, nh*R, H, W) -> (B*nh, N, R)
+                return t.reshape(t.shape[0] * nh, r, -1).transpose(1, 2)
+
+            dqk, dv = linear_attention_nchw_backward(qk, v, call["g"], nh)
+            want = linear_attention_backward_plain(
+                heads(qk[:, : nh * d].float(), d), heads(qk[:, nh * d:].float(), d),
+                heads(v.float(), v.shape[1] // nh), heads(call["g"].float(), v.shape[1] // nh))
+            got = (heads(dqk[:, : nh * d], d), heads(dqk[:, nh * d:], d),
+                   heads(dv, v.shape[1] // nh))
+            _, rels = _check_attention_grads(got, want, torch.float32, (name, tuple(qk.shape)))
+            worst = max([worst, *(r for r in rels.values() if r is not None)])
+    return worst
+
+
+def _pin_head_relus(model, masks, flips):
+    """Make each ``ScaleHeadStep`` of ``model`` apply its ReLU as the on/off pattern
+    ``masks[i]`` (step i in module order; recorded from this forward where ``masks`` is
+    empty), and append to ``flips`` the number of the ReLU's inputs whose sign
+    disagrees with the pattern. y * mask has ReLU's value and gradient where the
+    pattern is y's own."""
+    from recnext_tpu_torch.tasks.segmentation import ScaleHeadStep
+
+    record = not masks
+
+    def pinned(step, i):
+        def forward(x):
+            y = step.bn(step.conv(x))
+            if record:
+                masks[i] = y > 0
+            else:
+                flips.append(int(((y > 0) != masks[i]).sum()))
+            x = y * masks[i].to(y.dtype)
+            if step.up:
+                x = resize(x, (x.shape[2] * 2, x.shape[3] * 2), mode="bilinear")
+            return x
+        return forward
+
+    for i, step in enumerate(m for m in model.modules() if isinstance(m, ScaleHeadStep)):
+        step.forward = pinned(step, i)
+
+
+TASK_GRAD_TOL = 1e-4  # each gradient's error over its max, beyond 10x the plain path's
+
+
+def phase_tasks_grad(init_ckpt: Path, name="recnext_m3", batch=2):
+    """``name``'s Semantic FPN (frozen backbone BN, the backbone from ``init_ckpt``) at
+    batch x side^2 in train mode, with the same dropout mask on every path: the kernel
+    path in fp32 against the plain path in fp32 and in float64 (the exact gradients),
+    the counts set to 0 just before each path and read just after. The head's ReLUs
+    take the float64 path's on/off pattern on every path (``_pin_head_relus``): an
+    fp32 path's features differ from float64's by ~1e-6 relative, enough to put a few
+    of the head's ReLU inputs on the other side of 0, and each such flip moves a head
+    conv's gradient by one position's term, up to 5e-3 of its max at batch 2. Checked:
+    the logits within 1e-4 max|ref| (phase 4's f32 bound), the loss within 1e-5; each
+    of the step's backward-kernel calls (as many as the model's mixers) against its
+    plain version on the inputs and output gradient it saw, at K1′'s or K2′'s bounds;
+    every parameter's gradient off the exact one by at most max(10x the plain path's
+    error, ``TASK_GRAD_TOL``) of the exact one's max. The flips and the errors of
+    both fp32 paths with their own ReLUs (unpinned) are printed beside them."""
+    import copy
+
+    from recnext_tpu_torch.models.registry import get_config
+    from recnext_tpu_torch.tasks.detection import (init_backbone_from_classification,
+                                                   init_task_weights)
+    from recnext_tpu_torch.tasks.segmentation import SemanticFPN, segmentation_loss
+
+    side = SEG_SIDE
+    cfg = get_config(name, num_classes=0)
+    model = SemanticFPN(cfg, num_classes=150)
+    init_task_weights(model, torch.Generator().manual_seed(3))
+    model.load_state_dict(init_backbone_from_classification(
+        model.state_dict(), read_weights(str(init_ckpt), log=lambda m: None)), strict=True)
+    model.cuda().train()
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(batch, 3, side, side, generator=gen).cuda()
+    y = torch.randint(0, 150, (batch, side, side), generator=gen).cuda()
+    expected = m3_task_launches(side)[1] if name == "recnext_m3" else a3_task_launches()
+    masks, flips, got = {}, {}, {}
+    for path, dtype in (("plain_path_f64", torch.float64), ("kernel_path", torch.float32),
+                        ("plain_path", torch.float32), ("kernel_path_unpinned", torch.float32),
+                        ("plain_path_unpinned", torch.float32)):
+        m = copy.deepcopy(model).to(dtype)
+        m.decode_head.generator = torch.Generator("cuda").manual_seed(5)
+        kernel = path.startswith("kernel")
+        restore = None if kernel else plain_path(m)
+        if not path.endswith("unpinned"):
+            _pin_head_relus(m, masks, flips.setdefault(path, []))
+        if path == "kernel_path":
+            calls, unwrap = _capture_kernel_calls(name)
+        for fn in COUNTERS.values():  # the main path starts here
+            fn.launches = 0
+        logits = m(x.to(dtype))
+        loss = (F.cross_entropy(logits, y)  # float64 (segmentation_loss casts to fp32)
+                if dtype == torch.float64 else segmentation_loss(logits, y))
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = counts()  # ... and ends here
+        if path == "kernel_path":
+            unwrap()
+        if restore:
+            restore()
+        want = expected if kernel else dict.fromkeys(COUNTERS, 0)
+        if launches != want:
+            raise AssertionError(f"tasks_grad {name} {path}: launches {launches}, want {want}")
+        got[path] = (logits.detach().float(), loss.item(),
+                     {n: p.grad.double() for n, p in m.named_parameters()})
+        del m
+    _, loss_64, g64 = got["plain_path_f64"]
+    (lk, loss_k, _), (lp, loss_p, _) = got["kernel_path"], got["plain_path"]
+    logit_err, logit_scale = (lk - lp).abs().max().item(), lp.abs().max().item()
+    if not (logit_err <= 1e-4 * logit_scale and abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)):
+        raise AssertionError(f"tasks_grad {name}: logits {logit_err} of {logit_scale}, "
+                             f"loss {loss_k} vs {loss_p}")
+    if len(calls) != sum(cfg.depth) or not all("g" in c for c in calls):
+        raise AssertionError(f"tasks_grad {name}: {len(calls)} kernel calls captured, "
+                             f"{sum(cfg.depth)} mixers")
+    backward_worst = _check_captured_backward(name, calls)
+    errs = {path: {n: (grads[n] - g).abs().max().item() / g.abs().max().item()
+                   for n, g in g64.items() if g.abs().max().item() >= 1e-6}
+            for path, (_, _, grads) in got.items() if path != "plain_path_f64"}
+    if not all(torch.isfinite(g).all() for _, _, grads in got.values() for g in grads.values()):
+        raise AssertionError(f"tasks_grad {name}: a gradient is not finite")
+    over = {n: (e, errs["plain_path"][n]) for n, e in errs["kernel_path"].items()
+            if not e <= max(10 * errs["plain_path"][n], TASK_GRAD_TOL)}
+    if over:
+        raise AssertionError(f"tasks_grad {name}: gradients off the exact ones (kernel path, "
+                             f"plain path): {over}")
+    rec = {"phase": "tasks_grad", "model": f"{name} Semantic FPN",
+           "input": [batch, 3, side, side], "launches": {k: v for k, v in expected.items() if v},
+           "loss": {"kernel_path": loss_k, "plain_path": loss_p, "plain_path_f64": loss_64},
+           "logits_max_abs_err": logit_err, "logits_max_abs": logit_scale,
+           "backward_calls_checked": len(calls),
+           "backward_worst_err_over_max_ref": backward_worst,
+           "gradients_worst_err_over_max_exact": {
+               path: max((e, n) for n, e in es.items()) for path, es in errs.items()},
+           "gradient_tol": {"times_plain": 10, "floor": TASK_GRAD_TOL},
+           "head_relu_inputs_flipped_against_f64": {p: sum(f) for p, f in flips.items()
+                                                    if p != "plain_path_f64"},
+           "head_relu_inputs": sum(int(mk.numel()) for mk in masks.values()),
+           "parameters": len(g64)}
+    emit(rec)
+    return rec
+
+
+def phase_tasks_det(work_dir: Path, init_ckpt: Path):
+    """recnext_m3 RetinaNet with the detection preset (800^2, batch 16, fp32, FPN 256
+    P2-P6, 80 classes, backbone BN training as the JAX CLI builds it) through the
+    train_det CLI on FAKE: 2 epochs of 3 steps and the AP loop over 32 images, a
+    --resume to 3 epochs, --eval-only over 32 images and --benchmark 3, each run's
+    launches against the planners' (a forward: K1 21 and 6 level-kernel launches; a
+    step: that and the backward's). Then one train step traced, and the post-process's
+    ms per image (the predict call less the forward, batch 16)."""
+    from recnext_tpu_torch.tasks import train_det
+    from recnext_tpu_torch.tasks.detection import generate_anchors
+
+    fwd, step = m3_task_launches(DET_SIDE)
+    out = work_dir / "det"
+    base = ["--preset", DET_PRESET, "--detector", "retinanet", "--batch-size", str(DET_BATCH),
+            "--img-size", str(DET_SIDE), "--init-ckpt", str(init_ckpt),
+            "--steps-per-epoch", "3", "--fake-size", "32", "--eval-max-images", "32",
+            "--output-dir", str(out)]
+    evals = 32 // DET_BATCH
+    runs = {}
+    for name, extra, want in (
+            ("train_2x3", ["--epochs", "2", "--eval-every", "2"],
+             _added(_times(6, step), _times(evals, fwd))),
+            ("resume_to_3", ["--epochs", "3", "--eval-every", "0", "--resume"],
+             _times(3, step)),
+            ("eval_only", ["--eval-only"], _times(evals, fwd)),
+            ("benchmark_3", ["--benchmark", "3"], _times(4, fwd))):
+        run = _run_cli(train_det.main, base + extra, want, f"train_det {name}")
+        runs[name] = {"seconds": run["seconds"], "lines": run["lines"],
+                      "launches": {k: v for k, v in run["launches"].items() if v}}
+        if name.startswith(("train", "resume")):
+            if not all(np.isfinite(r["train_loss"]) for r in run["lines"]):
+                raise AssertionError(f"train_det {name}: {run['lines']}")
+            if name == "resume_to_3" and ("resumed from epoch 1" not in run["text"]
+                                          or run["result"]["state"].step != 9):
+                raise AssertionError(f"train_det {name} did not resume: {run['text']}")
+        if name in ("train_2x3", "eval_only") and "bbox_mAP" not in run["lines"][-1]:
+            raise AssertionError(f"train_det {name}: no AP in {run['lines']}")
+
+    args = train_det.parse_args(["--preset", DET_PRESET, "--detector", "retinanet"])
+    from recnext_tpu_torch.models.registry import get_config
+    from recnext_tpu_torch.tasks.detection import (RetinaNet, init_backbone_from_classification,
+                                                   init_task_weights,
+                                                   make_detection_train_step)
+    from recnext_tpu_torch.train.optim import make_optimizer
+    from recnext_tpu_torch.train.state import TrainState
+
+    model = RetinaNet(get_config(args.backbone, num_classes=0), num_classes=80,
+                      frozen_backbone_stats=False)
+    init_task_weights(model, torch.Generator().manual_seed(0))
+    model.load_state_dict(init_backbone_from_classification(
+        model.state_dict(), read_weights(str(init_ckpt), log=lambda m: None)), strict=True)
+    model.cuda()
+    shapes = train_det.pyramid_shapes(DET_SIDE)
+    anchors = torch.from_numpy(generate_anchors(shapes, strides=train_det.STRIDES)).cuda()
+    opt = make_optimizer(model.named_parameters(), train_det.step_lr(2e-4, 1000), 0.05,
+                         agc_clip=0.0, decay_all=True)
+    state = TrainState.create(model, opt, ema=False)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_det.synthetic_det_batch(
+        np.random.default_rng(0), DET_BATCH, DET_SIDE, 80).items()}
+    train_step = make_detection_train_step(anchors, 80)
+    traced = _step_trace(lambda: train_step(state, batch), DET_BATCH, step, "tasks_det")
+    predict = train_det.make_predict_fn(model, anchors, [h * w * 9 for h, w in shapes], 0.05)
+    x = batch["image"]
+
+    def forward():
+        with torch.no_grad():
+            model.eval()(x)
+
+    predict_ms, forward_ms = cuda_ms(lambda: predict(x), iters=3, warmup=1), cuda_ms(forward, 3, 1)
+    del state, model
+    emit({"phase": "tasks_det", "model": "recnext_m3 RetinaNet", "preset": DET_PRESET,
+          "input": [DET_BATCH, 3, DET_SIDE, DET_SIDE], "dtype": "float32",
+          "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+          "pyramid": shapes, "anchors": int(anchors.shape[0]),
+          "expected_per_forward": {k: v for k, v in fwd.items() if v},
+          "expected_per_step": {k: v for k, v in step.items() if v}, "cli": runs,
+          "step": traced, "predict_ms_per_batch": predict_ms, "forward_ms_per_batch": forward_ms,
+          "postprocess_ms_per_image": (predict_ms - forward_ms) / DET_BATCH})
+    return step, traced
+
+
+def phase_tasks_attention():
+    """K2 and K2′ at recnext_a3's four attention shapes at 512^2 (D 32; N 4096, 1024,
+    256, 64; heads 2, 4, 8, 16; the last qk-first), batch 16 (the seg preset's), against
+    their plain versions at phases 7 and 15's bounds in f32 and bf16, K2′ the same bits
+    on three runs, each shape's K2′ route; device times in f32 (the task recipe's dtype;
+    CUDA events around queued calls) beside bound and plain version, and the sums over
+    one a3 forward (K2) and train step (K2′). A kernel slower than its plain version
+    fails the phase but at the shapes named in ``A3_SLOWER_THAN_PLAIN``, which are
+    printed as such."""
+    gen = torch.Generator().manual_seed(13)
+    d = A3_HEAD_DIM
+    totals = {"forward": dict.fromkeys(("kernel_ms", "plain_ms", "bytes", "flops"), 0.0),
+              "backward": dict.fromkeys(("kernel_ms", "plain_ms", "bytes", "flops"), 0.0)}
+    max_abs_err = {"forward": 0.0, "backward": 0.0}
+
+    def heads(t, nh):  # (B, nh*R, H, W) -> (B*nh, N, R)
+        b, c, h, w = t.shape
+        return t.reshape(b * nh, c // nh, h * w).transpose(1, 2)
+
+    for stage, (nh, side, variant) in A3_ATTENTION.items():
+        b, n = TASK_BATCH, side * side
+        qk0 = torch.randn(b, 2 * nh * d, side, side, generator=gen).abs() + 0.1
+        v0, g0 = (torch.randn(b, nh * d, side, side, generator=gen) for _ in range(2))
+        cfg = attention_bwd_cuda.launch_config(n, d, d, 4, "n")
+        rec = {"phase": "tasks_attention", "model": "recnext_a3", "stage": stage,
+               "batch": b, "heads": nh, "n": n, "d": d, "variant": variant,
+               "k2_bwd_route": cfg.route,
+               "k2_bwd_launch": {k: v for k, v in cfg._asdict().items() if k != "geometry"}}
+        for dtype in (torch.float32, torch.bfloat16):
+            key = "f32" if dtype == torch.float32 else "bf16"
+            qk, v, g = (t.to("cuda", dtype) for t in (qk0, v0, g0))
+            want = linear_attention_nchw_plain(qk.float(), v.float(), nh, variant=variant)
+            got = linear_attention_nchw(qk, v, nh, variant=variant).float()
+            torch.cuda.synchronize()
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            ok = (bool(((got - want).abs() <= 1e-3 + 1e-3 * want.abs()).all())
+                  if dtype == torch.float32 else err <= 1e-2 * scale)
+            if not ok:
+                raise AssertionError(f"K2 {key} at a3 stage {stage}: {err} (max|ref| {scale})")
+            rec[f"k2_{key}_max_abs_err"] = err
+            q, k = (heads(t.float(), nh) for t in (qk[:, : nh * d], qk[:, nh * d:]))
+            bwant = linear_attention_backward_plain(q, k, heads(v.float(), nh),
+                                                    heads(g.float(), nh))
+            runs = [linear_attention_nchw_backward(qk, v, g, nh) for _ in range(3)]
+            torch.cuda.synchronize()
+            dqk, dv = runs[0]
+            bgot = (heads(dqk[:, : nh * d], nh), heads(dqk[:, nh * d:], nh), heads(dv, nh))
+            errs, rels = _check_attention_grads(bgot, bwant, dtype, ("a3", stage, key))
+            if not all(torch.equal(a, b_) for r in runs[1:] for a, b_ in zip(r, runs[0])):
+                raise AssertionError(f"K2' at a3 stage {stage} {key}: runs differ")
+            rec[f"k2_bwd_{key}_max_abs_err"], rec[f"k2_bwd_{key}_err_over_max_ref"] = errs, rels
+            rec[f"k2_bwd_{key}_same_bits_3_runs"] = True
+            if dtype == torch.bfloat16:
+                max_abs_err["forward"] = max(max_abs_err["forward"], err)
+                max_abs_err["backward"] = max(max_abs_err["backward"], *errs.values())
+        qk, v, g = (t.cuda() for t in (qk0, v0, g0))  # timed in f32, the recipe's dtype
+        q, k = heads(qk[:, : nh * d], nh), heads(qk[:, nh * d:], nh)
+        timed = {
+            "forward": ({"kernel_ms": queued_ms(lambda: linear_attention_nchw(
+                qk, v, nh, variant=variant)), "plain_ms": queued_ms(
+                lambda: linear_attention_nchw_plain(qk, v, nh, variant=variant), iters=5)},
+                attention_work(b, nh, n, d, d, 4)),
+            "backward": ({"kernel_ms": queued_ms(lambda: linear_attention_nchw_backward(
+                qk, v, g, nh)), "plain_ms": queued_ms(lambda: linear_attention_backward_plain(
+                q, k, heads(v, nh), heads(g, nh)), iters=5)},
+                attention_bwd_work(b, nh, n, d, d, 4))}
+        for part, (times, (nbytes, flops)) in timed.items():
+            bms, by = bound(nbytes, flops)
+            slower = times["kernel_ms"] > times["plain_ms"]
+            if slower and (part, n) not in A3_SLOWER_THAN_PLAIN:
+                raise AssertionError(f"tasks_attention: {part} kernel slower than its plain "
+                                     f"version at a3 stage {stage}: {times}")
+            rec[f"{part}_f32_batch_{b}"] = dict(
+                times, bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
+                kernel_over_plain=times["kernel_ms"] / times["plain_ms"],
+                slower_than_plain="known (A3_SLOWER_THAN_PLAIN)" if slower else False)
+            for key, val in (*times.items(), ("bytes", nbytes), ("flops", flops)):
+                totals[part][key] += A3_DEPTHS[stage] * val
+        emit(rec)
+    for t in totals.values():
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"])
+    emit({"phase": "tasks_attention_totals", "model": "recnext_a3", "batch": TASK_BATCH,
+          "dtype": "float32", "calls": sum(A3_DEPTHS), **totals})
+    return totals, max_abs_err
+
+
+def run_tasks():
+    """The downstream tasks' phases; returns the tasks_path line and each phase's
+    seconds. Run in a process of its own (``tasks_process``)."""
+    seconds = {}
+
+    def timed(name, fn, *args, tf32=False, **kwargs):
+        """``fn`` with cuDNN's TF32 ``tf32``: on (PyTorch's default) where the task CLIs
+        and their steps run as a user runs them, off where a kernel is held against
+        its plain version in full fp32."""
+        t = time.perf_counter()
+        torch.backends.cudnn.allow_tf32 = tf32
+        result = fn(*args, **kwargs)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return result
+
+    work_dir = Path(tempfile.mkdtemp(dir=Path(__file__).resolve().parent / "recnext_tpu_torch"
+                                     / "_build"))
+    try:
+        m3 = classifier_checkpoint("recnext_m3", work_dir / "recnext_m3.pt")
+        seg_step, seg = timed("tasks_seg", phase_tasks_seg, work_dir, m3, tf32=True)
+        timed("tasks_seg", phase_tasks_grad, m3)
+        recconv = timed("tasks_seg", phase_tasks_recconv)
+        level = timed("tasks_seg", phase_tasks_level_backward)
+        det_step, det = timed("tasks_det", phase_tasks_det, work_dir, m3, tf32=True)
+        a3 = classifier_checkpoint("recnext_a3", work_dir / "recnext_a3.pt")
+        a3_grad = timed("tasks_a", phase_tasks_grad, a3, "recnext_a3")
+        attention, attention_err = timed("tasks_a", phase_tasks_attention)
+    finally:
+        shutil.rmtree(work_dir)
+    return {"seg_launches_per_step": {k: v for k, v in seg_step.items() if v},
+            "det_launches_per_step": {k: v for k, v in det_step.items() if v},
+            "seg_step": {k: seg[k] for k in ("step_ms", "images_per_s", "device_idle_share",
+                                             "peak_memory_gib")},
+            "det_step": {k: det[k] for k in ("step_ms", "images_per_s", "device_idle_share",
+                                             "peak_memory_gib")},
+            "k1_k1bwd_totals": recconv, "level_backward_step_totals": level,
+            "a3_grad": {k: a3_grad[k] for k in ("backward_worst_err_over_max_ref",
+                                                 "gradients_worst_err_over_max_exact")},
+            "a3_attention_totals": attention, "a3_bf16_max_abs_err": attention_err}, seconds
+
+
+def tasks_process():
+    """``run_tasks`` in a fresh process (spawned, as ``mlla_process``)."""
+    torch.cuda.empty_cache()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(run_tasks)
+
+
 def forward_totals(per_shape, table):
     """Sums over one forward's launches (launch counts from ``table``)."""
     total = {key: sum(table[s][2] * per_shape[s][key] for s in table)
@@ -2449,12 +3149,17 @@ def main() -> int:
     # K2' (recattn_simple), the RoPE attention in plain PyTorch (recattn)
     mlla, mlla_seconds = timed("mlla", mlla_process)
     seconds.update(mlla_seconds)
+    # the downstream tasks: recnext_m3 Semantic FPN and RetinaNet (K1, K1', KL'1-3 at
+    # batch 16, fp32), recnext_a3 Semantic FPN (K2, K2')
+    tasks, tasks_seconds = timed("tasks", tasks_process)
+    seconds.update(tasks_seconds)
     emit({"phase": "seconds", **seconds, "script": time.perf_counter() - start})
     # the L path's launches and K2 / K2' totals (the kernel record below is a1's)
     emit({"phase": "l_path", "k2_launches_per_forward": l_launches,
           "k2_launches_served_recnext_t": t_served, "recnext_t_train": t_train_launches,
           "k2_forward_totals": l_totals, "k2_backward_step_total_recnext_t": t_bwd_total})
     emit({"phase": "mlla_path", **mlla})
+    emit({"phase": "tasks_path", **tasks})
 
     emit({"kernels": [
         kernel_record("rec_conv2d", "recnext_tpu_torch/csrc/recconv.cu",

@@ -10,7 +10,9 @@ paths are renamed to the reference module tree the port's models share.
 the inverse of ``recnext_tpu/convert.py:regnety_torch_to_flax``. ``jax_mlla_to_torch``
 does it for the MLLA family, into the reference MLLA models' names: the port's copy
 of the rules of ``recnext_tpu/convert.py:mlla_flax_to_torch`` (whose output it equals
-key for key), written as a forward rewrite of each flax path.
+key for key), written as a forward rewrite of each flax path. ``jax_task_to_torch``
+does it for the downstream tasks' models (Semantic FPN, RetinaNet): their backbone
+by the rules above, their neck and heads into the port's module names.
 """
 
 from __future__ import annotations
@@ -303,4 +305,65 @@ def jax_mlla_to_torch(variables: Mapping[str, Any], model: torch.nn.Module | Non
         out[key] = v.astype(np.float32)
         if path[-1] == "mean":  # torch BN buffers include num_batches_tracked
             out[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = np.zeros((), np.int64)
+    return _to_torch(out, model)
+
+
+_TASK_RULES = (  # a task model's flax module path -> the port's module path
+    (re.compile(r"neck/lateral_(\d+)"), r"neck.lateral_convs.\1"),
+    (re.compile(r"neck/fpn_(\d+)"), r"neck.fpn_convs.\1"),
+    (re.compile(r"decode_head/scale(\d+)_conv(\d+)"), r"decode_head.scale_heads.\1.\2.conv"),
+    (re.compile(r"decode_head/scale(\d+)_bn(\d+)"), r"decode_head.scale_heads.\1.\2.bn"),
+    (re.compile(r"decode_head/conv_seg"), "decode_head.conv_seg"),
+    (re.compile(r"head/cls_conv(\d+)"), r"head.cls_convs.\1"),
+    (re.compile(r"head/reg_conv(\d+)"), r"head.reg_convs.\1"),
+    (re.compile(r"head/cls_out"), "head.retina_cls"),
+    (re.compile(r"head/reg_out"), "head.retina_reg"),
+)
+_TASK_LEAF = {"kernel": "weight", "bias": "bias"} | _NORM_LEAF
+
+
+def _task_key(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """A task model's flax leaf path outside the backbone -> (torch key, transform)."""
+    module = "/".join(p for p in path[:-1] if p != "extractor")
+    prefix = "extractor." if path[0] == "extractor" else ""
+    for pattern, repl in _TASK_RULES:
+        if pattern.fullmatch(module):
+            key = f"{prefix}{pattern.sub(repl, module)}.{_TASK_LEAF[path[-1]]}"
+            return key, "conv" if path[-1] == "kernel" else "id"
+    raise KeyError(f"unmapped task flax path: {'/'.join(path)}")
+
+
+def jax_task_to_torch(variables: Mapping[str, Any], model: torch.nn.Module | None = None
+                      ) -> Dict[str, torch.Tensor]:
+    """JAX ``{params, batch_stats}`` of a ``SemanticFPN`` or a ``RetinaNet``
+    (``recnext_tpu/tasks/``) -> the port's state dict (fp32): the backbone subtree
+    (``backbone`` or ``extractor/backbone``) through ``jax_to_torch``'s rules, under
+    ``backbone.`` or ``extractor.backbone.``; the FPN's ``lateral_i``/``fpn_i``, the
+    FPNHead's ``scale{i}_conv{r}``/``scale{i}_bn{r}``/``conv_seg`` and the RetinaHead's
+    ``cls_conv{i}``/``reg_conv{i}``/``cls_out``/``reg_out`` (HWIO kernels to OIHW) into
+    the port's module names. With ``model``, check that keys and shapes are exactly its
+    ``state_dict()``'s."""
+    params = dict(variables.get("params", {}))
+    stats = dict(variables.get("batch_stats", {}))
+    if not params:
+        raise ValueError("jax_task_to_torch expects {'params': ..., 'batch_stats': ...} "
+                         "(got no 'params' collection)")
+    inner = "extractor" if "extractor" in params else None
+
+    def subtree(tree):
+        return dict(tree.get(inner, {})).get("backbone", {}) if inner else tree.get("backbone", {})
+
+    prefix = "extractor.backbone." if inner else "backbone."
+    out: Dict[str, np.ndarray] = {}
+    if subtree(params):
+        backbone = jax_to_torch({"params": subtree(params), "batch_stats": subtree(stats)})
+        out.update({prefix + k: v.numpy() for k, v in backbone.items()})
+    for collection in (params, stats):
+        for path, v in _flatten_tree(collection).items():
+            if "backbone" in path:
+                continue
+            key, tr = _task_key(path)
+            out[key] = _inv_transform(v.astype(np.float32), tr)
+            if path[-1] == "mean":  # torch BN buffers include num_batches_tracked
+                out[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = np.zeros((), np.int64)
     return _to_torch(out, model)

@@ -1,5 +1,6 @@
 """Datasets: class folders (ImageNet's layout, also in a tar), CIFAR-100, iNaturalist,
-a repeated data set and the deterministic synthetic FAKE data set.
+a repeated data set, the deterministic synthetic FAKE data set, and ADE20K's
+segmentation layout (``SegFolder``, whose items are ``(PIL.Image, label map)``).
 
 Counterpart of ``recnext_tpu/data/datasets.py`` and its ``build_dataset``; each item
 is ``(PIL.Image, label)``, as there. PIL is imported where it is used.
@@ -178,6 +179,35 @@ class RepeatDataset:
 
     def __getitem__(self, i: int):
         return self.dataset[i % len(self.dataset)]
+
+
+class SegFolder:
+    """ADE20K's layout: ``<root>/images/<split>/*.jpg`` beside
+    ``<root>/annotations/<split>/<stem>.png`` label maps. With ``reduce_zero_label``
+    (mmseg's ADE20KDataset) label 0 becomes 255 (ignored) and k becomes k - 1."""
+
+    def __init__(self, root: str, split: str = "training", reduce_zero_label: bool = True):
+        self.root = Path(root)
+        ann_dir = self.root / "annotations" / split
+        self.reduce_zero_label = reduce_zero_label
+        self.samples = []
+        for p in sorted((self.root / "images" / split).glob("*")):
+            ann = ann_dir / (p.stem + ".png")
+            if p.suffix.lower() in IMG_EXTENSIONS and ann.exists():
+                self.samples.append((p, ann))
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, i: int):
+        from PIL import Image
+
+        img_p, ann_p = self.samples[i]
+        img = Image.open(img_p).convert("RGB")
+        seg = np.asarray(Image.open(ann_p), dtype=np.int32)
+        if self.reduce_zero_label:
+            seg = np.where(seg == 0, 256, seg) - 1
+        return img, seg
 
 
 def build_dataset(is_train: bool, data_set: str, data_path: str = "", input_size: int = 224,

@@ -324,13 +324,21 @@ def _l_blocks(cfg: RecNextConfig, i: int, rates: List[float], fused: bool) -> li
 
 class RecNext(nn.Module):
     """Top-level backbone. ``forward`` gives logits, ``forward_features`` the final
-    map, ``features`` the four stage maps [C2, C3, C4, C5] (the downstream API)."""
+    map, ``features`` the four stage maps [C2, C3, C4, C5] (the downstream API).
 
-    def __init__(self, cfg: RecNextConfig, *, fused: bool = False):
+    ``frozen_stats``: the detection "frozen-BN" mode. Every BatchNorm of the model
+    stays in eval mode (``train()`` leaves it there): it normalises by its running
+    statistics and writes none, while its scale and bias still train and DropPath
+    still follows ``training``, as the reference's frozen-BN ``train()`` ``.eval()``s
+    only the BN modules (the JAX package's ``RecNext(frozen_stats=True)``)."""
+
+    def __init__(self, cfg: RecNextConfig, *, fused: bool = False,
+                 frozen_stats: bool = False):
         super().__init__()
         if cfg.family not in ("m", "a", "l"):
             raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         self.cfg = cfg
+        self.frozen_stats = frozen_stats
         self.stem = RecNextStem(cfg.in_chans, cfg.embed_dim[0], family=cfg.family,
                                 final_gelu=cfg.family == "l" and cfg.depth[0] == 0,
                                 fused=fused)
@@ -366,6 +374,14 @@ class RecNext(nn.Module):
         else:
             self.head = RecNextClassifier(cfg.num_features, cfg.num_classes,
                                           cfg.distillation, cfg.drop_rate)
+
+    def train(self, mode: bool = True) -> "RecNext":
+        super().train(mode)
+        if self.frozen_stats:
+            for m in self.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.eval()
+        return self
 
     def features(self, x: torch.Tensor, remat: bool = False) -> list:
         x = self.stem(x)

@@ -73,14 +73,16 @@ def create_model(
     name: str,
     *,
     fused: bool = False,
+    frozen_stats: bool = False,
     device: str | torch.device | None = None,
     dtype: torch.dtype = torch.float32,
     generator: torch.Generator | None = None,
     **overrides: Any,
 ) -> RecNext:
     """Build a model on ``device`` (default: the GPU; raises without one), with
-    weights drawn from ``generator`` (default: seed 0), in eval mode."""
-    model = RecNext(get_config(name, **overrides), fused=fused)
+    weights drawn from ``generator`` (default: seed 0), in eval mode;
+    ``frozen_stats``: its BatchNorms stay in eval mode in training too."""
+    model = RecNext(get_config(name, **overrides), fused=fused, frozen_stats=frozen_stats)
     dev = resolve_device(device)
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))

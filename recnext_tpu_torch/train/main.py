@@ -34,7 +34,8 @@ recomputes each block in the backward, ``--mesa`` adds MESA's self-distillation
 from the EMA model after ``--mesa-start-ratio`` of the epochs, ``--jsd-loss`` the JSD
 loss over ``--aug-splits`` views of each sample (the first through the simple
 transform). The JAX package's checkpoints (orbax, msgpack) raise, naming their
-ROADMAP item; frozen BN (``--set-bn-eval``) raises, naming its item. The JAX CLI's
+ROADMAP item; ``--set-bn-eval`` keeps every BatchNorm on its running statistics
+(``RecNext(frozen_stats=True)``). The JAX CLI's
 ``--loader grain --workers N`` is ``--workers N`` here (the default 0 is the JAX
 CLI's default, one prefetch thread); grain's own sampling order is not ported.
 
@@ -95,7 +96,6 @@ from recnext_tpu_torch.train.config import apply_config
 from recnext_tpu_torch.train.finetune import CKPT_ITEM, read_weights
 
 CKPT_KEEP = 3
-FROZEN_BN_ITEM = "ROADMAP.md Queue 1 item 11 (frozen BN with the downstream tasks)"
 
 
 def parse_args(argv=None):
@@ -157,7 +157,8 @@ def parse_args(argv=None):
                         "reference state dict, this trainer's checkpoint, a fused "
                         "archive); leaves of another shape (the head) are dropped")
     p.add_argument("--set-bn-eval", action="store_true",
-                   help="freeze BatchNorm while finetuning (not ported: raises)")
+                   help="freeze BatchNorm while finetuning: running statistics in the "
+                        "forward, no updates (RecNext families)")
     p.add_argument("--jsd-loss", action="store_true",
                    help="JSD consistency loss over --aug-splits views")
     p.add_argument("--aug-splits", type=int, default=0,
@@ -192,15 +193,11 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.model.startswith("mlla"):
-        if args.distillation_type != "none":
-            raise SystemExit("mlla models have no distillation head; use --mesa for the "
-                             "MLLA recipe's self-distillation")
-        if args.set_bn_eval:
-            raise SystemExit("--set-bn-eval is a RecNext-family finetune knob")
-    if args.set_bn_eval:
-        raise NotImplementedError(f"frozen BN (--set-bn-eval) is not ported; see "
-                                  f"{FROZEN_BN_ITEM}")
+    if args.model.startswith("mlla") and args.distillation_type != "none":
+        raise SystemExit("mlla models have no distillation head; use --mesa for the "
+                         "MLLA recipe's self-distillation")
+    if args.set_bn_eval and args.model.startswith(("regnet", "mlla")):
+        raise SystemExit("--set-bn-eval is a RecNext-family finetune knob")
     if args.distillation_type != "none" and not args.teacher_model:
         raise SystemExit("--distillation-type requires --teacher-model")
     if args.jsd_loss and args.aug_splits < 2:
@@ -232,31 +229,35 @@ def build_teacher(args, num_classes: int, device: torch.device, dtype: torch.dty
 
 
 class Checkpoints:
-    """``epoch_NNNN.pt`` files in ``root``, written atomically; the newest ``keep``
-    and the best by acc1 are kept (``metrics.json`` holds each epoch's acc1)."""
+    """``{stem}_NNNN.pt`` files in ``root`` (``stem`` "epoch", or "iter" for the
+    segmentation trainer), written atomically; the newest ``keep`` are kept, and the
+    best by acc1 where ``save`` is given one (``metrics.json`` holds each acc1)."""
 
-    def __init__(self, root: Path, keep: int = CKPT_KEEP):
+    def __init__(self, root: Path, keep: int = CKPT_KEEP, stem: str = "epoch"):
         self.root = root
         self.keep = keep
+        self.stem = stem
         self.root.mkdir(parents=True, exist_ok=True)
         self._metrics_path = root / "metrics.json"
         self.metrics = (json.loads(self._metrics_path.read_text())
                         if self._metrics_path.exists() else {})
 
     def epochs(self) -> list:
-        return sorted(int(p.stem.split("_")[1]) for p in self.root.glob("epoch_*.pt"))
+        return sorted(int(p.stem.split("_")[1]) for p in self.root.glob(f"{self.stem}_*.pt"))
 
     def path(self, epoch: int) -> Path:
-        return self.root / f"epoch_{epoch:04d}.pt"
+        return self.root / f"{self.stem}_{epoch:04d}.pt"
 
-    def save(self, epoch: int, state: dict, acc1: float) -> None:
-        tmp = self.root / f".epoch_{epoch:04d}.pt.{os.getpid()}.tmp"
+    def save(self, epoch: int, state: dict, acc1: float | None = None) -> None:
+        tmp = self.root / f".{self.stem}_{epoch:04d}.pt.{os.getpid()}.tmp"
         torch.save(state, tmp)
         os.replace(tmp, self.path(epoch))
-        self.metrics[str(epoch)] = acc1
-        self._metrics_path.write_text(json.dumps(self.metrics))
+        if acc1 is not None:
+            self.metrics[str(epoch)] = acc1
+            self._metrics_path.write_text(json.dumps(self.metrics))
         saved = self.epochs()
-        best = max(saved, key=lambda e: self.metrics.get(str(e), 0.0))
+        best = (max(saved, key=lambda e: self.metrics.get(str(e), 0.0)) if self.metrics
+                else None)
         for e in saved[:-self.keep]:
             if e != best:
                 self.path(e).unlink()
@@ -302,9 +303,10 @@ def main(argv=None):
     overrides = dict(parse_kv_overrides(args.model_kwargs), num_classes=nb_classes)
     if distill:
         overrides["distillation"] = True  # the dual-head student
+    frozen = {} if mlla else {"frozen_stats": args.set_bn_eval}
     model = (create_mlla if mlla else create_model)(
         args.model, device=device, generator=torch.Generator().manual_seed(args.seed),
-        **overrides)
+        **frozen, **overrides)
     if args.finetune:
         # weights only; the optimizer, schedule and epoch start fresh
         from recnext_tpu_torch.train.finetune import load_pretrained

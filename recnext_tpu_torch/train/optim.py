@@ -123,21 +123,22 @@ CLIP_MODES = ("agc", "norm")
 
 class Optimizer:
     """AGC (``clip_mode="agc"``) or the global-norm clip (``"norm"``) at ``agc_clip``
-    (none where it is 0), then AdamW with decay on >=2-D parameters only, the lr read
-    from ``schedule`` at the update count. ``step()`` uses and clips the parameters'
-    ``.grad`` in place."""
+    (none where it is 0), then AdamW with decay on >=2-D parameters only (on every
+    parameter where ``decay_all``: optax's ``adamw`` without a mask, as the task
+    trainers use it), the lr read from ``schedule`` at the update count. ``step()``
+    uses and clips the parameters' ``.grad`` in place."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Callable[[int], float], weight_decay: float = 0.025,
                  agc_clip: float = 0.02, betas: Tuple[float, float] = (0.9, 0.999),
-                 grad_accum: int = 1, clip_mode: str = "agc"):
+                 grad_accum: int = 1, clip_mode: str = "agc", decay_all: bool = False):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if clip_mode not in CLIP_MODES:
             raise ValueError(f"unknown clip_mode {clip_mode!r}; one of {CLIP_MODES}")
         self.clip_mode = clip_mode
         named = [(n, p) for n, p in named_params if p.requires_grad]
-        labels = param_labels(named)
+        labels = {n: "decay" for n, _ in named} if decay_all else param_labels(named)
         self.params = [p for _, p in named]
         self.schedule = schedule
         self.agc_clip = agc_clip
@@ -211,12 +212,14 @@ class Optimizer:
 def make_optimizer(named_params, learning_rate: Callable[[int], float],
                    weight_decay: float = 0.025, agc_clip: float = 0.02,
                    betas: Tuple[float, float] = (0.9, 0.999),
-                   grad_accum: int = 1, clip_mode: str = "agc") -> Optimizer:
+                   grad_accum: int = 1, clip_mode: str = "agc",
+                   decay_all: bool = False) -> Optimizer:
     """The clip -> AdamW (decay on >=2-D parameters only), applied to the mean of
     every ``grad_accum`` micro-steps' gradients (optax.MultiSteps in the JAX package).
     ``clip_mode`` "agc" is the RecNeXt recipe (AGC at ``agc_clip``, 0.02), "norm" the
     MLLA recipe's global-norm clip (``agc_clip`` the maximum norm, 5.0).
     ``learning_rate`` is read at the update count: under accumulation the caller maps
-    it back to micro-steps (``sched(u * grad_accum)``), as the JAX CLI does."""
+    it back to micro-steps (``sched(u * grad_accum)``), as the JAX CLI does.
+    ``decay_all``: decay on every parameter (the task trainers' ``optax.adamw``)."""
     return Optimizer(named_params, learning_rate, weight_decay, agc_clip, betas, grad_accum,
-                     clip_mode)
+                     clip_mode, decay_all)

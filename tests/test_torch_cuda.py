@@ -962,3 +962,80 @@ def test_l_fused_model_launches_k2_once_an_attention(cuda, name, launches):
         want = model(x)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
                                atol=1e-4 * want.abs().max().item())
+
+
+# the downstream tasks' shapes (recnext_m3 at batch 16, fp32): stage 0 at a 512^2 crop
+# (128^2 x 64) and at the detection preset's 800^2 (200^2 x 64), level 4, one level
+# peeled in K1′'s backward (and at 200^2 in K1's forward too)
+TASK_PLANES = [(16, 64, 128, 128), (16, 64, 200, 200)]
+
+
+@pytest.mark.parametrize("n,c,h,w", TASK_PLANES)
+def test_peeled_backward_at_task_planes_matches_plain(cuda, n, c, h, w):
+    """K1′'s peeled route at the task planes, fp32: one level peeled, one K1′ launch at
+    the inner plane and 2/2/1 KL′1-3 launches, K1′'s bounds against the plain version."""
+    assert recconv_bwd_cuda.levels_to_peel_backward(h, w, 4, 5) == 1
+    x, ws = _inputs(n, c, h, w, 4, dtype=torch.float32, seed=h + 1)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).cuda()
+    before = [f.launches for f in (rec_conv2d_backward, *LEVEL_BWD_COUNTS)]
+    _check_backward(x, [t / 5 for t in ws], g, 4, "bilinear")
+    after = [f.launches for f in (rec_conv2d_backward, *LEVEL_BWD_COUNTS)]
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 2, 1]
+
+
+@pytest.mark.parametrize("n,c,h,w", TASK_PLANES)
+def test_level_backward_kernels_at_task_planes_match_plain(cuda, n, c, h, w):
+    """KL′1-3 alone at the task planes' outer level, fp32, batch 16: the input gradient
+    at stride 1 and 2 (2e-5), the weight gradient at stride 1 with z = x + up(y) and at
+    stride 2 (1e-4: sums over N*H*W terms), the up-step's adjoint (2e-5)."""
+    gen = torch.Generator().manual_seed(h)
+    x, g = (torch.randn(n, c, h, w, generator=gen).cuda() for _ in range(2))
+    uh, uw = (h + 1) // 2, (w + 1) // 2
+    y, dd = (torch.randn(n, c, uh, uw, generator=gen).cuda() for _ in range(2))
+    dz = torch.randn(n, c, h, w, generator=gen).cuda()
+    wl, wd = (torch.randn(c, 1, 5, 5, generator=gen).cuda() / 5 for _ in range(2))
+    before = [f.launches for f in LEVEL_BWD_COUNTS]
+    _level_close(rec_conv2d_level_dgrad(g, wl, size=(h, w)),
+                 rec_conv2d_level_dgrad_plain(g, wl, size=(h, w)), 2e-5)
+    _level_close(rec_conv2d_level_dgrad(dd, wd, size=(h, w), stride=2, add=dz),
+                 rec_conv2d_level_dgrad_plain(dd, wd, size=(h, w), stride=2, add=dz), 2e-5)
+    _level_close(rec_conv2d_level_wgrad(x, g, k=5, up=y),
+                 rec_conv2d_level_wgrad_plain(x, g, k=5, up=y), 1e-4)
+    _level_close(rec_conv2d_level_wgrad(x, dd, k=5, stride=2),
+                 rec_conv2d_level_wgrad_plain(x, dd, k=5, stride=2), 1e-4)
+    _level_close(rec_conv2d_up_adjoint(dz), rec_conv2d_up_adjoint_plain(dz), 2e-5)
+    assert [f.launches - b for f, b in zip(LEVEL_BWD_COUNTS, before)] == [2, 2, 1]
+
+
+# recnext_a3's attention at 512^2: (heads, side of the attention map, variant), D = 32
+A3_SHAPES = [(2, 64, 1), (4, 32, 1), (8, 16, 1), (16, 8, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,side,variant", A3_SHAPES)
+def test_attention_kernels_at_a3_task_shapes(cuda, nh, side, variant, dtype):
+    """K2 and K2′ through the NCHW entry at recnext_a3's four 512^2 shapes (N 4096 on
+    K2′'s tiled route), batch 2: K2 f32 within 1e-3 + 1e-3 |ref| and bf16 within 1e-2
+    max|ref|, K2′ at its bounds and the same bits on a second run, one launch each."""
+    d, b = 32, 2
+    gen = torch.Generator().manual_seed(nh)
+    qk = _positive((b, 2 * nh * d, side, side), gen).to("cuda", dtype)
+    v, go = (torch.randn(b, nh * d, side, side, generator=gen).to("cuda", dtype)
+             for _ in range(2))
+    want = linear_attention_nchw_plain(qk.float(), v.float(), nh, variant=variant)
+    k2, bw = linear_attention_fused.launches, linear_attention_backward.launches
+    got = linear_attention_nchw(qk, v, nh, variant=variant).float()
+    dqk, dv_ = linear_attention_nchw_backward(qk, v, go, nh)
+    again = linear_attention_nchw_backward(qk, v, go, nh)
+    torch.cuda.synchronize()
+    assert (linear_attention_fused.launches - k2, linear_attention_backward.launches - bw) == (1, 2)
+    if dtype == torch.float32:
+        assert ((got - want).abs() <= 1e-3 + 1e-3 * want.abs()).all()
+    else:
+        assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    assert torch.equal(dqk, again[0]) and torch.equal(dv_, again[1])
+    rows = lambda t: t.reshape(b * nh, d, side * side).transpose(1, 2)  # noqa: E731
+    want = linear_attention_backward_plain(*(rows(t.float()) for t in (
+        qk[:, : nh * d], qk[:, nh * d:], v, go)))
+    _check_attention_backward((rows(dqk[:, : nh * d]), rows(dqk[:, nh * d:]), rows(dv_)),
+                              want, dtype)

@@ -29,6 +29,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         data = {"recnext_tpu_torch.data." + m for m in
                 ("samplers", "transforms", "datasets", "native", "loader", "browse")}
         assert data <= set(names), data - set(names)
+        # the downstream tasks' modules too; nothing of the two-stage detector
+        tasks = {"recnext_tpu_torch.tasks." + m for m in
+                 ("configs", "fpn", "segmentation", "boxes", "detection", "coco_eval",
+                  "train_seg", "train_det")} | {"recnext_tpu_torch.data.coco"}
+        assert tasks <= set(names), tasks - set(names)
+        assert not [n for n in names if "mask_rcnn" in n or n.endswith(".roi")]
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "recnext_tpu"))
         print(len(names), bad)
@@ -37,7 +43,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 18  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 27  # every module was imported
 
 
 @pytest.fixture
@@ -63,10 +69,15 @@ def test_entry_points_raise_without_a_gpu(no_gpu, tmp_path):
 
 def test_training_and_bench_entry_points_raise_without_a_gpu(no_gpu, tmp_path):
     from recnext_tpu_torch import bench
+    from recnext_tpu_torch.tasks import train_det, train_seg
     from recnext_tpu_torch.train import main as train_main
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_main.main(["--data-set", "FAKE", "--simple-aug", "--output-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_seg.main(["--output-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_det.main(["--detector", "retinanet", "--output-dir", str(tmp_path)])
     for fn in (bench.throughput, bench.train_throughput):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn("recnext_m0", 2)

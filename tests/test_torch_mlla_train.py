@@ -282,9 +282,22 @@ def test_config_keys_the_parser_does_not_know_exit(tmp_path):
 
 
 def test_finetune_preset_raises_naming_frozen_bn_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """The finetune preset sets frozen BN, which is ported: the trainer builds the
+    model with every BatchNorm on its running statistics, which one step leaves as
+    they were (on an MLLA model it exits, as the JAX CLI does)."""
+    res = tmain.main(["--config", "configs/finetune_384.yaml", "--device", "cpu", "--model",
+                      "recnext_m0", "--model-kwargs", "embed_dim=16:32:64:128,depth=1:1:2:1",
+                      "--data-set", "FAKE", "--fake-classes", "5", "--simple-aug",
+                      "--input-size", "32", "--batch-size", "4", "--epochs", "1",
+                      "--steps-per-epoch", "1", "--dtype", "float32",
+                      "--output-dir", str(tmp_path)])
+    model = res["state"].model
+    assert model.frozen_stats and res["state"].step == 1
+    assert all(float(m.running_var.sub(1).abs().max()) == 0.0 for m in model.modules()
+               if isinstance(m, torch.nn.BatchNorm2d))
+    with pytest.raises(SystemExit, match="RecNext-family"):
         tmain.main(["--config", "configs/finetune_384.yaml", "--device", "cpu", "--model",
-                    "recnext_m0", "--data-set", "FAKE", "--output-dir", str(tmp_path)])
+                    "mlla_nano_recconv", "--data-set", "FAKE", "--output-dir", str(tmp_path)])
 
 
 # ------------------------------------------------------------ the CLIs
