@@ -130,13 +130,15 @@ and read just after:
               nearest, at K1′'s bounds, each call's peels (1 and 2) and launches
               (per peeled level: the level kernel and K1 recomputing d and y, KL′1
               and KL′2 twice, KL′3 once; then one K1′ call) asserted, and the same
-              bits on three runs in every dtype and mode; then each of the three level kernels (the input
-              gradient at stride 1 and 2, the weight gradient at stride 1 with z = x +
-              up(y) and at stride 2, the up-step's adjoint) against its plain version
-              at the outer level's shapes of both planes, timed with CUDA events
-              around queued calls beside its bound, its plain version and one PyTorch
-              call of the same function (torch.nn.grad.conv2d_input / conv2d_weight
-              with groups=C, aten.upsample_*2d_backward), and its registers;
+              bits on three runs in every dtype and mode; then each of the three
+              level kernels (the input gradient at stride 1 and 2, the weight gradient
+              at stride 1 with z = x + up(y) and at stride 2, the up-step's adjoint)
+              against its plain version and its own bits on three runs at the outer
+              level's shapes of both planes, timed with CUDA events around queued
+              calls beside its bound (and the ratio, over_bound), its plain version
+              and one PyTorch call of the same function (torch.nn.grad.conv2d_input /
+              conv2d_weight with groups=C, aten.upsample_*2d_backward), with its
+              registers and local bytes;
 20. train_grad recnext_m1 at 512^2, batch 2, f32: phase 12 at the size where stage
               0's three mixers peel a level in their backward: every K1' call, each
               of the three level kernels and the recomputed inner pyramids counted;
@@ -204,8 +206,12 @@ and read just after:
               through the kernels against the plain path (a3's too, phase 31);
 29. tasks_recconv, tasks_level_backward  K1 and K1′ at m3's task shapes (the seg
               path's four planes, det's stage 0 at 200^2) and KL′1-3 alone at 128^2 x 64
-              and 200^2 x 64, batch 16, fp32, beside bound, plain version and library
-              call;
+              and 200^2 x 64, batch 16, fp32, as in phase 19 (bound, over_bound, plain
+              version, library call, registers, the same bits on three runs), the
+              launches of one peeled backward call there against
+              peeled_backward_launches; and K1's level kernel there (tasks_level_kernel:
+              the stride-2 down conv, beside F.conv2d(stride=2, groups=C), and the
+              upsample-add-conv), against its plain version and beside its bound;
 30. tasks_det  the train_det CLI, --detector retinanet, the det preset on FAKE: 2
               epochs of 3 steps and the AP loop over 32 images, a --resume, --eval-only
               and --benchmark 3 (a forward also 6 level-kernel launches); one step
@@ -1569,9 +1575,10 @@ def level_backward_cases(x, g, ws, gen, dtype):
     """KL′1-3's cases at the outer level of the plane of x (n, c, h, w), as a train step
     in ``dtype`` runs them: g and x in ``dtype``, the recomputed inner plane y, its
     gradient dd and dz fp32. Each case is (kernel, what, tolerance over max|ref|,
-    kernel call, plain call, library call, (bytes, flops) or None where untimed): the
-    input gradient at stride 1 and 2, the weight gradient at stride 1 (z = x + up(y))
-    and 2, the up-step's adjoint, bilinear (timed) and nearest."""
+    kernel call, plain call, library call, (bytes, flops) or None where untimed, the
+    instantiation's (kind, stride, dtypes) for its registers): the input gradient at
+    stride 1 and 2, the weight gradient at stride 1 (z = x + up(y)) and 2, the up-step's
+    adjoint, bilinear (timed) and nearest."""
     n, c, h, w = x.shape
     dh, dw_ = (h + 1) // 2, (w + 1) // 2
     eb = dtype.itemsize
@@ -1592,7 +1599,8 @@ def level_backward_cases(x, g, ws, gen, dtype):
          lambda: rec_conv2d_level_dgrad(gb, w_l, size=(h, w)),
          lambda: rec_conv2d_level_dgrad_plain(gb, w_l, size=(h, w)),
          lambda: cgrad.conv2d_input((n, c, h, w), w_l, gb.float(), padding=2, groups=c),
-         level_bwd_work("dgrad", n, c, h, w, 5, g_bytes=eb)),
+         level_bwd_work("dgrad", n, c, h, w, 5, g_bytes=eb),
+         ("dgrad", 1, (dtype, torch.float32))),
         ("rec_conv2d_level_dgrad", f"stride 2: dx = dz + down^T(dd), f32 -> {name}",
          2e-5 if dtype == torch.float32 else 1e-2,
          lambda: rec_conv2d_level_dgrad(dd, w_down, size=(h, w), stride=2, add=dz,
@@ -1600,49 +1608,60 @@ def level_backward_cases(x, g, ws, gen, dtype):
          lambda: rec_conv2d_level_dgrad_plain(dd, w_down, size=(h, w), stride=2, add=dz),
          lambda: cgrad.conv2d_input((n, c, h, w), w_down, dd, stride=2, padding=2,
                                     groups=c) + dz,
-         level_bwd_work("dgrad", n, c, h, w, 5, stride=2, add=True, out_bytes=eb)),
+         level_bwd_work("dgrad", n, c, h, w, 5, stride=2, add=True, out_bytes=eb),
+         ("dgrad", 2, (torch.float32, dtype))),
         ("rec_conv2d_level_wgrad", f"stride 1: dW_L = sum (x + up(y)) * g, {name}", 1e-4,
          lambda: rec_conv2d_level_wgrad(xb, gb, k=5, up=y),
          lambda: rec_conv2d_level_wgrad_plain(xb, gb, k=5, up=y),
          lambda: cgrad.conv2d_weight(z, (c, 1, 5, 5), gb.float(), padding=2, groups=c),
-         level_bwd_work("wgrad", n, c, h, w, 5, up=True, in_bytes=eb, g_bytes=eb)),
+         level_bwd_work("wgrad", n, c, h, w, 5, up=True, in_bytes=eb, g_bytes=eb),
+         ("wgrad", 1, (dtype, dtype))),
         ("rec_conv2d_level_wgrad", "stride 2: dW_down += sum x *_2 dd", 1e-4,
          lambda: rec_conv2d_level_wgrad(xb, dd, k=5, stride=2),
          lambda: rec_conv2d_level_wgrad_plain(xb, dd, k=5, stride=2),
          lambda: cgrad.conv2d_weight(xb.float(), (c, 1, 5, 5), dd, stride=2, padding=2,
                                      groups=c),
-         level_bwd_work("wgrad", n, c, h, w, 5, stride=2, in_bytes=eb)),
+         level_bwd_work("wgrad", n, c, h, w, 5, stride=2, in_bytes=eb),
+         ("wgrad", 2, (dtype, torch.float32))),
         ("rec_conv2d_up_adjoint", "dy = up^T(dz), bilinear", 2e-5,
          lambda: rec_conv2d_up_adjoint(dz),
          lambda: rec_conv2d_up_adjoint_plain(dz),
          lambda: up_bwd["bilinear"](dz),
-         level_bwd_work("up_adjoint", n, c, h, w, 5)),
+         level_bwd_work("up_adjoint", n, c, h, w, 5),
+         ("up_adjoint", 1, (torch.float32, torch.float32))),
         ("rec_conv2d_up_adjoint", "dy = up^T(dz), nearest", 2e-5,
          lambda: rec_conv2d_up_adjoint(dz, mode="nearest"),
          lambda: rec_conv2d_up_adjoint_plain(dz, mode="nearest"),
-         lambda: up_bwd["nearest"](dz), None)]
+         lambda: up_bwd["nearest"](dz), None, ("up_adjoint", 1, (torch.float32, torch.float32)))]
 
 
 def level_backward_case(phase, case, shape):
     """One case of ``level_backward_cases``: the kernel against its plain version (its
-    launch counted), its library call's difference, and where the case has its work
-    (the train step's mode) the kernel's, plain and library times (CUDA events around
-    queued calls) beside the bound. Returns the phase line."""
-    kernel, what, tol, run, plain, library, work = case
+    launch counted) and its own output on two more runs (the same bits), its library
+    call's difference, the kernel's registers, and where the case has its work (the
+    train step's mode) the kernel's, plain and library times (CUDA events around queued
+    calls) beside the bound, and their ratio. Returns the phase line."""
+    kernel, what, tol, run, plain, library, work, (kind, stride, dtypes) = case
     before = COUNTERS[kernel].launches
     got = run()
     if COUNTERS[kernel].launches != before + 1:
         raise AssertionError(f"{kernel} {what}: launches not counted")
     want = plain()
     err, scale = _check_close(f"{kernel} {what} at {shape}", got, want, tol)
+    for _ in range(2):
+        if not torch.equal(run(), got):
+            raise AssertionError(f"{kernel} {what} at {shape}: runs differ")
     out = {"phase": phase, "kernel": kernel, "what": what, "shape": shape,
            "max_abs_err": err, "max_abs_ref": scale, "tol": tol * scale,
-           "library_max_abs_diff": (library().float() - want.float()).abs().max().item()}
+           "same_bits_on_3_runs": True,
+           "library_max_abs_diff": (library().float() - want.float()).abs().max().item(),
+           **level_bwd_cuda.kernel_attributes(kind, 5, stride, dtypes)}
     if work is not None:
         times = {"kernel_ms": queued_ms(run), "plain_ms": queued_ms(plain, iters=5),
                  "library_ms": queued_ms(library)}
         bms, by = bound(*work)
-        out.update(times, bound_ms=bms, bound_by=by, bytes=work[0], flops=work[1])
+        out.update(times, bound_ms=bms, bound_by=by, bytes=work[0], flops=work[1],
+                   over_bound=times["kernel_ms"] / bms)
     return out
 
 
@@ -2578,28 +2597,72 @@ def phase_tasks_recconv():
     return totals
 
 
+def tasks_level_kernel(x, w, inner, side):
+    """K1's level kernel (``rec_conv2d_level``) at a task path's peeled plane, fp32:
+    the stride-2 down conv and the upsample-add-conv, each against its plain version
+    (2e-5 of max|ref|), timed beside its bound, its plain version and, for the down
+    conv, ``F.conv2d(..., stride=2, groups=C)``. Returns the lines."""
+    n, c = int(x.shape[0]), int(x.shape[1])
+    lines = []
+    for step, stride, up in (("down", 2, None), ("up_add_conv", 1, inner)):
+        kw = dict(stride=stride, up=up)
+        before = COUNTERS["rec_conv2d_level"].launches
+        got = rec_conv2d_level(x, w, **kw)
+        if COUNTERS["rec_conv2d_level"].launches != before + 1:
+            raise AssertionError(f"level kernel {step}: launches not counted")
+        err, scale = _check_close(f"level kernel {step} at {side}^2", got,
+                                  rec_conv2d_level_plain(x, w, **kw), 2e-5)
+        times = {"kernel_ms": queued_ms(lambda: rec_conv2d_level(x, w, **kw)),
+                 "plain_ms": queued_ms(lambda: rec_conv2d_level_plain(x, w, **kw), iters=5),
+                 "library_ms": queued_ms(lambda: F.conv2d(x, w, stride=2, padding=2, groups=c))
+                 if up is None else None}
+        nbytes, flops = level_work(n, c, side, side, 5, stride, up is not None, 4, 4)
+        bms, by = bound(nbytes, flops)
+        lines.append({"phase": "tasks_level_kernel", "step": step, "shape": [n, c, side, side],
+                      "max_abs_err": err, "max_abs_ref": scale, **times, "bound_ms": bms,
+                      "bound_by": by, "over_bound": times["kernel_ms"] / bms, "bytes": nbytes,
+                      "flops": flops,
+                      **recconv_cuda.level_kernel_attributes(5, stride, torch.float32)})
+    return lines
+
+
 def phase_tasks_level_backward():
     """KL′1-3 alone at the task paths' peeled planes, fp32, batch 16: 128^2 x 64
     (stage 0 at 512^2) and 200^2 x 64 (stage 0 at 800^2), each against its plain
-    version, timed beside its bound, its plain version and one cuDNN/ATen call; the
-    sums over one train step's 15 launches (3 peeled mixers)."""
+    version and its own bits on three runs, timed beside its bound, its plain version
+    and one cuDNN/ATen call; the sums over one train step's 15 launches (3 peeled
+    mixers). At each plane, one backward call of a level-4 mixer counts the launches
+    that ``peeled_backward_launches`` expects; and K1's level kernel (down conv and
+    upsample-add-conv) is timed there too (``tasks_level_kernel``)."""
     gen = torch.Generator().manual_seed(12)
     totals = {}
     for side in (SEG_SIDE // 4, DET_SIDE // 4):
         n, c, h, w = TASK_BATCH, 64, side, side
         x, g = torch.randn(n, c, h, w, generator=gen), torch.randn(n, c, h, w, generator=gen)
         ws = [torch.randn(c, 1, 5, 5, generator=gen) / 5 for _ in range(6)]
+        want_launches = peeled_backward_launches(h, w, 4, 5)
+        before = counts()
+        rec_conv2d_backward(x.cuda(), ws[0].cuda(), [t.cuda() for t in ws[1:]], g.cuda(),
+                            level=4)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        if got != want_launches:
+            raise AssertionError(f"{side}^2 peeled backward launches {got}, want {want_launches}")
         summed = ("kernel_ms", "plain_ms", "library_ms", "bytes", "flops")
         tot = totals[side] = {k: dict.fromkeys(summed, 0.0) for k in LEVEL_BWD}
         for case in level_backward_cases(x, g, ws, gen, torch.float32):
             out = level_backward_case("tasks_level_backward", case, [n, c, h, w])
+            out["launches_per_peeled_call"] = want_launches
             if "kernel_ms" in out:
                 for key in summed:
                     tot[case[0]][key] += 3 * out[key]  # 3 peeled mixers a step
             emit(out)
         for t in tot.values():
             t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"])
-        del x, g
+        inner = torch.randn(n, c, (h + 1) // 2, (w + 1) // 2, generator=gen).cuda()
+        for line in tasks_level_kernel(x.cuda(), ws[-1].cuda(), inner, side):
+            emit(line)
+        del x, g, inner
     emit({"phase": "tasks_level_backward_step", "batch": TASK_BATCH, "dtype": "float32",
           "per_plane_side": totals})
     return totals

@@ -1,6 +1,7 @@
-// The backward of one peeled RecConv2d level for Hopper (sm_90a): three tiled kernels
-// that take any plane size, for planes whose whole backward does not fit in the
-// shared memory of recconv_bwd.cu's kernel.
+// The backward of one peeled RecConv2d level for Hopper (sm_90a): kernels that take
+// any plane size, for planes whose whole backward does not fit in the shared memory
+// of recconv_bwd.cu's kernel. They replace no TPU kernel: a peeled level is part of
+// recnext_tpu/ops/recconv.py:rec_conv2d, whose gradient JAX takes by autodiff.
 //
 // The forward peels outer levels by the recursion
 //   RecConv_L(x) = conv_L(z),  z = x + up(y),  y = RecConv_{L-1}(d),  d = down(x)
@@ -9,7 +10,7 @@
 // rec_conv2d_peeled_backward): given g = dL/d out, with d and y recomputed in fp32,
 //   dz = conv_L^T(g)                      recconv_level_dgrad_kernel, stride 1
 //   dW_L = sum z (*) g                    recconv_level_wgrad_kernel, stride 1, z built
-//                                         from x + up(y) in its window
+//                                         from x + up(y) in shared memory
 //   dy = up^T(dz)                         recconv_up_adjoint_kernel
 //   (dd, dW_down, dW_0 .. dW_{L-1}) = the inner backward at (d, dy)
 //   dx = dz + down^T(dd)                  recconv_level_dgrad_kernel, stride 2, adding dz
@@ -17,194 +18,713 @@
 // Every kernel accumulates in fp32 and is a gather (no atomics), so it gives the same
 // bits on every run.
 //
-//   recconv_level_dgrad_kernel: the adjoint of the depthwise k x k conv at stride S
-//     with zero padding k/2: dx[r, q] = sum_{i, j} w[i, j] g[(r + P - i) / S,
-//     (q + P - j) / S] over the taps whose quotients are whole and inside g. A block
-//     takes a 32 x 32 tile of dx, loads the window of g the tile reads (zero outside
-//     g) into shared memory as fp32, and each thread computes 4 rows of one column. At
-//     stride 2 a thread's rows share a parity, so each output keeps the taps i with
-//     (r + P - i) even (the odd sizes ceil(H/2) come from the window's bounds, not
-//     from a special case). It may add a second fine-grid fp32 gradient, so that
-//     dx = dz + down^T(dd) is one pass, and writes f32 or bf16.
-//   recconv_level_wgrad_kernel: the weight gradient of y = conv(z, w) at stride S. A
-//     block takes a 32 x 32 tile of g and fills the fp32 window of z that the tile's
-//     outputs read, as recconv_level_kernel does (its halo reaches k/2 past the tile,
-//     S (32 - 1) + k rows and columns; where u is given, z = x + up(u) from the
-//     forward's lerp plans, along H first, then along W), so z is never written out.
-//     Each thread multiplies its 4 outputs' g into k*k register sums; the block adds
-//     them by a warp butterfly and then the 8 warps in order, into one row of k*k
-//     partial sums per (plane, tile). recconv_level_wgrad_sum_kernel adds a channel's
-//     rows in a fixed tree (one block per channel and tap).
+// What bounds them on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
+// cores): each reads its inputs once and writes its outputs once, with k*k multiply-
+// adds per element of g (about k*k/4 per fine element of the stride-2 input
+// gradient); at k = 5 the bytes bound them, by 3-6x over the operations. So a kernel
+// has to keep device memory busy while it computes, and spend less than the bytes'
+// time on its instructions and shared memory. The simple forms these kernels replace
+// (one 32 x 32 tile a block, its window loaded with scalar loads and then used, one
+// shared load per tap, k*k warp butterflies a tile) ran at 3-6x their bounds.
+//
+// Design. One warp walks one band of rows of one plane down a column tile of 128
+// outputs: each lane owns a strip of 4 outputs along the row. Rows of the inputs
+// arrive by cp.async (16-, 8- or 4-byte chunks, as the rows' alignment allows; plain
+// loads for a bf16 row of odd width) into rings of shared-memory rows, each holding
+// the tile's columns and a zero halo of 8 elements a side, so that the next rows
+// (`stages` - 1 of them) are in flight while the current one is used; a warp
+// synchronises alone (cp.async.wait_group, __syncwarp). A lane reads its window of an
+// input row (12 or 16 consecutive elements) with 16- or 8-byte loads, once a row:
+//   - the input gradient keeps the k output rows that an input row feeds (a ring of
+//     k x 4 accumulators, the step loop unrolled k times so that the ring's slots are
+//     registers; at stride 2, k/2 + 1 pairs of rows) and the k x k weights in
+//     registers, and writes a row when its last input row has passed: k*k multiply-
+//     adds an output for 12 loaded elements a row. At stride 2 the tap parities are
+//     fixed per strip at compile time (the columns' by the position in the strip, the
+//     rows' by the pair).
+//   - the weight gradient keeps the k*k sums in registers for the whole band. At
+//     stride 1, g's rows stay in a ring of shared rows that holds the k rows the taps
+//     read (a lane reads its strip of each, 4 elements), and with u the warp builds
+//     each row of z = x + up(u) a row ahead, from the x ring and a ring of u's coarse
+//     rows, by the forward's lerp plans (along H first, then along W; the plans of
+//     every row and column in a table in shared memory), into one of two rows of
+//     shared memory, in the same straight-line code as the current row's multiply-
+//     adds, so that z is never written out and the build's loads overlap the
+//     arithmetic. At stride 2, g's last k/2 + 1 strips stay in registers. At the
+//     band's end one warp reduce-scatter (5 shuffle stages) leaves each lane its
+//     k*k/32 sums, the block adds its warps in order into one row of partial sums per
+//     (plane, block of bands), and recconv_level_wgrad_sum_kernel adds a channel's
+//     rows in a fixed tree.
+// A band's halo rows (k/2 above and below) pass through the ring once for that band.
+// The host (ops/cuda/recconv_level_bwd.py:launch_config) picks the band height (long
+// bands read the halo less often; short ones fill the card), the bands and column
+// tiles a block, the ring depths, the copy chunks and the shared layout from the
+// kernel's registers, and passes them as `Geometry`.
+//
 //   recconv_up_adjoint_kernel: du = up^T(dz), one thread per coarse element, gathered
 //     through the transposed plan table (ops/cuda/recconv_bwd.py:transposed_plan_table:
 //     for each coarse index, the fine indices and weights that read it, at most 4 per
-//     axis; bilinear with align_corners=False or nearest).
-//
-// What bounds them on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
-// cores): each reads its inputs once and writes its outputs once, with k*k multiply-
-// adds per element (dgrad at stride 2: about k*k/4 per fine element); at k = 5 the
-// bytes bound them. They are the simple forms: no register strips, no cp.async.
+//     axis; bilinear with align_corners=False or nearest). It is the simple form.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstring>
 
 namespace {
 
-constexpr int kTile = 32;     // outputs per side of a tile: 32 columns by 8 rows of
-constexpr int kThreads = 256;  // threads, each thread 4 rows
-constexpr int kMaxFan = 4;     // fine indices that read one coarse index, per axis
+constexpr int kStrip = 4;                     // outputs a lane computes along a row
+constexpr int kTile = 32 * kStrip;            // output columns a warp walks
+constexpr int kPad = 8;                       // halo elements on each side of a ring row
+constexpr int kRow1 = kTile + 2 * kPad;       // a stride-1 row: g, x, z
+constexpr int kRowC = kTile / 2 + 2 * kPad;   // a coarse row: dd of the stride-2 dgrad, u
+constexpr int kRow2 = 2 * kTile + 2 * kPad;   // an x row of the stride-2 weight gradient
+constexpr int kMaxThreads = 256;              // 8 warps a block at most
+constexpr int kMaxFan = 4;                    // fine indices that read one coarse index
 
-__device__ __forceinline__ float load_f32(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
+// A block's layout, as ops/cuda/recconv_level_bwd.py:launch_config builds it (the field
+// order is the Python tuple's). Offsets and sizes are in 4-byte words.
+struct Geometry {
+  int rows;              // walk units of a plane: output rows (g's rows for the weight
+                         // gradient; row pairs for the stride-2 input gradient)
+  int row0;              // the first unit
+  int band;              // units one warp walks
+  int per_block;         // bands a block
+  int tiles;             // column tiles of kTile outputs across the plane
+  int tiles_pb;          // column tiles a block
+  int tile_groups;       // blocks across one band group's tiles
+  int blocks_per_plane;  // band groups x tile groups
+  int stages;            // ring rows of each input stream (stages - 1 in flight): 2 or 4
+  int uring;             // ring rows of u's coarse rows, a power of two
+  int gring;             // ring rows of g (wgrad at stride 1), a power of two >= k +
+                         // stages - 2: the rows the taps read stay in the ring
+  int warp_words;        // from one warp's rings to the next
+  int a_off;             // the first stream's ring (g: dgrad; x: wgrad) in a warp's region
+  int b_off;             // g's ring (wgrad)
+  int u_off;             // u's ring (wgrad at stride 1 with u)
+  int z_off;             // two rows of z (wgrad at stride 1 with u)
+  int plan_off;          // block-wide, after the warps: the lerp plans, an int2 a row and
+                         // a column (wgrad at stride 1 with u)
+  int sums_off;          // block-wide: each warp's k*k sums (wgrad)
+  int chunk_a, chunk_b, chunk_u;  // bytes one copy moves for each stream: 16, 8, 4, or 0
+                                  // (plain loads, element by element)
+  int vec;               // dgrad: dx (and add) rows take 4-wide stores at every 4th column
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void put(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16(v);
 }
-// floor(a / S) for S in {1, 2} and any sign of a
-template <int S>
-__device__ __forceinline__ int floor_div(int a) {
-  return S == 1 ? a : (a >> 1);
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
 }
 
-// dx = conv^T(g) (+ add) for the k x k depthwise conv at stride S: g is N*C planes of
-// OH x OW in TG, w fp32 (C, K, K), add null or fp32 planes of H x W, y planes of H x W
-// in TO.
-template <typename TG, typename TO, int K, int S>
-__global__ void __launch_bounds__(kThreads)
-recconv_level_dgrad_kernel(const TG* __restrict__ g, const float* __restrict__ w,
-                           const float* __restrict__ add, TO* __restrict__ y, int C, int H,
-                           int W, int OH, int OW, int tiles_w, int tiles) {
-  constexpr int P = K / 2;
-  constexpr int R = (kTile - 1 + 2 * P) / S + 2;  // rows and columns of the g window
-  constexpr int RP = R | 1;
-  __shared__ float win[R * RP];
-  const int plane = blockIdx.x / tiles, t = blockIdx.x - plane * tiles;
-  const int r0 = t / tiles_w * kTile, q0 = t % tiles_w * kTile;
-  // the first row and column of g that the tile reads: floor((r0 + P - (K - 1)) / S)
-  const int or0 = floor_div<S>(r0 - P), oq0 = floor_div<S>(q0 - P);
-  const TG* gp = g + (size_t)plane * OH * OW;
-  for (int i = threadIdx.x; i < R * R; i += blockDim.x) {
-    const int a = i / R, b = i - a * R, orow = or0 + a, ocol = oq0 + b;
-    win[a * RP + b] = (orow >= 0 && orow < OH && ocol >= 0 && ocol < OW)
-                          ? load_f32(gp, (size_t)orow * OW + ocol)
-                          : 0.f;
+// ---- copies into the rings ----------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "n"(B) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most stages - 2 of this thread's copy groups are in flight: the group
+// of the row the step uses has landed.
+__device__ __forceinline__ void cp_wait(int stages) {
+  if (stages == 4)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int B>
+__device__ __forceinline__ void zero_bytes(void* p) {
+  if constexpr (B == 16)
+    *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+  else if constexpr (B == 8)
+    *reinterpret_cast<uint2*>(p) = make_uint2(0u, 0u);
+  else
+    *reinterpret_cast<unsigned*>(p) = 0u;
+}
+
+// dst[e] = row[col0 + e] for e < N, in chunks of B bytes: the host chose B so that no
+// chunk straddles a row's end (width * sizeof(T) % B == 0, col0 % (B / sizeof(T)) == 0),
+// so a chunk is copied whole or zeroed whole. The trip count is known at compile time.
+template <int B, int N, typename T>
+__device__ __forceinline__ void copy_chunks(T* dst, const T* row, int col0, int width,
+                                            int lane) {
+  constexpr int E = B / sizeof(T), kIters = (N / E + 31) / 32;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int e = (lane + 32 * it) * E;
+    if (N % (32 * E) == 0 || e < N) {
+      const int c = col0 + e;
+      if (c >= 0 && c < width)
+        cp_async<B>(dst + e, row + c);
+      else
+        zero_bytes<B>(dst + e);
+    }
   }
+}
+
+// One ring row: the columns [col0, col0 + N) of `row` (null: a row outside the plane),
+// zero outside [0, width), by the warp's 32 lanes.
+template <int N, typename T>
+__device__ __forceinline__ void copy_row(T* dst, const T* row, int col0, int width, int chunk,
+                                         int lane) {
+  // phase copy
+  if (!row) {
+    unsigned* d = reinterpret_cast<unsigned*>(dst);
+#pragma unroll
+    for (int i = lane; i < N * (int)sizeof(T) / 4; i += 32) d[i] = 0u;
+    return;
+  }
+  switch (chunk) {
+    case 16: copy_chunks<16, N>(dst, row, col0, width, lane); break;
+    case 8: copy_chunks<8, N>(dst, row, col0, width, lane); break;
+    case 4: copy_chunks<4, N>(dst, row, col0, width, lane); break;
+    default:  // a bf16 row of odd width: element by element
+      for (int e = lane; e < N; e += 32) {
+        const int c = col0 + e;
+        dst[e] = (c >= 0 && c < width) ? row[c] : zero_of<T>();
+      }
+  }
+  // end copy
+}
+
+// ---- loads from the rings into registers -----------------------------------------------
+
+__device__ __forceinline__ void ld4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 a, b;
+  memcpy(&a, &t.x, 4);
+  memcpy(&b, &t.y, 4);
+  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+  v[0] = fa.x, v[1] = fa.y, v[2] = fb.x, v[3] = fb.y;
+}
+__device__ __forceinline__ void ld2(const float* p, float* v) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  v[0] = t.x, v[1] = t.y;
+}
+__device__ __forceinline__ void ld2(const __nv_bfloat16* p, float* v) {
+  const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  v[0] = t.x, v[1] = t.y;
+}
+
+// v = NG groups of 4 consecutive elements from p (16-byte aligned f32, 8-byte bf16)
+template <int NG, typename T>
+__device__ __forceinline__ void load_groups(const T* p, float (&v)[4 * NG]) {
+#pragma unroll
+  for (int q = 0; q < NG; ++q) ld4(p + 4 * q, v + 4 * q);
+}
+
+// ---- stores of dx ---------------------------------------------------------------------
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[kStrip]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float (&v)[kStrip]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  memcpy(&t.x, &a, 4);
+  memcpy(&t.y, &b, 4);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// y[o + s] = v[s] (+ add[o + s]) for the strip's columns q + s < W
+template <typename TO>
+__device__ __forceinline__ void store_strip(TO* y, const float* add, size_t o, int q, int W,
+                                            bool vec, float (&v)[kStrip]) {
+  // phase store
+  if (q >= W) return;
+  if (vec) {
+    if (add) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(add + o));
+      v[0] += a.x, v[1] += a.y, v[2] += a.z, v[3] += a.w;
+    }
+    st4(y + o, v);
+  } else {
+#pragma unroll
+    for (int s = 0; s < kStrip; ++s)
+      if (q + s < W) put(y, o + s, add ? v[s] + add[o + s] : v[s]);
+  }
+  // end store
+}
+
+// ---- the warp's reduce-scatter --------------------------------------------------------
+
+// The k*k sums padded to a power of two, at least 32.
+template <int K>
+constexpr int kSumPad = K * K <= 32 ? 32 : 64;
+
+// One stage of the reduce-scatter: lanes O apart swap halves of the M values held, and
+// each adds the half it keeps to the half it receives.
+template <int N, int O, int M>
+__device__ __forceinline__ void scatter_stage(float (&v)[N], int lane) {
+  if constexpr (O > 0) {
+    const bool upper = lane & O;  // keeps the upper half
+#pragma unroll
+    for (int t = 0; t < M / 2; ++t) {
+      const float send = upper ? v[t] : v[t + M / 2];
+      const float keep = upper ? v[t + M / 2] : v[t];
+      v[t] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    scatter_stage<N, O / 2, M / 2>(v, lane);
+  }
+}
+
+// out[e] = the sum over the warp's 32 lanes of acc[e], e < k*k: after the 5 stages lane
+// l holds the sums of entries [l m, (l + 1) m), m = kSumPad / 32, and writes them.
+template <int K>
+__device__ __forceinline__ void warp_sum(const float (&acc)[K * K], float* out) {
+  constexpr int KK = K * K, N = kSumPad<K>, M = N / 32;
+  float v[N];
+#pragma unroll
+  for (int t = 0; t < N; ++t) v[t] = t < KK ? acc[t] : 0.f;
+  const int lane = threadIdx.x & 31;
+  scatter_stage<N, 16, N>(v, lane);
+#pragma unroll
+  for (int t = 0; t < M; ++t)
+    if (lane * M + t < KK) out[lane * M + t] = v[t];
+}
+
+// ---- the walks ------------------------------------------------------------------------
+
+// The warp's place: its plane, block of the plane, column tile and band of units [u0,
+// u1) (empty, or a tile past the plane's, where the warp has no work).
+struct Place {
+  int plane, bp, tile, u0, u1;
+};
+__device__ __forceinline__ Place place_of(const Geometry& geo) {
+  const int warp = threadIdx.x >> 5;
+  Place p;
+  p.plane = blockIdx.x / geo.blocks_per_plane;
+  p.bp = blockIdx.x - p.plane * geo.blocks_per_plane;
+  p.tile = (p.bp % geo.tile_groups) * geo.tiles_pb + warp % geo.tiles_pb;
+  const int band = (p.bp / geo.tile_groups) * geo.per_block + warp / geo.tiles_pb;
+  p.u0 = geo.row0 + band * geo.band;
+  p.u1 = min(p.u0 + geo.band, geo.row0 + geo.rows);
+  return p;
+}
+
+// dx = conv^T(g) (+ add) for the k x k depthwise conv at stride S with zero padding
+// k/2: g is N*C planes of OH x OW in TG, w fp32 (C, K, K), add null or fp32 planes of
+// H x W, y planes of H x W in TO. At stride 1 a unit is an output row and step t brings
+// input row u0 - k/2 + t; at stride 2 a unit is a pair of output rows (2m - k/2, 2m -
+// k/2 + 1) and step t brings coarse row u0 - k/2 + t, after which pair u0 - k/2 + t is
+// whole.
+template <typename TG, typename TO, int K, int S>
+__global__ void __launch_bounds__(kMaxThreads, K == 7 ? 2 : (S == 1 ? 3 : 4))
+recconv_level_dgrad_kernel(const TG* __restrict__ g, const float* __restrict__ w,
+                           const float* __restrict__ add, TO* __restrict__ y,
+                           const Geometry geo, int C, int H, int W, int OH, int OW) {
+  constexpr int P = K / 2;
+  constexpr int kSlot = S == 1 ? kRow1 : kRowC;
+  extern __shared__ __align__(16) float smem[];
+  const Place pl = place_of(geo);
+  if (pl.tile >= geo.tiles || pl.u0 >= pl.u1) return;
+  const int lane = threadIdx.x & 31;
+  const int c0 = pl.tile * kTile, q = c0 + kStrip * lane;
   float wk[K * K];
-  const float* wc = w + (size_t)(plane % C) * K * K;
+  const float* wc = w + (size_t)(pl.plane % C) * K * K;
 #pragma unroll
   for (int i = 0; i < K * K; ++i) wk[i] = __ldg(wc + i);
-  __syncthreads();
-  const int q = threadIdx.x % kTile, col = q0 + q;
-  if (col >= W) return;
-  const size_t base = (size_t)plane * H * W;
-  for (int r = threadIdx.x / kTile; r < kTile && r0 + r < H; r += kThreads / kTile) {
-    const int row = r0 + r;
-    float acc = 0.f;
+  const TG* gp = g + (size_t)pl.plane * OH * OW;
+  TG* ring = reinterpret_cast<TG*>(smem + (threadIdx.x >> 5) * geo.warp_words + geo.a_off);
+  const size_t base = (size_t)pl.plane * H * W;
+  const int NS = geo.stages, D = NS - 1;
+  const int in0 = pl.u0 - P;  // the input row of step 0
+  const int steps = pl.u1 - pl.u0 + (S == 1 ? 2 * P : P);
+  const int col0 = (S == 1 ? c0 : c0 / 2) - kPad;
+  auto issue = [&](int t) {
+    const int r = in0 + t;
+    copy_row<kSlot>(ring + (t & (NS - 1)) * kSlot,
+                    (r >= 0 && r < OH) ? gp + (size_t)r * OW : nullptr, col0, OW, geo.chunk_a,
+                    lane);
+  };
+  for (int d = 0; d < D; ++d) {
+    if (d < steps) issue(d);
+    cp_commit();
+  }
+  if constexpr (S == 1) {
+    float acc[K][kStrip];  // the k output rows that the current input row feeds
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      if (S == 2 && ((row + P - i) & 1)) continue;
-      const int a = floor_div<S>(row + P - i) - or0;
+    for (int i = 0; i < K; ++i)
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        if (S == 2 && ((col + P - j) & 1)) continue;
-        const int b = floor_div<S>(col + P - j) - oq0;
-        acc = fmaf(win[a * RP + b], wk[i * K + j], acc);
+      for (int s = 0; s < kStrip; ++s) acc[i][s] = 0.f;
+    for (int t0 = 0; t0 < steps; t0 += K) {
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        const int t = t0 + u;
+        if (t < steps) {
+          cp_wait(NS);
+          __syncwarp();
+          // the window: columns q - 4 .. q + 7 of input row in0 + t
+          float win[12];
+          load_groups<3>(ring + (t & (NS - 1)) * kSlot + kStrip * lane + kPad - 4, win);
+          if (t + D < steps) issue(t + D);
+          cp_commit();
+          // phase conv
+          // output row in0 + t - P + i takes tap row i; its sums are acc[(u + i) % K]
+#pragma unroll
+          for (int i = 0; i < K; ++i)
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+#pragma unroll
+              for (int s = 0; s < kStrip; ++s)
+                acc[(u + i) % K][s] =
+                    fmaf(wk[i * K + j], win[4 + s + P - j], acc[(u + i) % K][s]);
+          // end conv
+          const int r = in0 + t - P;  // whole: its last input row has passed
+          if (r >= pl.u0)
+            store_strip(y, add, base + (size_t)r * W + q, q, W, geo.vec, acc[u]);
+#pragma unroll
+          for (int s = 0; s < kStrip; ++s) acc[u][s] = 0.f;
+        }
       }
     }
-    const size_t o = base + (size_t)row * W + col;
-    if (add) acc += add[o];
-    put(y, o, acc);
+  } else {
+    float acc[P + 1][2][kStrip];  // the pairs m = a .. a + P that coarse row a feeds
+#pragma unroll
+    for (int d = 0; d < P + 1; ++d)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int s = 0; s < kStrip; ++s) acc[d][e][s] = 0.f;
+    for (int t0 = 0; t0 < steps; t0 += P + 1) {
+#pragma unroll
+      for (int u = 0; u < P + 1; ++u) {
+        const int t = t0 + u;
+        if (t < steps) {
+          cp_wait(NS);
+          __syncwarp();
+          // the window: coarse columns q/2 - 2 .. q/2 + 3 of coarse row in0 + t
+          float win[6];
+          const TG* src = ring + (t & (NS - 1)) * kSlot + 2 * lane + kPad - 2;
+#pragma unroll
+          for (int h = 0; h < 3; ++h) ld2(src + 2 * h, win + 2 * h);
+          if (t + D < steps) issue(t + D);
+          cp_commit();
+          // phase conv
+          // pair a + d, its row e: tap row i = 2d + e; output column q + s: the taps j
+          // with (s + P - j) even, coarse column q/2 + (s + P - j)/2
+#pragma unroll
+          for (int d = 0; d <= P; ++d)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (2 * d + e < K) {
+#pragma unroll
+                for (int s = 0; s < kStrip; ++s)
+#pragma unroll
+                  for (int j = (s + P) & 1; j < K; j += 2)
+                    acc[(u + d) % (P + 1)][e][s] =
+                        fmaf(wk[(2 * d + e) * K + j], win[2 + (s + P - j) / 2],
+                             acc[(u + d) % (P + 1)][e][s]);
+              }
+          // end conv
+          const int m = in0 + t;  // pair m is whole
+          if (m >= pl.u0) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = 2 * m - P + e;
+              if (r >= 0 && r < H)
+                store_strip(y, add, base + (size_t)r * W + q, q, W, geo.vec, acc[u][e]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int s = 0; s < kStrip; ++s) acc[u][e][s] = 0.f;
+        }
+      }
+    }
   }
 }
 
-// partial[c][n * tiles + tile][K * K] = the tile's sums of z (*) g for y = conv(z, w) at
-// stride S: x is N*C planes of H x W in TI, u null or fp32 planes of UH x UW (z = x +
-// up(u) by the plans' rows [0, H) and columns [H, H + W)), g planes of OH x OW in TG.
+// The stride-1 weight gradient's walk: acc[i k + j] += sum over the band's g rows r and
+// the strip's columns of z(r + i - k/2, q + s + j - k/2) g(r, q + s). Step t brings z
+// row u0 - k/2 + t and g row u0 + t (zero past the band) into g's ring of `gring` rows,
+// which holds the k rows the taps read (zero before the band): a lane reads its strip
+// of each, which keeps g out of registers (the step loop is not unrolled: one copy of
+// its code). With u (UP), z = x + up(u) is built a row ahead into
+// one of two rows of shared memory, in the same straight-line code as the current
+// row's multiply-adds, so that the build's shared loads overlap them; the lerp plans
+// come from the block's tables in shared memory, each {the two coarse indices i0 | i1
+// << 16, the weight's bits}. Without u the window is read from x's ring.
+template <bool UP, typename TI, typename TG, int K>
+__device__ __forceinline__ void wgrad_walk_s1(const TI* x, const float* u, const TG* g,
+                                              const Geometry& geo, const Place& pl, int H,
+                                              int W, int UH, int UW, float (&acc)[K * K]) {
+  constexpr int P = K / 2;
+  constexpr int kBuild = (kTile + 2 * P + 31) / 32;  // z columns a lane builds a row
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int c0 = pl.tile * kTile, ucol0 = c0 / 2 - kPad;
+  float* const region = smem + (threadIdx.x >> 5) * geo.warp_words;
+  TI* const xr = reinterpret_cast<TI*>(region + geo.a_off);
+  TG* const gr = reinterpret_cast<TG*>(region + geo.b_off);
+  float* const ur = region + geo.u_off;
+  float* const zrows = region + geo.z_off;  // two rows
+  const int2* const rplan = reinterpret_cast<const int2*>(smem + geo.plan_off);
+  const int2* const cplan = rplan + H;
+  const TI* xp = x + (size_t)pl.plane * H * W;
+  const TG* gp = g + (size_t)pl.plane * H * W;
+  const float* up = UP ? u + (size_t)pl.plane * UH * UW : nullptr;
+  const int NS = geo.stages, D = NS - 1, U = geo.uring, GS = geo.gring;  // powers of two
+  const int z0 = pl.u0 - P, steps = pl.u1 - pl.u0 + 2 * P;
+  // the next coarse row of u to copy: the first that the band's first z row reads
+  int next = 0;
+  if constexpr (UP) next = min(rplan[max(z0, 0)].x & 0xffff, rplan[max(z0, 0)].x >> 16);
+  auto issue = [&](int t) {
+    const int rho = z0 + t, slot = t & (NS - 1);
+    const bool in = rho >= 0 && rho < H;
+    copy_row<kRow1>(xr + slot * kRow1, in ? xp + (size_t)rho * W : nullptr, c0 - kPad, W,
+                    geo.chunk_a, lane);
+    copy_row<kTile>(gr + (t & (GS - 1)) * kTile,
+                    pl.u0 + t < pl.u1 ? gp + (size_t)(pl.u0 + t) * W : nullptr, c0, W,
+                    geo.chunk_b, lane);
+    if (UP && in)  // u's coarse rows up to the last that row rho reads
+      for (const int hi = max(rplan[rho].x & 0xffff, rplan[rho].x >> 16); next <= hi; ++next)
+        copy_row<kRowC>(ur + (next & (U - 1)) * kRowC, up + (size_t)next * UW, ucol0, UW,
+                        geo.chunk_u, lane);
+  };
+  // z row z0 + t into zrows[t & 1]: each lane its columns c0 - k/2 + lane + 32 it, zero
+  // outside the plane; branch-free (clamped reads, a select), so that it interleaves
+  // with the multiply-adds
+  auto build = [&](int t) {
+    // phase build
+    const int rho = z0 + t;
+    const bool in = rho >= 0 && rho < H;
+    const int2 rp = rplan[min(max(rho, 0), H - 1)];
+    const float* t0r = ur + ((rp.x & 0xffff) & (U - 1)) * kRowC - ucol0;
+    const float* t1r = ur + ((rp.x >> 16) & (U - 1)) * kRowC - ucol0;
+    const float wr = __int_as_float(rp.y);
+    const TI* xs = xr + (t & (NS - 1)) * kRow1 + kPad - c0;
+    float* zs = zrows + (t & 1) * kRow1 + kPad - c0;
+#pragma unroll
+    for (int it = 0; it < kBuild; ++it) {
+      const int c = c0 - P + lane + 32 * it;
+      const int2 cp = cplan[min(max(c, 0), W - 1)];
+      const int a0 = cp.x & 0xffff, a1 = cp.x >> 16;
+      const float left = t0r[a0] + (t1r[a0] - t0r[a0]) * wr;
+      const float right = t0r[a1] + (t1r[a1] - t0r[a1]) * wr;
+      const float val = to_f32(xs[min(c, c0 + kTile + kPad - 1)]) +
+                        (left + (right - left) * __int_as_float(cp.y));
+      if (it < kBuild - 1 || lane < kTile + 2 * P - 32 * (kBuild - 1))
+        zs[c] = in && c >= 0 && c < W ? val : 0.f;  // along H first, then W, as the forward
+    }
+    // end build
+  };
+  {  // g's rows before the band: zero
+    unsigned* gz = reinterpret_cast<unsigned*>(gr);
+    for (int i = lane; i < GS * kTile * (int)sizeof(TG) / 4; i += 32) gz[i] = 0u;
+    __syncwarp();
+  }
+  for (int d = 0; d < D; ++d) {
+    if (d < steps) issue(d);
+    cp_commit();
+  }
+  if constexpr (UP) {
+    cp_wait(NS);  // row 0 has landed
+    __syncwarp();
+    build(0);
+  }
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    const int slot = t & (NS - 1);
+    if constexpr (UP)
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // row t + 1 too (NS = 4)
+    else
+      cp_wait(NS);
+    __syncwarp();
+    float win[12];  // z at columns q - 4 .. q + 7 of row z0 + t
+    if constexpr (UP)
+      load_groups<3>(zrows + (t & 1) * kRow1 + kStrip * lane + kPad - 4, win);
+    else
+      load_groups<3>(xr + slot * kRow1 + kStrip * lane + kPad - 4, win);
+    if (t + D < steps) issue(t + D);
+    cp_commit();
+    if constexpr (UP) build(t + 1);  // the next row's z, while this row's multiply-adds run
+    // phase corr
+    // z row z0 + t pairs with g row u0 + t - i at tap row i
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      float gv[kStrip];
+      ld4(gr + ((t - i) & (GS - 1)) * kTile + kStrip * lane, gv);
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+#pragma unroll
+        for (int s = 0; s < kStrip; ++s)
+          acc[i * K + j] = fmaf(win[4 + s + j - P], gv[s], acc[i * K + j]);
+    }
+    // end corr
+  }
+}
+
+// The stride-2 weight gradient's walk: acc[i k + j] += sum over the band's g rows r and
+// the strip's columns of x(2r + i - k/2, 2(q + s) + j - k/2) g(r, q + s). Step t brings
+// x rows 2(u0 + t) - k/2 and the next, and g row u0 + t (zero past the band); g's last
+// k/2 + 1 rows stay in registers, shifted down a row each step.
+template <typename TI, typename TG, int K>
+__device__ __forceinline__ void wgrad_walk_s2(const TI* x, const TG* g, const Geometry& geo,
+                                              const Place& pl, int H, int W, int OH, int OW,
+                                              float (&acc)[K * K]) {
+  constexpr int P = K / 2, R = P + 1;
+  constexpr int NG = (14 + P) / 4;  // groups of 4 that cover a strip's x window
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int c0 = pl.tile * kTile;
+  float* const region = smem + (threadIdx.x >> 5) * geo.warp_words;
+  TI* const xr = reinterpret_cast<TI*>(region + geo.a_off);
+  TG* const gr = reinterpret_cast<TG*>(region + geo.b_off);
+  const TI* xp = x + (size_t)pl.plane * H * W;
+  const TG* gp = g + (size_t)pl.plane * OH * OW;
+  const int NS = geo.stages, D = NS - 1;
+  const int x0 = 2 * pl.u0 - P, steps = pl.u1 - pl.u0 + P;
+  auto issue = [&](int t) {
+    const int slot = t & (NS - 1);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int rho = x0 + 2 * t + e;
+      copy_row<kRow2>(xr + (2 * slot + e) * kRow2,
+                      rho >= 0 && rho < H ? xp + (size_t)rho * W : nullptr, 2 * c0 - kPad, W,
+                      geo.chunk_a, lane);
+    }
+    if (pl.u0 + t < pl.u1)
+      copy_row<kTile>(gr + slot * kTile, gp + (size_t)(pl.u0 + t) * OW, c0, OW, geo.chunk_b,
+                      lane);
+  };
+  for (int d = 0; d < D; ++d) {
+    if (d < steps) issue(d);
+    cp_commit();
+  }
+  float gs[R][kStrip];  // g's strip of row u0 + t - d
+#pragma unroll
+  for (int d = 0; d < R; ++d)
+#pragma unroll
+    for (int s = 0; s < kStrip; ++s) gs[d][s] = 0.f;
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    const int slot = t & (NS - 1);
+    cp_wait(NS);
+    __syncwarp();
+#pragma unroll
+    for (int d = R - 1; d > 0; --d)
+#pragma unroll
+      for (int s = 0; s < kStrip; ++s) gs[d][s] = gs[d - 1][s];
+    if (pl.u0 + t < pl.u1)
+      ld4(gr + slot * kTile + kStrip * lane, gs[0]);
+    else
+#pragma unroll
+      for (int s = 0; s < kStrip; ++s) gs[0][s] = 0.f;
+    if (t + D < steps) issue(t + D);
+    cp_commit();
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float win[4 * NG];  // x at columns 2q - 4 .. of row 2(u0 + t) - P + e
+      load_groups<NG>(xr + (2 * slot + e) * kRow2 + 2 * kStrip * lane + kPad - 4, win);
+      // phase corr
+      // x row 2(u0 + t) - P + e pairs with g row u0 + t - d at tap row i = 2d + e
+#pragma unroll
+      for (int d = 0; d <= P; ++d)
+        if (2 * d + e < K) {
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+#pragma unroll
+            for (int s = 0; s < kStrip; ++s)
+              acc[(2 * d + e) * K + j] =
+                  fmaf(win[4 + 2 * s + j - P], gs[d][s], acc[(2 * d + e) * K + j]);
+        }
+      // end corr
+    }
+  }
+}
+
+// partial[c][n * blocks_per_plane + bp][K * K] = the block's sums of z (*) g for y =
+// conv(z, w) at stride S: x is N*C planes of H x W in TI, u null or fp32 planes of UH x
+// UW (z = x + up(u) by the plans' rows [0, H) and columns [H, H + W)), g planes of OH x
+// OW in TG.
 template <typename TI, typename TG, int K, int S>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads,  // no spills: 80 registers only f32 x, k < 7
+                                  K == 7 ? 1 : (S == 1 && sizeof(TI) == 4 ? 3 : 2))
 recconv_level_wgrad_kernel(const TI* __restrict__ x, const float* __restrict__ u,
                            const int4* __restrict__ plans, const TG* __restrict__ g,
-                           float* __restrict__ partial, int N, int C, int H, int W, int OH,
-                           int OW, int UH, int UW, int tiles_w, int tiles) {
-  constexpr int P = K / 2;
+                           float* __restrict__ partial, const Geometry geo, int N, int C,
+                           int H, int W, int OH, int OW, int UH, int UW) {
   constexpr int KK = K * K;
-  constexpr int R = S * (kTile - 1) + K;  // rows and columns of the z window
-  constexpr int RP = R | 1;
-  __shared__ float win[R * RP];
-  __shared__ float red[kThreads / 32][KK];
-  const int plane = blockIdx.x / tiles, t = blockIdx.x - plane * tiles;
-  const int r0 = t / tiles_w * kTile, q0 = t % tiles_w * kTile;
-  const int gr0 = r0 * S - P, gq0 = q0 * S - P;
-  const TI* xp = x + (size_t)plane * H * W;
-  const float* up = u ? u + (size_t)plane * UH * UW : nullptr;
-  for (int i = threadIdx.x; i < R * R; i += blockDim.x) {
-    const int r = i / R, q = i - r * R, gr = gr0 + r, gq = gq0 + q;
-    float v = 0.f;
-    if (gr >= 0 && gr < H && gq >= 0 && gq < W) {
-      v = load_f32(xp, (size_t)gr * W + gq);
-      if (up) {  // along H first, then along W, as recconv_level_kernel
-        const int4 rp = __ldg(plans + gr), cp = __ldg(plans + H + gq);
-        const float* t0 = up + rp.x * UW;
-        const float* t1 = up + rp.y * UW;
-        const float wr = __int_as_float(rp.z);
-        const float left = t0[cp.x] + (t1[cp.x] - t0[cp.x]) * wr;
-        const float right = t0[cp.y] + (t1[cp.y] - t0[cp.y]) * wr;
-        v += left + (right - left) * __int_as_float(cp.z);
-      }
+  extern __shared__ __align__(16) float smem[];
+  const Place pl = place_of(geo);
+  if (S == 1 && u) {  // the lerp plans of every row and column, packed, once a block
+    int2* const table = reinterpret_cast<int2*>(smem + geo.plan_off);
+    for (int i = threadIdx.x; i < H + W; i += blockDim.x) {
+      const int4 p = __ldg(plans + i);
+      table[i] = make_int2(p.x | (p.y << 16), p.z);
     }
-    win[r * RP + q] = v;
+    __syncthreads();
   }
-  __syncthreads();
   float acc[KK];
 #pragma unroll
   for (int e = 0; e < KK; ++e) acc[e] = 0.f;
-  const int q = threadIdx.x % kTile;
-  const TG* gp = g + (size_t)plane * OH * OW;
-  if (q0 + q < OW) {
-    for (int r = threadIdx.x / kTile; r < kTile && r0 + r < OH; r += kThreads / kTile) {
-      const float gv = load_f32(gp, (size_t)(r0 + r) * OW + q0 + q);
-#pragma unroll
-      for (int i = 0; i < K; ++i)
-#pragma unroll
-        for (int j = 0; j < K; ++j)
-          acc[i * K + j] = fmaf(win[(S * r + i) * RP + S * q + j], gv, acc[i * K + j]);
+  if (pl.tile < geo.tiles && pl.u0 < pl.u1) {
+    if constexpr (S == 1) {
+      if (u)
+        wgrad_walk_s1<true, TI, TG, K>(x, u, g, geo, pl, H, W, UH, UW, acc);
+      else
+        wgrad_walk_s1<false, TI, TG, K>(x, u, g, geo, pl, H, W, UH, UW, acc);
     }
+    else
+      wgrad_walk_s2<TI, TG, K>(x, g, geo, pl, H, W, OH, OW, acc);
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int e = 0; e < KK; ++e) {
-    float v = acc[e];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][e] = v;
-  }
+  // phase sums
+  float* const sums = smem + geo.sums_off;
+  warp_sum<K>(acc, sums + (threadIdx.x >> 5) * kSumPad<K>);
   __syncthreads();
-  if (threadIdx.x < KK) {
+  const int n = pl.plane / C, c = pl.plane - n * C;
+  for (int e = threadIdx.x; e < KK; e += blockDim.x) {  // the warps added in order
     float s = 0.f;
-#pragma unroll
-    for (int v = 0; v < kThreads / 32; ++v) s += red[v][threadIdx.x];
-    const int n = plane / C, c = plane - n * C;
-    partial[(((size_t)c * N + n) * tiles + t) * KK + threadIdx.x] = s;
+    for (int v = 0; v < (int)(blockDim.x >> 5); ++v) s += sums[v * kSumPad<K> + e];
+    partial[(((size_t)c * N + n) * geo.blocks_per_plane + pl.bp) * KK + e] = s;
   }
+  // end sums
 }
 
-// dw[c][e] = the sum over rows r < rows of partial[c][r][e], in a fixed tree: one block
-// per (c, e); thread i adds rows i, i + 256, ... in order, then the block halves.
-__global__ void __launch_bounds__(kThreads)
+// dw[c][e] = the sum over the rows r < rows of partial[c][r][e], in a fixed tree: one
+// block per (c, e); thread i adds rows i, i + 256, ... in order, then the block halves.
+__global__ void __launch_bounds__(kMaxThreads)
 recconv_level_wgrad_sum_kernel(const float* __restrict__ partial, float* __restrict__ dw,
                                int rows, int KK) {
-  __shared__ float s[kThreads];
+  __shared__ float s[kMaxThreads];
   const int c = blockIdx.x / KK, e = blockIdx.x - c * KK;
   const float* p = partial + (size_t)c * rows * KK + e;
   float v = 0.f;
-  for (int r = threadIdx.x; r < rows; r += kThreads) v += p[(size_t)r * KK];
+  for (int r = threadIdx.x; r < rows; r += kMaxThreads) v += p[(size_t)r * KK];
   s[threadIdx.x] = v;
   __syncthreads();
-  for (int h = kThreads / 2; h > 0; h >>= 1) {
+  for (int h = kMaxThreads / 2; h > 0; h >>= 1) {
     if (threadIdx.x < h) s[threadIdx.x] += s[threadIdx.x + h];
     __syncthreads();
   }
@@ -214,7 +734,7 @@ recconv_level_wgrad_sum_kernel(const float* __restrict__ partial, float* __restr
 // du[a, b] = sum_{e, f} wr[a, e] wc[b, f] dz[ri[a, e], ci[b, f]]: dz is planes of H x W,
 // du planes of UH x UW, both fp32; plans holds (fine index, weight bits) entries,
 // kMaxFan per coarse row from entry 0 and per coarse column from entry `col0`.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 recconv_up_adjoint_kernel(const float* __restrict__ dz, const int2* __restrict__ plans,
                           float* __restrict__ du, long long total, int H, int W, int UH,
                           int UW, int col0) {
@@ -284,9 +804,28 @@ const void* kernel_for(int kind, int k, int stride, int a_bf16, int b_bf16) {
 #undef RECCONV_LEVEL_BWD_CASE
 }
 
-int tiles_of(int oh, int ow, int* tiles_w) {
-  *tiles_w = (ow + kTile - 1) / kTile;
-  return *tiles_w * ((oh + kTile - 1) / kTile);
+// The block's threads and the grid for `planes` planes, or an error; sets the kernel's
+// dynamic shared memory (all of the SM's shared memory, the least L1).
+cudaError_t prepare(const void* fn, const Geometry& geo, int planes, int smem, int* threads,
+                    int* blocks) {
+  *threads = 32 * geo.tiles_pb * geo.per_block;
+  if (geo.tiles_pb < 1 || geo.per_block < 1 || *threads > kMaxThreads ||
+      (geo.stages != 2 && geo.stages != 4) || geo.band < 1 || geo.blocks_per_plane < 1 ||
+      smem <= 0)
+    return cudaErrorInvalidValue;
+  if ((long long)planes * geo.blocks_per_plane > INT_MAX) return cudaErrorInvalidConfiguration;
+  *blocks = planes * geo.blocks_per_plane;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return e;
+}
+
+bool read_geometry(const int* geometry, int geom_len, Geometry* geo) {
+  if (geom_len != (int)(sizeof(Geometry) / sizeof(int))) return false;
+  std::memcpy(geo, geometry, sizeof(Geometry));
+  return true;
 }
 
 }  // namespace
@@ -297,18 +836,23 @@ extern "C" {
 // padding k/2, whose input is H x W: g contiguous planes = N * C planes of ceil(H /
 // stride) x ceil(W / stride), f32 (g_bf16 = 0) or bf16; w contiguous fp32 C x 1 x k x
 // k; add null or contiguous fp32 planes of H x W; y planes of H x W, f32 (out_bf16 = 0)
-// or bf16. Launches on `stream` and returns cudaGetLastError().
+// or bf16; geometry: `geom_len` ints in the field order of Geometry (host memory);
+// smem: the block's dynamic shared bytes. Launches on `stream` and returns
+// cudaGetLastError().
 int recconv_level_dgrad(const void* g, const void* w, const void* add, void* y, int planes,
                         int C, int H, int W, int k, int stride, int g_bf16, int out_bf16,
-                        void* stream) {
+                        const int* geometry, int geom_len, int smem, void* stream) {
   const void* fn = kernel_for(0, k, stride, g_bf16, out_bf16);
-  if (!fn || planes <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  int OH = (H + stride - 1) / stride, OW = (W + stride - 1) / stride, tiles_w = 0;
-  int tiles = tiles_of(H, W, &tiles_w);
-  if ((long long)tiles * planes > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  void* args[] = {&g, &w, &add, &y, &C, &H, &W, &OH, &OW, &tiles_w, &tiles};
-  const cudaError_t e = cudaLaunchKernel(fn, dim3(tiles * planes), dim3(kThreads), args, 0,
-                                         static_cast<cudaStream_t>(stream));
+  Geometry geo;
+  if (!fn || !read_geometry(geometry, geom_len, &geo) || planes <= 0 || C <= 0 || H <= 0 ||
+      W <= 0)
+    return (int)cudaErrorInvalidValue;
+  int OH = (H + stride - 1) / stride, OW = (W + stride - 1) / stride, threads = 0, blocks = 0;
+  cudaError_t e = prepare(fn, geo, planes, smem, &threads, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&g, &w, &add, &y, &geo, &C, &H, &W, &OH, &OW};
+  e = cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args, smem,
+                       static_cast<cudaStream_t>(stream));
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -316,27 +860,32 @@ int recconv_level_dgrad(const void* g, const void* w, const void* add, void* y, 
 // planes = N * C planes of H x W, f32 (x_bf16 = 0) or bf16; u null, or (stride 1 only)
 // fp32 planes of ceil(H/2) x ceil(W/2) with `plans` the device lerp-plan table of that
 // up-step (ops/cuda/recconv.py:lerp_plan_table(H, W, 1)); g planes of the output size
-// in f32 (g_bf16 = 0) or bf16; partial fp32 scratch of C x N x tiles x k x k (tiles =
-// ceil(OH/32) ceil(OW/32)); dw fp32 C x 1 x k x k. Two launches on `stream` (the tiles'
-// partial sums, then their sum); returns cudaGetLastError().
+// in f32 (g_bf16 = 0) or bf16; partial fp32 scratch of C x N x blocks_per_plane x k x
+// k; dw fp32 C x 1 x k x k; geometry and smem as recconv_level_dgrad's. Two launches on
+// `stream` (the blocks' partial sums, then their sum); returns cudaGetLastError().
 int recconv_level_wgrad(const void* x, const void* u, const void* plans, const void* g,
                         void* partial, void* dw, int N, int C, int H, int W, int k,
-                        int stride, int x_bf16, int g_bf16, void* stream) {
+                        int stride, int x_bf16, int g_bf16, const int* geometry,
+                        int geom_len, int smem, void* stream) {
   const void* fn = kernel_for(1, k, stride, x_bf16, g_bf16);
-  if (!fn || N <= 0 || C <= 0 || H <= 0 || W <= 0 || (u && (stride != 1 || !plans)))
+  Geometry geo;
+  if (!fn || !read_geometry(geometry, geom_len, &geo) || N <= 0 || C <= 0 || H <= 0 ||
+      W <= 0 || (u && (stride != 1 || !plans)))
     return (int)cudaErrorInvalidValue;
+  if ((long long)N * C > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   int UH = (H + 1) / 2, UW = (W + 1) / 2;
-  int OH = stride == 1 ? H : UH, OW = stride == 1 ? W : UW, tiles_w = 0;
-  int tiles = tiles_of(OH, OW, &tiles_w);
-  if ((long long)tiles * N * C > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  int OH = stride == 1 ? H : UH, OW = stride == 1 ? W : UW, threads = 0, blocks = 0;
+  cudaError_t e = prepare(fn, geo, N * C, smem, &threads, &blocks);
+  if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  void* args[] = {&x, &u, &plans, &g, &partial, &N, &C, &H, &W, &OH, &OW, &UH, &UW,
-                  &tiles_w, &tiles};
-  cudaError_t e = cudaLaunchKernel(fn, dim3(tiles * N * C), dim3(kThreads), args, 0, s);
+  void* args[] = {&x, &u, &plans, &g, &partial, &geo, &N, &C, &H, &W, &OH, &OW, &UH, &UW};
+  e = cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args, smem, s);
   if (e != cudaSuccess || (e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const int KK = k * k, rows = N * tiles;
-  recconv_level_wgrad_sum_kernel<<<C * KK, kThreads, 0, s>>>(
+  // phase tile_sum
+  const int KK = k * k, rows = N * geo.blocks_per_plane;
+  recconv_level_wgrad_sum_kernel<<<C * KK, kMaxThreads, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(dw), rows, KK);
+  // end tile_sum
   return (int)cudaGetLastError();
 }
 
@@ -349,9 +898,9 @@ int recconv_up_adjoint(const void* dz, const void* plans, void* du, int planes, 
   if (planes <= 0 || H <= 0 || W <= 0 || !plans) return (int)cudaErrorInvalidValue;
   int UH = (H + 1) / 2, UW = (W + 1) / 2;
   long long total = (long long)planes * UH * UW;
-  const long long blocks = (total + kThreads - 1) / kThreads;
+  const long long blocks = (total + kMaxThreads - 1) / kMaxThreads;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  recconv_up_adjoint_kernel<<<(int)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  recconv_up_adjoint_kernel<<<(int)blocks, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dz), static_cast<const int2*>(plans),
       static_cast<float*>(du), total, H, W, UH, UW, col0);
   return (int)cudaGetLastError();

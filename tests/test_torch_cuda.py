@@ -509,7 +509,12 @@ def _level_close(got, want, tol):
     (200, 334, 5, 2, torch.float32, torch.float32), (33, 21, 3, 2, torch.float32,
                                                      torch.float32),
     (67, 45, 7, 1, torch.float32, torch.float32), (1, 9, 5, 2, torch.bfloat16,
-                                                   torch.bfloat16)])
+                                                   torch.bfloat16),
+    # a bf16 row of odd width (plain loads), a plane of 9 column tiles (two blocks
+    # across), k 7 at stride 2 in bf16
+    (33, 21, 5, 1, torch.bfloat16, torch.float32), (7, 1100, 3, 1, torch.float32,
+                                                    torch.float32),
+    (200, 334, 7, 2, torch.bfloat16, torch.bfloat16)])
 def test_level_dgrad_kernel_matches_plain(cuda, h, w, k, stride, gdt, odt):
     gen = torch.Generator().manual_seed(h + k)
     g = torch.randn(2, 3, -(-h // stride), -(-w // stride), generator=gen).to("cuda", gdt)
@@ -528,7 +533,12 @@ def test_level_dgrad_kernel_matches_plain(cuda, h, w, k, stride, gdt, odt):
     (200, 334, 5, 1, "nearest", torch.float32, torch.float32),
     (100, 167, 5, 2, None, torch.float32, torch.float32),
     (33, 21, 3, 1, "bilinear", torch.float32, torch.float32),
-    (67, 45, 7, 2, None, torch.float32, torch.bfloat16)])
+    (67, 45, 7, 2, None, torch.float32, torch.bfloat16),
+    # bf16 rows of odd width (plain loads), 9 column tiles with z = x + up(u), k 7
+    (33, 21, 5, 1, "nearest", torch.bfloat16, torch.bfloat16),
+    (7, 1100, 5, 1, "bilinear", torch.float32, torch.float32),
+    (200, 334, 7, 1, "bilinear", torch.bfloat16, torch.float32),
+    (200, 334, 5, 2, None, torch.bfloat16, torch.float32)])
 def test_level_wgrad_kernel_matches_plain(cuda, h, w, k, stride, mode, xdt, gdt):
     gen = torch.Generator().manual_seed(h * k)
     x = torch.randn(2, 3, h, w, generator=gen).to("cuda", xdt)
@@ -544,6 +554,35 @@ def test_level_wgrad_kernel_matches_plain(cuda, h, w, k, stride, mode, xdt, gdt)
     _level_close(got, want, 1e-4)
     again = rec_conv2d_level_wgrad(x, g, k=k, stride=stride, up=up, mode=mode or "bilinear")
     assert torch.equal(got, again)
+
+
+def test_level_kernels_take_planes_at_any_alignment(cuda):
+    """Tensors 4 bytes past a 16-byte boundary: the copies fall back to 4-byte chunks and
+    dx to scalar stores, with the same results as aligned tensors."""
+    gen = torch.Generator().manual_seed(5)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    g = torch.randn(2, 3, 64, 64, generator=gen).cuda()
+    x = torch.randn(2, 3, 64, 64, generator=gen).cuda()
+    up = torch.randn(2, 3, 32, 32, generator=gen).cuda()
+    wt = torch.randn(3, 1, 5, 5, generator=gen).cuda()
+    add = torch.randn(2, 3, 128, 128, generator=gen).cuda()
+    dd = torch.randn(2, 3, 64, 64, generator=gen).cuda()
+    for args, kw in (((g, wt), dict(size=(64, 64))),
+                     ((dd, wt), dict(size=(128, 128), stride=2, add=add))):
+        want = rec_conv2d_level_dgrad(*args, **kw)
+        got = rec_conv2d_level_dgrad(*(shifted(a) for a in args),
+                                     **{k: shifted(v) if torch.is_tensor(v) else v
+                                        for k, v in kw.items()})
+        assert torch.equal(got, want)
+    want = rec_conv2d_level_wgrad(x, g, k=5, up=up)
+    assert torch.equal(rec_conv2d_level_wgrad(shifted(x), shifted(g), k=5, up=shifted(up)),
+                       want)
 
 
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])

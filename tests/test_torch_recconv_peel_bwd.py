@@ -3,8 +3,10 @@ the peel chosen by shape (``levels_to_peel_backward``), the peeled recursion
 (``rec_conv2d_peeled_backward``, plain versions on the CPU) against ``jax.vjp`` of
 the JAX package's ``rec_conv2d`` at 128^2 and 200x334, level 4, every peel count
 against the unpeeled backward, and numpy transcriptions of the three level kernels
-of ``csrc/recconv_level_bwd.cu`` (their tiles, windows, stride-2 parities, the wgrad
-window built from x + up(u) and the transposed gather) against their plain versions."""
+of ``csrc/recconv_level_bwd.cu`` (the warps' bands and column tiles, the rings of rows,
+the register strips, stride-2 parities, z = x + up(u) built a row at a time, the
+reduce-scatter and the partial rows per block, the transposed gather) against their
+plain versions."""
 
 import jax
 import jax.numpy as jnp
@@ -147,109 +149,292 @@ def test_peeled_backward_keeps_dtypes_and_refuses_bad_peels():
 
 # ---- numpy transcriptions of csrc/recconv_level_bwd.cu ----------------------------
 
-TILE, THREADS = lbwd.TILE, 256
+LANES = np.arange(32)
 
 
-def _floor_div(a, s):
-    return a if s == 1 else a >> 1
+def _fma(a, b, c):
+    """fmaf in float32: the product and sum in float64, rounded once more to float32."""
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def _ring_row(src, r, col0, n, width):
+    """One ring row as copy_row fills it: columns [col0, col0 + n) of row r of every
+    plane of src (planes, rows, width), zero outside the plane (r None: outside)."""
+    out = np.zeros((src.shape[0], n), np.float32)
+    if r is not None:
+        cols = col0 + np.arange(n)
+        inside = (cols >= 0) & (cols < width)
+        out[:, inside] = src[:, r, cols[inside]]
+    return out
+
+
+def _windows(row, start, n):
+    """Each lane's n consecutive ring elements from start[lane]: (planes, 32, n)."""
+    return row[:, start[:, None] + np.arange(n)[None, :]]
+
+
+def _warps(cfg):
+    """The warps of one plane's blocks with work: (bp, warp, tile, u0, u1)."""
+    return [p for p in lbwd.warp_places(cfg.geometry, cfg.threads)
+            if p[2] < cfg.geometry.tiles and p[3] < p[4]]
 
 
 def transcribe_dgrad(g, w, h, wd, stride, add=None):
-    """recconv_level_dgrad_kernel: per tile of the fine grid, the window of g the tile
-    reads (NaN where the kernel writes nothing), each output's taps with the kernel's
-    parity test and window offsets, in its tap order."""
+    """recconv_level_dgrad_kernel: each warp walks its band of units down its column
+    tile; input rows land in a ring of `stages` slots (NaN where nothing was copied), a
+    lane's window of 12 (stride 2: 6) elements is read once a row, and a ring of k rows
+    (stride 2: k/2 + 1 pairs) of accumulators takes the taps in the kernel's order,
+    written when whole: each output exactly once."""
     n, c, oh, ow = g.shape
     k = w.shape[-1]
     p = k // 2
-    r_win = (TILE - 1 + 2 * p) // stride + 2
-    y = np.full((n, c, h, wd), np.nan, np.float32)
-    for r0 in range(0, h, TILE):
-        for q0 in range(0, wd, TILE):
-            or0, oq0 = _floor_div(r0 - p, stride), _floor_div(q0 - p, stride)
-            win = np.full((n, c, r_win, r_win | 1), np.nan, np.float32)
-            a = np.arange(r_win)
-            orow, ocol = or0 + a[:, None], oq0 + a[None, :]
-            inside = (orow >= 0) & (orow < oh) & (ocol >= 0) & (ocol < ow)
-            vals = g[:, :, np.clip(orow, 0, oh - 1), np.clip(ocol, 0, ow - 1)]
-            win[:, :, :, :r_win] = np.where(inside, vals, 0.0)
-            rows = np.arange(r0, min(r0 + TILE, h))
-            cols = np.arange(q0, min(q0 + TILE, wd))
-            acc = np.zeros((n, c, len(rows), len(cols)), np.float32)
-            for i in range(k):
-                ri = rows + p - i
-                rok = (ri & 1) == 0 if stride == 2 else np.ones_like(ri, bool)
-                ra = _floor_div(ri, stride) - or0
-                assert 0 <= ra.min() and ra.max() < r_win  # inside the window
-                for j in range(k):
-                    cj = cols + p - j
-                    cok = (cj & 1) == 0 if stride == 2 else np.ones_like(cj, bool)
-                    cb = _floor_div(cj, stride) - oq0
-                    assert 0 <= cb.min() and cb.max() < r_win
-                    tap = win[:, :, ra[:, None], cb[None, :]] * w[:, 0, i, j][None, :, None, None]
-                    acc = np.where(rok[:, None] & cok[None, :], acc + tap, acc).astype(np.float32)
-            if add is not None:
-                acc = acc + add[:, :, rows[0]:rows[-1] + 1, cols[0]:cols[-1] + 1]
-            y[:, :, rows[0]:rows[-1] + 1, cols[0]:cols[-1] + 1] = acc
-    return y
+    planes = n * c
+    cfg = lbwd.launch_config("dgrad", h, wd, k, stride, planes)
+    geo = cfg.geometry
+    ns, d_ahead = geo.stages, geo.stages - 1
+    gp = g.reshape(planes, oh, ow)
+    wk = np.tile(w.reshape(c, k * k), (n, 1))  # plane n * C + c takes channel c's
+    ap = None if add is None else add.reshape(planes, h, wd)
+    y = np.full((planes, h, wd), np.nan, np.float32)
+    slot_len = lbwd.ROW1 if stride == 1 else lbwd.ROWC
+
+    def store(r, q, acc):
+        for s in range(lbwd.STRIP):
+            ok = q + s < wd
+            cols = q[ok] + s
+            assert np.isnan(y[:, r, cols]).all()  # each output written once
+            v = acc[:, ok, s]
+            y[:, r, cols] = v if ap is None else (v + ap[:, r, cols]).astype(np.float32)
+
+    for _, _, tile, u0, u1 in _warps(cfg):
+        c0 = tile * lbwd.TILE
+        q = c0 + lbwd.STRIP * LANES
+        col0 = (c0 if stride == 1 else c0 // 2) - lbwd.PAD
+        in0 = u0 - p
+        steps = u1 - u0 + (2 * p if stride == 1 else p)
+        ring = np.full((planes, ns, slot_len), np.nan, np.float32)
+
+        def issue(t):
+            r = in0 + t
+            ring[:, t % ns] = _ring_row(gp, r if 0 <= r < oh else None, col0, slot_len, ow)
+
+        for t in range(min(d_ahead, steps)):
+            issue(t)
+        if stride == 1:
+            acc = np.zeros((k, planes, 32, lbwd.STRIP), np.float32)
+            for t in range(steps):
+                u = t % k
+                win = _windows(ring[:, t % ns], lbwd.STRIP * LANES + lbwd.PAD - 4, 12)
+                if t + d_ahead < steps:
+                    issue(t + d_ahead)
+                for i in range(k):
+                    for j in range(k):
+                        acc[(u + i) % k] = _fma(wk[:, i * k + j, None, None],
+                                                win[:, :, 4 + p - j:8 + p - j], acc[(u + i) % k])
+                r = in0 + t - p
+                if r >= u0:
+                    store(r, q, acc[u])
+                acc[u] = 0.0
+        else:
+            acc = np.zeros((p + 1, 2, planes, 32, lbwd.STRIP), np.float32)
+            for t in range(steps):
+                u = t % (p + 1)
+                win = _windows(ring[:, t % ns], 2 * LANES + lbwd.PAD - 2, 6)
+                if t + d_ahead < steps:
+                    issue(t + d_ahead)
+                for d in range(p + 1):
+                    for e in range(2):
+                        if 2 * d + e >= k:
+                            continue
+                        for s in range(lbwd.STRIP):
+                            for j in range((s + p) & 1, k, 2):
+                                slot = acc[(u + d) % (p + 1), e]
+                                slot[..., s] = _fma(wk[:, (2 * d + e) * k + j, None],
+                                                    win[:, :, 2 + (s + p - j) // 2],
+                                                    slot[..., s])
+                m = in0 + t
+                if m >= u0:
+                    for e in range(2):
+                        r = 2 * m - p + e
+                        if 0 <= r < h:
+                            store(r, q, acc[u, e])
+                acc[u] = 0.0
+    return y.reshape(n, c, h, wd)
 
 
-def _z_window(x, u, table, r0, q0, stride, k):
-    """recconv_level_wgrad_kernel's window: x (+ up(u) along H, then along W by the
-    lerp plans) at rows and columns stride * tile - k/2 + [0, R), zero outside x."""
-    n, c, h, wd = x.shape
-    p = k // 2
-    r_win = stride * (TILE - 1) + k
-    gr = r0 * stride - p + np.arange(r_win)
-    gq = q0 * stride - p + np.arange(r_win)
-    inside = ((gr >= 0) & (gr < h))[:, None] & ((gq >= 0) & (gq < wd))[None, :]
-    grc, gqc = np.clip(gr, 0, h - 1), np.clip(gq, 0, wd - 1)
-    v = x[:, :, grc[:, None], gqc[None, :]].astype(np.float32)
-    if u is not None:
-        rp, cp = table[grc], table[h + gqc]
-        wr = rp[:, 2].view(np.float32)[:, None]
-        wc = cp[:, 2].view(np.float32)[None, :]
-        t0, t1 = u[:, :, rp[:, 0]], u[:, :, rp[:, 1]]
-        left = t0[..., cp[:, 0]] + (t1[..., cp[:, 0]] - t0[..., cp[:, 0]]) * wr
-        right = t0[..., cp[:, 1]] + (t1[..., cp[:, 1]] - t0[..., cp[:, 1]]) * wr
-        v = v + (left + (right - left) * wc)
-    win = np.full((n, c, r_win, r_win | 1), np.nan, np.float32)
-    win[:, :, :, :r_win] = np.where(inside, v, 0.0)
-    return win
+def warp_sum(acc, k):
+    """warp_sum: the 5 shuffle stages of the reduce-scatter over a warp's 32 lanes of
+    acc (planes, 32, k*k); returns (planes, k*k), entry e written by lane e // m."""
+    kk = k * k
+    npad = 32 if kk <= 32 else 64
+    v = np.zeros(acc.shape[:2] + (npad,), np.float32)
+    v[..., :kk] = acc
+    m = npad
+    for o in (16, 8, 4, 2, 1):
+        upper = (LANES & o) != 0
+        half = m // 2
+        send = np.where(upper[:, None], v[..., :half], v[..., half:m])
+        keep = np.where(upper[:, None], v[..., half:m], v[..., :half])
+        v[..., :half] = keep + send[:, LANES ^ o]
+        m = half
+    per = npad // 32
+    out = np.full((acc.shape[0], kk), np.nan, np.float32)
+    for lane in range(32):
+        for t in range(per):
+            if lane * per + t < kk:
+                out[:, lane * per + t] = v[:, lane, t]
+    return out
+
+
+def _tile_sum(partial):
+    """recconv_level_wgrad_sum_kernel on (C, rows, k*k): thread i adds rows i, i + 256,
+    ... in order, then the block's 256 sums halve."""
+    c, rows, kk = partial.shape
+    v = np.zeros((c, 256, kk), np.float32)
+    for r in range(rows):
+        v[:, r % 256] = v[:, r % 256] + partial[:, r]
+    half = 128
+    while half:
+        v[:, :half] = v[:, :half] + v[:, half:2 * half]
+        half //= 2
+    return v[:, 0]
+
+
+def _z_row(xs, ur, table, rho, h, wd, c0, ucol0, uring, p):
+    """The z row the stride-1 walk builds: x + up(u) along H, then along W, at columns
+    [c0 - k/2, c0 + TILE + k/2) of row rho (zero outside the plane), NaN elsewhere. The
+    kernel builds it a step ahead, after the copies of that step are issued."""
+    z = np.full((xs.shape[0], lbwd.ROW1), np.nan, np.float32)
+    cols = np.arange(c0 - p, c0 + lbwd.TILE + p)
+    z[:, cols - c0 + lbwd.PAD] = 0.0
+    if not 0 <= rho < h:
+        return z
+    cols = cols[(cols >= 0) & (cols < wd)]
+    rp, cp = table[rho], table[h + cols]
+    t0, t1 = ur[:, rp[0] % uring], ur[:, rp[1] % uring]
+    wr = rp[2:3].view(np.float32)[0]
+    wc = cp[:, 2].view(np.float32)
+    a0, a1 = cp[:, 0] - ucol0, cp[:, 1] - ucol0
+    left = t0[:, a0] + (t1[:, a0] - t0[:, a0]) * wr
+    right = t0[:, a1] + (t1[:, a1] - t0[:, a1]) * wr
+    z[:, cols - c0 + lbwd.PAD] = xs[:, cols - c0 + lbwd.PAD] + (left + (right - left) * wc)
+    return z
 
 
 def transcribe_wgrad(x, g, k, stride, u=None, mode="bilinear"):
-    """recconv_level_wgrad_kernel and its sum: per tile of g, each thread's k*k sums
-    over its 4 rows in order, the warps' lanes added, the 8 warps in order, one row of
-    partial sums per (plane, tile); then a channel's rows added over n and tiles."""
+    """recconv_level_wgrad_kernel and its sum: each warp walks its band of g rows down
+    its column tile, x, g (and u's coarse rows, into a ring of their own) landing in
+    ring slots (NaN where nothing was copied); z = x + up(u) built a row ahead into two
+    rows; at stride 1 the taps' g rows read from g's ring (zero before the band), at
+    stride 2 g's last rows shifted down a row a step, as in registers; each lane's k*k
+    sums in step order;
+    the warp's reduce-scatter, the block's warps in order into one partial row per
+    (plane, block), and the fixed tree over a channel's rows."""
     n, c, h, wd = x.shape
     oh, ow = g.shape[2:]
-    table = lerp_plan_table(h, wd, 1, mode)[0] if u is not None else None
-    partial = []
-    for r0 in range(0, oh, TILE):
-        for q0 in range(0, ow, TILE):
-            win = _z_window(x, u, table, r0, q0, stride, k)
-            warps = np.zeros((n, c, THREADS // TILE, k, k), np.float32)
-            for warp in range(THREADS // TILE):  # one warp: one row of 32 columns
-                lanes = np.arange(TILE)
-                acc = np.zeros((n, c, TILE, k, k), np.float32)
-                for r in range(warp, TILE, THREADS // TILE):
-                    if r0 + r >= oh:
-                        break
-                    ok = q0 + lanes < ow
-                    gv = np.where(ok, g[:, :, r0 + r, np.clip(q0 + lanes, 0, ow - 1)], 0.0)
-                    for i in range(k):
+    p, kk = k // 2, k * k
+    planes = n * c
+    up = u is not None
+    cfg = lbwd.launch_config("wgrad", h, wd, k, stride, planes, up=up, mode=mode)
+    geo = cfg.geometry
+    ns, d_ahead = geo.stages, geo.stages - 1
+    xp, gp = x.reshape(planes, h, wd), g.reshape(planes, oh, ow)
+    uh, uw = pyramid_sizes(h, wd, 1)[1]
+    upl = u.reshape(planes, uh, uw) if up else None
+    table = lerp_plan_table(h, wd, 1, mode)[0] if up else None
+    rows = {}  # (bp, warp) -> the warp's reduce-scattered sums
+    for bp, warp, tile, u0, u1 in _warps(cfg):
+        c0 = tile * lbwd.TILE
+        acc = np.zeros((planes, 32, kk), np.float32)
+        if stride == 1:
+            ucol0, z0, steps = c0 // 2 - lbwd.PAD, u0 - p, u1 - u0 + 2 * p
+            xring = np.full((planes, ns, lbwd.ROW1), np.nan, np.float32)
+            uring = np.full((planes, max(geo.uring, 1), lbwd.ROWC), np.nan, np.float32)
+            gring = np.zeros((planes, geo.gring, lbwd.TILE), np.float32)  # zero before the band
+            nxt = [min(table[max(z0, 0), :2])] if up else [0]
+
+            def issue(t):
+                rho = z0 + t
+                inside = 0 <= rho < h
+                xring[:, t % ns] = _ring_row(xp, rho if inside else None, c0 - lbwd.PAD,
+                                             lbwd.ROW1, wd)
+                gring[:, t % geo.gring] = _ring_row(gp, u0 + t if u0 + t < u1 else None, c0,
+                                                    lbwd.TILE, ow)
+                if up and inside:
+                    while nxt[0] <= max(table[rho, :2]):
+                        uring[:, nxt[0] % geo.uring] = _ring_row(upl, nxt[0], ucol0,
+                                                                 lbwd.ROWC, uw)
+                        nxt[0] += 1
+
+            zrows = np.full((planes, 2, lbwd.ROW1), np.nan, np.float32)
+
+            def build(t):  # z row z0 + t, a step ahead, into zrows[t % 2]
+                zrows[:, t % 2] = _z_row(xring[:, t % ns], uring, table, z0 + t, h, wd, c0,
+                                         ucol0, geo.uring, p)
+
+            for t in range(min(d_ahead, steps)):
+                issue(t)
+            if up:
+                build(0)
+            for t in range(steps):
+                row = zrows[:, t % 2] if up else xring[:, t % ns]
+                win = _windows(row, lbwd.STRIP * LANES + lbwd.PAD - 4, 12)
+                if t + d_ahead < steps:
+                    issue(t + d_ahead)
+                if up and t + 1 < steps:
+                    build(t + 1)
+                for i in range(k):  # g row u0 + t - i from its ring
+                    gv = _windows(gring[:, (t - i) % geo.gring], lbwd.STRIP * LANES, 4)
+                    for j in range(k):
+                        for s in range(lbwd.STRIP):
+                            acc[..., i * k + j] = _fma(win[..., 4 + s + j - p], gv[..., s],
+                                                       acc[..., i * k + j])
+        else:
+            x0, steps, rr = 2 * u0 - p, u1 - u0 + p, p + 1
+            ng = (14 + p) // 4
+            xring = np.full((planes, ns, 2, lbwd.ROW2), np.nan, np.float32)
+            gring = np.full((planes, ns, lbwd.TILE), np.nan, np.float32)
+
+            def issue(t):
+                for e in range(2):
+                    rho = x0 + 2 * t + e
+                    xring[:, t % ns, e] = _ring_row(xp, rho if 0 <= rho < h else None,
+                                                    2 * c0 - lbwd.PAD, lbwd.ROW2, wd)
+                if u0 + t < u1:
+                    gring[:, t % ns] = _ring_row(gp, u0 + t, c0, lbwd.TILE, ow)
+
+            gs = np.zeros((rr, planes, 32, lbwd.STRIP), np.float32)
+            for t in range(min(d_ahead, steps)):
+                issue(t)
+            for t in range(steps):
+                gs = np.roll(gs, 1, axis=0)  # g's rows shift down a row
+                gs[0] = (_windows(gring[:, t % ns], lbwd.STRIP * LANES, 4)
+                         if u0 + t < u1 else 0.0)
+                if t + d_ahead < steps:
+                    issue(t + d_ahead)
+                for e in range(2):
+                    win = _windows(xring[:, t % ns, e], 2 * lbwd.STRIP * LANES + lbwd.PAD - 4,
+                                   4 * ng)
+                    for d in range(p + 1):
+                        i = 2 * d + e
+                        if i >= k:
+                            continue
                         for j in range(k):
-                            zv = win[:, :, stride * r + i, stride * lanes + j]
-                            acc[..., i, j] += np.where(ok, zv * gv, 0.0).astype(np.float32)
-                warps[:, :, warp] = acc.sum(axis=2)
-            s = np.zeros((n, c, k, k), np.float32)
-            for v in range(THREADS // TILE):
-                s = s + warps[:, :, v]
-            partial.append(s)
-    rows = np.stack(partial, axis=1)  # (n, tiles, c, k, k)
-    rows = rows.transpose(2, 0, 1, 3, 4).reshape(c, -1, k, k)  # channel-major: n, tile
-    assert not np.isnan(rows).any()
-    return rows.sum(axis=1, dtype=np.float32)[:, None]
+                            for s in range(lbwd.STRIP):
+                                acc[..., i * k + j] = _fma(win[..., 4 + 2 * s + j - p],
+                                                           gs[d][..., s], acc[..., i * k + j])
+        assert not np.isnan(acc).any()  # every value a lane multiplied was copied
+        rows[bp, warp] = warp_sum(acc, k)
+    partial = np.zeros((planes, cfg.blocks_per_plane, kk), np.float32)
+    for bp in range(cfg.blocks_per_plane):
+        s = np.zeros((planes, kk), np.float32)
+        for warp in range(cfg.threads // 32):  # warps without work add zeros
+            s = s + rows.get((bp, warp), 0.0)
+        partial[:, bp] = s
+    partial = partial.reshape(n, c, cfg.blocks_per_plane, kk).transpose(1, 0, 2, 3)
+    assert partial.shape[:2] + partial.shape[3:] == (c, n, kk)
+    return _tile_sum(partial.reshape(lbwd.partial_shape(n, c, k, cfg)))[:, None].reshape(
+        c, 1, k, k)
 
 
 def transcribe_up_adjoint(dz, mode):
@@ -318,7 +503,6 @@ def test_wgrad_transcription_matches_plain(h, w, k, stride, mode):
                                         mode=mode or "bilinear").numpy()
     got = transcribe_wgrad(x, g, k, stride, u, mode or "bilinear")
     _within(got, want, DW_TOL, "wgrad")
-    assert lbwd.tiles(oh, ow) == -(-oh // 32) * -(-ow // 32)
 
 
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
