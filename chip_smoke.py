@@ -24,11 +24,13 @@ and read just after:
               launches);
 3. large_plane planes too large for the kernel's shared memory (160^2 and 200x334 at
               level 4, batch 2, C = 48), which peel outer levels, each peeled level
-              two launches of the level kernel (csrc/recconv.cu:recconv_level_kernel):
-              against the plain version at phase 2's bounds, with the launches and
-              peels made; then the level kernel alone at the two shapes of m1's 640^2
-              path (the 160^2 down conv and the 80^2 -> 160^2 upsample-add-conv, bf16,
-              batch 2) against its plain version, timed as phase 2 does, and its
+              two launches of the level kernel (csrc/recconv_level_bwd.cu:
+              recconv_level_kernel): against the plain version at phase 2's bounds,
+              with the launches and peels made; then the level kernel alone at the two
+              shapes of m1's 640^2 path (the 160^2 down conv and the 80^2 -> 160^2
+              upsample-add-conv, bilinear and nearest, bf16, batch 2) and at COCO's
+              200x334 down conv (bf16, an odd coarse width), against its plain version
+              and its own bits on three runs, timed as phase 2 does at m1's, and its
               registers;
 4. model      recnext_m1 from a seeded generator, BN statistics calibrated on a
               random batch, fused with fuse_params; the fused model's logits through
@@ -211,7 +213,8 @@ and read just after:
               launches of one peeled backward call there against
               peeled_backward_launches; and K1's level kernel there (tasks_level_kernel:
               the stride-2 down conv, beside F.conv2d(stride=2, groups=C), and the
-              upsample-add-conv), against its plain version and beside its bound;
+              upsample-add-conv, bilinear, and nearest checked only), against its plain
+              version and its own bits on three runs, beside its bound;
 30. tasks_det  the train_det CLI, --detector retinanet, the det preset on FAKE: 2
               epochs of 3 steps and the AP loop over 32 images, a --resume, --eval-only
               and --benchmark 3 (a forward also 6 level-kernel launches); one step
@@ -601,19 +604,27 @@ def phase_large_planes():
 
     # m1 at 640^2: each stage-0 mixer peels level 4 of a 160^2 plane (C = 48, k = 5):
     # the down conv (bf16 -> f32 80^2) and, after K1's inner pyramid, the
-    # upsample-add-conv (bf16 160^2 + f32 80^2 -> bf16); batch 2 as in the model phase
+    # upsample-add-conv (bf16 160^2 + f32 80^2 -> bf16); batch 2 as in the model phase;
+    # then COCO's 200x334 plane's down conv in bf16 (an odd coarse width, 167: scalar
+    # stores), checked only
     x = torch.randn(2, 48, 160, 160, generator=gen).to("cuda", torch.bfloat16)
     w = (torch.randn(48, 1, 5, 5, generator=gen) / 5).cuda()
     inner = torch.randn(2, 48, 80, 80, generator=gen).cuda()
+    coco = torch.randn(2, 48, 200, 334, generator=gen).to("cuda", torch.bfloat16)
     total, max_abs_err = {"kernel_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0}, 0.0
-    for step, stride, up in (("down", 2, None), ("up_add_conv", 1, inner)):
+    for step, xs, stride, up in (("down", x, 2, None), ("up_add_conv", x, 1, inner),
+                                 ("down", coco, 2, None)):
         for mode in ("bilinear", "nearest") if up is not None else ("bilinear",):
             kw = dict(stride=stride, up=up, mode=mode)
-            got = rec_conv2d_level(x, w, **kw)
+            got = rec_conv2d_level(xs, w, **kw)
+            same_bits = all(torch.equal(rec_conv2d_level(xs, w, **kw), got) for _ in range(2))
+            if not same_bits:
+                raise AssertionError(f"level kernel {step} {mode} at {list(xs.shape)}: runs "
+                                     "differ")
             out_dtype = got.dtype
-            got, want = got.float(), rec_conv2d_level_plain(x, w, **kw).float()
+            got, want = got.float(), rec_conv2d_level_plain(xs, w, **kw).float()
             # the plain version in fp32 before its one rounding, as the kernel
-            want32 = rec_conv2d_level_plain(x.float(), w, **kw)
+            want32 = rec_conv2d_level_plain(xs.float(), w, **kw)
             torch.cuda.synchronize()
             scale = want32.abs().max().item()
             err = (got - want32).abs().max().item()
@@ -621,13 +632,14 @@ def phase_large_planes():
             if not err <= tol:
                 raise AssertionError(f"level kernel {step} {mode} mismatch: {err} > {tol}")
             rec = {"phase": "level_kernel", "step": step, "mode": mode if up is not None else None,
-                   "x": [2, 48, 160, 160], "x_dtype": "bf16", "out": list(got.shape),
+                   "x": list(xs.shape), "x_dtype": "bf16", "out": list(got.shape),
                    "out_dtype": str(out_dtype).removeprefix("torch."),
                    "max_abs_err": err, "max_abs_ref": scale, "tol": tol,
+                   "same_bits_on_3_runs": same_bits,
                    "max_abs_diff_vs_plain_rounded": (got - want).abs().max().item(),
                    "registers": recconv_cuda.level_kernel_attributes(5, stride,
                                                                      torch.bfloat16)}
-            if mode == "bilinear":  # the 640^2 model's mode: its time and bound
+            if mode == "bilinear" and xs is x:  # the 640^2 model's mode: its time and bound
                 max_abs_err = max(max_abs_err, err)
                 times = time_pair(lambda: rec_conv2d_level(x, w, **kw),
                                   lambda: rec_conv2d_level_plain(x, w, **kw))
@@ -2599,27 +2611,38 @@ def phase_tasks_recconv():
 
 def tasks_level_kernel(x, w, inner, side):
     """K1's level kernel (``rec_conv2d_level``) at a task path's peeled plane, fp32:
-    the stride-2 down conv and the upsample-add-conv, each against its plain version
-    (2e-5 of max|ref|), timed beside its bound, its plain version and, for the down
+    the stride-2 down conv and the upsample-add-conv (bilinear, the recipes' mode; and
+    nearest, checked only), each against its plain version (2e-5 of max|ref|) and its
+    own bits on three runs, timed beside its bound, its plain version and, for the down
     conv, ``F.conv2d(..., stride=2, groups=C)``. Returns the lines."""
     n, c = int(x.shape[0]), int(x.shape[1])
     lines = []
-    for step, stride, up in (("down", 2, None), ("up_add_conv", 1, inner)):
-        kw = dict(stride=stride, up=up)
+    for step, stride, up, mode in (("down", 2, None, "bilinear"),
+                                   ("up_add_conv", 1, inner, "bilinear"),
+                                   ("up_add_conv", 1, inner, "nearest")):
+        kw = dict(stride=stride, up=up, mode=mode)
         before = COUNTERS["rec_conv2d_level"].launches
         got = rec_conv2d_level(x, w, **kw)
         if COUNTERS["rec_conv2d_level"].launches != before + 1:
             raise AssertionError(f"level kernel {step}: launches not counted")
-        err, scale = _check_close(f"level kernel {step} at {side}^2", got,
+        err, scale = _check_close(f"level kernel {step} {mode} at {side}^2", got,
                                   rec_conv2d_level_plain(x, w, **kw), 2e-5)
+        if not all(torch.equal(rec_conv2d_level(x, w, **kw), got) for _ in range(2)):
+            raise AssertionError(f"level kernel {step} {mode} at {side}^2: runs differ")
+        if mode == "nearest":
+            lines.append({"phase": "tasks_level_kernel", "step": step, "mode": mode,
+                          "shape": [n, c, side, side], "max_abs_err": err,
+                          "max_abs_ref": scale, "same_bits_on_3_runs": True})
+            continue
         times = {"kernel_ms": queued_ms(lambda: rec_conv2d_level(x, w, **kw)),
                  "plain_ms": queued_ms(lambda: rec_conv2d_level_plain(x, w, **kw), iters=5),
                  "library_ms": queued_ms(lambda: F.conv2d(x, w, stride=2, padding=2, groups=c))
                  if up is None else None}
         nbytes, flops = level_work(n, c, side, side, 5, stride, up is not None, 4, 4)
         bms, by = bound(nbytes, flops)
-        lines.append({"phase": "tasks_level_kernel", "step": step, "shape": [n, c, side, side],
-                      "max_abs_err": err, "max_abs_ref": scale, **times, "bound_ms": bms,
+        lines.append({"phase": "tasks_level_kernel", "step": step, "mode": mode,
+                      "shape": [n, c, side, side], "max_abs_err": err, "max_abs_ref": scale,
+                      "same_bits_on_3_runs": True, **times, "bound_ms": bms,
                       "bound_by": by, "over_bound": times["kernel_ms"] / bms, "bytes": nbytes,
                       "flops": flops,
                       **recconv_cuda.level_kernel_attributes(5, stride, torch.float32)})
@@ -3228,7 +3251,7 @@ def main() -> int:
         kernel_record("rec_conv2d", "recnext_tpu_torch/csrc/recconv.cu",
                       "recnext_tpu/ops/pallas/recconv.py:135",
                       m1_launches["rec_conv2d"], k1_err, m1_total),
-        kernel_record("rec_conv2d_level", "recnext_tpu_torch/csrc/recconv.cu",
+        kernel_record("rec_conv2d_level", "recnext_tpu_torch/csrc/recconv_level_bwd.cu",
                       "recnext_tpu/ops/pallas/recconv.py:135",
                       m1_640["rec_conv2d_level"], level_err, level_total),
         kernel_record("linear_attention", "recnext_tpu_torch/csrc/linear_attention.cu",

@@ -42,20 +42,14 @@
 // small teams are aimed at those.
 //
 // Planes whose pyramid does not fit in one block's shared memory (m1's stage 0 at a
-// 640^2 input, COCO-sized inputs) unroll their outer levels by the recursion
-//   RecConv_L(x) = conv_L(x + up(RecConv_{L-1}(down(x))))
-// (ops/recconv.py:rec_conv2d_peeled). Each unrolled level is two launches of
-// recconv_level_kernel, a tiled kernel that takes any plane size: the stride-2 down
-// conv into an fp32 plane, and, once the inner pyramid (recconv_kernel on that fp32
-// plane, or at level 0 recconv_level_kernel's plain conv) is done,
-// conv_L(x + up(inner)) with the same lerp plans and arithmetic as recconv_kernel's
-// walk back up, rounded once to the output type.
+// 640^2 input, COCO-sized inputs) unroll their outer levels (ops/recconv.py:
+// rec_conv2d_peeled); each unrolled level runs through recconv_level_bwd.cu's
+// recconv_level_kernel, beside the peeled level's backward kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
-#include <climits>
 #include <cstring>
 
 namespace {
@@ -491,91 +485,6 @@ cudaError_t launch_k(const void* x, void* y, const Weights& wp, const int4* plan
   }
 }
 
-// Outputs per side of one recconv_level_kernel tile: 256 threads, 32 columns by 8
-// rows of threads, each thread 4 rows.
-constexpr int kLevelTile = 32;
-
-// y = conv(x + up(u)) at stride S, zero padding K/2, for one level of a plane too
-// large for recconv_kernel: x is N*C planes of H x W in TI, w fp32 (C, K, K), u null
-// or fp32 planes of UH x UW upsampled to H x W by the plans' rows [0, H) and columns
-// [H, H + W), y fp32 or TI planes of OH x OW. A block takes one tile of one plane: it
-// fills its fp32 input window in shared memory (zero outside the plane; x + up(u)
-// where u is given), then each thread convolves 4 outputs of one column.
-template <typename TI, typename TO, int K, int S>
-__global__ void __launch_bounds__(256)
-recconv_level_kernel(const TI* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ u, const int4* __restrict__ plans,
-                     TO* __restrict__ y, int C, int H, int W, int OH, int OW, int UH,
-                     int UW, int tiles_w, int tiles) {
-  constexpr int P = K / 2;
-  constexpr int R = S * (kLevelTile - 1) + K;  // rows and columns of the input window
-  constexpr int RP = R | 1;
-  __shared__ float win[R * RP];
-  const int plane = blockIdx.x / tiles, t = blockIdx.x - plane * tiles;
-  const int r0 = t / tiles_w * kLevelTile, q0 = t % tiles_w * kLevelTile;
-  const int gr0 = r0 * S - P, gq0 = q0 * S - P;
-  const TI* xp = x + (size_t)plane * H * W;
-  const float* up = u ? u + (size_t)plane * UH * UW : nullptr;
-  for (int i = threadIdx.x; i < R * R; i += blockDim.x) {
-    const int r = i / R, q = i - r * R, gr = gr0 + r, gq = gq0 + q;
-    float v = 0.f;
-    if (gr >= 0 && gr < H && gq >= 0 && gq < W) {
-      v = load_f32(xp, (size_t)gr * W + gq);
-      if (up) {  // along H first, then along W, as recconv_kernel's walk back up
-        const int4 rp = __ldg(plans + gr), cp = __ldg(plans + H + gq);
-        const float* t0 = up + rp.x * UW;
-        const float* t1 = up + rp.y * UW;
-        const float wr = __int_as_float(rp.z);
-        const float left = t0[cp.x] + (t1[cp.x] - t0[cp.x]) * wr;
-        const float right = t0[cp.y] + (t1[cp.y] - t0[cp.y]) * wr;
-        v += left + (right - left) * __int_as_float(cp.z);
-      }
-    }
-    win[r * RP + q] = v;
-  }
-  float wk[K * K];
-  const float* wc = w + (size_t)(plane % C) * K * K;
-#pragma unroll
-  for (int i = 0; i < K * K; ++i) wk[i] = __ldg(wc + i);
-  __syncthreads();
-  const int q = threadIdx.x % kLevelTile;
-  if (q0 + q >= OW) return;
-  TO* yp = y + (size_t)plane * OH * OW;
-  for (int r = threadIdx.x / kLevelTile; r < kLevelTile && r0 + r < OH;
-       r += blockDim.x / kLevelTile) {
-    float acc = 0.f;
-#pragma unroll
-    for (int dy = 0; dy < K; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < K; ++dx)
-        acc = fmaf(win[(S * r + dy) * RP + S * q + dx], wk[dy * K + dx], acc);
-    put(yp, (r0 + r) * OW + q0 + q, acc);
-  }
-}
-
-// The instantiation for (stride, input type, output type), or null: the stride-2
-// down conv writes fp32; the stride-1 conv writes its input's type.
-template <int K>
-const void* level_kernel(int stride, int in_bf16, int out_bf16) {
-  using bf16 = __nv_bfloat16;
-  if (stride == 2 && !out_bf16)
-    return in_bf16 ? reinterpret_cast<const void*>(recconv_level_kernel<bf16, float, K, 2>)
-                   : reinterpret_cast<const void*>(recconv_level_kernel<float, float, K, 2>);
-  if (stride == 1 && in_bf16 == out_bf16)
-    return in_bf16 ? reinterpret_cast<const void*>(recconv_level_kernel<bf16, bf16, K, 1>)
-                   : reinterpret_cast<const void*>(recconv_level_kernel<float, float, K, 1>);
-  return nullptr;
-}
-
-const void* level_kernel_for(int k, int stride, int in_bf16, int out_bf16) {
-  switch (k) {
-    case 3: return level_kernel<3>(stride, in_bf16, out_bf16);
-    case 5: return level_kernel<5>(stride, in_bf16, out_bf16);
-    case 7: return level_kernel<7>(stride, in_bf16, out_bf16);
-    default: return nullptr;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -622,44 +531,6 @@ int recconv_kernel_attributes(int k, int is_bf16, int* registers, int* local_byt
     case 14: e = attributes<float, 7>(&a); break;
     case 15: e = attributes<__nv_bfloat16, 7>(&a); break;
   }
-  if (e != cudaSuccess) return (int)e;
-  *registers = a.numRegs;
-  *local_bytes = (int)a.localSizeBytes;
-  return 0;
-}
-
-// y = conv(x + up(u), w) at `stride` for one level of a peeled pyramid
-// (recconv_level_kernel). x: contiguous planes = N * C planes of H x W, fp32 (in_bf16
-// = 0) or bf16; w: contiguous fp32 C x 1 x k x k; u: null, or (stride 1 only) fp32
-// planes of ceil(H/2) x ceil(W/2) with `plans` the device lerp-plan table of that
-// up-step (ops/cuda/recconv.py:lerp_plan_table(H, W, 1)); y: planes of the output
-// size, fp32 at stride 2, x's type at stride 1. Launches on `stream` and returns
-// cudaGetLastError().
-int recconv_level_forward(const void* x, const void* w, const void* u, const void* plans,
-                          void* y, int planes, int C, int H, int W, int k, int stride,
-                          int in_bf16, int out_bf16, void* stream) {
-  const void* fn = level_kernel_for(k, stride, in_bf16, out_bf16);
-  int UH = (H + 1) / 2, UW = (W + 1) / 2;
-  if (!fn || planes <= 0 || C <= 0 || H <= 0 || W <= 0 || (u && (stride != 1 || !plans)))
-    return (int)cudaErrorInvalidValue;
-  int OH = stride == 1 ? H : UH, OW = stride == 1 ? W : UW;
-  int tiles_w = (OW + kLevelTile - 1) / kLevelTile;
-  int tiles = tiles_w * ((OH + kLevelTile - 1) / kLevelTile);
-  if ((long long)tiles * planes > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  void* args[] = {&x, &w, &u, &plans, &y, &C, &H, &W, &OH, &OW, &UH, &UW, &tiles_w, &tiles};
-  const cudaError_t e = cudaLaunchKernel(fn, dim3(tiles * planes), dim3(256), args, 0,
-                                         static_cast<cudaStream_t>(stream));
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-// Registers per thread and local bytes per thread of recconv_level_kernel for
-// (k, stride, input type, output type).
-int recconv_level_attributes(int k, int stride, int in_bf16, int out_bf16, int* registers,
-                             int* local_bytes) {
-  const void* fn = level_kernel_for(k, stride, in_bf16, out_bf16);
-  if (!fn) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, fn);
   if (e != cudaSuccess) return (int)e;
   *registers = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

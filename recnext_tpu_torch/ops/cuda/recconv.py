@@ -12,8 +12,9 @@ plans of every up-step, bilinear from ``ops/resize.py:_bilinear_axis_plan`` or
 nearest from ``_nearest_axis_plan``; a copy of it is cached on each device.
 ``levels_to_peel`` says how many outer levels a plane too large for shared memory
 must leave to ``ops/recconv.py:rec_conv2d_peeled``. All are plain Python, so the CPU
-tests reach them. ``recconv_level_cuda`` launches the second kernel of the source,
-which computes one such outer level at any plane size.
+tests reach them. ``recconv_level_cuda`` computes one such outer level at any plane
+size through ``csrc/recconv_level_bwd.cu:recconv_level_kernel``, the peeled level's
+library (``ops/cuda/recconv_level_bwd.py``), beside that level's backward kernels.
 """
 
 from __future__ import annotations
@@ -47,11 +48,6 @@ def _declare(lib: ctypes.CDLL) -> None:
                                               ctypes.POINTER(ctypes.c_int),
                                               ctypes.POINTER(ctypes.c_int)]
     lib.recconv_kernel_attributes.restype = ctypes.c_int
-    lib.recconv_level_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    lib.recconv_level_forward.restype = ctypes.c_int
-    lib.recconv_level_attributes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.recconv_level_attributes.restype = ctypes.c_int
     lib.recconv_error_string.argtypes = [ctypes.c_int]
     lib.recconv_error_string.restype = ctypes.c_char_p
 
@@ -80,15 +76,10 @@ def kernel_attributes(k: int, dtype: torch.dtype) -> dict:
 def level_kernel_attributes(k: int, stride: int, dtype: torch.dtype) -> dict:
     """``kernel_attributes`` of the level kernel (``recconv_level_cuda``) for an
     input of ``dtype``."""
-    lib = load_library()
-    regs, local = ctypes.c_int(), ctypes.c_int()
-    bf16 = int(dtype == torch.bfloat16)
-    err = lib.recconv_level_attributes(k, stride, bf16, bf16 if stride == 1 else 0,
-                                       ctypes.byref(regs), ctypes.byref(local))
-    if err != 0:
-        raise RuntimeError(f"recconv level kernel attributes: "
-                           f"{lib.recconv_error_string(err).decode()} ({err})")
-    return {"registers": regs.value, "local_bytes": local.value}
+    from recnext_tpu_torch.ops.cuda import recconv_level_bwd
+
+    out = dtype if stride == 1 else torch.float32
+    return recconv_level_bwd.kernel_attributes("level", k, stride, (dtype, out))
 
 
 def pyramid_sizes(h: int, w: int, level: int) -> list[tuple[int, int]]:
@@ -300,11 +291,12 @@ def recconv_cuda(x: torch.Tensor, down_w: torch.Tensor, conv_ws: Sequence[torch.
 def recconv_level_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                        up: torch.Tensor | None = None,
                        mode: str = "bilinear") -> torch.Tensor:
-    """Launch one level of a peeled pyramid (``recconv_level_kernel``) on x's current
-    stream: ``conv(x + resize(up, size(x)), w)`` at ``stride`` (1 or 2) with zero
-    padding k/2, in fp32; f32 out at stride 2, x's dtype at stride 1. x: contiguous
-    NCHW f32/bf16; w: contiguous (C, 1, k, k) f32 on x's device; up: None, or
-    (stride 1) contiguous f32 (N, C, ceil(H/2), ceil(W/2)). Raises on anything else."""
+    """Launch one level of a peeled pyramid (``csrc/recconv_level_bwd.cu:
+    recconv_level_kernel``) on x's current stream: ``conv(x + resize(up, size(x)), w)``
+    at ``stride`` (1 or 2) with zero padding k/2, in fp32; f32 out at stride 2, x's
+    dtype at stride 1. x: contiguous NCHW f32/bf16; w: contiguous (C, 1, k, k) f32 on
+    x's device; up: None, or (stride 1) contiguous f32 (N, C, ceil(H/2), ceil(W/2)).
+    Raises on anything else."""
     if not x.is_cuda:
         raise ValueError("recconv_level_cuda: x must be a CUDA tensor")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -321,8 +313,6 @@ def recconv_level_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                          f"float32 on {x.device}, got {tuple(w.shape)} {w.dtype} on {w.device}")
     if stride not in (1, 2):
         raise ValueError(f"recconv_level_cuda: stride {stride} not in (1, 2)")
-    out_dtype = torch.float32 if stride == 2 else x.dtype
-    plans = None
     if up is not None:
         uh, uw = pyramid_sizes(h, wd, 1)[1]
         if (stride != 1 or tuple(up.shape) != (n, c, uh, uw) or up.dtype != torch.float32
@@ -331,17 +321,6 @@ def recconv_level_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                              f"({n}, {c}, {uh}, {uw}) on {x.device} at stride 1")
         if mode not in MODES:
             raise ValueError(f"recconv_level_cuda: mode {mode!r} not in {MODES}")
-        plans = _device_plan_table(h, wd, 1, mode, x.device)
-    oh, ow = (h, wd) if stride == 1 else pyramid_sizes(h, wd, 1)[1]
-    y = torch.empty(n, c, oh, ow, dtype=out_dtype, device=x.device)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.recconv_level_forward(
-            x.data_ptr(), w.data_ptr(), None if up is None else up.data_ptr(),
-            None if plans is None else plans.data_ptr(), y.data_ptr(), n * c, c, h, wd, k,
-            stride, int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"recconv level kernel launch failed: "
-                           f"{lib.recconv_error_string(err).decode()} ({err})")
-    return y
+    from recnext_tpu_torch.ops.cuda import recconv_level_bwd
+
+    return recconv_level_bwd.level_forward_cuda(x, w, stride=stride, up=up, mode=mode)

@@ -1,14 +1,16 @@
-"""Binding of the peeled level's backward kernels (``csrc/recconv_level_bwd.cu``).
+"""Binding of a peeled RecConv2d level's kernels (``csrc/recconv_level_bwd.cu``).
 
-The backward of one level of ``ops/recconv.py:rec_conv2d_peeled``, for planes whose
-whole backward does not fit in the shared memory of ``csrc/recconv_bwd.cu``:
-``level_dgrad_cuda`` (the conv's input gradient at stride 1 or 2, plus an optional
-fine-grid gradient), ``level_wgrad_cuda`` (its weight gradient, z = x + up(u) built
-in the kernel's shared memory) and ``up_adjoint_cuda`` (the up-step's adjoint). The
-source is its own library (``ops/cuda/build.py``), built with ``nvcc`` for ``sm_90a``
-at first use; nothing is built or loaded at import.
+One level of ``ops/recconv.py:rec_conv2d_peeled``, for planes whose pyramid (forward)
+or whole backward does not fit in the shared memory of ``csrc/recconv.cu`` or
+``csrc/recconv_bwd.cu``: ``level_forward_cuda`` (the level's stride-2 down conv, or its
+stride-1 conv of x + up(u), z built in the kernel's shared memory; called by
+``ops/cuda/recconv.py:recconv_level_cuda``), ``level_dgrad_cuda`` (the conv's input
+gradient at stride 1 or 2, plus an optional fine-grid gradient), ``level_wgrad_cuda``
+(its weight gradient) and ``up_adjoint_cuda`` (the up-step's adjoint). The source is
+its own library (``ops/cuda/build.py``), built with ``nvcc`` for ``sm_90a`` at first
+use; nothing is built or loaded at import.
 
-The host lays the first two kernels out in plain Python that the CPU tests reach:
+The host lays every kernel out in plain Python that the CPU tests reach:
 ``launch_config`` cuts each plane into bands of rows and column tiles of ``TILE``
 outputs, one warp walking each (band, tile) down a ring of shared-memory rows fed by
 ``cp.async``; it picks the band height from the grid's fill (the blocks an SM holds,
@@ -35,16 +37,20 @@ from recnext_tpu_torch.ops.cuda.recconv import (
     _device_plan_table,
     pyramid_sizes,
 )
-from recnext_tpu_torch.ops.cuda.recconv_bwd import MAX_FAN, _device_transposed_table
+from recnext_tpu_torch.ops.cuda.recconv_bwd import (
+    MAX_FAN,
+    _device_transposed_table,
+    transposed_axis_plan,
+)
 
 SOURCE = PKG / "csrc" / "recconv_level_bwd.cu"
-KINDS = {"dgrad": 0, "wgrad": 1, "up_adjoint": 2}
+KINDS = {"dgrad": 0, "wgrad": 1, "up_adjoint": 2, "level": 3}
 STRIP = 4            # outputs a lane computes along a row (csrc: kStrip)
 TILE = 32 * STRIP    # output columns one warp walks (csrc: kTile)
 PAD = 8              # halo elements on each side of a ring row (csrc: kPad)
 ROW1 = TILE + 2 * PAD       # a stride-1 row of g, x or z (csrc: kRow1)
 ROWC = TILE // 2 + 2 * PAD  # a coarse row: dd of the stride-2 dgrad, u (csrc: kRowC)
-ROW2 = 2 * TILE + 2 * PAD   # an x row of the stride-2 weight gradient (csrc: kRow2)
+ROW2 = 2 * TILE + 2 * PAD   # a fine row at stride 2 (x), or the adjoint's dz (csrc: kRow2)
 MAX_WARPS = 8        # warps a block (csrc: kMaxThreads / 32)
 STAGES = (2, 4)      # ring rows of a stream (a power of two): 1 or 3 in flight
 MAX_STAGES = 4
@@ -57,7 +63,7 @@ SM_THREADS = 2048
 SM_BLOCKS = 32
 # registers a thread, where the caller gives none (the CPU tests): about what nvcc
 # gives the k = 5 kernels
-DEFAULT_REGISTERS = {"dgrad": 72, "wgrad": 96}
+DEFAULT_REGISTERS = {"dgrad": 72, "wgrad": 96, "level": 80, "up_adjoint": 80}
 
 
 class Geometry(NamedTuple):
@@ -104,8 +110,13 @@ def _declare(lib: ctypes.CDLL) -> None:
                                         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p])
     lib.recconv_level_wgrad.restype = ctypes.c_int
-    lib.recconv_up_adjoint.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    lib.recconv_level_forward.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                                          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p])
+    lib.recconv_level_forward.restype = ctypes.c_int
+    lib.recconv_up_adjoint.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p])
     lib.recconv_up_adjoint.restype = ctypes.c_int
     lib.recconv_level_bwd_attributes.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int)] * 2
@@ -124,7 +135,7 @@ def load_library() -> ctypes.CDLL:
 
 def _raise(lib, err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"recconv level backward {what} failed: "
+        raise RuntimeError(f"recconv level {what} failed: "
                            f"{lib.recconv_level_bwd_error_string(err).decode()} ({err})")
 
 
@@ -135,7 +146,8 @@ def _flags(dtypes) -> tuple[int, int]:
 def kernel_attributes(kind: str, k: int = 5, stride: int = 1,
                       dtypes: tuple = (torch.float32, torch.float32)) -> dict:
     """Registers and local bytes per thread of kernel ``kind`` (dgrad: the dtypes of g
-    and of the output; wgrad: of x and of g; up_adjoint: fp32 only)."""
+    and of the output; wgrad: of x and of g; level: of x and of y; up_adjoint: fp32
+    only)."""
     lib = load_library()
     regs, local = ctypes.c_int(), ctypes.c_int()
     a, b = _flags(dtypes)
@@ -156,14 +168,19 @@ def registers(kind: str, k: int, stride: int, dtypes: tuple) -> int:
 def walk(kind: str, h: int, w: int, k: int, stride: int) -> tuple[int, int, int, int]:
     """(rows, row0, halo, cols) of a plane's walk: the units a warp walks (output rows;
     the stride-2 input gradient's pairs of output rows 2m - k/2, 2m - k/2 + 1 for m
-    from row0), the steps a band takes beyond its units, and the output columns."""
+    from row0; the adjoint's coarse rows), the steps a band takes beyond its units (the
+    adjoint's: about one coarse row's fine rows more than two a coarse row), and the
+    output columns."""
     p = k // 2
     if kind == "dgrad":
         if stride == 1:
             return h, 0, 2 * p, w
         m0, m1 = p // 2, (h - 1 + p) // 2
         return m1 - m0 + 1, m0, p, w
-    oh, ow = (h, w) if stride == 1 else pyramid_sizes(h, w, 1)[1]
+    if kind == "up_adjoint":
+        uh, uw = pyramid_sizes(h, w, 1)[1]
+        return uh, 0, 1, uw
+    oh, ow = (h, w) if stride == 1 else pyramid_sizes(h, w, 1)[1]  # wgrad: g's; level: y's
     return oh, 0, 2 * p if stride == 1 else p, ow
 
 
@@ -199,6 +216,36 @@ def _u_columns_fit(h: int, w: int, mode: str, k: int) -> bool:
     return True
 
 
+def _fine_reads(h: int, mode: str) -> tuple[np.ndarray, np.ndarray]:
+    """(lo, hi) per coarse index of the up-step ceil(h/2) -> h: the least and the most
+    fine index that reads it with a weight (its transposed plan's entries)."""
+    idx, wts = transposed_axis_plan((h + 1) // 2, h, mode)
+    return idx[:, 0], np.where(wts != 0, idx, -1).max(axis=1)
+
+
+def fine_ring_rows(h: int, stages: int, mode: str) -> int:
+    """Ring rows of dz's fine rows that the adjoint needs, a power of two: before its
+    first step a band copies the fine rows from the least that its first coarse row a
+    reads to the most that row a + stages - 2 reads, none summed yet; after step t the
+    ring holds the rows not yet summed, those past the most that row u0 + t reads, up
+    to the most that row u0 + t + stages - 1 reads, which the first bound covers."""
+    lo, hi = _fine_reads(h, mode)
+    uh = len(lo)
+    ahead = np.minimum(np.arange(uh) + stages - 2, uh - 1)
+    return 1 << (int((hi[ahead] - lo + 1).max()) - 1).bit_length()
+
+
+def _adjoint_columns_fit(w: int, mode: str) -> bool:
+    """Whether each tile's coarse columns [b0, b0 + TILE) read (with a weight) only the
+    fine columns its ring rows hold, [2 b0 - PAD, 2 b0 - PAD + ROW2)."""
+    idx, wts = transposed_axis_plan((w + 1) // 2, w, mode)
+    for b0 in range(0, len(idx), TILE):
+        used = idx[b0:b0 + TILE][wts[b0:b0 + TILE] != 0]
+        if used.min() < 2 * b0 - PAD or used.max() >= 2 * b0 - PAD + ROW2:
+            return False
+    return True
+
+
 def _words(elems: int, elem_bytes: int) -> int:
     """4-byte words of `elems` elements, rounded up to 16 bytes."""
     return -(-elems * elem_bytes // 16) * 4
@@ -216,11 +263,13 @@ def _warp_layout(kind: str, stride: int, stages: int, uring: int, gring: int, a_
     """(words, a_off, b_off, u_off, z_off) of one warp's rings."""
     if kind == "dgrad":
         return _words(stages * (ROW1 if stride == 1 else ROWC), a_bytes), 0, 0, 0, 0
+    if kind == "up_adjoint":  # dz's ring, then MAX_FAN rows of fine rows' column sums
+        return gring * ROW2 + MAX_FAN * TILE, 0, gring * ROW2, 0, 0
     a = _words(stages * (ROW1 if stride == 1 else 2 * ROW2), a_bytes)
-    b = _words((gring if stride == 1 else stages) * TILE, b_bytes)
+    b = _words((gring if stride == 1 else stages) * TILE, b_bytes) if kind == "wgrad" else 0
     u = uring * ROWC if up else 0
     z = 2 * ROW1 if up else 0
-    return a + b + u + z, 0, a, a + b, a + b + u
+    return a + b + u + z, 0, a if b else 0, a + b, a + b + u
 
 
 def _resident(threads: int, smem: int, regs: int) -> int:
@@ -238,14 +287,16 @@ def launch_config(kind: str, h: int, w: int, k: int, stride: int, planes: int, *
                   mode: str = "bilinear", regs: int | None = None, align: int = 16,
                   band: int | None = None,
                   stages: int | None = None) -> LaunchConfig:
-    """The layout of ``kind`` ("dgrad" or "wgrad") at stride 1 or 2 on ``planes``
-    planes of h x w (dgrad: the input gradient's plane; wgrad: x's), k x k.
+    """The layout of ``kind`` ("dgrad", "wgrad", "level" or "up_adjoint") at stride 1
+    or 2 on ``planes`` planes of h x w (dgrad: the input gradient's plane; wgrad and
+    level: x's; up_adjoint: dz's fine plane, stride 1, k unused), k x k.
 
-    a_bytes / b_bytes: the element bytes of g and dx (dgrad) or x and g (wgrad); up: the
-    stride-1 weight gradient builds z = x + up(u) with ``mode``'s plans; regs: the
+    a_bytes / b_bytes: the element bytes of g and dx (dgrad), x and g (wgrad) or x and
+    y (level); up: the stride-1 weight gradient or level builds z = x + up(u) with
+    ``mode``'s plans (the adjoint reads ``mode``'s transposed plans); regs: the
     kernel's registers a thread; align: the least alignment of the tensors' pointers,
     bytes. ``band`` (units a warp walks) and ``stages`` (ring rows a stream) override
-    the planner's choice (the phase tool sweeps them).
+    the planner's choice (the phase tools sweep them).
 
     The band (at least MIN_BAND output rows): the one whose steps (its units and the
     halo's) times the waves of warps it takes, by the warps the card holds by the
@@ -255,15 +306,16 @@ def launch_config(kind: str, h: int, w: int, k: int, stride: int, planes: int, *
     of the last block that have no band, then the larger block (planes wider than
     MAX_WARPS tiles: several blocks across). The ring: the most rows of STAGES that do
     not lower the blocks an SM holds below what the registers allow."""
-    if kind not in ("dgrad", "wgrad") or stride not in (1, 2) or k not in KERNEL_SIZES:
-        raise ValueError(f"recconv level backward: {kind} stride {stride} k {k} not "
-                         "supported")
-    if up and (kind != "wgrad" or stride != 1):
-        raise ValueError("recconv level backward: z = x + up(u) only in the stride-1 "
-                         "weight gradient")
+    adjoint = kind == "up_adjoint"
+    if (kind not in KINDS or stride not in (1, 2) or (adjoint and stride != 1)
+            or (not adjoint and k not in KERNEL_SIZES)):
+        raise ValueError(f"recconv level: {kind} stride {stride} k {k} not supported")
+    if up and (kind not in ("wgrad", "level") or stride != 1):
+        raise ValueError("recconv level: z = x + up(u) only in the stride-1 weight gradient "
+                         "and level")
     rows, row0, halo, cols = walk(kind, h, w, k, stride)
     if rows < 1 or cols < 1 or planes < 1:
-        raise ValueError(f"recconv level backward: empty plane {h}x{w} or no planes")
+        raise ValueError(f"recconv level: empty plane {h}x{w} or no planes")
     regs = regs or DEFAULT_REGISTERS[kind]
     # building z a row ahead needs that row landed too: 4 ring rows
     stage_options = (MAX_STAGES,) if up else STAGES
@@ -284,20 +336,26 @@ def launch_config(kind: str, h: int, w: int, k: int, stride: int, planes: int, *
 
     uh, uw = (h + 1) // 2, (w + 1) // 2
     if up and max(uh, uw) >= 1 << 16:
-        raise ValueError(f"recconv level backward: the up-step's {uh}x{uw} does not fit "
-                         "the kernel's 16-bit plans")
+        raise ValueError(f"recconv level: the up-step's {uh}x{uw} does not fit the "
+                         "kernel's 16-bit plans")
     if up and not _u_columns_fit(h, w, mode, k):
-        raise ValueError(f"recconv level backward: the {mode} plans of {h}x{w} read "
-                         "coarse columns outside a tile's ring rows")
+        raise ValueError(f"recconv level: the {mode} plans of {h}x{w} read coarse "
+                         "columns outside a tile's ring rows")
+    if adjoint and not _adjoint_columns_fit(w, mode):
+        raise ValueError(f"recconv level: the {mode} transposed plans of {h}x{w} read "
+                         "fine columns outside a tile's ring rows")
     kk_pad = 32 if k * k <= 32 else 64
+    plan_words = (-(-2 * (h + w) // 4) * 4 if up else
+                  -(-2 * MAX_FAN * (uh + uw) // 4) * 4 if adjoint else 0)
 
     def layout(ns, warps):
         uring = u_ring_rows(h, ns, mode) if up else 0
-        gring = g_ring_rows(k, ns) if (kind, stride) == ("wgrad", 1) else 0
+        gring = (g_ring_rows(k, ns) if (kind, stride) == ("wgrad", 1) else
+                 fine_ring_rows(h, ns, mode) if adjoint else 0)
         words, a_off, b_off, u_off, z_off = _warp_layout(kind, stride, ns, uring, gring,
                                                          a_bytes, b_bytes, up)
         plan_off = warps * words
-        sums_off = plan_off + (-(-2 * (h + w) // 4) * 4 if up else 0)
+        sums_off = plan_off + plan_words
         end = sums_off + (warps * kk_pad if kind == "wgrad" else 0)
         return uring, gring, words, a_off, b_off, u_off, z_off, plan_off, sums_off, end * 4
 
@@ -314,7 +372,7 @@ def launch_config(kind: str, h: int, w: int, k: int, stride: int, planes: int, *
     warps = threads // 32
     fits = [ns for ns in stage_options if layout(ns, warps)[-1] <= MAX_SMEM_BYTES]
     if not fits:
-        raise ValueError(f"recconv level backward: a block of {kind} at {h}x{w} needs "
+        raise ValueError(f"recconv level: a block of {kind} at {h}x{w} needs "
                          f"{layout(min(stage_options), warps)[-1]} bytes of shared memory, "
                          f"more than {MAX_SMEM_BYTES}")
     if stages is None:
@@ -322,19 +380,23 @@ def launch_config(kind: str, h: int, w: int, k: int, stride: int, planes: int, *
         stages = max(ns for ns in fits
                      if _resident(threads, layout(ns, warps)[-1], regs) == best)
     elif stages not in fits:
-        raise ValueError(f"recconv level backward: {stages} ring rows do not fit (z = x + "
-                         "up(u) is built a row ahead: 4)")
+        raise ValueError(f"recconv level: {stages} ring rows do not fit (z = x + up(u) is "
+                         "built a row ahead: 4)")
     (uring, gring, words, a_off, b_off, u_off, z_off, plan_off, sums_off,
      smem) = layout(stages, warps)
 
     if kind == "dgrad":
         in_w = w if stride == 1 else (w + 1) // 2
         chunks = (chunk_bytes(in_w, a_bytes, align), 0, 0)
-        vec = int(w % 4 == 0 and align % 16 == 0)
-    else:
+    elif kind == "wgrad":
         chunks = (chunk_bytes(w, a_bytes, align), chunk_bytes(cols, b_bytes, align),
                   chunk_bytes(uw, 4, align) if up else 0)
-        vec = 0
+    elif kind == "level":
+        chunks = (chunk_bytes(w, a_bytes, align), 0, chunk_bytes(uw, 4, align) if up else 0)
+    else:
+        chunks = (chunk_bytes(w, 4, align), 0, 0)
+    # dx (dgrad) and y (level) rows take 4-wide stores at every 4th column
+    vec = int(kind in ("dgrad", "level") and cols % 4 == 0 and align % 16 == 0)
     geometry = Geometry(rows, row0, band, per_block, tiles, tiles_pb, tile_groups,
                         band_groups * tile_groups, stages, uring, gring, words, a_off, b_off,
                         u_off,
@@ -467,6 +529,38 @@ def level_wgrad_cuda(x: torch.Tensor, g: torch.Tensor, *, k: int, stride: int = 
     return dw
 
 
+def level_forward_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                       up: torch.Tensor | None = None,
+                       mode: str = "bilinear") -> torch.Tensor:
+    """``conv(x + resize(up, size(x)), w)`` at ``stride`` with zero padding k/2 in fp32
+    (``recconv_level_kernel``), on x's current stream: f32 out at stride 2, x's dtype at
+    stride 1. The caller (``ops/cuda/recconv.py:recconv_level_cuda``) has checked x
+    (contiguous NCHW f32/bf16 on the card), w (contiguous (C, 1, k, k) f32) and up (None,
+    or at stride 1 contiguous f32 (N, C, ceil(H/2), ceil(W/2)))."""
+    n, c, h, wd = x.shape
+    k = int(w.shape[-1])
+    out_dtype = torch.float32 if stride == 2 else x.dtype
+    oh, ow = (h, wd) if stride == 1 else pyramid_sizes(h, wd, 1)[1]
+    y = torch.empty(n, c, oh, ow, dtype=out_dtype, device=x.device)
+    plans = None if up is None else _device_plan_table(h, wd, 1, mode, x.device)
+    dtypes = (x.dtype, out_dtype)
+    cfg = launch_config("level", h, wd, k, stride, n * c, a_bytes=x.element_size(),
+                        b_bytes=y.element_size(), up=up is not None, mode=mode,
+                        regs=registers("level", k, stride, dtypes), align=_align(x, y, up))
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.recconv_level_forward(x.data_ptr(), w.data_ptr(),
+                                        None if up is None else up.data_ptr(),
+                                        None if plans is None else plans.data_ptr(),
+                                        y.data_ptr(), n * c, c, h, wd, k, stride,
+                                        *_flags(dtypes),
+                                        ctypes.cast(_geometry(cfg), ctypes.c_void_p),
+                                        len(cfg.geometry), cfg.smem_bytes, stream)
+    _raise(lib, err, "forward launch")
+    return y
+
+
 def up_adjoint_cuda(dz: torch.Tensor, *, mode: str = "bilinear") -> torch.Tensor:
     """The adjoint of the resize (N, C, ceil(H/2), ceil(W/2)) -> (N, C, H, W), bilinear
     (align_corners=False) or nearest, at dz: a contiguous f32 NCHW CUDA tensor."""
@@ -477,10 +571,14 @@ def up_adjoint_cuda(dz: torch.Tensor, *, mode: str = "bilinear") -> torch.Tensor
     uh, uw = pyramid_sizes(h, wd, 1)[1]
     plans = _device_transposed_table(h, wd, 1, mode, dz.device)
     du = torch.empty(n, c, uh, uw, dtype=torch.float32, device=dz.device)
+    fp32 = (torch.float32, torch.float32)
+    cfg = launch_config("up_adjoint", h, wd, 0, 1, n * c, mode=mode,
+                        regs=registers("up_adjoint", 5, 1, fp32), align=_align(dz))
     lib = load_library()
     with torch.cuda.device(dz.device):
         stream = torch.cuda.current_stream(dz.device).cuda_stream
         err = lib.recconv_up_adjoint(dz.data_ptr(), plans.data_ptr(), du.data_ptr(), n * c, h,
-                                     wd, uh * MAX_FAN, stream)
+                                     wd, ctypes.cast(_geometry(cfg), ctypes.c_void_p),
+                                     len(cfg.geometry), cfg.smem_bytes, stream)
     _raise(lib, err, "up adjoint launch")
     return du

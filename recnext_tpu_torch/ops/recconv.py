@@ -12,7 +12,8 @@ calls: on a CPU tensor it runs the plain version, on a CUDA tensor it launches t
 hand-written kernel (``ops/cuda/recconv.py``) or raises. Where a plane's pyramid
 does not fit in the kernel's shared memory, it peels outer levels first
 (``rec_conv2d_peeled``), chosen by shape before any launch; each peeled level runs
-through the source's second kernel (``rec_conv2d_level``).
+through the level kernel (``rec_conv2d_level``: ``csrc/recconv_level_bwd.cu:
+recconv_level_kernel``, the peeled level's library beside its backward kernels).
 
 Training goes through ``RecConv2dFunction``: its forward is ``rec_conv2d_fused``,
 its backward ``rec_conv2d_backward`` (the backward kernel, ``ops/cuda/
@@ -98,8 +99,9 @@ def rec_conv2d_level(
     ``stride`` (depthwise, bias-free, zero padding k/2), in fp32. Stride 2 (the down
     conv, whose result feeds the inner pyramid) returns fp32; stride 1 rounds once
     to x's dtype. On a CUDA tensor it launches the level kernel
-    (``ops/cuda/recconv.py:recconv_level_cuda``; ``rec_conv2d_level.launches``
-    counts it) or raises; on a CPU tensor it runs the plain ops."""
+    (``csrc/recconv_level_bwd.cu:recconv_level_kernel`` through
+    ``ops/cuda/recconv.py:recconv_level_cuda``; ``rec_conv2d_level.launches`` counts
+    it) or raises; on a CPU tensor it runs the plain ops."""
     if x.device.type == "cpu":
         return rec_conv2d_level_plain(x, w, stride=stride, up=up, mode=mode)
     if x.device.type != "cuda":

@@ -125,8 +125,15 @@ def _build(sources: dict, out: Path, legacy: bool) -> dict:
         return dict(pool.map(one, sources.items()))
 
 
-def _sass(so: Path) -> dict:
-    """Static opcode counts of the fp32 k = 5 KL′1 / KL′2 kernels in ``so``."""
+def _bwd_kernel(line: str) -> str | None:
+    """The fp32 k = 5 KL′1 / KL′2 kernel a ``Function :`` line names, or None."""
+    m = re.search(r"recconv_level_(dgrad|wgrad)_kernelIffLi5ELi([12])E", line)
+    return f"{m.group(1)}_s{m.group(2)}" if m else None
+
+
+def _sass(so: Path, kernel_of=_bwd_kernel) -> dict:
+    """Static opcode counts of the kernels in ``so`` that ``kernel_of`` names (from a
+    ``cuobjdump -sass`` ``Function :`` line; by default the fp32 k = 5 KL′1 / KL′2)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return {}
@@ -134,8 +141,7 @@ def _sass(so: Path) -> dict:
     found, name = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            m = re.search(r"recconv_level_(dgrad|wgrad)_kernelIffLi5ELi([12])E", line)
-            name = f"{m.group(1)}_s{m.group(2)}" if m else None
+            name = kernel_of(line)
             if name:
                 found[name] = Counter()
         elif name:

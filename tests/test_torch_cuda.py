@@ -143,15 +143,34 @@ def test_large_plane_peels_levels(cuda, n, c, h, w, level, mode, peel, launches,
 
 
 # the level kernel alone: the down conv (f32 out), the upsample-add-conv (out in x's
-# dtype) and the plain conv; planes of one and of many 32 x 32 tiles, odd sizes
-@pytest.mark.parametrize("shape,k,stride,mode,dtype", [
+# dtype) and the plain conv; odd sizes, planes narrower than a 128-column tile and of
+# several tiles (9: two blocks across), k 3/5/7, both modes, f32 and bf16 x; the task
+# planes (fp32, batch 16) and COCO's 200x334 (an odd coarse width, 167) and its second
+# peeled level (100x167), bf16 rows of odd width (plain loads)
+LEVEL_CASES = [
     ((2, 3, 37, 29), 5, 2, None, torch.float32), ((2, 3, 70, 45), 7, 2, None, torch.bfloat16),
     ((1, 4, 9, 200), 3, 2, None, torch.float32),
     ((2, 3, 37, 29), 5, 1, "bilinear", torch.float32),
     ((2, 3, 70, 45), 3, 1, "nearest", torch.float32),
     ((1, 4, 65, 64), 7, 1, "bilinear", torch.bfloat16),
     ((2, 3, 33, 100), 5, 1, "nearest", torch.bfloat16),
-    ((2, 3, 70, 45), 5, 1, None, torch.float32)])
+    ((2, 3, 70, 45), 5, 1, None, torch.float32),
+    ((16, 64, 200, 200), 5, 2, None, torch.float32), ((16, 64, 128, 128), 5, 2, None,
+                                                      torch.float32),
+    ((16, 64, 200, 200), 5, 1, "bilinear", torch.float32),
+    ((16, 64, 128, 128), 5, 1, "nearest", torch.float32),
+    ((2, 48, 200, 334), 5, 2, None, torch.bfloat16), ((2, 48, 200, 334), 5, 1, "bilinear",
+                                                      torch.bfloat16),
+    ((1, 5, 100, 167), 5, 2, None, torch.float32), ((1, 5, 100, 167), 5, 1, "nearest",
+                                                    torch.float32),
+    ((2, 3, 33, 21), 3, 1, "bilinear", torch.bfloat16), ((1, 2, 7, 1100), 7, 2, None,
+                                                         torch.float32),
+    ((1, 2, 7, 1100), 5, 1, "bilinear", torch.float32), ((1, 2, 1, 1), 5, 2, None,
+                                                         torch.float32),
+    ((2, 48, 160, 160), 5, 1, None, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,k,stride,mode,dtype", LEVEL_CASES)
 def test_level_kernel_matches_plain(cuda, shape, k, stride, mode, dtype):
     g = torch.Generator().manual_seed(k + stride)
     n, c, h, w = shape
@@ -171,6 +190,37 @@ def test_level_kernel_matches_plain(cuda, shape, k, stride, mode, dtype):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * scale)
     else:
         torch.testing.assert_close(got.float(), want, rtol=0, atol=1e-2 * scale)
+
+
+def test_level_kernel_gives_the_same_bits_on_every_run(cuda):
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 5, 200, 334, generator=g).cuda()
+    wt = torch.randn(5, 1, 5, 5, generator=g).cuda()
+    up = torch.randn(2, 5, 100, 167, generator=g).cuda()
+    for kw in (dict(stride=2), dict(up=up), dict(up=up, mode="nearest"), dict()):
+        first = rec_conv2d_level(x, wt, **kw)
+        for _ in range(2):
+            assert torch.equal(rec_conv2d_level(x, wt, **kw), first)
+
+
+def test_level_kernel_takes_planes_at_any_alignment(cuda):
+    """Tensors 4 bytes past a 16-byte boundary: the copies fall back to 4-byte chunks and
+    y to scalar stores, with the same bits as aligned tensors."""
+    gen = torch.Generator().manual_seed(6)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        return buf[1:].view(t.shape).copy_(t)
+
+    x = torch.randn(2, 3, 64, 64, generator=gen).cuda()
+    up = torch.randn(2, 3, 32, 32, generator=gen).cuda()
+    wt = torch.randn(3, 1, 5, 5, generator=gen).cuda()
+    assert torch.equal(rec_conv2d_level(shifted(x), wt, stride=2),
+                       rec_conv2d_level(x, wt, stride=2))
+    assert torch.equal(rec_conv2d_level(shifted(x), wt, up=shifted(up)),
+                       rec_conv2d_level(x, wt, up=up))
+    dz = torch.randn(2, 3, 64, 64, generator=gen).cuda()
+    assert torch.equal(rec_conv2d_up_adjoint(shifted(dz)), rec_conv2d_up_adjoint(dz))
 
 
 def test_level_kernel_rejects_what_it_does_not_take(cuda):
@@ -585,14 +635,19 @@ def test_level_kernels_take_planes_at_any_alignment(cuda):
                        want)
 
 
+# odd sizes, planes narrower than a 128-column coarse tile and of several (1100: 5
+# tiles), COCO's 200x334 and its second peeled level's 100x167 (irregular plans)
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
-@pytest.mark.parametrize("h,w", [(128, 128), (200, 334), (33, 21), (1, 1)])
+@pytest.mark.parametrize("h,w", [(128, 128), (200, 334), (33, 21), (1, 1), (100, 167),
+                                 (7, 1100), (2, 9)])
 def test_up_adjoint_kernel_matches_plain(cuda, h, w, mode):
     dz = torch.randn(2, 3, h, w, generator=torch.Generator().manual_seed(h)).cuda()
     before = rec_conv2d_up_adjoint.launches
     got = rec_conv2d_up_adjoint(dz, mode=mode)
     assert rec_conv2d_up_adjoint.launches == before + 1
     _level_close(got, rec_conv2d_up_adjoint_plain(dz, mode=mode), 2e-5)
+    for _ in range(2):
+        assert torch.equal(rec_conv2d_up_adjoint(dz, mode=mode), got)
 
 
 def test_level_backward_kernels_reject_what_they_do_not_take(cuda):

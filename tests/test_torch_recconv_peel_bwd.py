@@ -2,11 +2,11 @@
 the peel chosen by shape (``levels_to_peel_backward``), the peeled recursion
 (``rec_conv2d_peeled_backward``, plain versions on the CPU) against ``jax.vjp`` of
 the JAX package's ``rec_conv2d`` at 128^2 and 200x334, level 4, every peel count
-against the unpeeled backward, and numpy transcriptions of the three level kernels
-of ``csrc/recconv_level_bwd.cu`` (the warps' bands and column tiles, the rings of rows,
-the register strips, stride-2 parities, z = x + up(u) built a row at a time, the
-reduce-scatter and the partial rows per block, the transposed gather) against their
-plain versions."""
+against the unpeeled backward, and numpy transcriptions of the backward kernels
+KL′1-2 of ``csrc/recconv_level_bwd.cu`` (the warps' bands and column tiles, the rings
+of rows, the register strips, stride-2 parities, z = x + up(u) built a row at a time,
+the reduce-scatter and the partial rows per block) and of KL′3's arithmetic, element
+by element, against their plain versions."""
 
 import jax
 import jax.numpy as jnp
@@ -438,9 +438,10 @@ def transcribe_wgrad(x, g, k, stride, u=None, mode="bilinear"):
 
 
 def transcribe_up_adjoint(dz, mode):
-    """recconv_up_adjoint_kernel: one coarse element a thread, the fine rows and
-    columns that read it from the transposed plan table (columns from entry UH * 4),
-    zero weights skipped, the columns summed inside each row."""
+    """recconv_up_adjoint_kernel's arithmetic, element by element: the fine rows and
+    columns that read a coarse element from the transposed plan table (columns from
+    entry UH * 4), zero weights skipped, the columns summed inside each row, then the
+    rows (its band walk with the fed ring: tests/test_torch_recconv_level_plan.py)."""
     n, c, h, wd = dz.shape
     uh, uw = pyramid_sizes(h, wd, 1)[1]
     table = bwd.transposed_plan_table(h, wd, 1, mode)[0]
