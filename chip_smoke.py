@@ -194,10 +194,10 @@ and read just after:
               configs/mlla_mini_300e.yaml on mlla_mini_recconv (FAKE, batch 64, PyYAML
               unimportable), 2 epochs of 3 steps and a resume: 21 K1′ calls a step, 21
               K1 launches per train, MESA and eval forward.
-   the downstream tasks (recnext_m3 Semantic FPN at 512^2 and RetinaNet at 800^2,
-   batch 16, fp32 as the task CLIs run, each from a seeded classifier with calibrated
-   BN through --init-ckpt; recnext_a3's attention shapes), run last, in a process of
-   their own:
+   the downstream tasks (recnext_m3 Semantic FPN at 512^2, RetinaNet and Mask R-CNN at
+   800^2, batch 16, fp32 as the task CLIs run, each from a seeded classifier with
+   calibrated BN through --init-ckpt; recnext_a3's attention shapes), run last, in a
+   process of their own:
 27. tasks_seg  the train_seg CLI with the seg preset on FAKE: 3 iterations, a --resume
               to 6, --eval-only, --benchmark 5, each run's launches equal to the
               planners' (m3_task_launches: a step K1 21 + 3, the level kernel 3, K1′ 21,
@@ -219,6 +219,15 @@ and read just after:
               epochs of 3 steps and the AP loop over 32 images, a --resume, --eval-only
               and --benchmark 3 (a forward also 6 level-kernel launches); one step
               traced; the post-process's ms an image;
+30m. tasks_mask_rcnn  the train_det CLI, --detector mask_rcnn --with-mask (128
+              proposals an image), the det preset on FAKE: an epoch of 3 steps and the
+              AP loop over 16 images (bbox and segm AP), --eval-only and --benchmark 3,
+              launches as tasks_det's, finite loss terms; one step traced, its stages
+              outside the backbone (proposals, the RoIAligns, the RoI heads, the loss)
+              timed, the predict call and paste_masks an image; tasks_mask_rcnn_grad:
+              batch 2, the same proposals on every path and the heads' ReLUs pinned,
+              the outputs and every gradient through the kernels against the plain
+              path (as phase 28);
 31. tasks_attention  K2 and K2′ at a3's four 512^2 shapes (N 4096 ... 64, D 32),
               batch 16, f32 and bf16, K2′ the same bits on three runs, timed in f32.
 Then each phase's seconds, the L path's launch counts and K2 / K2' totals, the
@@ -459,22 +468,33 @@ def device_ms(fn, iters: int = 20) -> float:
     return sum(k["ms"] for k in trace(fn, iters))
 
 
-def queued_ms(fn, iters: int = 20, ahead: int = 6) -> float:
+def queued_ms(fn, iters: int = 20, ahead: int = 6, attempts: int = 5) -> float:
     """Device ms per call from CUDA events around ``iters`` calls queued behind
-    ``ahead`` bf16 8192^2 matmuls (about 1 ms each), so that the host's time per call
-    is hidden: the device runs the calls back to back."""
+    ``ahead`` bf16 8192^2 matmuls (about 1.5 ms each), so that the host's time per call
+    is hidden: the device runs the calls back to back. That holds only if the device
+    has not reached the start event when the host has queued the last call; on a slow
+    or shared host it may have, the queue ran dry and the time is the host's. Then
+    the calls are timed again behind twice as many matmuls (at most ``attempts``
+    times; a last time still uncovered is reported on stderr)."""
     a = torch.ones(8192, 8192, device="cuda", dtype=torch.bfloat16)
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(ahead):
-        a @ a
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for _ in range(ahead << attempt):
+            a @ a
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            break
+    else:
+        print(f"chip_smoke: queued_ms: {iters} calls outran {ahead << attempt} matmuls; "
+              "the time includes the host's", file=sys.stderr, flush=True)
     return start.elapsed_time(end) / iters
 
 
@@ -2954,6 +2974,277 @@ def phase_tasks_det(work_dir: Path, init_ckpt: Path):
     return step, traced
 
 
+MRCNN_EVAL_IMAGES = 16  # the AP loop's images (one batch of 16)
+
+
+def _mask_rcnn_model(init_ckpt: Path, seed: int):
+    """recnext_m3 Mask R-CNN as the det preset's CLI builds it (80 classes, FPN 256, 128
+    proposals, the mask head, backbone BN training), the backbone from ``init_ckpt``, on
+    the card."""
+    from recnext_tpu_torch.tasks import train_det
+    from recnext_tpu_torch.tasks.detection import init_backbone_from_classification
+
+    args = train_det.parse_args(["--preset", DET_PRESET, "--with-mask"])
+    model = train_det.build_model(args, True, torch.Generator().manual_seed(seed))
+    model.load_state_dict(init_backbone_from_classification(
+        model.state_dict(), read_weights(str(init_ckpt), log=lambda m: None)), strict=True)
+    return model.cuda()
+
+
+def _mask_rcnn_stages(model, batch):
+    """Device ms (CUDA events) of a train step's stages outside the backbone, on the
+    step's own inputs: the proposals (top 1000 of 159,882 anchors, decode, NMS to 128,
+    batched), the two RoIAligns (7^2 and 14^2, one gather each from the levels packed
+    channels-last) forward and backward, the RoI stage (both RoIAligns, the box head
+    on 7^2 RoIs, the mask head on 14^2) forward and forward + backward, the loss
+    forward + backward."""
+    from recnext_tpu_torch.tasks.mask_rcnn import (ROI_STRIDES, mask_rcnn_loss, splice_gt)
+    from recnext_tpu_torch.tasks.roi import multilevel_roi_align, pack_levels
+
+    model.train()
+    hw = tuple(batch["image"].shape[2:])
+    with torch.no_grad():
+        feats, obj, deltas, anchors = model._rpn(batch["image"])
+        props = splice_gt(*model._propose(obj, deltas, anchors, hw), batch["gt_boxes"],
+                          batch["gt_labels"])
+    leaves = [f.detach().requires_grad_() for f in feats]
+
+    def roi_align():
+        packed = pack_levels(leaves[:4])
+        a, b = (multilevel_roi_align(leaves[:4], props[0], ROI_STRIDES, s, packed=packed)
+                for s in (7, 14))
+        (a.sum() + b.sum()).backward()
+
+    def heads(backward):
+        def run():
+            with torch.set_grad_enabled(backward):
+                out = model._roi_heads(leaves, props[0])
+                if backward:
+                    sum(v.sum() for v in out.values()).backward()
+        return run
+
+    out = {k: (v.detach().requires_grad_() if v.is_floating_point() and k != "anchors"
+               and not k.startswith("proposals") else v)
+           for k, v in model(batch["image"], batch["gt_boxes"], batch["gt_labels"]).items()}
+
+    def loss():
+        mask_rcnn_loss(out, batch, num_classes=80).backward()
+
+    times = {"proposals_ms": cuda_ms(lambda: model._propose(obj, deltas, anchors, hw), 5, 1),
+             "roi_align_fwd_bwd_ms": cuda_ms(roi_align, 3, 1),
+             "roi_stage_fwd_ms": cuda_ms(heads(False), 3, 1),
+             "roi_stage_fwd_bwd_ms": cuda_ms(heads(True), 3, 1),
+             "loss_fwd_bwd_ms": cuda_ms(loss, 3, 1)}
+    model.zero_grad(set_to_none=True)
+    return times
+
+
+def phase_tasks_mask_rcnn(work_dir: Path, init_ckpt: Path):
+    """recnext_m3 Mask R-CNN with the detection preset (800^2, batch 16, fp32, FPN 256
+    P2-P6, 80 classes, 128 proposals an image, the mask head, backbone BN training as
+    the JAX CLI builds it) through the train_det CLI (--detector mask_rcnn --with-mask)
+    on FAKE: one epoch of 3 steps and the AP loop over 16 images (bbox and segm AP),
+    --eval-only over 16 images and --benchmark 3, each run's launches against the
+    planners' (a forward: K1 21 and 6 level-kernel launches; a step: that and the
+    backward's), finite loss terms. Then one train step traced (ms, img/s, idle share,
+    peak memory, the port's kernels and their share, the top kernels), its stages
+    outside the backbone (``_mask_rcnn_stages``), and the predict call: ms a batch,
+    the backbone + FPN + RPN forward's ms, and the post-process (proposals, box head,
+    NMS, mask head) and ``paste_masks`` ms an image, every image's 100 detections
+    pasted (scores from 0: an untrained head's sit under the CLI's 0.05)."""
+    from recnext_tpu_torch.tasks import train_det
+    from recnext_tpu_torch.tasks.mask_rcnn import make_mask_rcnn_train_step, paste_masks
+    from recnext_tpu_torch.train.optim import make_optimizer
+    from recnext_tpu_torch.train.state import TrainState
+
+    fwd, step = m3_task_launches(DET_SIDE)
+    base = ["--preset", DET_PRESET, "--detector", "mask_rcnn", "--with-mask",
+            "--batch-size", str(DET_BATCH), "--img-size", str(DET_SIDE),
+            "--init-ckpt", str(init_ckpt), "--steps-per-epoch", "3",
+            "--fake-size", str(MRCNN_EVAL_IMAGES), "--eval-max-images", str(MRCNN_EVAL_IMAGES),
+            "--output-dir", str(work_dir / "mask_rcnn")]
+    evals = MRCNN_EVAL_IMAGES // DET_BATCH
+    parts = ("train_loss", "loss_rpn", "loss_roi", "loss_mask")
+    runs = {}
+    for name, extra, want in (
+            ("train_1x3", ["--epochs", "1", "--eval-every", "1"],
+             _added(_times(3, step), _times(evals, fwd))),
+            ("eval_only", ["--eval-only"], _times(evals, fwd)),
+            ("benchmark_3", ["--benchmark", "3"], _times(4, fwd))):
+        run = _run_cli(train_det.main, base + extra, want, f"train_det mask_rcnn {name}")
+        runs[name] = {"seconds": run["seconds"], "lines": run["lines"],
+                      "launches": {k: v for k, v in run["launches"].items() if v}}
+        last = run["lines"][-1]
+        if name == "train_1x3" and not all(np.isfinite(last[k]) for k in parts):
+            raise AssertionError(f"train_det mask_rcnn {name}: {last}")
+        if name != "benchmark_3" and not {"bbox_mAP", "segm_mAP"} <= set(last):
+            raise AssertionError(f"train_det mask_rcnn {name}: no bbox/segm AP in {last}")
+
+    model = _mask_rcnn_model(init_ckpt, 0)
+    opt = make_optimizer(model.named_parameters(), train_det.step_lr(2e-4, 1000), 0.05,
+                         agc_clip=0.0, decay_all=True)
+    state = TrainState.create(model, opt, ema=False)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_det.synthetic_det_batch(
+        np.random.default_rng(0), DET_BATCH, DET_SIDE, 80, with_masks=True).items()}
+    train_step = make_mask_rcnn_train_step(80)
+    traced = _step_trace(lambda: train_step(state, batch), DET_BATCH, step, "tasks_mask_rcnn")
+    ours = sum(k["ms"] for k in traced["port_kernels"].values())
+    traced["port_kernels_ms"], traced["port_kernels_share_of_step"] = ours, ours / traced["step_ms"]
+    stages = _mask_rcnn_stages(model, batch)
+
+    predict = train_det.make_mask_rcnn_predict_fn(model, 0.0)
+    x = batch["image"]
+
+    def forward():
+        with torch.no_grad():
+            model.eval()._rpn(x)
+
+    predict_ms, forward_ms = cuda_ms(lambda: predict(x), 3, 1), cuda_ms(forward, 3, 1)
+    boxes, scores, labels, masks, valid = (t.cpu().numpy() for t in predict(x))
+    t0 = time.perf_counter()
+    pasted = [paste_masks(masks[b][valid[b]], boxes[b][valid[b]], (DET_SIDE, DET_SIDE), 1.0)
+              for b in range(DET_BATCH)]
+    paste_ms = (time.perf_counter() - t0) * 1e3 / DET_BATCH
+    detections = int(valid.sum())
+    if not detections or any(p.shape != (v.sum(), DET_SIDE, DET_SIDE)
+                             for p, v in zip(pasted, valid)):
+        raise AssertionError(f"tasks_mask_rcnn predict: {detections} detections pasted")
+    del state, model, pasted
+    torch.cuda.empty_cache()
+    post_ms = (predict_ms - forward_ms) / DET_BATCH
+    rec = {"phase": "tasks_mask_rcnn", "model": "recnext_m3 Mask R-CNN", "preset": DET_PRESET,
+           "input": [DET_BATCH, 3, DET_SIDE, DET_SIDE], "dtype": "float32",
+           "cudnn_tf32": torch.backends.cudnn.allow_tf32, "proposals": 128,
+           "anchors": int(sum(h * w * 3 for h, w in train_det.pyramid_shapes(DET_SIDE))),
+           "expected_per_forward": {k: v for k, v in fwd.items() if v},
+           "expected_per_step": {k: v for k, v in step.items() if v}, "cli": runs,
+           "step": traced, "stages": stages, "predict_ms_per_batch": predict_ms,
+           "forward_ms_per_batch": forward_ms, "postprocess_ms_per_image": post_ms,
+           "paste_masks_ms_per_image": paste_ms,
+           "postprocess_and_paste_ms_per_image": post_ms + paste_ms,
+           "detections_pasted": detections}
+    emit(rec)
+    return step, rec
+
+
+def _pin_mask_rcnn_relus(masks, flips):
+    """Make the Mask R-CNN heads' ReLUs (``tasks/mask_rcnn.py``'s ``F.relu``: the RPN's
+    conv, the box head's fc1 and fc2, the mask head's convs) apply the on/off pattern
+    ``masks[i]`` of their i-th call (recorded from this forward where ``masks`` is
+    empty), and append to ``flips`` the number of inputs whose sign disagrees with it;
+    as ``_pin_head_relus``. Returns a function that restores them."""
+    from types import SimpleNamespace
+
+    from recnext_tpu_torch.tasks import mask_rcnn
+
+    record, calls = not masks, iter(range(1 << 30))
+
+    def relu(y):
+        i = next(calls)
+        if record:
+            masks[i] = y > 0
+        else:
+            flips.append(int(((y > 0) != masks[i]).sum()))
+        return y * masks[i].to(y.dtype)
+
+    original = mask_rcnn.F
+    mask_rcnn.F = SimpleNamespace(relu=relu, interpolate=F.interpolate)
+    return lambda: setattr(mask_rcnn, "F", original)
+
+
+def phase_tasks_mask_rcnn_grad(init_ckpt: Path, batch=2):
+    """recnext_m3 Mask R-CNN at batch x 800^2 in train mode (the det preset's model,
+    the backbone from ``init_ckpt``) with the same proposals on every path (the kernel
+    path's RPN's, fed through ``_propose``) and the heads' ReLUs pinned to the float64
+    path's pattern (``_pin_mask_rcnn_relus``): the kernel path in fp32 against the
+    plain path in fp32 and in float64, as ``phase_tasks_grad`` holds Semantic FPN.
+    Checked: the launches (the kernel path's a step's, the plain paths' none); the RPN's
+    objectness, the box head's logits and deltas and the mask logits within 1e-4 max|ref|
+    of the plain path's, the loss within 1e-5; each of the step's K1′ calls against its
+    plain version; every parameter's gradient off the exact one by at most max(10x the
+    plain path's error, ``TASK_GRAD_TOL``) of its max."""
+    import copy
+
+    from recnext_tpu_torch.tasks import train_det
+    from recnext_tpu_torch.tasks.mask_rcnn import mask_rcnn_loss
+
+    side = DET_SIDE
+    model = _mask_rcnn_model(init_ckpt, 3).train()
+    data = {k: torch.from_numpy(v).cuda() for k, v in train_det.synthetic_det_batch(
+        np.random.default_rng(4), batch, side, 80, with_masks=True).items()}
+    with torch.no_grad():
+        probe = copy.deepcopy(model)
+        proposals = probe._propose(*probe._rpn(data["image"])[1:], (side, side))
+        del probe
+    expected = m3_task_launches(side)[1]
+    masks, flips, got = {}, {}, {}
+    keys = ("rpn_obj", "roi_cls", "roi_reg", "mask_logits")
+    for path, dtype in (("plain_path_f64", torch.float64), ("kernel_path", torch.float32),
+                        ("plain_path", torch.float32)):
+        m = copy.deepcopy(model).to(dtype)
+        m._propose = lambda *args: proposals
+        kernel = path.startswith("kernel")
+        restore = None if kernel else plain_path(m)
+        unpin = _pin_mask_rcnn_relus(masks, flips.setdefault(path, []))
+        if kernel:
+            calls, unwrap = _capture_kernel_calls("recnext_m3")
+        b = {**data, "image": data["image"].to(dtype), "gt_boxes": data["gt_boxes"].to(dtype)}
+        for fn in COUNTERS.values():  # the main path starts here
+            fn.launches = 0
+        out = m(b["image"], b["gt_boxes"], b["gt_labels"])
+        loss = mask_rcnn_loss(out, b, num_classes=80)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = counts()  # ... and ends here
+        unpin()
+        if kernel:
+            unwrap()
+        if restore:
+            restore()
+        want = expected if kernel else dict.fromkeys(COUNTERS, 0)
+        if launches != want:
+            raise AssertionError(f"tasks_mask_rcnn_grad {path}: launches {launches}, "
+                                 f"want {want}")
+        got[path] = ({k: out[k].detach().float() for k in keys}, loss.item(),
+                     {n: p.grad.double() for n, p in m.named_parameters()})
+        del m, out, loss
+    _, loss_64, g64 = got["plain_path_f64"]
+    (ok, loss_k, _), (op, loss_p, _) = got["kernel_path"], got["plain_path"]
+    outputs = {k: ((ok[k] - op[k]).abs().max().item(), op[k].abs().max().item()) for k in keys}
+    bad = {k: v for k, v in outputs.items() if not v[0] <= 1e-4 * v[1]}
+    if bad or not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
+        raise AssertionError(f"tasks_mask_rcnn_grad: outputs {bad}, loss {loss_k} vs {loss_p}")
+    if len(calls) != 21 or not all("g" in c for c in calls):
+        raise AssertionError(f"tasks_mask_rcnn_grad: {len(calls)} kernel calls captured")
+    backward_worst = _check_captured_backward("recnext_m3", calls)
+    errs = {path: {n: (grads[n] - g).abs().max().item() / g.abs().max().item()
+                   for n, g in g64.items() if g.abs().max().item() >= 1e-6}
+            for path, (_, _, grads) in got.items() if path != "plain_path_f64"}
+    if not all(torch.isfinite(g).all() for _, _, grads in got.values() for g in grads.values()):
+        raise AssertionError("tasks_mask_rcnn_grad: a gradient is not finite")
+    over = {n: (e, errs["plain_path"][n]) for n, e in errs["kernel_path"].items()
+            if not e <= max(10 * errs["plain_path"][n], TASK_GRAD_TOL)}
+    if over:
+        raise AssertionError(f"tasks_mask_rcnn_grad: gradients off the exact ones (kernel "
+                             f"path, plain path): {over}")
+    rec = {"phase": "tasks_mask_rcnn_grad", "model": "recnext_m3 Mask R-CNN",
+           "input": [batch, 3, side, side], "proposals_valid": int(proposals[1].sum()),
+           "launches": {k: v for k, v in expected.items() if v},
+           "loss": {"kernel_path": loss_k, "plain_path": loss_p, "plain_path_f64": loss_64},
+           "outputs_max_abs_err_and_max_abs": outputs,
+           "backward_calls_checked": len(calls),
+           "backward_worst_err_over_max_ref": backward_worst,
+           "gradients_worst_err_over_max_exact": {
+               path: max((e, n) for n, e in es.items()) for path, es in errs.items()},
+           "gradient_tol": {"times_plain": 10, "floor": TASK_GRAD_TOL},
+           "head_relu_inputs_flipped_against_f64": {p: sum(f) for p, f in flips.items()
+                                                    if p != "plain_path_f64"},
+           "head_relu_inputs": sum(int(mk.numel()) for mk in masks.values()),
+           "parameters": len(g64)}
+    emit(rec)
+    return rec
+
+
 def phase_tasks_attention():
     """K2 and K2′ at recnext_a3's four attention shapes at 512^2 (D 32; N 4096, 1024,
     256, 64; heads 2, 4, 8, 16; the last qk-first), batch 16 (the seg preset's), against
@@ -3064,6 +3355,9 @@ def run_tasks():
         recconv = timed("tasks_seg", phase_tasks_recconv)
         level = timed("tasks_seg", phase_tasks_level_backward)
         det_step, det = timed("tasks_det", phase_tasks_det, work_dir, m3, tf32=True)
+        mrcnn_step, mrcnn = timed("tasks_mask_rcnn", phase_tasks_mask_rcnn, work_dir, m3,
+                                  tf32=True)
+        mrcnn_grad = timed("tasks_mask_rcnn", phase_tasks_mask_rcnn_grad, m3)
         a3 = classifier_checkpoint("recnext_a3", work_dir / "recnext_a3.pt")
         a3_grad = timed("tasks_a", phase_tasks_grad, a3, "recnext_a3")
         attention, attention_err = timed("tasks_a", phase_tasks_attention)
@@ -3075,6 +3369,16 @@ def run_tasks():
                                              "peak_memory_gib")},
             "det_step": {k: det[k] for k in ("step_ms", "images_per_s", "device_idle_share",
                                              "peak_memory_gib")},
+            "mask_rcnn_launches_per_step": {k: v for k, v in mrcnn_step.items() if v},
+            "mask_rcnn_step": {k: mrcnn["step"][k] for k in (
+                "step_ms", "images_per_s", "device_idle_share", "peak_memory_gib",
+                "port_kernels_ms", "port_kernels_share_of_step")},
+            "mask_rcnn_stages": mrcnn["stages"],
+            "mask_rcnn_predict": {k: mrcnn[k] for k in (
+                "predict_ms_per_batch", "forward_ms_per_batch",
+                "postprocess_and_paste_ms_per_image")},
+            "mask_rcnn_grad": {k: mrcnn_grad[k] for k in (
+                "backward_worst_err_over_max_ref", "gradients_worst_err_over_max_exact")},
             "k1_k1bwd_totals": recconv, "level_backward_step_totals": level,
             "a3_grad": {k: a3_grad[k] for k in ("backward_worst_err_over_max_ref",
                                                  "gradients_worst_err_over_max_exact")},

@@ -318,7 +318,12 @@ _TASK_RULES = (  # a task model's flax module path -> the port's module path
     (re.compile(r"head/reg_conv(\d+)"), r"head.reg_convs.\1"),
     (re.compile(r"head/cls_out"), "head.retina_cls"),
     (re.compile(r"head/reg_out"), "head.retina_reg"),
+    (re.compile(r"rpn/(conv|cls|reg)"), r"rpn.\1"),
+    (re.compile(r"box_head/(fc1|fc2|cls|reg)"), r"box_head.\1"),
+    (re.compile(r"mask_head/conv(\d+)"), r"mask_head.convs.\1"),
+    (re.compile(r"mask_head/(up|logits)"), r"mask_head.\1"),
 )
+_TASK_DENSE = re.compile(r"box_head/.*")  # flax Dense: (in, out) kernels
 _TASK_LEAF = {"kernel": "weight", "bias": "bias"} | _NORM_LEAF
 
 
@@ -329,19 +334,24 @@ def _task_key(path: Tuple[str, ...]) -> Tuple[str, str]:
     for pattern, repl in _TASK_RULES:
         if pattern.fullmatch(module):
             key = f"{prefix}{pattern.sub(repl, module)}.{_TASK_LEAF[path[-1]]}"
-            return key, "conv" if path[-1] == "kernel" else "id"
+            if path[-1] != "kernel":
+                return key, "id"
+            return key, "linear" if _TASK_DENSE.fullmatch(module) else "conv"
     raise KeyError(f"unmapped task flax path: {'/'.join(path)}")
 
 
 def jax_task_to_torch(variables: Mapping[str, Any], model: torch.nn.Module | None = None
                       ) -> Dict[str, torch.Tensor]:
-    """JAX ``{params, batch_stats}`` of a ``SemanticFPN`` or a ``RetinaNet``
-    (``recnext_tpu/tasks/``) -> the port's state dict (fp32): the backbone subtree
-    (``backbone`` or ``extractor/backbone``) through ``jax_to_torch``'s rules, under
-    ``backbone.`` or ``extractor.backbone.``; the FPN's ``lateral_i``/``fpn_i``, the
-    FPNHead's ``scale{i}_conv{r}``/``scale{i}_bn{r}``/``conv_seg`` and the RetinaHead's
-    ``cls_conv{i}``/``reg_conv{i}``/``cls_out``/``reg_out`` (HWIO kernels to OIHW) into
-    the port's module names. With ``model``, check that keys and shapes are exactly its
+    """JAX ``{params, batch_stats}`` of a ``SemanticFPN``, a ``RetinaNet`` or a
+    ``MaskRCNN`` (``recnext_tpu/tasks/``) -> the port's state dict (fp32): the backbone
+    subtree (``backbone`` or ``extractor/backbone``) through ``jax_to_torch``'s rules,
+    under ``backbone.`` or ``extractor.backbone.``; the FPN's ``lateral_i``/``fpn_i``,
+    the FPNHead's ``scale{i}_conv{r}``/``scale{i}_bn{r}``/``conv_seg``, the RetinaHead's
+    ``cls_conv{i}``/``reg_conv{i}``/``cls_out``/``reg_out``, the RPN's
+    ``conv``/``cls``/``reg`` and the mask head's ``conv{i}``/``up``/``logits`` (HWIO
+    kernels to OIHW), and the box head's Dense ``fc1``/``fc2``/``cls``/``reg`` ((in,
+    out) to (out, in): its RoIs are flattened channels-last on both sides) into the
+    port's module names. With ``model``, check that keys and shapes are exactly its
     ``state_dict()``'s."""
     params = dict(variables.get("params", {}))
     stats = dict(variables.get("batch_stats", {}))

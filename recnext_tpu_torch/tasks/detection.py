@@ -14,6 +14,7 @@ into a task model's backbone.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,7 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from recnext_tpu_torch.models.recnext import RecNext, RecNextConfig, init_weights
+from recnext_tpu_torch.models.recnext import _TRUNC_STD, RecNext, RecNextConfig, init_weights
 from recnext_tpu_torch.tasks.boxes import (
     assign_anchors,
     decode_boxes,
@@ -125,13 +126,28 @@ class RetinaNet(nn.Module):
 def init_task_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX package's initialisation of a task model, drawn from ``generator``: He
     normal convs and zero biases (``models/recnext.py:init_weights``), BN at identity,
-    and a RetinaHead's prediction layers Normal(0.01) with the focal prior's bias."""
+    a RetinaHead's prediction layers Normal(0.01) with the focal prior's bias, and Mask
+    R-CNN's as mmdet's: the RPN's and the mask logits Normal(0.01), the box head's
+    fc1 and fc2 LeCun normal (flax's Dense), its classifier Normal(0.01) and its
+    deltas Normal(0.001)."""
+    from recnext_tpu_torch.tasks.mask_rcnn import BoxHead, MaskHead, RPNHead
+
     init_weights(model, generator)
     for m in model.modules():
         if isinstance(m, RetinaHead):
             for conv in (m.retina_cls, m.retina_reg):
                 conv.weight.normal_(0.0, 0.01, generator=generator)
             m.retina_cls.bias.fill_(FOCAL_PRIOR_BIAS)
+        elif isinstance(m, (RPNHead, MaskHead)):
+            for layer in (m.cls, m.reg) if isinstance(m, RPNHead) else (m.logits,):
+                layer.weight.normal_(0.0, 0.01, generator=generator)
+        elif isinstance(m, BoxHead):
+            for fc in (m.fc1, m.fc2):
+                std = math.sqrt(1.0 / fc.in_features) / _TRUNC_STD
+                nn.init.trunc_normal_(fc.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+            m.cls.weight.normal_(0.0, 0.01, generator=generator)
+            m.reg.weight.normal_(0.0, 0.001, generator=generator)
     return model
 
 

@@ -3,10 +3,11 @@
 Counterpart of ``recnext_tpu/tasks/train_det.py`` (the reference's mmdet harness and
 its 1x configs: AdamW lr 2e-4, weight decay 0.05 on every parameter, 12 epochs with
 decays at 8 and 11 and mmdet's 500-iteration linear warm-up, COCO bbox mAP), with the
-same flags and defaults, on the GPU unless ``--device cpu``. The port trains the
-single-stage detector, ``--detector retinanet``; the two-stage Mask R-CNN (the JAX
-CLI's default ``--detector mask_rcnn``), ``--with-mask`` and ``--num-proposals`` raise,
-naming their ROADMAP item.
+same flags and defaults, on the GPU unless ``--device cpu``. It trains the two-stage
+Mask R-CNN (``--detector mask_rcnn``, the default: ``tasks/mask_rcnn.py``, with
+``--num-proposals`` proposals an image and, with ``--with-mask``, the mask head, its
+loss and segm AP) or the single-stage RetinaNet (``--detector retinanet``, which
+ignores ``--with-mask`` and ``--num-proposals``, as the JAX CLI does).
 
 * ``--preset`` takes a recipe of ``tasks/configs.py`` as the defaults; its img_scale
   (1333, 800) becomes the square ``--img-size`` of its short side, 800;
@@ -17,18 +18,19 @@ naming their ROADMAP item.
   the newest, ``--eval-only`` reports its AP, ``--benchmark N`` the inference (forward
   and post-process) images per second over N batches.
 
-The RetinaNet's backbone BN trains (``frozen_backbone_stats=False``), as the JAX CLI
-builds it, although the presets say frozen. The anchors follow the pyramid's level
-sizes (each level halves, rounding up: P6 is 13^2 at 800^2).
+Either detector's backbone BN trains (``frozen_backbone_stats=False``), as the JAX
+CLI builds it, although the presets say frozen. The anchors follow the pyramid's level
+sizes (each level halves, rounding up: P6 is 13^2 at 800^2). Each epoch's line has the
+mean loss and, for Mask R-CNN, its terms (``loss_rpn``, ``loss_roi``, ``loss_mask``).
 
 The recipe on the card with FAKE data, from a classification checkpoint:
   python -m recnext_tpu_torch.tasks.train_det --preset det_recnext_m3_fpn_1x_coco \\
-      --detector retinanet --init-ckpt runs/m3/ckpt/epoch_0299.pt --epochs 2 \\
+      --with-mask --init-ckpt runs/m3/ckpt/epoch_0299.pt --epochs 2 \\
       --steps-per-epoch 3 --eval-max-images 32 --output-dir runs/det_m3
 A small run on the CPU:
   python -m recnext_tpu_torch.tasks.train_det --device cpu --backbone recnext_m0 \\
-      --detector retinanet --num-classes 4 --img-size 64 --batch-size 2 --fake-size 4 \\
-      --epochs 1 --steps-per-epoch 2 --output-dir runs/det_small
+      --with-mask --num-proposals 16 --num-classes 4 --img-size 64 --batch-size 2 \\
+      --fake-size 2 --epochs 1 --steps-per-epoch 2 --output-dir runs/det_small
 """
 
 from __future__ import annotations
@@ -44,19 +46,19 @@ import numpy as np
 import torch
 
 F32 = np.float32
-TWO_STAGE_ITEM = ("ROADMAP.md Queue 1 item 11's rest (Mask R-CNN: tasks/roi.py, "
-                  "tasks/mask_rcnn.py, paste_masks, --detector mask_rcnn, --with-mask)")
 STRIDES = (4, 8, 16, 32, 64)
 NUM_ANCHOR_SHAPES = 9  # 3 scales x 3 ratios (generate_anchors' defaults)
 
 
 def synthetic_det_batch(rng: np.random.Generator, batch: int, img: int, num_classes: int,
-                        max_gt: int = 4):
+                        max_gt: int = 4, with_masks: bool = False):
     """The JAX package's coloured rectangles on noise, from the same draws; boxes and
-    labels padded to ``max_gt`` with -1. The image is (N, 3, img, img)."""
+    labels padded to ``max_gt`` with -1, with ``with_masks`` each rectangle's mask
+    (N, max_gt, img, img) uint8. The image is (N, 3, img, img)."""
     images = rng.normal(scale=0.3, size=(batch, img, img, 3)).astype(np.float32)
     boxes = np.full((batch, max_gt, 4), -1, np.float32)
     labels = np.full((batch, max_gt), -1, np.int32)
+    masks = np.zeros((batch, max_gt, img, img), np.uint8) if with_masks else None
     for b in range(batch):
         n = int(rng.integers(1, max_gt + 1))
         for g in range(n):
@@ -68,8 +70,13 @@ def synthetic_det_batch(rng: np.random.Generator, batch: int, img: int, num_clas
             images[b, y1:y1 + h, x1:x1 + w] = color + rng.normal(scale=0.1, size=(h, w, 3))
             boxes[b, g] = [x1, y1, x1 + w, y1 + h]
             labels[b, g] = cls
-    return {"image": np.ascontiguousarray(images.transpose(0, 3, 1, 2)), "gt_boxes": boxes,
-            "gt_labels": labels}
+            if with_masks:
+                masks[b, g, y1:y1 + h, x1:x1 + w] = 1
+    out = {"image": np.ascontiguousarray(images.transpose(0, 3, 1, 2)), "gt_boxes": boxes,
+           "gt_labels": labels}
+    if with_masks:
+        out["gt_masks"] = masks
+    return out
 
 
 def step_lr(base_lr: float, steps_per_epoch: int, decay_epochs=(8, 11), factor: float = 0.1,
@@ -93,25 +100,32 @@ class FakeDetDataset:
     """The JAX package's deterministic synthetic detection set, with the COCO data
     set's eval surface (``gt_for_eval``, ``nb_classes``)."""
 
-    def __init__(self, n: int, img: int, num_classes: int, max_gt: int = 4, seed: int = 0):
+    def __init__(self, n: int, img: int, num_classes: int, max_gt: int = 4,
+                 with_masks: bool = False, seed: int = 0):
         self.n, self.img, self.nb_classes = n, img, num_classes
-        self.max_gt, self.seed = max_gt, seed
+        self.max_gt, self.with_masks, self.seed = max_gt, with_masks, seed
 
     def __len__(self):
         return self.n
 
     def __getitem__(self, i: int):
         s = synthetic_det_batch(np.random.default_rng((self.seed, i)), 1, self.img,
-                                self.nb_classes, self.max_gt)
-        return {"image": s["image"][0], "gt_boxes": s["gt_boxes"][0],
-                "gt_labels": s["gt_labels"][0], "image_id": i, "scale": 1.0,
-                "orig_hw": (self.img, self.img)}
+                                self.nb_classes, self.max_gt, with_masks=self.with_masks)
+        out = {"image": s["image"][0], "gt_boxes": s["gt_boxes"][0],
+               "gt_labels": s["gt_labels"][0], "image_id": i, "scale": 1.0,
+               "orig_hw": (self.img, self.img)}
+        if self.with_masks:
+            out["gt_masks"] = s["gt_masks"][0]
+        return out
 
     def gt_for_eval(self, i: int):
         s = self[i]
         keep = s["gt_labels"] >= 0
-        return {"boxes": s["gt_boxes"][keep], "labels": s["gt_labels"][keep],
-                "iscrowd": np.zeros(int(keep.sum()), bool), "image_id": i}
+        out = {"boxes": s["gt_boxes"][keep], "labels": s["gt_labels"][keep],
+               "iscrowd": np.zeros(int(keep.sum()), bool), "image_id": i}
+        if self.with_masks:
+            out["masks"] = s["gt_masks"][keep]
+        return out
 
 
 def _det_batches(dataset, indices, batch_size, *, drop_last=True):
@@ -123,13 +137,15 @@ def _det_batches(dataset, indices, batch_size, *, drop_last=True):
         yield collate_det([dataset[int(i)] for i in indices[start:start + batch_size]])
 
 
-def evaluate_detection(dataset, predict_fn, *, batch_size: int, max_images: int = 0,
-                       score_thresh: float = 0.05):
+def evaluate_detection(dataset, predict_fn, *, batch_size: int, with_mask: bool = False,
+                       max_images: int = 0, score_thresh: float = 0.05):
     """Inference over the val set in batches of one shape (the tail padded by cycling
-    the indices), boxes mapped back to original coordinates, COCO AP.
-    ``predict_fn(images (N, 3, S, S) numpy) -> (boxes, scores, labels, valid)``, each
-    (N, D, ...) numpy."""
+    the indices), boxes mapped back to original coordinates, COCO AP (bbox, and segm
+    ``with_mask``: the masks pasted into the original image, ``paste_masks``).
+    ``predict_fn(images (N, 3, S, S) numpy) -> (boxes, scores, labels, mask
+    probabilities or None, valid)``, each (N, D, ...) numpy."""
     from recnext_tpu_torch.tasks.coco_eval import COCOEvaluator
+    from recnext_tpu_torch.tasks.mask_rcnn import paste_masks
 
     ev = COCOEvaluator(dataset.nb_classes)
     n = min(len(dataset), max_images) if max_images else len(dataset)
@@ -138,7 +154,7 @@ def evaluate_detection(dataset, predict_fn, *, batch_size: int, max_images: int 
     padded = idx + (idx * (pad // n + 1))[:pad] if pad else idx
     seen = 0
     for batch in _det_batches(dataset, padded, batch_size, drop_last=False):
-        boxes, scores, labels, valid = predict_fn(batch["image"])
+        boxes, scores, labels, mprobs, valid = predict_fn(batch["image"])
         for b in range(len(boxes)):
             if seen >= n:
                 break
@@ -150,8 +166,11 @@ def evaluate_detection(dataset, predict_fn, *, batch_size: int, max_images: int 
             pb = boxes[b][keep] / scale
             pb[:, 0::2] = pb[:, 0::2].clip(0, int(orig_hw[1]))
             pb[:, 1::2] = pb[:, 1::2].clip(0, int(orig_hw[0]))
-            ev.add(dataset.gt_for_eval(i), {"boxes": pb, "scores": scores[b][keep],
-                                            "labels": labels[b][keep]})
+            pred = {"boxes": pb, "scores": scores[b][keep], "labels": labels[b][keep]}
+            gt = dataset.gt_for_eval(i)
+            if with_mask and mprobs is not None and "masks" in gt:
+                pred["masks"] = paste_masks(mprobs[b][keep], boxes[b][keep], orig_hw, scale)
+            ev.add(gt, pred)
     return ev.summarize()
 
 
@@ -198,8 +217,8 @@ def parse_args(argv=None):
     p.add_argument("--weight-decay", type=float, default=0.05)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--img-size", type=int, default=512)
-    p.add_argument("--num-proposals", type=int, default=None,
-                   help="Mask R-CNN only (the JAX CLI's default: 128); not ported, raises")
+    p.add_argument("--num-proposals", type=int, default=128,
+                   help="proposals an image (Mask R-CNN only)")
     p.add_argument("--data-set", default="FAKE", choices=["FAKE", "COCO"])
     p.add_argument("--data-path", default="", help="COCO root (annotations/ + dirs)")
     p.add_argument("--ann-file", default="", help="override train annotation json")
@@ -228,8 +247,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_datasets(args):
-    """(train set, val set or None, steps per epoch); COCO sets the class count."""
+def build_datasets(args, with_masks: bool = False):
+    """(train set, val set or None, steps per epoch), with instance masks where
+    ``with_masks``; COCO sets the class count."""
     if args.data_set == "COCO":
         from recnext_tpu_torch.data.coco import CocoDetection
 
@@ -239,18 +259,21 @@ def build_datasets(args):
         vann = args.val_ann_file or str(root / "annotations/instances_val2017.json")
         vimg = args.val_img_dir or str(root / "val2017")
         train_ds = CocoDetection(img_dir, ann, img_size=args.img_size, max_gt=args.max_gt,
-                                 with_masks=False, train=True, seed=args.seed)
+                                 with_masks=with_masks, train=True, seed=args.seed)
         val_ds = (CocoDetection(vimg, vann, img_size=args.img_size, max_gt=args.max_gt,
-                                with_masks=False, train=False) if Path(vann).exists() else None)
+                                with_masks=with_masks, train=False)
+                  if Path(vann).exists() else None)
         args.num_classes = train_ds.nb_classes
         return train_ds, val_ds, args.steps_per_epoch or max(1, len(train_ds) // args.batch_size)
-    fake = FakeDetDataset(args.fake_size, args.img_size, args.num_classes, seed=args.seed)
+    fake = FakeDetDataset(args.fake_size, args.img_size, args.num_classes,
+                          with_masks=with_masks, seed=args.seed)
     return fake, fake, args.steps_per_epoch or 1000
 
 
 def make_predict_fn(model, anchors: torch.Tensor, level_sizes, score_thresh: float):
-    """``predict(images) -> (boxes, scores, labels, valid)`` tensors (N, 100, ...): the
-    model in eval mode without grad, then each image's ``retinanet_postprocess``."""
+    """RetinaNet's ``predict(images) -> (boxes, scores, labels, None, valid)``, tensors
+    (N, 100, ...): the model in eval mode without grad, then each image's
+    ``retinanet_postprocess``."""
     from recnext_tpu_torch.tasks.detection import retinanet_postprocess
 
     def predict(images: torch.Tensor):
@@ -260,49 +283,77 @@ def make_predict_fn(model, anchors: torch.Tensor, level_sizes, score_thresh: flo
             outs = [retinanet_postprocess(c, b, anchors, score_thresh=score_thresh,
                                           level_sizes=level_sizes)
                     for c, b in zip(cls_scores, bbox_preds)]
-        return tuple(torch.stack(t) for t in zip(*outs))
+        boxes, scores, labels, valid = (torch.stack(t) for t in zip(*outs))
+        return boxes, scores, labels, None, valid
 
     return predict
 
 
+def make_mask_rcnn_predict_fn(model, score_thresh: float):
+    """Mask R-CNN's ``predict(images) -> (boxes, scores, labels, mask probabilities or
+    None, valid)``: ``MaskRCNN.predict`` in eval mode, all images at once."""
+    def predict(images: torch.Tensor):
+        model.eval()
+        return model.predict(images, score_thresh=score_thresh)
+
+    return predict
+
+
+def build_model(args, with_mask: bool, generator: torch.Generator):
+    """The detector of ``args`` (backbone BN training), with the JAX package's init
+    drawn from ``generator``."""
+    from recnext_tpu_torch.models.registry import get_config
+    from recnext_tpu_torch.tasks.detection import RetinaNet, init_task_weights
+    from recnext_tpu_torch.tasks.mask_rcnn import MaskRCNN
+
+    cfg = get_config(args.backbone, num_classes=0)
+    if args.detector == "retinanet":
+        model = RetinaNet(cfg, num_classes=args.num_classes, frozen_backbone_stats=False)
+    else:
+        model = MaskRCNN(cfg, num_classes=args.num_classes, num_proposals=args.num_proposals,
+                         frozen_backbone_stats=False, with_mask=with_mask)
+    return init_task_weights(model, generator)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.detector == "mask_rcnn" or args.with_mask or args.num_proposals is not None:
-        raise NotImplementedError(f"--detector mask_rcnn, --with-mask and --num-proposals "
-                                  f"are not ported; see {TWO_STAGE_ITEM}")
     from recnext_tpu_torch.device import resolve_device
-    from recnext_tpu_torch.models.registry import get_config
-    from recnext_tpu_torch.tasks.detection import (RetinaNet, generate_anchors,
+    from recnext_tpu_torch.tasks.detection import (generate_anchors,
                                                    init_backbone_from_classification,
-                                                   init_task_weights,
                                                    make_detection_train_step)
+    from recnext_tpu_torch.tasks.mask_rcnn import make_mask_rcnn_train_step
     from recnext_tpu_torch.train.finetune import read_weights
     from recnext_tpu_torch.train.main import Checkpoints
     from recnext_tpu_torch.train.optim import make_optimizer
     from recnext_tpu_torch.train.state import TrainState
 
     device = resolve_device(args.device)
-    train_ds, val_ds, steps_per_epoch = build_datasets(args)
-    model = RetinaNet(get_config(args.backbone, num_classes=0), num_classes=args.num_classes,
-                      frozen_backbone_stats=False)
-    init_task_weights(model, torch.Generator().manual_seed(args.seed))
+    with_mask = args.with_mask and args.detector == "mask_rcnn"
+    train_ds, val_ds, steps_per_epoch = build_datasets(args, with_mask)
+    model = build_model(args, with_mask, torch.Generator().manual_seed(args.seed))
     if args.init_ckpt:
         model.load_state_dict(init_backbone_from_classification(
             model.state_dict(), read_weights(args.init_ckpt)), strict=True)
     model.to(device)
-    feat_shapes = pyramid_shapes(args.img_size)
-    anchors = torch.from_numpy(generate_anchors(feat_shapes, strides=STRIDES)).to(device)
-    level_sizes = [h * w * NUM_ANCHOR_SHAPES for h, w in feat_shapes]
     optimizer = make_optimizer(
         model.named_parameters(),
         step_lr(args.lr, steps_per_epoch, decay_epochs=tuple(args.decay_epochs)),
         args.weight_decay, agc_clip=0.0, decay_all=True)
     state = TrainState.create(model, optimizer, ema=False)
-    train_step = make_detection_train_step(anchors, args.num_classes)
-    predict = make_predict_fn(model, anchors, level_sizes, args.eval_score_thresh)
+    if args.detector == "retinanet":
+        feat_shapes = pyramid_shapes(args.img_size)
+        anchors = torch.from_numpy(generate_anchors(feat_shapes, strides=STRIDES)).to(device)
+        train_step = make_detection_train_step(anchors, args.num_classes)
+        predict = make_predict_fn(model, anchors, [h * w * NUM_ANCHOR_SHAPES
+                                                   for h, w in feat_shapes],
+                                  args.eval_score_thresh)
+    else:
+        train_step = make_mask_rcnn_train_step(args.num_classes)
+        predict = make_mask_rcnn_predict_fn(model, args.eval_score_thresh)
 
     def predict_np(images: np.ndarray):
-        return tuple(t.cpu().numpy() for t in predict(torch.from_numpy(images).to(device)))
+        return tuple(None if t is None else t.cpu().numpy()
+                     for t in predict(torch.from_numpy(images).to(device)))
 
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -317,6 +368,11 @@ def main(argv=None):
     def ap_record(stats):  # NaN: no gt in that area range; JSON has no NaN
         return {k: (round(v, 4) if np.isfinite(v) else None) for k, v in stats.items()}
 
+    def evaluate():
+        return ap_record(evaluate_detection(
+            val_ds, predict_np, batch_size=args.batch_size, with_mask=with_mask,
+            max_images=args.eval_max_images, score_thresh=args.eval_score_thresh))
+
     if args.benchmark:
         return benchmark(predict, args, device)
 
@@ -325,14 +381,12 @@ def main(argv=None):
             raise SystemExit(f"--eval-only: no checkpoint under {out / 'ckpt'}")
         if val_ds is None:
             raise SystemExit("--eval-only: no validation dataset")
-        stats = evaluate_detection(val_ds, predict_np, batch_size=args.batch_size,
-                                   max_images=args.eval_max_images,
-                                   score_thresh=args.eval_score_thresh)
-        rec = {"epoch": start_epoch - 1, **ap_record(stats)}
+        rec = {"epoch": start_epoch - 1, **evaluate()}
         print(json.dumps(rec), flush=True)
         return rec
 
     rng = np.random.default_rng(args.seed)
+    keys = ("image", "gt_boxes", "gt_labels") + (("gt_masks",) if with_mask else ())
     t0 = time.time()
     rec = None
     for epoch in range(start_epoch, args.epochs):
@@ -342,20 +396,22 @@ def main(argv=None):
                 steps_per_epoch)
         else:
             batches = (synthetic_det_batch(rng, args.batch_size, args.img_size,
-                                           args.num_classes) for _ in range(steps_per_epoch))
-        losses = []
+                                           args.num_classes, with_masks=with_mask)
+                       for _ in range(steps_per_epoch))
+        metrics = []
         for batch in batches:
-            tb = {k: torch.from_numpy(batch[k]).to(device, non_blocking=True)
-                  for k in ("image", "gt_boxes", "gt_labels")}
-            losses.append(train_step(state, tb)["loss"])  # read once an epoch, below
-        train_loss = torch.stack(losses).mean().item() if losses else float("nan")
-        rec = {"epoch": epoch, "train_loss": train_loss, "elapsed_s": round(time.time() - t0, 1)}
+            tb = {k: torch.from_numpy(batch[k]).to(device, non_blocking=True) for k in keys}
+            metrics.append(train_step(state, tb))  # read once an epoch, below
+        means = ({k: torch.stack([m[k] for m in metrics]).mean().item() for k in metrics[0]}
+                 if metrics else {"loss": float("nan")})
+        train_loss = means.pop("loss")
+        rec = {"epoch": epoch, "train_loss": train_loss,
+               **{k: round(v, 4) for k, v in means.items()},
+               "elapsed_s": round(time.time() - t0, 1)}
         if device.type == "cuda":
             rec["max_memory_gib"] = round(torch.cuda.max_memory_allocated(device) / 2**30, 3)
         if val_ds is not None and args.eval_every and (epoch + 1) % args.eval_every == 0:
-            rec.update(ap_record(evaluate_detection(
-                val_ds, predict_np, batch_size=args.batch_size,
-                max_images=args.eval_max_images, score_thresh=args.eval_score_thresh)))
+            rec.update(evaluate())
         ckpts.save(epoch, {"epoch": epoch, "state": state.state_dict()})
         print(json.dumps(rec), flush=True)
         with open(out / "log.txt", "a") as f:

@@ -65,14 +65,16 @@ def compute_params(model: nn.Module, dtype: torch.dtype,
 
 
 def forward_model(model: nn.Module, x: torch.Tensor, dtype: torch.dtype,
-                  source: Optional[Dict[str, torch.Tensor]] = None, remat: bool = False):
+                  source: Optional[Dict[str, torch.Tensor]] = None, remat: bool = False,
+                  **kwargs):
     """The model's output on x in the compute ``dtype`` (parameters kept in fp32),
     with the tensors of ``source`` (an EMA copy) in place of the model's; ``remat``
-    is the RecNext forward's (each block recomputed in the backward)."""
+    is the RecNext forward's (each block recomputed in the backward); ``kwargs`` go
+    to the model's forward as they are (Mask R-CNN's ground truth)."""
     tensors = dict(source or {})
     tensors.update(compute_params(model, dtype, source))
-    return functional_call(model, tensors, (x.to(dtype),), {"remat": True} if remat else None,
-                           strict=False)
+    return functional_call(model, tensors, (x.to(dtype),),
+                           {"remat": True, **kwargs} if remat else kwargs, strict=False)
 
 
 def create_teacher(name: str, *, num_classes: int, device=None) -> nn.Module:

@@ -1133,3 +1133,91 @@ def test_attention_kernels_at_a3_task_shapes(cuda, nh, side, variant, dtype):
         qk[:, : nh * d], qk[:, nh * d:], v, go)))
     _check_attention_backward((rows(dqk[:, : nh * d]), rows(dqk[:, nh * d:]), rows(dv_)),
                               want, dtype)
+
+
+def test_mask_rcnn_forward_and_step_run_through_the_kernels(cuda):
+    """A small Mask R-CNN (a narrow M backbone at 256^2, FPN 32, 32 proposals, batch 2)
+    on the card: the planners' launches (no plane peels here: K1 once a mixer a
+    forward, K1 and K1′ once a mixer a step); the kernel path's outputs and every
+    gradient against the plain path's in fp32 and float64, every path fed the same
+    proposals and the heads' ReLUs pinned to the float64 path's on/off pattern (a flip
+    of fp32 noise moves a head conv's gradient by one position's term): each gradient
+    off the float64 one by at most max(10x the plain fp32 path's error, 1e-4) of its
+    max, as chip_smoke.py's tasks_mask_rcnn_grad holds the det preset's model."""
+    import copy
+    from types import SimpleNamespace
+
+    import torch.nn.functional as F
+
+    from recnext_tpu_torch.models.recnext import RecNextConfig
+    from recnext_tpu_torch.ops.cuda import recconv as recconv_cuda
+    from recnext_tpu_torch.tasks import mask_rcnn as tmrc
+    from recnext_tpu_torch.tasks.detection import init_task_weights
+    from recnext_tpu_torch.tasks.train_det import synthetic_det_batch
+
+    side = 256
+    cfg = RecNextConfig(name="small_m", family="m", embed_dim=(16, 32, 64, 128),
+                        depth=(1, 1, 2, 1), mlp_ratio=(2, 2, 2, 2), num_classes=0)
+    for i in range(4):
+        plane = side // 2 ** (i + 2)
+        assert recconv_cuda.levels_to_peel(plane, plane, 4 - i, 5, 4) == 0
+        assert recconv_bwd_cuda.levels_to_peel_backward(plane, plane, 4 - i, 5) == 0
+    mixers = sum(cfg.depth)
+    model = init_task_weights(tmrc.MaskRCNN(cfg, num_classes=3, fpn_channels=32,
+                                            num_proposals=32, frozen_backbone_stats=False),
+                              torch.Generator().manual_seed(0)).cuda()
+    data = {k: torch.from_numpy(v).cuda() for k, v in synthetic_det_batch(
+        np.random.default_rng(0), 2, side, 3, with_masks=True).items()}
+    before = rec_conv2d_fused.launches
+    with torch.no_grad():
+        boxes, scores, labels, masks, valid = model.eval().predict(data["image"])
+    torch.cuda.synchronize()
+    assert rec_conv2d_fused.launches - before == mixers
+    assert masks.shape == (2, 100, 28, 28) and bool(torch.isfinite(masks).all())
+    model.train()
+    with torch.no_grad():
+        probe = copy.deepcopy(model)
+        proposals = probe._propose(*probe._rpn(data["image"])[1:], (side, side))
+    pattern, got = {}, {}
+    for path, dtype in (("plain_f64", torch.float64), ("kernel", torch.float32),
+                        ("plain", torch.float32)):
+        m = copy.deepcopy(model).to(dtype)
+        m._propose = lambda *args: proposals
+        if path.startswith("plain"):
+            for mixer in (x for x in m.modules() if hasattr(x, "forward_plain")):
+                mixer.forward = mixer.forward_plain
+        calls = iter(range(1 << 20))
+
+        def relu(y, record=not pattern):
+            i = next(calls)
+            if record:
+                pattern[i] = y > 0
+            return y * pattern[i].to(y.dtype)
+
+        tmrc.F = SimpleNamespace(relu=relu, interpolate=F.interpolate)
+        b = {**data, "image": data["image"].to(dtype), "gt_boxes": data["gt_boxes"].to(dtype)}
+        counts = (rec_conv2d_fused.launches, rec_conv2d_backward.launches)
+        try:
+            out = m(b["image"], b["gt_boxes"], b["gt_labels"])
+            loss = tmrc.mask_rcnn_loss(out, b, num_classes=3)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            tmrc.F = F
+        launches = (rec_conv2d_fused.launches - counts[0],
+                    rec_conv2d_backward.launches - counts[1])
+        assert launches == ((mixers, mixers) if path == "kernel" else (0, 0)), path
+        got[path] = ({k: out[k].detach().float() for k in ("rpn_obj", "roi_cls", "mask_logits")},
+                     loss.item(), {n: p.grad.double() for n, p in m.named_parameters()})
+    for k, want in got["plain"][0].items():
+        err = (got["kernel"][0][k] - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), k
+    assert got["kernel"][1] == pytest.approx(got["plain"][1], rel=1e-5)
+    exact = got["plain_f64"][2]
+    for name, g in exact.items():
+        scale = g.abs().max().item()
+        if scale < 1e-6:
+            continue
+        err_k = (got["kernel"][2][name] - g).abs().max().item() / scale
+        err_p = (got["plain"][2][name] - g).abs().max().item() / scale
+        assert err_k <= max(10 * err_p, 1e-4), (name, err_k, err_p)

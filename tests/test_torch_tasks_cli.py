@@ -3,11 +3,13 @@ after ``tests/test_cli_smoke.py``: ``train_seg`` trains, checkpoints (the last 3
 kept), resumes, evaluates (``--eval-only``) and benchmarks on FAKE data, trains on an
 ADE20K-layout folder with the validation split's mIoU, and loads a classification
 checkpoint into its backbone (``--init-ckpt``); ``train_det --detector retinanet`` does
-the same on FAKE data and on a COCO-format folder; the presets; and what the
-detection CLI refuses (``--detector mask_rcnn``, its default, ``--with-mask`` and
-``--num-proposals``)."""
+the same on FAKE data and on a COCO-format folder; ``--detector mask_rcnn`` (the
+default) with ``--with-mask`` trains (its loss terms), resumes, evaluates box and mask AP
+and benchmarks; RetinaNet ignores ``--with-mask`` and ``--num-proposals``, as the JAX
+CLI does; the presets."""
 
 import json
+import math
 
 import pytest
 import torch
@@ -152,8 +154,43 @@ def test_presets_set_the_recipes_defaults():
             parse(["--preset", name])
 
 
-def test_train_det_refuses_the_two_stage_detector_naming_its_item(tmp_path):
-    for extra in ([], ["--detector", "mask_rcnn"], ["--detector", "retinanet", "--with-mask"],
-                  ["--detector", "retinanet", "--num-proposals", "128"]):
-        with pytest.raises(NotImplementedError, match="item 11's rest"):
-            train_det.main(["--device", "cpu", "--output-dir", str(tmp_path), *extra])
+def _mask_rcnn(out, *extra):
+    return train_det.main(["--device", "cpu", "--backbone", "recnext_m0", "--detector",
+                           "mask_rcnn", "--with-mask", "--num-classes", "4", "--img-size", "64",
+                           "--batch-size", "2", "--fake-size", "2", "--steps-per-epoch", "2",
+                           "--num-proposals", "16", "--output-dir", str(out), *extra])
+
+
+def test_train_det_mask_rcnn_trains_resumes_evaluates_and_benchmarks(tmp_path, capsys):
+    """Each predict call runs the mask head on 100 detections an image (~7 s a batch
+    here): one epoch and the resume train without the AP loop, --eval-only has it."""
+    parts = ("train_loss", "loss_rpn", "loss_roi", "loss_mask")
+    res = _mask_rcnn(tmp_path, "--epochs", "1", "--eval-every", "0")
+    rec = _records(capsys)[-1]
+    assert rec["epoch"] == 0 and res["state"].step == 2
+    assert all(math.isfinite(rec[k]) and rec[k] > 0 for k in parts), rec
+    model = res["state"].model
+    assert model.num_proposals == 16 and model.mask_head is not None
+    res = _mask_rcnn(tmp_path, "--epochs", "2", "--eval-every", "0", "--resume")
+    out = capsys.readouterr().out
+    rec = json.loads(out.splitlines()[-1])
+    assert "resumed from epoch 0" in out and rec["epoch"] == 1 and res["state"].step == 4
+    assert all(math.isfinite(rec[k]) for k in parts) and "bbox_mAP" not in rec
+    rec = _mask_rcnn(tmp_path, "--eval-only")
+    assert rec["epoch"] == 1
+    assert {"bbox_mAP", "bbox_mAP_50", "segm_mAP", "segm_mAP_50"} <= set(rec)
+    assert all(0.0 <= rec[k] <= 1.0 for k in ("bbox_mAP", "segm_mAP"))
+    rec = _mask_rcnn(tmp_path, "--benchmark", "1")
+    assert rec["detector"] == "mask_rcnn" and rec["images_per_sec"] > 0
+
+
+def test_train_det_retinanet_ignores_with_mask_and_num_proposals(tmp_path, capsys):
+    """As the JAX CLI: --with-mask and --num-proposals take effect with mask_rcnn only;
+    the default detector is mask_rcnn, its default proposal count 128."""
+    res = _det(tmp_path, "--epochs", "1", "--steps-per-epoch", "1", "--eval-every", "0",
+               "--with-mask", "--num-proposals", "7")
+    rec = _records(capsys)[-1]
+    assert type(res["state"].model).__name__ == "RetinaNet" and res["state"].step == 1
+    assert set(rec) >= {"epoch", "train_loss"} and not {"loss_rpn", "loss_mask"} & set(rec)
+    args = train_det.parse_args([])
+    assert (args.detector, args.num_proposals, args.with_mask) == ("mask_rcnn", 128, False)
