@@ -113,6 +113,28 @@ and read just after:
               step, 23 K2 launches per fused eval forward, nothing of K1 or K1';
 18. train_throughput  phase 14 for recnext_a1, without and with the regnety_160
               hard teacher, and the distilled step's cost over the plain one;
+   the export CLI, the trainer's remaining flags, two processes (no new kernel):
+18e. export   the export CLI (python -m recnext_tpu_torch.export --torch-export) on m1
+              from phase 13's checkpoint with --ema and on a calibrated a1
+              (--torch-ckpt), bf16 at batch 8, and export_program at batch 256: a
+              spawned process loads each program (torch.export.load after importing
+              recnext_tpu_torch.ops, where K1 and K2 are custom ops) and runs it on the
+              card: exactly 23 K1 (m1) or 23 K2 (a1) launches and none of the other a
+              forward, the logits within the model phase's bf16 tolerance of the eager
+              fused model's (the max difference printed), the forward ms of both at
+              batch 8 and 256;
+18f. train_flags  m1 (FAKE, 224^2, batch 32, 2 steps an epoch) with --ckpt-every-steps 1
+              --eval-ema, --resume from its recovery.pt with --eval-ema
+              --export-teacher, then recnext_a1 hard-distilled from that teacher
+              (--teacher-model recnext_m1 --teacher-ckpt): each run's launches (23 K1
+              and 23 K1' a step, 23 K1 an eval forward; a1 23 K2 and 23 K2' a step and
+              23 K1 a step for the teacher), the recovery and resume lines, no EMA
+              keys under --eval-ema;
+18p. two_process  m1's train step (bf16, mixup, 224^2) as 2 spawned processes on the one
+              card (the export check's pool, started before the exports) (gloo on CUDA tensors) against one process at the same global batch
+              of 64: the step-0 losses within 1e-2, 23 K1 and 23 K1' launches a step in
+              each process, the step ms of both, the gradient all-reduce's bytes and
+              ms;
    recnext_t training (K2 and K2' at the L shapes):
 18l. attention_backward_l  K2' at the seven L shapes through the NCHW entry, LA3's v
               a channel slice, at batch 16 and, at recnext_t's three shapes, 128
@@ -3331,6 +3353,230 @@ def phase_tasks_attention():
     return totals, max_abs_err
 
 
+# the export, train-flag and two-process paths (PR 19's slice): m1 and a1 exported by
+# the export CLI and run from a fresh process; the trainer's remaining flags; the m1
+# train step as two processes on the one card (gloo on CUDA tensors)
+EXPORT_BATCHES = (8, 256)
+FLAGS_ARGS = ["--model", "recnext_m1", "--data-set", "FAKE", "--simple-aug", "--input-size",
+              "224", "--batch-size", "32", "--steps-per-epoch", "2", "--log-every", "1"]
+FLAGS_STEPS, FLAGS_EVALS = 2, 2  # a run's steps an epoch; eval forwards (--eval-ema: 1)
+TWO_PROCESS_BATCH, TWO_PROCESS_TIMED = 64, 3  # the global batch; timed steps a process
+
+
+def _export_check(model_dirs):
+    """In a fresh process (spawned, so nothing of the parent's state): each exported
+    program loaded by torch.export.load, run on the card beside the eager fused model
+    of the same archive: its launches of K1 and K2 a forward (counts 0 just before,
+    read just after), the largest logit difference, and the forward ms of both at
+    each batch of EXPORT_BATCHES (CUDA events)."""
+    from recnext_tpu_torch.export import load_program, load_published
+
+    out = {}
+    gen = torch.Generator().manual_seed(6)
+    for name, root in model_dirs.items():
+        eager = create_model(name, fused=True, device="cuda", dtype=torch.bfloat16)
+        eager.load_state_dict(load_published(name, root), strict=True)
+        rec = {}
+        for batch in EXPORT_BATCHES:
+            program = load_program(str(Path(root) / f"{name}_b{batch}.pt2"))
+            x = torch.randn(batch, 3, 224, 224, generator=gen).to(torch.bfloat16).cuda()
+            with torch.inference_mode():
+                want = eager(x).float()
+                for fn in COUNTERS.values():  # the exported program's forward starts here
+                    fn.launches = 0
+                got = program(x).float()
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in counts().items() if v}  # ... and ends here
+                iters = 20 if batch == 8 else 5
+                rec[f"batch_{batch}"] = {
+                    "launches_per_forward": launches,
+                    "max_abs_diff_vs_eager": (got - want).abs().max().item(),
+                    "max_abs_logit": want.abs().max().item(),
+                    "program_ms": cuda_ms(lambda: program(x), iters=iters),
+                    "eager_ms": cuda_ms(lambda: eager(x), iters=iters)}
+        out[name] = rec
+    return out
+
+
+def phase_export(work_dir: Path, pool):
+    """The export CLI (``python -m recnext_tpu_torch.export``) on m1 (the train phase's
+    checkpoint, --ema) and a1 (calibrated weights, --torch-ckpt): the published archive
+    and a ``torch.export`` program at batch 8; a program at batch 256 by
+    ``export_program`` on the same archive. A fresh process loads each and runs it on
+    the card (``_export_check``, in a worker of ``pool``, a spawned process that has
+    run nothing yet): exactly MIXERS[name] launches of the model's kernel
+    and none of the other a forward, logits within the model phase's bf16 tolerance
+    (1e-1 max|logit|) of the eager fused model (the same kernels: expect 0)."""
+    from recnext_tpu_torch import export as export_cli
+    from recnext_tpu_torch.export import export_program, load_published
+
+    dirs, export_s = {}, {}
+    # a1's EMA after a few steps is its init, whose eval-mode logits overflow: its
+    # weights are the model phase's (BN statistics of a random batch)
+    torch.save(calibrated("recnext_a1").state_dict(), work_dir / "a1_calibrated.pth")
+    sources = {"recnext_m1": ["--ckpt", str(work_dir / "m1_224.pt"), "--ema"],
+               "recnext_a1": ["--torch-ckpt", str(work_dir / "a1_calibrated.pth")]}
+    for name, source in sources.items():
+        root = work_dir / f"export_{name}"
+        t0 = time.perf_counter()
+        _run_cli(export_cli.main, ["--model", name, *source, "--out", str(root), "--batch",
+                                   str(EXPORT_BATCHES[0]), "--torch-export"],
+                 dict.fromkeys(COUNTERS, 0), f"export {name}")
+        for batch in EXPORT_BATCHES[1:]:
+            export_program(name, load_published(name, str(root)), batch=batch,
+                           out_path=str(root / f"{name}_b{batch}.pt2"))
+        export_s[name] = time.perf_counter() - t0
+        dirs[name] = str(root)
+    torch.cuda.empty_cache()
+    checked = pool.apply(_export_check, (dirs,))
+    for name, rec in checked.items():
+        kernel = "rec_conv2d" if name == "recnext_m1" else "linear_attention"
+        for batch, r in rec.items():
+            if r["launches_per_forward"] != {kernel: MIXERS[name]}:
+                raise AssertionError(f"exported {name} {batch}: launches "
+                                     f"{r['launches_per_forward']}, expected "
+                                     f"{{{kernel!r}: {MIXERS[name]}}}")
+            if not r["max_abs_diff_vs_eager"] <= 1e-1 * r["max_abs_logit"]:
+                raise AssertionError(f"exported {name} {batch}: logits differ by "
+                                     f"{r['max_abs_diff_vs_eager']}")
+    emit({"phase": "export", "dtype": "bf16", "side": 224, "export_s": export_s,
+          "route": "custom ops only under torch.compiler.is_exporting(); eager calls "
+                   "launch directly", "programs": checked})
+    return checked
+
+
+def phase_train_flags(work_dir: Path):
+    """The trainer's remaining flags on the card: m1 (FAKE, 224^2, batch 32, 2 steps an
+    epoch) with --ckpt-every-steps 1 and --eval-ema for one epoch; --resume from its
+    recovery.pt to epoch 2 with --eval-ema and --export-teacher; then recnext_a1 hard
+    distilled from that teacher (--teacher-model recnext_m1 --teacher-ckpt) for 2
+    steps. Each run's counts set to 0 just before and read just after: m1 23 K1 and
+    23 K1' a step and 23 K1 an eval forward (one a batch under --eval-ema); a1 23 K2
+    and 23 K2' a step, 23 K1 a step (the m1 teacher's forward), 23 K2 an eval forward
+    (the model and its EMA)."""
+    run_dir = work_dir / "flags"
+    teacher = work_dir / "m1_teacher.pt"
+    zero = dict.fromkeys(COUNTERS, 0)
+    m1 = lambda steps, evals: zero | {"rec_conv2d": 23 * (steps + evals),  # noqa: E731
+                                      "rec_conv2d_backward": 23 * steps}
+    first = _run_cli(train_main.main, FLAGS_ARGS + [
+        "--epochs", "1", "--ckpt-every-steps", "1", "--eval-ema", "--output-dir",
+        str(run_dir / "a")], m1(FLAGS_STEPS, FLAGS_EVALS), "train_flags: recovery run")
+    recovery = run_dir / "a" / "recovery.pt"
+    resumed = _run_cli(train_main.main, FLAGS_ARGS + [
+        "--epochs", "2", "--resume", str(recovery), "--eval-ema", "--export-teacher",
+        str(teacher), "--output-dir", str(run_dir / "b")], m1(FLAGS_STEPS, FLAGS_EVALS),
+        "train_flags: resumed run")
+    distilled = _run_cli(train_main.main, [
+        a if a != "recnext_m1" else "recnext_a1" for a in FLAGS_ARGS] + [
+        "--epochs", "1", "--distillation-type", "hard", "--teacher-model", "recnext_m1",
+        "--teacher-ckpt", str(teacher), "--output-dir", str(run_dir / "c")],
+        zero | {"rec_conv2d": 23 * FLAGS_STEPS,
+                "linear_attention": 23 * (FLAGS_STEPS + 2 * FLAGS_EVALS),
+                "linear_attention_backward": 23 * FLAGS_STEPS}, "train_flags: distilled a1")
+    checks = {"recovery_lines": first["text"].count("recovery checkpoint at"),
+              "resumed_at_epoch_1": f"resumed from {recovery} at epoch 1" in resumed["text"],
+              "eval_ema_keys_only": all("ema_test_acc1" not in s
+                                        for s in first["lines"] + resumed["lines"]),
+              "teacher_exported": "exported EMA teacher weights" in resumed["text"],
+              "teacher_read": "teacher recnext_m1: " in distilled["text"]}
+    if checks["recovery_lines"] != FLAGS_STEPS or not all(list(checks.values())[1:]):
+        raise AssertionError(f"train_flags: {checks}")
+    if resumed["result"]["state"].step != 2 * FLAGS_STEPS:
+        raise AssertionError(f"train_flags: resumed step {resumed['result']['state'].step}")
+    losses = [s["train_loss"] for r in (first, resumed, distilled) for s in r["lines"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_flags: losses {losses}")
+    emit({"phase": "train_flags", "checks": checks, "train_losses": losses,
+          "seconds": {k: r["seconds"] for k, r in (("recovery", first), ("resumed", resumed),
+                                                   ("distilled", distilled))},
+          "launches": {k: {n: v for n, v in r["launches"].items() if v} for k, r in (
+              ("recovery", first), ("resumed", resumed), ("distilled", distilled))}})
+
+
+def _two_process_step(rank: int, world: int, port: int):
+    """m1's train step (bf16 compute, mixup, 224^2) on this rank's rows of a seeded
+    global batch of TWO_PROCESS_BATCH: the step-0 loss, K1 and K1' launches a step,
+    the step's ms (TWO_PROCESS_TIMED steps after one more, host clock around work that
+    ends in a synchronize), and the gradient all-reduce's bytes and ms. world 1 is one
+    process on the whole batch, without a process group."""
+    from recnext_tpu_torch.parallel.sharding import (all_reduce_gradients, broadcast_tensors,
+                                                     init_distributed)
+    from recnext_tpu_torch.train.optim import make_optimizer
+    from recnext_tpu_torch.train.state import TrainState
+    from recnext_tpu_torch.train.step import make_train_step
+
+    if world > 1:
+        init_distributed(f"127.0.0.1:{port}", world, rank, device_type="cuda",
+                         log=lambda m: None)
+    try:
+        backend = torch.distributed.get_backend() if world > 1 else None
+        model = create_model("recnext_m1", device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+        broadcast_tensors(model.state_dict().values())
+        opt = make_optimizer(model.named_parameters(), lambda s: 1e-3)
+        state = TrainState.create(model, opt)
+        step = make_train_step(num_classes=1000, dtype=torch.bfloat16)
+        gen = torch.Generator().manual_seed(7)
+        b = TWO_PROCESS_BATCH // world
+        x = torch.randn(TWO_PROCESS_BATCH, 3, 224, 224, generator=gen)[rank * b:(rank + 1) * b]
+        y = torch.randint(0, 1000, (TWO_PROCESS_BATCH,), generator=gen)[rank * b:(rank + 1) * b]
+        batch = {"image": x.cuda(), "label": y.cuda()}
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        loss0 = step(state, batch, torch.Generator().manual_seed(0))["loss"].item()
+        launches = {k: v for k, v in counts().items() if v}
+        step(state, batch, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        times = []
+        for s in range(TWO_PROCESS_TIMED):
+            t0 = time.perf_counter()
+            step(state, batch, torch.Generator().manual_seed(2 + s))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        reduce_ms, nbytes = [], 0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = all_reduce_gradients(opt.params)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return {"rank": rank, "backend": backend, "step0_loss": loss0,
+                "launches_step0": launches, "step_ms": statistics.median(times),
+                "allreduce_bytes": nbytes, "allreduce_ms": statistics.median(reduce_ms)}
+    finally:
+        if world > 1:
+            torch.distributed.destroy_process_group()
+
+
+def phase_two_process(pool):
+    """The m1 train step as 2 processes on the one card (the two workers of ``pool``;
+    gloo: NCCL refuses two ranks on one device), against one process at the same
+    global batch (in this process):
+    each process launches K1 and K1' 23 times a step; the step-0 loss within bf16
+    tolerance (1e-2 of it) of one process's; the step's ms (the two processes time-
+    slice the card, so slower) and the gradient all-reduce's bytes and ms."""
+    import socket
+
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ranks = pool.starmap(_two_process_step, [(r, 2, port) for r in range(2)])
+    one = _two_process_step(0, 1, 0)
+    for r in ranks:
+        if r["backend"] != "gloo" or r["launches_step0"] != {"rec_conv2d": 23,
+                                                            "rec_conv2d_backward": 23}:
+            raise AssertionError(f"two_process rank {r['rank']}: {r}")
+        if not abs(r["step0_loss"] - one["step0_loss"]) <= 1e-2 * abs(one["step0_loss"]):
+            raise AssertionError(f"two_process: step-0 loss {r['step0_loss']} against one "
+                                 f"process's {one['step0_loss']}")
+    emit({"phase": "two_process", "model": "recnext_m1", "global_batch": TWO_PROCESS_BATCH,
+          "dtype": "bf16 compute, fp32 parameters", "one_process": one, "ranks": ranks,
+          "two_over_one_step_ms": max(r["step_ms"] for r in ranks) / one["step_ms"]})
+    return ranks, one
+
+
 def run_tasks():
     """The downstream tasks' phases; returns the tasks_path line and each phase's
     seconds. Run in a process of its own (``tasks_process``)."""
@@ -3522,6 +3768,13 @@ def main() -> int:
           "images_per_s": {"plain": plain_ips, "hard_distilled": distilled_ips},
           "step_ms": {"plain": 128e3 / plain_ips, "hard_distilled": 128e3 / distilled_ips},
           "distilled_over_plain": plain_ips / distilled_ips})
+    # the export CLI, the trainer's remaining flags, two processes on the one card
+    # two spawned workers, started here so that their start-up overlaps the exports:
+    # the export check runs in one, then the two processes of the m1 step in both
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        timed("export", phase_export, work_dir, pool)
+        timed("train_flags", phase_train_flags, work_dir)
+        timed("two_process", phase_two_process, pool)
     # recnext_t training: K2 and K2' at the L shapes
     t_bwd_total, _ = timed("attention_backward_l", phase_attention_backward_l)
     timed("train_grad_l", phase_train_grad, "recnext_t")

@@ -337,6 +337,10 @@ def main(argv=None):
                    help="RecNextConfig overrides, e.g. embed_dim=16:32:64:128,depth=1:1:2:1")
     p.add_argument("--device", default=None, help="default: the GPU (cuda)")
     args = p.parse_args(argv)
+    if torch.device(args.device or "cuda").type == "cuda":
+        from recnext_tpu_torch.utils.watchdog import require_devices
+
+        require_devices(metric="bench")  # a deadline on the first touch of the GPU
     kw = parse_kv_overrides(args.model_kwargs)
     if args.loader:
         size = args.image_size or 224

@@ -13,6 +13,10 @@ of the rules of ``recnext_tpu/convert.py:mlla_flax_to_torch`` (whose output it e
 key for key), written as a forward rewrite of each flax path. ``jax_task_to_torch``
 does it for the downstream tasks' models (Semantic FPN, RetinaNet): their backbone
 by the rules above, their neck and heads into the port's module names.
+
+``torch_to_jax`` and ``mlla_torch_to_jax`` go the other way (the port's copy of
+``recnext_tpu/convert.py:torch_to_flax``, ``torch_fused_to_flax`` and
+``mlla_torch_to_flax``), so that weights the port trains reach the JAX package.
 """
 
 from __future__ import annotations
@@ -377,3 +381,240 @@ def jax_task_to_torch(variables: Mapping[str, Any], model: torch.nn.Module | Non
             if path[-1] == "mean":  # torch BN buffers include num_batches_tracked
                 out[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = np.zeros((), np.int64)
     return _to_torch(out, model)
+
+
+# ---------------------------------------------------------------------------
+# The other direction: torch state dicts -> the JAX package's trees, so that a
+# model trained by the port is applied, fused and published by the JAX package.
+# The port's copy of ``recnext_tpu/convert.py``'s rules (``_unwrap``,
+# ``_walk_structure``, ``_map_key``, ``torch_to_flax``, ``torch_fused_to_flax``,
+# ``_map_key_mlla``, ``mlla_torch_to_flax``): torch OIHW kernels become HWIO, Linear
+# (out, in) weights become Dense (in, out), BN weight/bias/running statistics become
+# scale/bias (params) and mean/var (batch_stats).
+# ---------------------------------------------------------------------------
+
+_STEM = {"0": "conv1", "2": "conv2", "4": "conv3"}
+
+
+def _unwrap(state: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A state dict (tensors or arrays; bare or under ``model``/``state_dict``/
+    ``model_ema``; ``module.``/``backbone.`` prefixes stripped) as fp32-able arrays."""
+    for key in ("model", "state_dict", "model_ema"):
+        if key in state and isinstance(state[key], Mapping):
+            state = state[key]
+            break
+    out = {}
+    for k, v in state.items():
+        for pre in ("module.", "backbone."):
+            if k.startswith(pre):
+                k = k[len(pre):]
+        out[k] = (v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor)
+                  and v.is_floating_point() else np.asarray(v))
+    return out
+
+
+def _walk_structure(toks: list) -> list:
+    """The torch -> flax token rewrite of a RecNext key (stem, stages, mixers, the
+    RecConv kernels), shared by the unfused and the fused walkers."""
+    out: list = []
+    i = 0
+    while i < len(toks):
+        t = toks[i]
+        nxt = toks[i + 1] if i + 1 < len(toks) else None
+        if t == "stem" and nxt == "stem":
+            out += ["stem", _STEM[toks[i + 2]]]
+            i += 3
+        elif t == "stages":
+            if toks[i + 2] == "downsample":
+                out.append(f"downsample_{nxt}")
+                i += 3
+            else:
+                out.append(f"stage{nxt}_block{toks[i + 3]}")
+                i += 4
+        elif t == "channel_mixer":
+            out += ["channel_mixer", {"0": "fc1", "2": "fc2"}[nxt]]
+            i += 2
+        elif t == "down" and nxt in ("0", "1"):  # RecAttn2d: ConvNorm, LinearAttention
+            out.append("down" if nxt == "0" else "attn")
+            i += 2
+        elif t == "token_mixer" and nxt == "down" and i + 2 < len(toks) \
+                and toks[i + 2] in ("weight", "bias"):  # RecConv2d's shared down conv
+            out += ["token_mixer", "down_kernel" if toks[i + 2] == "weight" else "down_bias"]
+            i += 3
+        elif t == "token_mixer" and nxt == "attn":  # the L family's block-scope attn
+            out.append("attn")
+            i += 2
+        elif t == "convs":  # RecConv2d convs.{k}.weight -> conv{k}_kernel
+            out.append(f"conv{nxt}_{'kernel' if toks[i + 2] == 'weight' else 'bias'}")
+            i += 3
+        else:
+            out.append(t)
+            i += 1
+    return out
+
+
+def _fwd_transform(v: np.ndarray, tr: str) -> np.ndarray:
+    if tr == "conv":
+        return np.transpose(v, (2, 3, 1, 0))  # OIHW -> HWIO
+    if tr == "linear":
+        return np.transpose(v, (1, 0))
+    return v
+
+
+def _put(tree: Dict, path, value: np.ndarray) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = np.ascontiguousarray(value, dtype=np.float32)
+
+
+def _map_key(key: str):
+    """A torch key of the unfused M/A/L model -> (flax path, collection, transform),
+    or None for ``num_batches_tracked``."""
+    if key.endswith("num_batches_tracked"):
+        return None
+    out = _walk_structure(key.split("."))
+    leaf, parent = out[-1], out[-2] if len(out) >= 2 else ""
+    if leaf in ("down_kernel", "down_bias") or _CONVK_RE.fullmatch(leaf):
+        return tuple(out), "params", "conv" if leaf.endswith("_kernel") else "id"
+    if parent == "norm" and leaf in _NORM_FROM:
+        name, col = _NORM_FROM[leaf]
+        return tuple(out[:-1] + [name]), col, "id"
+    if parent in ("conv", "linear", "token_mixer") and leaf in ("weight", "bias"):
+        # a ConvNorm's conv, a NormLinear's linear, Downsample's raw conv mixer
+        tr = "id" if leaf == "bias" else ("linear" if parent == "linear" else "conv")
+        return tuple(out[:-1] + ["kernel" if leaf == "weight" else "bias"]), "params", tr
+    raise KeyError(f"unmapped torch key: {key}")
+
+
+_NORM_FROM = {"weight": ("scale", "params"), "bias": ("bias", "params"),
+              "running_mean": ("mean", "batch_stats"), "running_var": ("var", "batch_stats")}
+
+
+def _torch_fused_to_jax(flat: Dict[str, np.ndarray], family: str) -> Dict[str, Dict]:
+    """The fused layout (plain convs, one Linear head, standalone BNs) -> the params of
+    the JAX ``fused=True`` model (``recnext_tpu/convert.py:torch_fused_to_flax``): each
+    standalone BN as a FusedAffine scale/shift."""
+    params: Dict = {}
+    bns = {k[: -len(".running_mean")] for k in flat if k.endswith(".running_mean")}
+    for p in bns:
+        scale = flat[f"{p}.weight"] / np.sqrt(flat[f"{p}.running_var"] + EPS)
+        path = _walk_structure(p.split("."))
+        _put(params, path + ["scale"], scale)
+        _put(params, path + ["shift"], flat[f"{p}.bias"] - scale * flat[f"{p}.running_mean"])
+    done = {f"{p}.{s}" for p in bns for s in ("weight", "bias", "running_mean",
+                                               "running_var", "num_batches_tracked")}
+    for k, v in flat.items():
+        if k in done or k.endswith("num_batches_tracked"):
+            continue
+        out = _walk_structure(k.split("."))
+        leaf = out[-1]
+        if leaf.endswith(("_kernel", "_bias")):  # the RecConv2d kernels
+            _put(params, out, _fwd_transform(v, "conv" if leaf.endswith("_kernel") else "id"))
+            continue
+        if out[0] == "head" and leaf in ("weight", "bias"):  # the one fused classifier
+            _put(params, ["head", "head", "linear", "kernel" if leaf == "weight" else "bias"],
+                 _fwd_transform(v, "linear" if leaf == "weight" else "id"))
+            continue
+        # the M/A Downsample's token mixer is a raw conv in both models (no inner conv)
+        raw = (family in ("m", "a") and len(out) >= 2 and out[-2] == "token_mixer"
+               and out[0].startswith("downsample"))
+        sib = flat.get(k[: -len("bias")] + "weight") if leaf == "bias" else v
+        if leaf in ("weight", "bias") and sib is not None and sib.ndim == 4:
+            dest = ["kernel" if leaf == "weight" else "bias"]
+            _put(params, out[:-1] + (dest if raw else ["conv"] + dest),
+                 _fwd_transform(v, "conv" if leaf == "weight" else "id"))
+            continue
+        raise KeyError(f"unmapped fused torch key: {k}")
+    return {"params": params}
+
+
+def torch_to_jax(state: Mapping[str, Any], *, fused: bool = False,
+                 family: str = "m") -> Dict[str, Dict]:
+    """A torch state dict of the M, A or L family -> the JAX model's variables, nested
+    dicts of fp32 numpy arrays: ``{"params", "batch_stats"}`` of the unfused model, or
+    with ``fused`` ``{"params"}`` of the ``fused=True`` one (``family`` "m", "a" or
+    "l"). The inverse of ``jax_to_torch`` / ``jax_fused_to_torch``."""
+    flat = _unwrap(state)
+    if fused:
+        return _torch_fused_to_jax(flat, family)
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for k, v in flat.items():
+        mapped = _map_key(k)
+        if mapped is not None:
+            path, col, tr = mapped
+            _put(trees[col], path, _fwd_transform(v, tr))
+    return trees
+
+
+_MLLA_STEM_FROM = {v: k for k, v in _MLLA_STEM.items()}
+
+
+def _map_key_mlla(key: str):
+    """A reference MLLA key -> (flax path, collection, transform), or None to skip
+    (``num_batches_tracked``, the RoPE tables)."""
+    if key.endswith(("num_batches_tracked", "rope.rotations")):
+        return None
+    toks = key.split(".")
+    out: list = []
+    i = 0
+    while i < len(toks):
+        t = toks[i]
+        nxt = toks[i + 1] if i + 1 < len(toks) else None
+        if t == "patch_embed":
+            sub = ".".join(toks[i + 1: i + 3])
+            if sub in _MLLA_STEM_FROM:
+                out += ["stem", _MLLA_STEM_FROM[sub]]
+                i += 3
+            else:
+                out += ["stem", nxt]
+                i += 2
+        elif t == "layers":
+            if toks[i + 2] == "blocks":
+                out.append(f"layer{nxt}_block{toks[i + 3]}")
+                i += 4
+            else:
+                out.append(f"layer{nxt}_down")
+                i += 3
+        elif t == "agg" and nxt == "down" and i + 2 < len(toks) \
+                and toks[i + 2] in ("weight", "bias"):  # RecConv aggregator's down conv
+            out += ["agg", "down_kernel" if toks[i + 2] == "weight" else "down_bias"]
+            i += 3
+        elif t == "down" and nxt in ("0", "1"):
+            out.append("down" if nxt == "0" else "attn")
+            i += 2
+        elif t == "convs":
+            out.append(f"conv{nxt}_{'kernel' if toks[i + 2] == 'weight' else 'bias'}")
+            i += 3
+        elif t == "mlp":
+            out.append(f"mlp_{nxt}")
+            i += 2
+        else:
+            out.append(t)
+            i += 1
+    leaf, parent = out[-1], out[-2] if len(out) >= 2 else ""
+    if leaf.endswith(("_kernel", "_bias")) and leaf.startswith(("conv", "down")):
+        return tuple(out), "params", "conv" if leaf.endswith("_kernel") else "id"
+    if parent == "bn" or (parent == "norm" and "stem" in out):  # a ConvLayer's BN
+        name, col = _NORM_FROM[leaf]
+        return tuple(out[:-2] + ["bn", name]), col, "id"
+    if parent in ("norm1", "norm2", "norm"):  # LayerNorm
+        return tuple(out[:-1] + ["scale" if leaf == "weight" else "bias"]), "params", "id"
+    name = "kernel" if leaf == "weight" else "bias"
+    if parent in _MLLA_LINEAR:
+        return tuple(out[:-1] + [name]), "params", "linear" if leaf == "weight" else "id"
+    if parent in ("cpe1", "cpe2", "o_proj", "qk", "pe", "lepe", "down", "conv"):
+        return tuple(out[:-1] + [name]), "params", "conv" if leaf == "weight" else "id"
+    raise KeyError(f"unmapped MLLA torch key: {key}")
+
+
+def mlla_torch_to_jax(state: Mapping[str, Any]) -> Dict[str, Dict]:
+    """A reference MLLA state dict (any variant) -> the JAX MLLA model's
+    ``{"params", "batch_stats"}``: the inverse of ``jax_mlla_to_torch``."""
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for k, v in _unwrap(state).items():
+        mapped = _map_key_mlla(k)
+        if mapped is not None:
+            path, col, tr = mapped
+            _put(trees[col], path, _fwd_transform(v, tr))
+    return trees

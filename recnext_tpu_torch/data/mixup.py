@@ -7,6 +7,10 @@ centre, from an explicit ``torch.Generator`` on the host) and their application
 (the batch flipped), the cut box lies on the H and W axes, and lambda is corrected
 by the area of the box actually cut. The box and lambda follow the JAX package's
 float32 arithmetic, so the same draws give the same batch and targets.
+
+Across processes the pairing is the global batch's, as JAX flips the batch it
+shards: each rank's partners are the rows of rank W-1-r reversed
+(``parallel/sharding.py:partner_rows``), and every rank makes the same draws.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from recnext_tpu_torch.parallel.sharding import partner_rows
 
 
 class MixupDraw(NamedTuple):
@@ -61,10 +67,10 @@ def cut_box(h: int, w: int, lam: float, center: Tuple[int, int]):
 
 def apply_mixup(x: torch.Tensor, labels: torch.Tensor, draw: MixupDraw, *, num_classes: int,
                 smoothing: float = 0.1):
-    """x: NCHW batch; labels: integer. Returns the mixed batch (x's dtype) and the
-    soft targets (float32)."""
+    """x: NCHW batch (this rank's rows of the global batch); labels: integer. Returns
+    the mixed batch (x's dtype) and the soft targets (float32)."""
     h, w = int(x.shape[2]), int(x.shape[3])
-    x_flip = x.flip(0)
+    x_flip = partner_rows(x)
     if draw.use_cutmix:
         y1, y2, x1, x2 = cut_box(h, w, draw.lam_cut, draw.center)
         out = x.clone()
@@ -74,7 +80,7 @@ def apply_mixup(x: torch.Tensor, labels: torch.Tensor, draw: MixupDraw, *, num_c
         lam = np.float32(draw.lam_mix)
         out = x * float(lam) + x_flip * float(np.float32(1.0) - lam)
     t = one_hot_smooth(labels, num_classes, smoothing)
-    targets = t * float(lam) + t.flip(0) * float(np.float32(1.0) - lam)
+    targets = t * float(lam) + partner_rows(t) * float(np.float32(1.0) - lam)
     return out.to(x.dtype), targets
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Dict, Mapping
 
+import numpy as np
 import torch
 
 EPS = 1e-5  # torch.nn.BatchNorm default
@@ -27,7 +28,10 @@ _BN_LEAVES = ("weight", "bias", "running_mean", "running_var", "num_batches_trac
 
 
 def _bn_coeffs(sd: Mapping[str, torch.Tensor], p: str):
-    w = sd[f"{p}.weight"] / torch.sqrt(sd[f"{p}.running_var"] + EPS)
+    # the square root in float64, rounded once: correctly rounded, as numpy's float32
+    # one is (torch's vectorised float32 sqrt on the CPU is not, for ~1% of values),
+    # so the fold gives the JAX package's bits
+    w = sd[f"{p}.weight"] / torch.sqrt((sd[f"{p}.running_var"] + EPS).double()).float()
     return w, sd[f"{p}.bias"] - w * sd[f"{p}.running_mean"]
 
 
@@ -35,7 +39,10 @@ def _fold_linear(sd: Mapping[str, torch.Tensor], p: str):
     """NormLinear at prefix p -> (weight, bias) of one Linear."""
     w, b = _bn_coeffs(sd, f"{p}.norm")
     lin = sd[f"{p}.linear.weight"]  # (out, in)
-    bias = lin @ b
+    if lin.device.type == "cpu":  # numpy's product, so the bits are the JAX package's
+        bias = torch.from_numpy(b.numpy() @ np.ascontiguousarray(lin.numpy().T))
+    else:
+        bias = lin @ b
     if f"{p}.linear.bias" in sd:
         bias = bias + sd[f"{p}.linear.bias"]
     return lin * w[None, :], bias

@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from recnext_tpu_torch.parallel.sharding import all_reduce_sum, world_size
+
 BN_EPS = 1e-5  # torch.nn.BatchNorm default, the reference's
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
 
@@ -47,6 +49,66 @@ class GELU(nn.Module):
         return gelu(x)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of all the processes, in fp32:
+    the forward all-reduces ``[sum x, sum x^2, n]`` per channel, the backward
+    ``[sum dy, sum dy * x_hat]``. The sums are taken in float64 (the CPU batch norm's
+    accumulator), so that the variance, a difference of two sums, keeps fp32's
+    precision. The input gradient is the global batch's; the weight and bias
+    gradients are this rank's sums, which the train step's gradient all-reduce
+    averages as it does every other. ``torch.nn.SyncBatchNorm`` refuses CPU tensors,
+    and the two collectives here run on gloo and NCCL alike.
+
+    ``apply(x, weight, bias, running_mean, running_var, momentum, eps, update)``:
+    where ``update``, the running statistics take the global mean and the unbiased
+    variance at the global count, with ``momentum``, in place."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps, update):
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xd = x.double()
+        n_local = x.numel() // x.shape[1]
+        stats = torch.cat([xd.sum(dims), (xd * xd).sum(dims),
+                           xd.new_full((1,), float(n_local))])
+        stats = all_reduce_sum(stats)
+        c = x.shape[1]
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = stats[c:2 * c] / n - mean * mean
+        if update:
+            with torch.no_grad():
+                running_mean.mul_(1 - momentum).add_(momentum * mean.float())
+                running_var.mul_(1 - momentum).add_(momentum * (var * n / (n - 1)).float())
+        invstd = torch.rsqrt(var + eps).float()
+        mean = mean.float()
+        x_hat = (x - mean.view(shape)) * invstd.view(shape)
+        ctx.save_for_backward(x_hat, weight, invstd)
+        ctx.n = float(n)
+        y = x_hat
+        if weight is not None:
+            y = y * weight.view(shape) + bias.view(shape)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_hat, weight, invstd = ctx.saved_tensors
+        dims = [0] + list(range(2, dy.dim()))
+        shape = [1, -1] + [1] * (dy.dim() - 2)
+        c = dy.shape[1]
+        sum_dy = dy.double().sum(dims)
+        sum_dy_xhat = (dy.double() * x_hat.double()).sum(dims)
+        both = all_reduce_sum(torch.cat([sum_dy, sum_dy_xhat]))
+        mean_dy = (both[:c] / ctx.n).float().view(shape)
+        mean_dy_xhat = (both[c:] / ctx.n).float().view(shape)
+        scale = invstd if weight is None else invstd * weight
+        dx = (dy - mean_dy - x_hat * mean_dy_xhat) * scale.view(shape)
+        dw = db = None
+        if weight is not None:
+            dw, db = sum_dy_xhat.float(), sum_dy.float()
+        return dx, dw, db, None, None, None, None, None
+
+
 class _ParamDtypeNorm:
     """BatchNorm in its parameters' dtype: in training (fp32 parameters, bf16
     activations) the statistics and the normalisation run in fp32 and the output
@@ -54,9 +116,21 @@ class _ParamDtypeNorm:
     parameters' dtype (the inference models) it is the plain torch BatchNorm. In
     train mode torch's BatchNorm is the JAX one: the batch's biased variance
     normalises, the unbiased one enters the running statistics with momentum 0.1;
-    inside ``recomputing()`` the running statistics are not touched."""
+    inside ``recomputing()`` the running statistics are not touched. With more than
+    one process, train mode normalises by the global batch's statistics
+    (``_SyncBatchNorm``), as JAX's BatchNorm does on a batch sharded under ``jit``;
+    a recomputed forward issues the same collectives, in the same order on every
+    rank."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.track_running_stats and world_size() > 1:
+            update = not _RECOMPUTING.get()
+            if update:
+                self.num_batches_tracked.add_(1)
+            xf = x if self.weight is None else x.to(self.weight.dtype)
+            y = _SyncBatchNorm.apply(xf, self.weight, self.bias, self.running_mean,
+                                     self.running_var, self.momentum, self.eps, update)
+            return y.to(x.dtype)
         if self.training and _RECOMPUTING.get():
             # the first forward's op, with copies of the statistics to update: the
             # recomputation saves the same tensors for the backward

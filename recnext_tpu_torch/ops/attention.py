@@ -23,6 +23,10 @@ The kernel takes each head's q, k, v and out as one contiguous span (a head's
 channels of contiguous planes, or a (BH, N, D) head's rows) and raises on others.
 
 ``linear_attention_fused.launches`` counts the kernel's launches through either.
+Under ``torch.export`` each entry is one node of a custom op
+(``recnext::linear_attention``, ``recnext::linear_attention_nchw``) whose CUDA
+kernel is the entry itself (the same launch, counted) and whose CPU kernel is the
+plain version; eager calls do not pass through the ops' dispatch.
 ``linear_attention_blockdiag`` and ``linear_attention_blockdiag_rope`` (TPU
 formulations of the same functions) are not ported.
 
@@ -222,6 +226,8 @@ def linear_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of the kernel (or a raise: there is no fallback), through
     ``LinearAttentionFunction`` where an input requires a gradient; on a CPU tensor
     the plain kv-first version. Each head's rows must be one contiguous span."""
+    if torch.compiler.is_exporting():  # one graph node, recnext::linear_attention
+        return torch.ops.recnext.linear_attention(q, k, v, eps)
     if _check_device(q, "linear_attention_fused"):
         return linear_attention_kv_first(q, k, v, eps)
     if _needs_grad(q, k, v):
@@ -240,6 +246,8 @@ def linear_attention_nchw(qk: torch.Tensor, v: torch.Tensor, num_heads: int, *,
     span of planes) and writes a contiguous output, through
     ``LinearAttentionFunction`` where an input requires a gradient; on a CPU tensor
     the plain version of ``variant``."""
+    if torch.compiler.is_exporting():  # one graph node, recnext::linear_attention_nchw
+        return torch.ops.recnext.linear_attention_nchw(qk, v, num_heads, variant, eps)
     if _check_device(qk, "linear_attention_nchw"):
         return linear_attention_nchw_plain(qk, v, num_heads, variant=variant, eps=eps)
     if variant not in (1, 2):
@@ -342,3 +350,45 @@ class LinearAttentionFunction(torch.autograd.Function):
             grads = linear_attention_backward(*ts, g, ctx.eps)
         return (None, None, *(d if need else None
                               for d, need in zip(grads, ctx.needs_input_grad[2:])))
+
+
+# The two entries as custom ops, one node each of an exported program
+# (``torch.export`` cannot trace a ctypes launch on raw pointers): the CUDA kernel is
+# the entry (its launch counted), the CPU kernel the plain version. Each fake gives
+# the output's shape, dtype and strides: a new contiguous tensor of v's shape, as the
+# kernels write, whatever the strides of the inputs (the L family's v is a channel
+# slice read in place).
+@torch.library.custom_op("recnext::linear_attention", mutates_args=(), device_types="cuda",
+                         schema="(Tensor q, Tensor k, Tensor v, float eps) -> Tensor")
+def _linear_attention_op(q, k, v, eps):
+    with torch.no_grad():  # the op has no gradient: never LinearAttentionFunction's
+        return linear_attention_fused(q, k, v, eps)
+
+
+@_linear_attention_op.register_kernel("cpu")
+def _(q, k, v, eps):
+    return linear_attention_kv_first(q, k, v, eps)
+
+
+@_linear_attention_op.register_fake
+def _(q, k, v, eps):
+    return v.new_empty(v.shape)
+
+
+@torch.library.custom_op("recnext::linear_attention_nchw", mutates_args=(),
+                         device_types="cuda",
+                         schema="(Tensor qk, Tensor v, int num_heads, int variant, float eps)"
+                                " -> Tensor")
+def _linear_attention_nchw_op(qk, v, num_heads, variant, eps):
+    with torch.no_grad():
+        return linear_attention_nchw(qk, v, num_heads, variant=variant, eps=eps)
+
+
+@_linear_attention_nchw_op.register_kernel("cpu")
+def _(qk, v, num_heads, variant, eps):
+    return linear_attention_nchw_plain(qk, v, num_heads, variant=variant, eps=eps)
+
+
+@_linear_attention_nchw_op.register_fake
+def _(qk, v, num_heads, variant, eps):
+    return v.new_empty(v.shape)

@@ -181,13 +181,20 @@ def rec_conv2d_fused(
     (``ops/cuda/recconv.py:levels_to_peel``), each peeled level two launches of the
     level kernel (``rec_conv2d_level``). ``rec_conv2d_fused.launches`` counts the
     pyramid kernel's launches (and nothing else), ``rec_conv2d_fused.peeled`` the
-    calls that peeled levels.
+    calls that peeled levels. Under ``torch.export`` the bias-free call is one node of
+    the custom op ``recnext::rec_conv2d``, whose CUDA kernel is this function (so an
+    exported program launches K1 as the eager model does) and whose CPU kernel is the
+    plain version; eager calls do not pass through the op's dispatch.
     """
+    bias_free = down_b is None and all(b is None for b in (conv_bs or ()))
+    if bias_free and torch.compiler.is_exporting():
+        # one graph node (recnext::rec_conv2d) whose CUDA kernel is this entry's
+        return torch.ops.recnext.rec_conv2d(x, down_w, list(conv_ws), level, mode)
     if x.device.type == "cpu":
         return rec_conv2d(x, down_w, conv_ws, down_b, conv_bs, level=level, mode=mode)
     if x.device.type != "cuda":
         raise ValueError(f"rec_conv2d_fused: unsupported device {x.device}")
-    if down_b is not None or any(b is not None for b in (conv_bs or ())):
+    if not bias_free:
         raise ValueError("rec_conv2d_fused: the CUDA kernel is bias-free")
     if mode not in ("bilinear", "nearest"):
         raise ValueError(f"rec_conv2d_fused: the CUDA kernel is bilinear or nearest, "
@@ -454,3 +461,26 @@ class RecConv2dFunction(torch.autograd.Function):
                                           mode=ctx.mode)
         return (None, None, dx, dd.to(down_w.dtype),
                 *(d.to(w.dtype) for d, w in zip(dcs, conv_ws)))
+
+
+# ``recnext::rec_conv2d``: K1's entry as one node of an exported program
+# (``torch.export``), which cannot trace a ctypes launch on raw pointers. The CUDA
+# kernel is ``rec_conv2d_fused`` (its launches counted, its peeled route inside), the
+# CPU kernel the plain version; the fake gives the output's shape, dtype and strides
+# (a new contiguous NCHW tensor, as both kernels return).
+@torch.library.custom_op("recnext::rec_conv2d", mutates_args=(), device_types="cuda",
+                         schema="(Tensor x, Tensor down_w, Tensor[] conv_ws, int level, "
+                                "str mode) -> Tensor")
+def _rec_conv2d_op(x, down_w, conv_ws, level, mode):
+    with torch.no_grad():  # the op has no gradient: never RecConv2dFunction's route
+        return rec_conv2d_fused(x, down_w, conv_ws, level=level, mode=mode)
+
+
+@_rec_conv2d_op.register_kernel("cpu")
+def _(x, down_w, conv_ws, level, mode):
+    return rec_conv2d(x, down_w, conv_ws, level=level, mode=mode)
+
+
+@_rec_conv2d_op.register_fake
+def _(x, down_w, conv_ws, level, mode):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)

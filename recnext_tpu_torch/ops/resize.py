@@ -45,8 +45,12 @@ def _nearest_axis_plan(in_size: int, out_size: int) -> np.ndarray:
 
 def _device_tensor(a: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     # a normal tensor even when first built under inference_mode, so that autograd
-    # may save it (index_select keeps its index for the backward pass)
-    with torch.inference_mode(False):
+    # may save it (index_select keeps its index for the backward pass), and a real one
+    # even when first built while torch.export traces with fake tensors (the cache
+    # keeps it, and the exported program holds it as a constant)
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with torch.inference_mode(False), unset_fake_temporarily():
         return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 

@@ -258,6 +258,10 @@ def main(argv=None):
     p.add_argument("--image", default="", help="image for --check")
     args = p.parse_args(argv)
 
+    if torch.device(args.device or "cuda").type == "cuda":
+        from recnext_tpu_torch.utils.watchdog import require_devices
+
+        require_devices(metric="serve")  # a deadline on the first touch of the GPU
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = ServingModel(args.archive, args.model, max_batch=args.max_batch,

@@ -13,14 +13,19 @@ Formats ``load_pretrained`` reads, all ``torch.load`` files (``.pth``, ``.pt``,
 * this trainer's checkpoint (``{"epoch", "state": {"model", "ema", ...}}``): its
   EMA weights where it keeps them, as the JAX package takes a TrainState's;
 * a BN-fused state dict (a published archive, ``export.py``): no ConvNorm keeps its
-  BN, so it is embedded back through ``fusion.defuse_params``.
+  BN, so it is embedded back through ``fusion.defuse_params``;
+* the JAX package's ``.msgpack`` files (flax's ``msgpack_serialize``, read by the
+  port's own decoder, ``utils/msgpack.py``): a ``{"params", "batch_stats"}`` tree, a
+  JAX TrainState's tree (its EMA weights where it keeps them and ``ema``) or a fused
+  ``{"params"}`` tree, converted by ``convert.py`` (the RecNext, MLLA or RegNetY
+  rules, told apart by the tree's top-level module names).
 
-The JAX package's ``.msgpack`` files and orbax directories raise, naming their
-ROADMAP item.
+Orbax directories raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Callable, Dict, Mapping
 
@@ -28,7 +33,7 @@ import torch
 
 from recnext_tpu_torch.fusion import defuse_params
 
-CKPT_ITEM = "ROADMAP.md Queue 1 item 9 (checkpoint import)"
+CKPT_ITEM = "ROADMAP.md Queue 1 item 18 (orbax checkpoint directories)"
 
 
 def warm_start(template: Mapping[str, torch.Tensor], loaded: Mapping[str, torch.Tensor],
@@ -77,16 +82,49 @@ def is_raw_state_dict(sd: Mapping[str, torch.Tensor]) -> bool:
     return False
 
 
+def _jax_tree_to_state_dict(tree, path: str, log: Callable[[str], None],
+                            ema: bool) -> Dict[str, torch.Tensor]:
+    """A decoded JAX ``.msgpack`` tree -> the torch state dict (fused where the tree
+    keeps no BatchNorm statistics), by ``recnext_tpu/train/finetune.py``'s reading of
+    the same trees."""
+    from recnext_tpu_torch.convert import (jax_fused_to_torch, jax_mlla_to_torch,
+                                           jax_regnet_to_torch, jax_to_torch)
+
+    if isinstance(tree, dict) and "params" not in tree and "model" in tree:
+        tree = tree["model"]
+    if not isinstance(tree, dict):
+        raise SystemExit(f"unrecognized checkpoint layout at {path}")
+    if ema and tree.get("ema_params") is not None:
+        log("finetune checkpoint is a JAX train state: using EMA weights")
+        variables = {"params": tree["ema_params"],
+                     "batch_stats": tree.get("ema_batch_stats") or {}}
+    elif "params" in tree:
+        variables = {"params": tree["params"], "batch_stats": tree.get("batch_stats") or {}}
+    else:
+        raise SystemExit(f"unrecognized checkpoint layout at {path}")
+    if not variables["batch_stats"]:
+        return jax_fused_to_torch(variables["params"])
+    top = set(variables["params"])
+    if any(re.fullmatch(r"s\d+_b\d+|head_fc", k) for k in top):
+        return jax_regnet_to_torch(variables)
+    if any(re.fullmatch(r"layer\d+_(block\d+|down)", k) for k in top):
+        return jax_mlla_to_torch(variables)
+    return jax_to_torch(variables)
+
+
 def read_weights(path: str, log: Callable[[str], None] = print,
                  ema: bool = True) -> Dict[str, torch.Tensor]:
     """The model weights a checkpoint file holds, as a flat state dict (fused or not):
-    a bare state dict, ``{"model": ...}``, or this trainer's checkpoint (its EMA
-    weights where present and ``ema``)."""
+    a bare state dict, ``{"model": ...}``, this trainer's checkpoint (its EMA
+    weights where present and ``ema``), or a JAX ``.msgpack`` tree."""
     p = Path(path)
-    if p.suffix == ".msgpack" or p.is_dir():
-        raise NotImplementedError(f"checkpoint {path!r}: the JAX package's .msgpack files "
-                                  f"and orbax directories are not read by the port; see "
-                                  f"{CKPT_ITEM}")
+    if p.is_dir():
+        raise NotImplementedError(f"checkpoint {path!r}: the JAX package's orbax "
+                                  f"directories are not read by the port; see {CKPT_ITEM}")
+    if p.suffix == ".msgpack":
+        from recnext_tpu_torch.utils.msgpack import read_msgpack
+
+        return _jax_tree_to_state_dict(read_msgpack(p), path, log, ema)
     if p.suffix not in (".pth", ".pt", ".bin"):
         raise SystemExit(f"unrecognized checkpoint {path}")
     ckpt = torch.load(p, map_location="cpu", weights_only=True)

@@ -33,11 +33,34 @@ checkpoint, a fused archive; a head of another class count is dropped);
 recomputes each block in the backward, ``--mesa`` adds MESA's self-distillation
 from the EMA model after ``--mesa-start-ratio`` of the epochs, ``--jsd-loss`` the JSD
 loss over ``--aug-splits`` views of each sample (the first through the simple
-transform). The JAX package's checkpoints (orbax, msgpack) raise, naming their
-ROADMAP item; ``--set-bn-eval`` keeps every BatchNorm on its running statistics
+transform). ``--finetune`` and ``--teacher-ckpt`` also read the JAX package's
+``.msgpack`` files (its own decoder, ``utils/msgpack.py``); orbax directories raise,
+naming their ROADMAP item. ``--set-bn-eval`` keeps every BatchNorm on its running statistics
 (``RecNext(frozen_stats=True)``). The JAX CLI's
 ``--loader grain --workers N`` is ``--workers N`` here (the default 0 is the JAX
 CLI's default, one prefetch thread); grain's own sampling order is not ported.
+
+The JAX CLI's remaining flags: ``--resume PATH`` restores a checkpoint of this
+trainer and starts at epoch ``state.step // steps_per_epoch``, as the JAX CLI does,
+so a mid-epoch recovery checkpoint replays its epoch from batch 0 with the recovered
+state; ``--ckpt-every-steps N`` writes ``recovery.pt`` (atomically, replacing the
+last) every N steps; ``--eval-ema`` scores the EMA weights alone in each epoch's eval;
+``--export-teacher PATH`` saves the final weights (the EMA's, the raw ones under
+``--no-model-ema``) as a ``.pt`` state dict that ``--teacher-ckpt`` reads with
+``--teacher-model`` the same model; ``--wandb`` logs each epoch's line to wandb where
+it imports. Several processes train one model on the global batch
+(``parallel/sharding.py``): ``--dist-coordinator host:port --dist-num-processes N
+--dist-process-id R``, or torchrun's environment. ``--batch-size`` is the global
+batch (each process takes ``batch_size // N``); every rank starts from rank 0's
+weights and the same checkpoint; rank 0 alone logs and writes ``log.txt``,
+``summary.csv`` and the checkpoints. ``--fsdp`` > 1 raises (not ported).
+
+Two processes on the CPU (gloo), a global batch of 8:
+  for r in 0 1; do python -m recnext_tpu_torch.train.main --device cpu --model recnext_m0 \\
+      --model-kwargs embed_dim=16:32:64:128,depth=1:1:2:1 --data-set FAKE --simple-aug \\
+      --input-size 32 --batch-size 8 --epochs 1 --steps-per-epoch 2 --fake-classes 11 \\
+      --dist-coordinator localhost:29511 --dist-num-processes 2 --dist-process-id $r \\
+      --output-dir runs/two & done; wait
 
 Smoke run on the CPU (a small M config; it resumes from the checkpoints that
 --output-dir already holds, so empty it first):
@@ -93,7 +116,7 @@ from pathlib import Path
 import torch
 
 from recnext_tpu_torch.train.config import apply_config
-from recnext_tpu_torch.train.finetune import CKPT_ITEM, read_weights
+from recnext_tpu_torch.train.finetune import read_weights
 
 CKPT_KEEP = 3
 
@@ -142,7 +165,8 @@ def parse_args(argv=None):
     p.add_argument("--distillation-tau", type=float, default=1.0)
     p.add_argument("--teacher-ckpt", default="",
                    help=".pth/.pt state dict of the teacher (timm's layout for a RegNetY, "
-                        "the port's for a registry model); none: a seeded init")
+                        "the port's for a registry model) or the JAX package's .msgpack "
+                        "variables; none: a seeded init")
     p.add_argument("--teacher-model", default="",
                    help="the teacher: regnety_160/040/016 or a registry model")
     p.add_argument("--model-ema-decay", type=float, default=0.99996)
@@ -155,7 +179,8 @@ def parse_args(argv=None):
     p.add_argument("--finetune", default="",
                    help="warm-start the model weights from a checkpoint (.pth/.pt/.bin: a "
                         "reference state dict, this trainer's checkpoint, a fused "
-                        "archive); leaves of another shape (the head) are dropped")
+                        "archive; .msgpack: the JAX package's variables); leaves of "
+                        "another shape (the head) are dropped")
     p.add_argument("--set-bn-eval", action="store_true",
                    help="freeze BatchNorm while finetuning: running statistics in the "
                         "forward, no updates (RecNext families)")
@@ -178,7 +203,13 @@ def parse_args(argv=None):
     p.add_argument("--workers", type=int, default=0,
                    help="loader worker processes (0: one prefetch thread)")
     p.add_argument("--output-dir", default="runs/default")
+    p.add_argument("--resume", default="",
+                   help="a checkpoint of this trainer to restore (epoch_NNNN.pt or "
+                        "recovery.pt); training starts at epoch state.step // "
+                        "steps_per_epoch")
     p.add_argument("--eval", action="store_true", help="evaluate the newest checkpoint")
+    p.add_argument("--eval-ema", action="store_true",
+                   help="each epoch's eval scores the EMA weights only")
     p.add_argument("--no-fused-eval", action="store_true",
                    help="evaluate each epoch through the unfused model (MLLA always is)")
     p.add_argument("--seed", type=int, default=0)
@@ -186,6 +217,18 @@ def parse_args(argv=None):
     p.add_argument("--steps-per-epoch", type=int, default=0,
                    help="truncate each epoch (and its eval) to this many batches; 0 = all")
     p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--ckpt-every-steps", type=int, default=0,
+                   help="write <output-dir>/recovery.pt every N steps (0 = off)")
+    p.add_argument("--export-teacher", default="",
+                   help="after training, save the final weights (EMA unless "
+                        "--no-model-ema) as a .pt state dict for --teacher-ckpt")
+    p.add_argument("--wandb", action="store_true", help="log to wandb where it imports")
+    p.add_argument("--fsdp", type=int, default=1, help="1 only (FSDP is not ported)")
+    p.add_argument("--dist-coordinator", default="",
+                   help="host:port of rank 0; starts torch.distributed (else torchrun's "
+                        "environment, if set)")
+    p.add_argument("--dist-num-processes", type=int, default=0)
+    p.add_argument("--dist-process-id", type=int, default=-1)
     p.add_argument("--device", default=None, help="default: the GPU (cuda)")
     if cfg_args.config:
         apply_config(p, cfg_args.config)
@@ -208,10 +251,10 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--mesa needs the EMA model as its teacher (drop --no-model-ema)")
     if args.mesa > 0 and args.distillation_type != "none":
         raise SystemExit("--mesa is incompatible with distillation")
-    if args.teacher_ckpt and not args.teacher_ckpt.endswith((".pth", ".pt")):
-        raise NotImplementedError(f"teacher checkpoint {args.teacher_ckpt!r}: the port reads "
-                                  ".pth/.pt state dicts; the JAX package's orbax directories "
-                                  f"and .msgpack files are not ported; see {CKPT_ITEM}")
+    if args.fsdp > 1:
+        from recnext_tpu_torch.parallel.sharding import make_mesh
+
+        make_mesh(fsdp=args.fsdp)  # raises, naming the ROADMAP item
 
 
 def build_teacher(args, num_classes: int, device: torch.device, dtype: torch.dtype, log):
@@ -249,9 +292,7 @@ class Checkpoints:
         return self.root / f"{self.stem}_{epoch:04d}.pt"
 
     def save(self, epoch: int, state: dict, acc1: float | None = None) -> None:
-        tmp = self.root / f".{self.stem}_{epoch:04d}.pt.{os.getpid()}.tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, self.path(epoch))
+        save_atomic(state, self.path(epoch))
         if acc1 is not None:
             self.metrics[str(epoch)] = acc1
             self._metrics_path.write_text(json.dumps(self.metrics))
@@ -267,10 +308,29 @@ class Checkpoints:
         return saved[-1] if saved else None
 
 
+def save_atomic(obj, path: Path) -> None:
+    """``torch.save`` to a temporary name, then renamed over ``path``."""
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
 def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
+    from recnext_tpu_torch.parallel.sharding import init_distributed
 
+    device_type = torch.device(args.device or "cuda").type
+    started = init_distributed(args.dist_coordinator, args.dist_num_processes,
+                               args.dist_process_id, device_type=device_type)
+    try:
+        return _train(args)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args):
     from recnext_tpu_torch.data.datasets import build_dataset
     from recnext_tpu_torch.data.loader import eval_loader, train_loader
     from recnext_tpu_torch.data.transforms import (EvalTransform, SimpleTrainTransform,
@@ -278,22 +338,36 @@ def main(argv=None):
     from recnext_tpu_torch.device import resolve_device
     from recnext_tpu_torch.models.mlla import create_mlla
     from recnext_tpu_torch.models.registry import create_model, get_config, parse_kv_overrides
+    from recnext_tpu_torch.parallel.sharding import (all_reduce_sum, broadcast_tensors,
+                                                     local_device, rank, world_size)
     from recnext_tpu_torch.train.optim import cosine_schedule, make_optimizer, scaled_lr
     from recnext_tpu_torch.train.state import TrainState
     from recnext_tpu_torch.train.step import (make_eval_step, make_fused_eval_step,
                                               make_train_step)
 
-    device = resolve_device(args.device)
+    device = local_device(resolve_device(args.device))
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    n_proc, is_main = world_size(), rank() == 0
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "args.json").write_text(json.dumps(vars(args), indent=1))
+    if is_main:
+        (out_dir / "args.json").write_text(json.dumps(vars(args), indent=1))
 
     def log(msg):
-        print(msg, flush=True)
+        if is_main:
+            print(msg, flush=True)
 
     log(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                               if device.type == "cuda" else ""))
+                               if device.type == "cuda" else "")
+        + (f", {n_proc} processes" if n_proc > 1 else ""))
+    wandb_run = None
+    if args.wandb and is_main:
+        try:
+            import wandb
+
+            wandb_run = wandb.init(project="recnext_tpu_torch", config=vars(args))
+        except Exception:
+            log("wandb requested but unavailable; continuing without it")
     train_ds, nb_classes = build_dataset(True, args.data_set, args.data_path, args.input_size,
                                          args.fake_classes)
     val_ds, _ = build_dataset(False, args.data_set, args.data_path, args.input_size,
@@ -313,9 +387,12 @@ def main(argv=None):
 
         model.load_state_dict(load_pretrained(args.finetune, model.state_dict(), log=log),
                               strict=True)
+    broadcast_tensors(model.state_dict().values())  # every rank starts from rank 0's
     n_parameters = sum(p.numel() for p in model.parameters())
     log(f"model {args.model}: {n_parameters / 1e6:.2f}M params, {nb_classes} classes")
 
+    # the global batch, as the JAX CLI's: each process takes its rows of it
+    local_bs = max(args.batch_size // n_proc, 1)
     steps_per_epoch = args.steps_per_epoch or max(len(train_ds) // args.batch_size, 1)
     sched = cosine_schedule(scaled_lr(args.lr, args.batch_size), steps_per_epoch, args.epochs,
                             args.warmup_epochs, args.cooldown_epochs, args.warmup_lr,
@@ -352,13 +429,19 @@ def main(argv=None):
     else:
         cfg = get_config(args.model, **overrides)
         make_eval = lambda ema: make_fused_eval_step(cfg, ema=ema, dtype=dtype)  # noqa: E731
-    eval_step = make_eval(False)
-    eval_ema = make_eval(True) if not args.no_model_ema and not args.eval else None
+    eval_step = make_eval(args.eval_ema)
+    eval_ema = (make_eval(True) if not (args.no_model_ema or args.eval_ema or args.eval)
+                else None)
 
     ckpts = Checkpoints(out_dir.resolve() / "ckpt")
     start_epoch = 0
     latest = ckpts.latest()
-    if latest is not None:
+    if args.resume:
+        saved = torch.load(args.resume, map_location=device, weights_only=True)
+        state.load_state_dict(saved["state"])
+        start_epoch = state.step // steps_per_epoch
+        log(f"resumed from {args.resume} at epoch {start_epoch}")
+    elif latest is not None:
         saved = torch.load(ckpts.path(latest), map_location=device, weights_only=True)
         state.load_state_dict(saved["state"])
         start_epoch = latest + 1
@@ -368,23 +451,24 @@ def main(argv=None):
     routes = {}
 
     def run_evals(*fns):
-        """Summed over the eval split (one pass scores every weight set)."""
-        tots = [{"correct1": 0, "correct5": 0, "count": 0, "loss_sum": 0.0} for _ in fns]
-        loader = eval_loader(val_ds, EvalTransform(args.input_size),
-                             batch_size=args.batch_size, native=args.native_loader,
+        """Summed over the eval split, strided over the processes and summed over them
+        (one pass scores every weight set)."""
+        tots = torch.zeros(len(fns), 4, dtype=torch.float64)
+        loader = eval_loader(val_ds, EvalTransform(args.input_size), batch_size=local_bs,
+                             rank=rank(), num_replicas=n_proc, native=args.native_loader,
                              workers=args.workers, pin_memory=pin)
+        keys = ("correct1", "correct5", "count", "loss_sum")
         for i, batch in enumerate(loader):
             if args.steps_per_epoch and i >= args.steps_per_epoch:
                 break
             batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
             for tot, fn in zip(tots, fns):
                 m = fn(state, batch)
-                for k in tot:
-                    tot[k] += m[k].item()
+                tot += torch.tensor([m[k].item() for k in keys], dtype=torch.float64)
+        all_reduce_sum(tots)
         routes["eval_loader_route"] = loader.route
-        return [(100.0 * t["correct1"] / max(t["count"], 1),
-                 100.0 * t["correct5"] / max(t["count"], 1),
-                 t["loss_sum"] / max(t["count"], 1)) for t in tots]
+        return [(100.0 * float(c1) / max(float(n), 1), 100.0 * float(c5) / max(float(n), 1),
+                 float(ls) / max(float(n), 1)) for c1, c5, n, ls in tots]
 
     if args.eval:
         acc1, acc5, test_loss = run_evals(eval_step)[0]
@@ -401,8 +485,8 @@ def main(argv=None):
     for epoch in range(start_epoch, args.epochs + args.cooldown_epochs):
         t0 = time.time()
         loader = train_loader(train_ds, tt,
-                              batch_size=args.batch_size // splits if splits > 1
-                              else args.batch_size, epoch=epoch,
+                              batch_size=local_bs // splits if splits > 1 else local_bs,
+                              epoch=epoch, rank=rank(), num_replicas=n_proc,
                               repeated_aug=not args.no_repeated_aug, seed=args.seed,
                               aug_splits=splits,
                               clean_transform=SimpleTrainTransform(args.input_size)
@@ -428,7 +512,11 @@ def main(argv=None):
                     raise SystemExit(f"Loss is {loss}, stopping training")
                 log(f"epoch {epoch} step {i + 1}: loss {loss:.4f}")
             losses.append(metrics["loss"])
-            seen += int(batch["label"].shape[0])
+            seen += int(batch["label"].shape[0]) * n_proc
+            if args.ckpt_every_steps and (i + 1) % args.ckpt_every_steps == 0 and is_main:
+                save_atomic({"epoch": epoch, "state": state.state_dict()},
+                            out_dir / "recovery.pt")
+                log(f"recovery checkpoint at epoch {epoch} step {i + 1}")
         batches.close()  # the workers end before the eval's start
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -456,16 +544,26 @@ def main(argv=None):
                  "loader_route": loader.route, **routes, "workers": args.workers,
                  "native_fallback_batches": loader.native_fallback_batches}
         log(json.dumps(stats))
-        with open(out_dir / "log.txt", "a") as f:
-            f.write(json.dumps(stats) + "\n")
-        csv_path = out_dir / "summary.csv"
-        header = not csv_path.exists()
-        with open(csv_path, "a") as f:
-            if header:
-                f.write(",".join(stats.keys()) + "\n")
-            f.write(",".join(str(v) for v in stats.values()) + "\n")
-        ckpts.save(epoch, {"epoch": epoch, "state": state.state_dict()}, acc1)
+        if wandb_run is not None:
+            wandb_run.log(stats, step=epoch)
+        if is_main:
+            with open(out_dir / "log.txt", "a") as f:
+                f.write(json.dumps(stats) + "\n")
+            csv_path = out_dir / "summary.csv"
+            header = not csv_path.exists()
+            with open(csv_path, "a") as f:
+                if header:
+                    f.write(",".join(stats.keys()) + "\n")
+                f.write(",".join(str(v) for v in stats.values()) + "\n")
+            ckpts.save(epoch, {"epoch": epoch, "state": state.state_dict()}, acc1)
     log(f"max accuracy: {max_acc:.2f}%")
+    if args.export_teacher and is_main:
+        use_ema = not args.no_model_ema
+        teacher = {k: v.detach().cpu() for k, v in state.variables(ema=use_ema).items()}
+        path = Path(args.export_teacher)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        save_atomic(teacher, path)
+        log(f"exported {'EMA ' if use_ema else ''}teacher weights to {path}")
     return {"max_acc": max_acc, "state": state}
 
 

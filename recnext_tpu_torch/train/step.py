@@ -27,6 +27,17 @@ steps, ``train/optim.py``; the EMA moves only on the steps that update), ``remat
 ``RecNext.forward(x, remat=True)``), MESA (self-distillation from the EMA model's
 eval-mode softmax from ``mesa_start_step`` on) and the JSD loss on a batch of
 ``jsd_splits`` given views.
+
+With several processes (``parallel/sharding.py``) each holds its rows of the global
+batch and a replica of the state. The step is the one JAX takes on the global
+batch: mixup pairs rows across the ranks, BatchNorm normalises by the global
+statistics (``models/layers.py``), and after the backward the gradients are
+averaged over the ranks (``all_reduce_gradients``: flat fp32 buckets, one
+``all_reduce`` each) before the norm, the clip and the optimizer, so every replica
+takes the same update. ``DistributedDataParallel`` does not serve here: the step
+calls ``functional_call`` on the inner module (``forward_model``), so a DDP
+wrapper's ``forward`` would never run, its reducer would never be prepared and no
+gradient would be reduced. The loss reported is the global batch's mean.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from torch.func import functional_call
 from recnext_tpu_torch.data.mixup import mixup_cutmix
 from recnext_tpu_torch.fusion import fuse_params
 from recnext_tpu_torch.models.recnext import RecNext, RecNextConfig
+from recnext_tpu_torch.parallel.sharding import all_reduce_gradients, all_reduce_sum, world_size
 from recnext_tpu_torch.train import losses as L
 from recnext_tpu_torch.train.optim import global_norm
 from recnext_tpu_torch.train.state import TrainState, ema_update
@@ -197,12 +209,18 @@ def make_train_step(*, num_classes: int = 1000, mixup: bool = True,
                           alpha=alpha, tau=tau, remat=remat, jsd_splits=jsd_splits,
                           jsd_alpha=jsd_alpha, mesa_targets=mesa_targets, mesa=mesa)
         loss.backward()
+        # with several processes: the mean gradient over the ranks, and so the update
+        # JAX takes on the global batch; alone, nothing
+        all_reduce_gradients(state.optimizer.params)
         gnorm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
         updated = state.optimizer.step()
         if updated and state.ema is not None:
             ema_update(state.ema, state.model, ema_decay)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        loss = loss.detach()
+        if world_size() > 1:  # the global batch's loss
+            loss = all_reduce_sum(loss.clone()) / world_size()
+        return {"loss": loss, "grad_norm": gnorm}
 
     return train_step
 

@@ -300,11 +300,26 @@ def test_train_cli_loads_the_teacher_checkpoint_strictly(tmp_path, capsys, tiny_
                      "--teacher-ckpt", str(tmp_path / "bad.pth"))
 
 
-def test_train_cli_refuses_a_teacher_it_cannot_read(tmp_path, tiny_teacher):
-    for ckpt in ("teacher.msgpack", "orbax_dir"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            _distill_cli(tmp_path, 1, "--teacher-model", tiny_teacher,
-                         "--teacher-ckpt", str(tmp_path / ckpt))
+def test_train_cli_refuses_a_teacher_it_cannot_read(tmp_path, capsys, tiny_teacher):
+    """A JAX .msgpack teacher now reads, strictly; an orbax directory still raises."""
+    from flax import serialization
+
+    from recnext_tpu.convert import regnety_torch_to_flax
+
+    teacher = tregnet.create_regnet(tiny_teacher, num_classes=11, device="cpu",
+                                    generator=torch.Generator().manual_seed(9))
+    variables = regnety_torch_to_flax(teacher.state_dict())  # the JAX RegNetY's tree
+    (tmp_path / "teacher.msgpack").write_bytes(serialization.msgpack_serialize(variables))
+    loaded = read_weights(str(tmp_path / "teacher.msgpack"), ema=False)
+    assert set(loaded) == set(teacher.state_dict())
+    assert all(torch.equal(loaded[k].float(), v.float())
+               for k, v in teacher.state_dict().items() if v.is_floating_point())
+    _distill_cli(tmp_path / "run", 1, "--teacher-model", tiny_teacher,
+                 "--teacher-ckpt", str(tmp_path / "teacher.msgpack"))
+    assert f"teacher {tiny_teacher}: " in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="item 18"):
+        _distill_cli(tmp_path, 1, "--teacher-model", tiny_teacher,
+                     "--teacher-ckpt", str(tmp_path))
     with pytest.raises(SystemExit, match="requires --teacher-model"):
         _distill_cli(tmp_path, 1)
 

@@ -134,11 +134,23 @@ def test_load_pretrained_matches_jax(family, tmp_path):
         "stem.stem.0.conv.weight"].abs().max() == 0
 
 
-def test_jax_formats_raise_naming_their_item(tmp_path):
-    (tmp_path / "w.msgpack").write_bytes(b"")
-    for path in (tmp_path / "w.msgpack", tmp_path):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-            tft.load_pretrained(str(path), {}, log=lambda m: None)
+def test_jax_formats_raise_naming_their_item(family, tmp_path):
+    """A flax .msgpack of the variables now reads (the same warm start as the JAX
+    package's load_pretrained of it); an orbax directory still raises, naming its
+    ROADMAP item."""
+    from flax import serialization
+
+    name, variables = family
+    (tmp_path / "w.msgpack").write_bytes(serialization.msgpack_serialize(
+        jax.tree.map(np.asarray, variables)))
+    port_template = _port_model(name=name).state_dict()
+    got = tft.load_pretrained(str(tmp_path / "w.msgpack"), port_template, log=lambda m: None)
+    want = jax_to_torch(jft.load_pretrained(
+        str(tmp_path / "w.msgpack"), jax.device_get(variables),
+        family=name[len("recnext_")], log=lambda m: None))
+    _assert_same_dict(got, want)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 18"):
+        tft.load_pretrained(str(tmp_path), {}, log=lambda m: None)
 
 
 @pytest.mark.parametrize("name", ["recnext_m0", "recnext_a0"])

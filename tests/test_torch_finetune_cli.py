@@ -94,8 +94,8 @@ def test_train_cli_refuses_option_clashes(tmp_path, capsys):
                "--teacher-model", "recnext_m0")
     with pytest.raises(SystemExit, match="EMA"):
         _train(tmp_path, "--mesa", "1.0", "--no-model-ema")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _train(tmp_path, "--finetune", str(tmp_path / "w.msgpack"))
+    with pytest.raises(NotImplementedError, match="item 18"):  # an orbax directory
+        _train(tmp_path, "--finetune", str(tmp_path))
 
 
 def _validate(*args):

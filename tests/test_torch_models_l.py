@@ -76,9 +76,9 @@ def calibrated_jax_variables(name, overrides, side=SIDE):
     rng = np.random.default_rng(3)
     params = jax.tree.map(lambda v: v + 0.05 * rng.normal(size=v.shape).astype(v.dtype),
                           variables["params"])
-    _, upd = model.apply({"params": params, "batch_stats": variables["batch_stats"]},
-                         jnp.asarray(_image(8, side, 7)), training=True,
-                         mutable=["batch_stats"])
+    _, upd = jax.jit(lambda v, x: model.apply(v, x, training=True, mutable=["batch_stats"]))(
+        {"params": params, "batch_stats": variables["batch_stats"]},
+        jnp.asarray(_image(8, side, 7)))
     stats = jax.tree_util.tree_map_with_path(
         lambda path, v: (np.asarray(v) - (0.9 if path[-1].key == "var" else 0.0)) / 0.1,
         upd["batch_stats"])
@@ -103,8 +103,9 @@ def test_l_logits_and_features_match_jax(config):
     name, ovr, variables = config
     x = _image(2, SIDE, 0)
     jm = jax_create_model(name, **ovr)
-    want = np.asarray(jm.apply(variables, jnp.asarray(x)))
-    want_feats = jm.apply(variables, jnp.asarray(x), method=jm.features)
+    want, want_feats = jax.jit(lambda v, x: (jm.apply(v, x), jm.apply(v, x, method=jm.features)))(
+        variables, jnp.asarray(x))
+    want = np.asarray(want)
     model = _port(name, ovr, variables)
     with torch.no_grad():
         got = model(_nchw(x)).numpy()
@@ -142,7 +143,8 @@ def test_l_fused_model_matches_jax_fused_apply(config):
     name, ovr, variables = config
     jfused = jax_fuse_params(variables)
     x = _image(2, SIDE, 1)
-    want = np.asarray(jax_create_model(name, fused=True, **ovr).apply(jfused, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jax_create_model(name, fused=True, **ovr).apply)(
+        jfused, jnp.asarray(x)))
     model = _port(name, ovr, fused=True)
     model.load_state_dict(fuse_params(jax_to_torch(variables)), strict=True)
     direct = _port(name, ovr, jfused, fused=True)  # the JAX fused tree carried across

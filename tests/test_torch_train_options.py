@@ -6,6 +6,9 @@ in f32 with mixup off, as tests/test_torch_train_step.py holds the plain step:
 and after its start step, and the JSD loss on given views. After every step: the
 loss, the BN running statistics, the parameters and the EMA."""
 
+import functools
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,15 +53,21 @@ def _batches(count, n=4, side=32, views=1):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _init(name, side):
+    """The JAX init (BN statistics moved off (0, 1)), once a model and size."""
+    model = jax_create_model(name, **OVR)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, side, side, 3)))
+    return model, {"params": variables["params"], "batch_stats": jax.tree.map(
+        lambda v: v + 0.05 * np.random.default_rng(3).normal(size=v.shape).astype(v.dtype),
+        variables["batch_stats"])}
+
+
 def _run(name, batches, *, grad_accum=1, side=32, jax_side=True, **kw):
     """Both packages' steps over ``batches`` (the port's alone without ``jax_side``):
     after each, the JAX state (as a torch state dict and EMA) and the port's, and
     both losses."""
-    model = jax_create_model(name, **OVR)
-    variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, side, side, 3)))
-    variables = {"params": variables["params"], "batch_stats": jax.tree.map(
-        lambda v: v + 0.05 * np.random.default_rng(3).normal(size=v.shape).astype(v.dtype),
-        variables["batch_stats"])}
+    model, variables = _init(name, side)
 
     def sched_for(mod):
         sched = mod.cosine_schedule(LR, 1, 10, 0)
@@ -96,6 +105,31 @@ def _run(name, batches, *, grad_accum=1, side=32, jax_side=True, **kw):
     return steps
 
 
+# every run of the file: (model, batches, keyword arguments of _run)
+RUNS = {"grad_accum": (NAME, dict(count=2), dict(grad_accum=2)),
+        "remat": (NAME, dict(count=1), dict(remat=True)),
+        "plain_m0": (NAME, dict(count=1), dict(jax_side=False)),
+        "remat_m0": (NAME, dict(count=1), dict(remat=True, jax_side=False)),
+        "plain_a0": (A0, dict(count=1, side=64), dict(side=64, jax_side=False)),
+        "remat_a0": (A0, dict(count=1, side=64), dict(side=64, remat=True, jax_side=False)),
+        "mesa_0": (NAME, dict(count=1), dict(mesa=1.0, mesa_start_step=0)),
+        "mesa_1": (NAME, dict(count=1), dict(mesa=1.0, mesa_start_step=1)),
+        "jsd": (NAME, dict(count=1, views=3), dict(jsd_splits=3))}
+
+
+@functools.lru_cache(maxsize=None)
+def _runs():
+    """Every run once, all at once in threads: the JAX steps' compiles (most of the
+    file's time) overlap where they release the interpreter's lock and cores are
+    free."""
+    for name, side in {(name, kw.get("side", 32)) for name, _, kw in RUNS.values()}:
+        _init(name, side)
+    with ThreadPoolExecutor(len(RUNS)) as pool:
+        futures = {k: pool.submit(_run, name, _batches(**b), **kw)
+                   for k, (name, b, kw) in RUNS.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
 def _check(step, updates):
     """The tolerances of tests/test_torch_train_step.py: the loss to 1e-5, the BN
     statistics to 1e-5; a parameter within 1e-6 but where Adam's sign of a gradient
@@ -125,7 +159,7 @@ def test_grad_accum_updates_on_the_second_micro_step_as_jax():
     """One update of two micro-steps. (Past one update the runs part: where Adam's
     first step turns on an unpinned gradient sign, the next forward's statistics
     follow the 2 lr apart that the tolerance allows.)"""
-    first, second = _run(NAME, _batches(2), grad_accum=2)
+    first, second = _runs()["grad_accum"]
     # the first micro-step moves the BN statistics only: parameters and EMA stay
     _check(first, 0)
     for k, v in first["ema"].items():
@@ -137,16 +171,15 @@ def test_grad_accum_updates_on_the_second_micro_step_as_jax():
 
 
 def test_remat_step_matches_jax():
-    _check(_run(NAME, _batches(1), remat=True)[0], 1)
+    _check(_runs()["remat"][0], 1)
 
 
 @pytest.mark.parametrize("name", [NAME, A0])
 def test_remat_step_matches_the_plain_step(name):
     """Recomputing the blocks in the backward changes no number: the same loss,
     parameters, BN statistics (updated once) and EMA as without remat."""
-    side = 64 if name == A0 else 32
-    plain = _run(name, _batches(1, side=side), side=side, jax_side=False)[0]
-    remat = _run(name, _batches(1, side=side), side=side, remat=True, jax_side=False)[0]
+    short = "a0" if name == A0 else "m0"
+    plain, remat = _runs()[f"plain_{short}"][0], _runs()[f"remat_{short}"][0]
     assert remat["loss"] == plain["loss"]
     for k in plain["sd"]:
         torch.testing.assert_close(remat["sd"][k], plain["sd"][k], rtol=0, atol=0)
@@ -156,9 +189,9 @@ def test_remat_step_matches_the_plain_step(name):
 def test_mesa_before_and_after_its_start_matches_jax(start):
     """One step at step 0: before MESA's start (1) the plain loss, from it (0) the
     plain loss plus MESA's term against the EMA model (at step 0 the model itself)."""
-    step = _run(NAME, _batches(1), mesa=1.0, mesa_start_step=start)[0]
+    step = _runs()[f"mesa_{start}"][0]
     _check(step, 1)
-    plain = _run(NAME, _batches(1), jax_side=False)[0]
+    plain = _runs()["plain_m0"][0]
     if start:
         assert step["loss"] == pytest.approx(plain["loss"], rel=1e-6)
     else:
@@ -166,7 +199,7 @@ def test_mesa_before_and_after_its_start_matches_jax(start):
 
 
 def test_jsd_loss_on_given_views_matches_jax():
-    _check(_run(NAME, _batches(1, views=3), jsd_splits=3)[0], 1)
+    _check(_runs()["jsd"][0], 1)
 
 
 def test_options_that_exclude_each_other_raise():

@@ -9,6 +9,7 @@ fused eval step against JAX's (M and L), and the L model's weight-decay labels."
 
 import copy
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -145,7 +146,7 @@ def _run_step(name, distillation="none", alpha=0.5, tau=1.0, side=32):
 
 @pytest.fixture(scope="module")
 def run():
-    return _run_step(NAME)
+    return _all_steps()["m0"]
 
 
 # a small A model, plain and with hard and soft distillation (soft at tau 2): the A
@@ -162,14 +163,21 @@ OTHER_STEPS = {"a0": (A0, "none", 1.0, 64), "hard": (A0, "hard", 1.0, 64),
                "l_hard": (L, "hard", 1.0, 128)}
 
 
-# each step runs once, however many fixtures ask for it
-_cached_step = functools.lru_cache(maxsize=None)(_run_step)
+@functools.lru_cache(maxsize=None)
+def _all_steps():
+    """Every step of the file, each once however many fixtures ask for it, all run at
+    once in threads: the JAX side's compiles (most of the file's time) overlap where
+    they release the interpreter's lock and cores are free."""
+    cases = {"m0": (NAME, "none", 1.0, 32)} | OTHER_STEPS
+    with ThreadPoolExecutor(len(cases)) as pool:
+        futures = {k: pool.submit(_run_step, name, distillation, tau=tau, side=side)
+                   for k, (name, distillation, tau, side) in cases.items()}
+        return {k: f.result() for k, f in futures.items()}
 
 
 @pytest.fixture(scope="module", params=sorted(OTHER_STEPS))
 def other_run(request):
-    name, distillation, tau, side = OTHER_STEPS[request.param]
-    return _cached_step(name, distillation, tau=tau, side=side)
+    return _all_steps()[request.param]
 
 
 def _ref(run, params, stats):
@@ -317,7 +325,7 @@ def test_eval_metrics_match_jax():
 
 @pytest.fixture(scope="module")
 def l_run():
-    return _cached_step(*OTHER_STEPS["l"][:2], tau=OTHER_STEPS["l"][2], side=128)
+    return _all_steps()["l"]
 
 
 @pytest.mark.parametrize("ema", [False, True])
