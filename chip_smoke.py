@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
-source, started together), then drives ten paths, each with every kernel launch
+source, started together; the checks that time nothing on the host and need no
+peeled level, phases 2, 4 for a1 and the L models, 7, 7l, 11, 12, 15, 16 and 18l-19l's
+gradients, run while the peeled level's library, the longest build, is compiled),
+then drives ten paths, each with every kernel launch
 count set to 0 just before its main phase (serving; for training, the trainer)
 and read just after:
 
@@ -86,8 +89,8 @@ and read just after:
               losses, exactly 23 K1 launches and 23 backward calls per train step
               (and 23 K1 launches per fused eval forward), the epoch lines and the
               checkpoint files; the main path whose launches are counted;
-14. train_throughput  bench.train_throughput("recnext_m1", 128) with 3 repeats: the
-              median img/s, the spread and the step ms, and a profiler trace of 3
+14. train_throughput  bench.train_throughput("recnext_m1", 128) with 2 repeats: the
+              median img/s, the spread and the step ms, and a profiler trace of 2
               steps (top kernels, the backward kernel's share, the idle share) that
               must list 23 launches a step of each of the port's kernels;
    recnext_a1 training (K2 and its backward kernel K2', csrc/linear_attention_bwd.cu,
@@ -144,7 +147,7 @@ and read just after:
               step's 20 calls;
 19l-21l.      phases 12-14 for recnext_t: its full-size gradients through K2 and
               K2'; the trainer (20 K2 and 20 K2' a train step, 20 K2 a fused eval
-              forward); train throughput at batch 128 (3 repeats of 2 s);
+              forward); train throughput at batch 128 (2 repeats of 1.5 s);
    recnext_m1 training beyond the main paths (planes larger than K1′'s shared memory
    through the peeled level's backward kernels, csrc/recconv_level_bwd.cu, and the
    384^2 finetune recipe):
@@ -179,14 +182,14 @@ and read just after:
    the data pipeline (recnext_tpu_torch/data/; no kernel of its own):
 22. input_pipeline  the host's CPU count and affinity and /dev/shm, and the native
               decoder's build (native/recnext_io.cpp, g++, the repository's jpeg62
-              headers and Pillow's libjpeg), which must succeed; 1,280
+              headers and Pillow's libjpeg), which must succeed; 256
               500x375 JPEGs of 10 classes (bench.make_folder), listed 2 times, and a
               copy with PNGs; the loader's img/s at 224^2 for PIL and native, full and
               simple transform, at workers 0 and W = min(16, CPUs); the same bits in
               the first 3 batches at workers 0 and W on each route that builds, and
               the native fallback's count (0 on JPEGs, above 0 with PNGs); the trainer
               on m1 from the folder with the full recipe, RA, batch 128, one epoch of
-              20 steps, with --workers W, with --native-loader at workers 0 and at
+              4 steps, with --workers W, with --native-loader at workers 0 and at
               W: 23 K1
               launches and 23 K1' calls a train step, its img/s beside phase 14's
               step alone and the idle share from that phase's busy time a step;
@@ -238,7 +241,7 @@ and read just after:
               upsample-add-conv, bilinear, and nearest checked only), against its plain
               version and its own bits on three runs, beside its bound;
 30. tasks_det  the train_det CLI, --detector retinanet, the det preset on FAKE: 2
-              epochs of 3 steps and the AP loop over 32 images, a --resume, --eval-only
+              epochs of 3 steps and the AP loop over 16 images, a --resume, --eval-only
               and --benchmark 3 (a forward also 6 level-kernel launches); one step
               traced; the post-process's ms an image;
 30m. tasks_mask_rcnn  the train_det CLI, --detector mask_rcnn --with-mask (128
@@ -252,8 +255,25 @@ and read just after:
               path (as phase 28);
 31. tasks_attention  K2 and K2′ at a3's four 512^2 shapes (N 4096 ... 64, D 32),
               batch 16, f32 and bf16, K2′ the same bits on three runs, timed in f32.
+   the measurement tools (recnext_tpu_torch/tools/; no kernel of their own), in the
+   main process after the tasks:
+32. tools     the roofline (tools/roofline.py: the work counted on the host's CPU on
+              the plain path, an H100 engine model) of fused m1, a1 and recnext_t at
+              224^2 and eval-mode mlla_mini_recconv at 256^2 against the img/s of
+              phases 6, 10, 10l and 25 at batch 256, and of m1's train step at batch
+              128 against phase 14's: each share in (0, 100]; m1's stage breakdown
+              (0 / 3 / 3 / 15 / 2 K1 launches in the stem and stages 0-3) and its
+              train-step breakdown at batch 128 (23 K1 and 23 K1' launches in the
+              full step); the taps and Winograd depthwise forms and the taps
+              gradients against cuDNN in f32 at m1's shapes (taps and F(2,5) 2e-5,
+              F(4,5) 2e-3 max|ref|; gradients 2e-5 / 1e-4); the micro-benchmarks
+              (micro.py, bwd_micro.py) at m1's shapes, a JSON line a row; bench_all
+              over m0 and m1 with 1 s windows (no error row), merge_results and a
+              model card of its m1 row naming the card; analyze_logs over phase 13's
+              log.txt.
 Then each phase's seconds, the L path's launch counts and K2 / K2' totals, the
-MLLA path's (the mlla_path line) and the tasks' (the tasks_path line).
+MLLA path's (the mlla_path line), the tasks' (the tasks_path line) and the tools'
+roofline shares (the tools_path line).
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
 In the kernel record, "launches" counts the launches of the kernel's serving
@@ -434,6 +454,9 @@ MLLA_TRAIN_ARGS = ["--config", "configs/mlla_mini_300e.yaml", "--model", "mlla_m
                    "--data-set", "FAKE", "--batch-size", "64", "--steps-per-epoch", "3",
                    "--log-every", "1"]
 MLLA_MESA_FORWARDS = {2: 5, 3: 3}
+# every bench.train_throughput call: its timed windows and their seconds (2 of 1.5 s: the
+# median and the spread stay on record in a run that fits its time limit)
+TIMED_REPEATS, TIMED_S = 2, 1.5
 
 
 def emit(obj) -> None:
@@ -1292,15 +1315,16 @@ def phase_throughput(name, model, kernel, kernel_sum_ms):
     with torch.inference_mode():
         for path in ("kernel_path", "plain_path"):
             restore = plain_path(model) if path == "plain_path" else None
-            ms256 = cuda_ms(lambda: model(x256), iters=10, warmup=3)
-            ms1 = cuda_ms(lambda: model(x1), iters=50, warmup=5)
+            plain = restore is not None  # timed for scale only: fewer calls
+            ms256 = cuda_ms(lambda: model(x256), iters=5 if plain else 10, warmup=3)
+            ms1 = cuda_ms(lambda: model(x1), iters=20 if plain else 50, warmup=5)
             out[path] = {"batch_256_ms": ms256, "images_per_s": 256 * 1e3 / ms256,
                          "batch_1_latency_ms": ms1}
             if restore:
                 restore()
                 continue
             for batch, x, ms in ((256, x256, ms256), (1, x1, ms1)):
-                kernels = trace(lambda: model(x), iters=5 if batch == 256 else 20)
+                kernels = trace(lambda: model(x), iters=5 if batch == 256 else 10)
                 busy = sum(k["ms"] for k in kernels)
                 ours = sum(k["ms"] for k in kernels if kernel in k["name"])
                 out[path][f"batch_{batch}_trace"] = {
@@ -1312,6 +1336,7 @@ def phase_throughput(name, model, kernel, kernel_sum_ms):
     out["kernel_sum_ms"] = kernel_sum_ms
     out["kernel_share"] = kernel_sum_ms / out["kernel_path"]["batch_256_ms"]
     emit(out)
+    return out["kernel_path"]["images_per_s"]
 
 
 def recconv_bwd_work(n, c, h, w, level, k, elem_bytes):
@@ -1517,8 +1542,9 @@ def phase_train(name="recnext_m1", args=TRAIN_ARGS, keep=None):
             if run["resumed"] != (epochs == 3):
                 raise AssertionError(f"train run to {epochs} epochs: resume {run['resumed']}")
         rec["runs"] = runs
-        if keep is not None:
+        if keep is not None:  # the last checkpoint, and the log beside it
             keep.write_bytes((Path(run_dir) / "ckpt" / "epoch_0002.pt").read_bytes())
+            keep.with_suffix(".log").write_text((Path(run_dir) / "log.txt").read_text())
     emit(rec)
     return runs[0]["launches"]
 
@@ -1530,17 +1556,17 @@ TRACE_KERNELS = {  # CUDA function names of each training path's kernels: (forwa
     "recnext_t": ("linear_attention_kernel", "linear_attention_bwd_")}
 
 
-def phase_train_throughput(name="recnext_m1", teacher=None, timed_s=3.0):
-    """bench.train_throughput(name, 128) with 3 repeats of ``timed_s`` seconds
-    (distilled from a seeded ``teacher`` where given), then a profiler trace of 3
+def phase_train_throughput(name="recnext_m1", teacher=None, timed_s=TIMED_S):
+    """bench.train_throughput(name, 128) with TIMED_REPEATS repeats of ``timed_s`` seconds
+    (distilled from a seeded ``teacher`` where given), then a profiler trace of 2
     steps of the same step: the top kernels, the backward kernel's share and the
     device's idle share. The trace must list MIXERS[name] launches a step of each of
     the port's kernels."""
-    ips, batch, spread = bench.train_throughput(name, 128, repeats=3, teacher=teacher,
-                                                timed_s=timed_s)
+    step = bench.train_bench_step(name, 128, teacher=teacher)
+    ips, batch, spread = bench.train_throughput(name, 128, repeats=TIMED_REPEATS,
+                                                timed_s=timed_s, step=step)
     step_ms = batch / ips * 1e3
-    fn, _ = bench.train_bench_step(name, 128, teacher=teacher)
-    kernels = trace(fn, iters=3, warmup=2)
+    kernels = trace(step[0], iters=2, warmup=1)
     busy = sum(k["ms"] for k in kernels)
     if busy > step_ms:  # the trace counts some device time twice: no idle share to give
         raise AssertionError(f"train_throughput: device busy {busy} ms in a step of "
@@ -1835,9 +1861,10 @@ def phase_finetune(checkpoint: Path, work_dir: Path):
         raise AssertionError(f"validate: {result}, {row}")
     rec["validate"] = {"result": result, "csv": row}
     kw = dict(image_size=384, grad_accum=2, remat=True, mesa=1.0)
-    ips, batch, spread = bench.train_throughput("recnext_m1", 64, repeats=3, timed_s=3.0, **kw)
-    fn, _ = bench.train_bench_step("recnext_m1", 64, **kw)
-    kernels = trace(fn, iters=4, warmup=2)
+    step = bench.train_bench_step("recnext_m1", 64, **kw)
+    ips, batch, spread = bench.train_throughput("recnext_m1", 64, repeats=TIMED_REPEATS,
+                                                timed_s=TIMED_S, step=step)
+    kernels = trace(step[0], iters=2, warmup=1)
     busy = sum(k["ms"] for k in kernels)
     step_ms = batch / ips * 1e3
     launches = {kn: sum(k["launches"] for k in kernels if kn in k["name"])
@@ -1854,7 +1881,7 @@ def phase_finetune(checkpoint: Path, work_dir: Path):
     emit(rec)
 
 
-INPUT_IMAGES, INPUT_COPIES, INPUT_VAL, INPUT_CLASSES, INPUT_PNGS = 1280, 2, 256, 10, 3
+INPUT_IMAGES, INPUT_COPIES, INPUT_VAL, INPUT_CLASSES, INPUT_PNGS = 256, 2, 256, 10, 3
 INPUT_BATCH = 128
 INPUT_STEPS = INPUT_IMAGES * INPUT_COPIES // INPUT_BATCH  # RA keeps n // 256 * 256: all
 INPUT_EVAL_FORWARDS = 2 * (INPUT_VAL // INPUT_BATCH)  # the model and its EMA, 2 batches
@@ -2303,11 +2330,11 @@ def phase_mlla_throughput(variant, kernel_sum_ms):
     kname = MLLA_TRACE[variant][0]
     with torch.inference_mode():
         ms256 = cuda_ms(lambda: model(x256), iters=10, warmup=3)
-        ms1 = cuda_ms(lambda: model(x1), iters=30, warmup=5)
+        ms1 = cuda_ms(lambda: model(x1), iters=20, warmup=5)
         out.update(batch_256_ms=ms256, images_per_s=MLLA_BATCH * 1e3 / ms256,
                    batch_1_latency_ms=ms1)
         for batch, x, ms in ((MLLA_BATCH, x256, ms256), (1, x1, ms1)):
-            kernels = trace(lambda: model(x), iters=3 if batch > 1 else 10)
+            kernels = trace(lambda: model(x), iters=3 if batch > 1 else 5)
             busy = sum(k["ms"] for k in kernels)
             ours = [k for k in kernels if kname in k["name"]]
             layout = [k for k in kernels if any(s in k["name"] for s in LAYOUT_KERNELS)]
@@ -2331,15 +2358,15 @@ def phase_mlla_throughput(variant, kernel_sum_ms):
 def phase_mlla_train_throughput(variant):
     """bench.train_throughput("mlla_mini_<variant>", 128, mesa=1.0): the MLLA recipe's
     step (mixup, bf16 compute, global-norm clip 5.0, AdamW, EMA, MESA's EMA forward)
-    at 256^2, 3 repeats of 2 s; then a profiler trace of 3 steps: 42 launches a step of
+    at 256^2, 2 repeats of 1.5 s; then a profiler trace of 2 steps: 42 launches a step of
     the forward kernel (the model's and the EMA model's forward) and 21 of the
     backward's, the device's busy time and idle share, the top kernels."""
     name = f"mlla_mini_{variant}"
-    ips, batch, spread = bench.train_throughput(name, MLLA_TRAIN_BATCH, repeats=3,
-                                                timed_s=2.0, mesa=1.0)
+    step = bench.train_bench_step(name, MLLA_TRAIN_BATCH, mesa=1.0)
+    ips, batch, spread = bench.train_throughput(name, MLLA_TRAIN_BATCH, repeats=TIMED_REPEATS,
+                                                timed_s=TIMED_S, step=step)
     step_ms = batch / ips * 1e3
-    fn, _ = bench.train_bench_step(name, MLLA_TRAIN_BATCH, mesa=1.0)
-    kernels = trace(fn, iters=3, warmup=2)
+    kernels = trace(step[0], iters=2, warmup=1)
     busy = sum(k["ms"] for k in kernels)
     ours = {kn: sum(k["ms"] for k in kernels if kn in k["name"]) for kn in MLLA_TRACE[variant]}
     launches = {kn: sum(k["launches"] for k in kernels if kn in k["name"])
@@ -2918,8 +2945,8 @@ def phase_tasks_grad(init_ckpt: Path, name="recnext_m3", batch=2):
 def phase_tasks_det(work_dir: Path, init_ckpt: Path):
     """recnext_m3 RetinaNet with the detection preset (800^2, batch 16, fp32, FPN 256
     P2-P6, 80 classes, backbone BN training as the JAX CLI builds it) through the
-    train_det CLI on FAKE: 2 epochs of 3 steps and the AP loop over 32 images, a
-    --resume to 3 epochs, --eval-only over 32 images and --benchmark 3, each run's
+    train_det CLI on FAKE: 2 epochs of 3 steps and the AP loop over 16 images, a
+    --resume to 3 epochs, --eval-only over 16 images and --benchmark 3, each run's
     launches against the planners' (a forward: K1 21 and 6 level-kernel launches; a
     step: that and the backward's). Then one train step traced, and the post-process's
     ms per image (the predict call less the forward, batch 16)."""
@@ -2930,9 +2957,9 @@ def phase_tasks_det(work_dir: Path, init_ckpt: Path):
     out = work_dir / "det"
     base = ["--preset", DET_PRESET, "--detector", "retinanet", "--batch-size", str(DET_BATCH),
             "--img-size", str(DET_SIDE), "--init-ckpt", str(init_ckpt),
-            "--steps-per-epoch", "3", "--fake-size", "32", "--eval-max-images", "32",
+            "--steps-per-epoch", "3", "--fake-size", "16", "--eval-max-images", "16",
             "--output-dir", str(out)]
-    evals = 32 // DET_BATCH
+    evals = 16 // DET_BATCH
     runs = {}
     for name, extra, want in (
             ("train_2x3", ["--epochs", "2", "--eval-every", "2"],
@@ -3577,6 +3604,91 @@ def phase_two_process(pool):
     return ranks, one
 
 
+# the tools phase: each model's native side, and K1's launches in each section of m1
+TOOLS_MODELS = {"recnext_m1": 224, "recnext_a1": 224, "recnext_t": 224, "mlla_mini_recconv": 256}
+M1_SECTION_K1 = {"stem": 0, "stage0": 3, "stage1": 3, "stage2": 15, "stage3": 2, "head": 0}
+
+
+def tools_counts():
+    """The roofline rows of the tools phase (``tools/roofline.py``: the work counted on
+    the host's CPU, on the plain path, and the H100's bound): each model of
+    ``TOOLS_MODELS`` at batch 256 and m1's train step at batch 128. Run in a spawned
+    process from the script's start (``main``), beside the kernels' builds."""
+    from recnext_tpu_torch.tools import roofline
+
+    torch.set_num_threads(3)  # the other cores build the kernels
+    rows = {name: roofline.model_roofline(name, side, batch=256)
+            for name, side in TOOLS_MODELS.items()}
+    rows["recnext_m1_train_step"] = roofline.train_roofline("recnext_m1", 224, batch=128)
+    return rows
+
+
+def phase_tools(rows, forward_ips, train_ips, train_log: Path, work_dir: Path):
+    """The measurement tools (``recnext_tpu_torch/tools/``) on the card: the roofline
+    share (``rows``: ``tools_counts``') of each fused forward at batch 256
+    (``forward_ips``: the throughput phases' img/s) and of m1's train step at batch
+    128 (``train_ips``), each in (0, 100]; m1's
+    stage breakdown (0 / 3 / 3 / 15 / 2 K1 launches in the stem and stages 0-3) and
+    train-step breakdown (23 K1 and 23 K1′ in the full step); the taps and Winograd
+    forms and the taps gradients against cuDNN in f32; the micro-benchmarks at m1's
+    shapes; bench_all over m0 and m1 with short windows (no error row), merged, a
+    model card from its row; the train phase's log read by analyze_logs."""
+    from recnext_tpu_torch.tools import (analyze_logs, bench_all, bwd_micro, merge_results,
+                                         micro, modelcard, roofline, stage_breakdown,
+                                         train_breakdown)
+
+    rec = {"phase": "tools", "card": nvidia_smi()}
+    shares = {name: roofline.with_measured(rows[name], forward_ips[name])
+              for name in TOOLS_MODELS}
+    shares["recnext_m1_train_step"] = roofline.with_measured(rows["recnext_m1_train_step"],
+                                                             train_ips)
+    bad = {k: r["roofline_utilization_pct"] for k, r in shares.items()
+           if not 0 < r["roofline_utilization_pct"] <= 100}
+    if bad:
+        raise AssertionError(f"tools: roofline shares outside (0, 100]: {bad}")
+    rec["roofline"] = shares
+    sections = stage_breakdown.stage_breakdown("recnext_m1", batch=256, iters=10)
+    k1 = {s: v["launches"].get("rec_conv2d", 0) for s, v in sections["sections"].items()}
+    if k1 != M1_SECTION_K1:
+        raise AssertionError(f"tools: stage_breakdown's K1 launches {k1}")
+    rec["stage_breakdown"] = sections
+    steps = train_breakdown.train_breakdown("recnext_m1", 128, iters=3)
+    full = steps["components"]["full"]["launches"]
+    if (full["rec_conv2d"], full["rec_conv2d_backward"]) != (23, 23):
+        raise AssertionError(f"tools: train_breakdown's full step launched {full}")
+    rec["train_breakdown"] = steps
+    checks = micro.check_dwconv("cuda") + bwd_micro.check_dw_grads("cuda")
+    if not all(c["ok"] for c in checks):
+        raise AssertionError(f"tools: taps / Winograd against cuDNN: {checks}")
+    rec["dwconv_checks"] = checks
+    emit({"phase": "tools_micro", "card": rec["card"]})  # the tools print a line a row
+    micro.bench_recconv(256, iters=10)
+    micro.bench_dwconv(256, iters=5)
+    micro.bench_attention(256, iters=10)
+    bwd_micro.bench_dw_bwd(128, iters=3)
+    bwd_micro.bench_recconv_bwd(128, iters=3)
+    bwd_micro.bench_mlp_bn_bwd(128, iters=3)
+    results = work_dir / "bench_all.json"
+    rows = bench_all.main(["--models", "recnext_m0", "recnext_m1", "--timed", "1",
+                           "--warmup", "1", "--latency", "--stamp", "chip_smoke",
+                           "--out", str(results)])
+    errors = [r for r in rows if "error" in r]
+    if errors:
+        raise AssertionError(f"tools: bench_all error rows {errors}")
+    merged = merge_results.main([str(results), "--out", str(work_dir / "merged.json"),
+                                 "--markdown"])
+    card = modelcard.make_card("recnext_m1", measured=merged[1])
+    if rec["card"].split(",")[0] not in card or "img/s" not in card:
+        raise AssertionError(f"tools: the model card lacks the card or its rate:\n{card}")
+    rec["bench_all"] = rows
+    times = analyze_logs.train_time(analyze_logs.load_records(str(train_log)))
+    if times["records"] < 2 or not times.get("time_mean_s", 0) > 0:
+        raise AssertionError(f"tools: analyze_logs over the train phase's log: {times}")
+    rec["train_log_times"] = times
+    emit(rec)
+    return {k: r["roofline_utilization_pct"] for k, r in shares.items()}
+
+
 def run_tasks():
     """The downstream tasks' phases; returns the tasks_path line and each phase's
     seconds. Run in a process of its own (``tasks_process``)."""
@@ -3697,15 +3809,16 @@ def main() -> int:
         return 2
     card = nvidia_smi()
     start = t0 = time.perf_counter()
+    # the tools phase's counts on the host's CPU, beside the builds (a spawned process)
+    counts_pool = multiprocessing.get_context("spawn").Pool(1)
+    tools_rows = counts_pool.apply_async(tools_counts)
+    counts_pool.close()
     libraries = (recconv_cuda.LIBRARY, attention_cuda.LIBRARY, recconv_bwd_cuda.LIBRARY,
                  attention_bwd_cuda.LIBRARY, level_bwd_cuda.LIBRARY)
-    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, together
-        list(pool.map(lambda lib: lib.load(), libraries))
-    emit({"phase": "env", "nvidia_smi": card, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "kernel_build_s": {lib.name: lib.build_seconds for lib in libraries},
-          "kernel_load_s": time.perf_counter() - t0,
-          "cudnn_allow_tf32": False})
+    build_pool = ThreadPoolExecutor(len(libraries))  # one nvcc per source, together
+    builds = [build_pool.submit(lib.load) for lib in libraries]
+    for build in builds[:-1]:
+        build.result()
     torch.backends.cudnn.allow_tf32 = False  # f32 references in full fp32
 
     seconds = {}
@@ -3716,8 +3829,33 @@ def main() -> int:
         seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
         return result
 
-    # recnext_m1: kernel K1
+    # while the peeled level's library (the longest nvcc) builds: the checks that time
+    # nothing on the host and need no peeled level. m1's K1, a1's and the L family's
+    # K2 and fused models, the backward kernels at m1's, a1's and recnext_t's shapes
+    # and the full-size gradients
     per_shape, k1_err = timed("kernel", phase_kernel)
+    per_stage, k2_err = timed("attention", phase_attention)
+    a1_unfused, _ = timed("model", phase_model, "recnext_a1")
+    l_totals, _ = timed("attention_l", phase_attention_l)
+    l_launches = {}
+    for name in L_MODELS[1:]:
+        _, l_launches[name] = timed("model_l", phase_model, name)
+    t_unfused, l_launches["recnext_t"] = timed("model_l", phase_model, "recnext_t")
+    bwd_total, bwd_err = timed("backward", phase_backward)
+    timed("train_grad", phase_train_grad)
+    abwd_total, abwd_err = timed("attention_backward", phase_attention_backward)
+    timed("train_grad", phase_train_grad, "recnext_a1")
+    t_bwd_total, _ = timed("attention_backward_l", phase_attention_backward_l)
+    timed("train_grad_l", phase_train_grad, "recnext_t")
+    builds[-1].result()
+    build_pool.shutdown()
+    emit({"phase": "env", "nvidia_smi": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+          "kernel_build_s": {lib.name: lib.build_seconds for lib in libraries},
+          "kernel_load_s": time.perf_counter() - t0,
+          "cudnn_allow_tf32": False})
+
+    # recnext_m1: kernel K1 (its level kernel for planes too large for it)
     m1_total = forward_totals(per_shape, M1_MIXERS)
     level_total, level_err = timed("large_plane", phase_large_planes)
     _, m1_640 = timed("model", phase_model, "recnext_m1", side=640, batch=2,
@@ -3725,42 +3863,31 @@ def main() -> int:
     timed("model", phase_model, "recnext_m1", recconv_mode="nearest")
     unfused, _ = timed("model", phase_model, "recnext_m1")
     serving, m1_launches = timed("serving", phase_serving, "recnext_m1", unfused)
-    timed("throughput", phase_throughput, "recnext_m1", serving.model, "recconv_kernel",
-          m1_total["kernel_ms"])
+    ips = {"recnext_m1": timed("throughput", phase_throughput, "recnext_m1", serving.model,
+                               "recconv_kernel", m1_total["kernel_ms"])}
     del unfused, serving
 
     # recnext_a1: kernel K2
-    per_stage, k2_err = timed("attention", phase_attention)
     a1_total = forward_totals(per_stage, A1_ATTENTION)
-    unfused, _ = timed("model", phase_model, "recnext_a1")
-    serving, a1_launches = timed("serving", phase_serving, "recnext_a1", unfused)
-    timed("throughput", phase_throughput, "recnext_a1", serving.model,
-          "linear_attention_kernel", a1_total["kernel_ms"])
-    del unfused, serving
+    serving, a1_launches = timed("serving", phase_serving, "recnext_a1", a1_unfused)
+    ips["recnext_a1"] = timed("throughput", phase_throughput, "recnext_a1", serving.model,
+                              "linear_attention_kernel", a1_total["kernel_ms"])
+    del a1_unfused, serving
 
     # the L family (recnext_t, recnext_b, recnext_t_share_channel): K2 at one head per
     # image, LA3's v a channel slice; RepVGGDW fused; no RecConv2d
-    l_totals, _ = timed("attention_l", phase_attention_l)
-    l_launches = {}
-    for name in L_MODELS[1:]:
-        _, l_launches[name] = timed("model_l", phase_model, name)
-    unfused, l_launches["recnext_t"] = timed("model_l", phase_model, "recnext_t")
-    serving, t_served = timed("serving_l", phase_serving, "recnext_t", unfused)
-    timed("throughput_l", phase_throughput, "recnext_t", serving.model,
-          "linear_attention_kernel", l_totals["recnext_t"]["kernel_ms"])
-    del unfused, serving
+    serving, t_served = timed("serving_l", phase_serving, "recnext_t", t_unfused)
+    ips["recnext_t"] = timed("throughput_l", phase_throughput, "recnext_t", serving.model,
+                             "linear_attention_kernel", l_totals["recnext_t"]["kernel_ms"])
+    del t_unfused, serving
 
     # recnext_m1 training: K1 and the backward kernel
     work_dir = Path(tempfile.mkdtemp(dir=Path(__file__).resolve().parent / "recnext_tpu_torch"
                                      / "_build"))
-    bwd_total, bwd_err = timed("backward", phase_backward)
-    timed("train_grad", phase_train_grad)
     train_launches = timed("train", phase_train, keep=work_dir / "m1_224.pt")
     m1_step = timed("train_throughput", phase_train_throughput)
 
     # recnext_a1 training with the reference recipe's distillation: K2 and K2'
-    abwd_total, abwd_err = timed("attention_backward", phase_attention_backward)
-    timed("train_grad", phase_train_grad, "recnext_a1")
     a1_train_launches = timed("train", phase_train, "recnext_a1", A1_TRAIN_ARGS)
     plain_ips, _ = timed("train_throughput", phase_train_throughput, "recnext_a1")
     distilled_ips, _ = timed("train_throughput", phase_train_throughput, "recnext_a1", TEACHER)
@@ -3776,10 +3903,8 @@ def main() -> int:
         timed("train_flags", phase_train_flags, work_dir)
         timed("two_process", phase_two_process, pool)
     # recnext_t training: K2 and K2' at the L shapes
-    t_bwd_total, _ = timed("attention_backward_l", phase_attention_backward_l)
-    timed("train_grad_l", phase_train_grad, "recnext_t")
     t_train_launches = timed("train_l", phase_train, "recnext_t", T_TRAIN_ARGS)
-    timed("train_throughput_l", phase_train_throughput, "recnext_t", timed_s=2.0)
+    timed("train_throughput_l", phase_train_throughput, "recnext_t")
     # recnext_m1 training beyond the main paths: K1′'s peeled route, the 384^2 finetune
     level_totals, level_errs = timed("large_plane_backward", phase_large_plane_backward)
     m1_512 = timed("train_grad", phase_train_grad, side=512, batch=2, expected=M1_512_TRAIN,
@@ -3787,7 +3912,6 @@ def main() -> int:
     timed("finetune", phase_finetune, work_dir / "m1_224.pt", work_dir)
     # the data pipeline: m1 trained from a folder of JPEGs
     timed("input_pipeline", phase_input_pipeline, work_dir, *m1_step)
-    shutil.rmtree(work_dir)
     # the MLLA graft family (mlla_mini at 256^2): K1 and K1' (recconv, nearest), K2 and
     # K2' (recattn_simple), the RoPE attention in plain PyTorch (recattn)
     mlla, mlla_seconds = timed("mlla", mlla_process)
@@ -3796,6 +3920,13 @@ def main() -> int:
     # batch 16, fp32), recnext_a3 Semantic FPN (K2, K2')
     tasks, tasks_seconds = timed("tasks", tasks_process)
     seconds.update(tasks_seconds)
+    # the measurement tools, against the rates the throughput phases measured
+    ips["mlla_mini_recconv"] = mlla["images_per_s"]["recconv"]["forward_batch_256"]
+    rows = tools_rows.get()
+    counts_pool.join()
+    shares = timed("tools", phase_tools, rows, ips, m1_step[0], work_dir / "m1_224.log",
+                   work_dir)
+    shutil.rmtree(work_dir)
     emit({"phase": "seconds", **seconds, "script": time.perf_counter() - start})
     # the L path's launches and K2 / K2' totals (the kernel record below is a1's)
     emit({"phase": "l_path", "k2_launches_per_forward": l_launches,
@@ -3803,6 +3934,7 @@ def main() -> int:
           "k2_forward_totals": l_totals, "k2_backward_step_total_recnext_t": t_bwd_total})
     emit({"phase": "mlla_path", **mlla})
     emit({"phase": "tasks_path", **tasks})
+    emit({"phase": "tools_path", "roofline_utilization_pct": shares})
 
     emit({"kernels": [
         kernel_record("rec_conv2d", "recnext_tpu_torch/csrc/recconv.cu",

@@ -160,7 +160,7 @@ def latency_ms(model_name: str, *, dtype=torch.bfloat16, iters: int = 200,
 def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
                      image_size: int | None = None, device=None, teacher: str | None = None,
                      distillation: str = "hard", grad_accum: int = 1, remat: bool = False,
-                     mesa: float = 0.0, **overrides):
+                     mesa: float = 0.0, ema: bool = True, **overrides):
     """One training step of ``model_name`` at ``batch`` as a function of no arguments
     (mixup/cutmix, forward, backward, AGC + AdamW, EMA; for MLLA its recipe's
     global-norm clip 5.0 and weight decay 0.05), on random inputs made on the device,
@@ -168,7 +168,8 @@ def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
     seeded weights), the dual-head student learns from its logits (``distillation``:
     "hard" or "soft"). ``grad_accum``, ``remat`` and ``mesa`` are the train step's
     options (MESA from step 0); with ``grad_accum`` k a call is one micro-step, every
-    k-th updating."""
+    k-th updating; ``ema=False`` keeps no EMA copy. The function carries the step's
+    ``state`` and ``data``."""
     from recnext_tpu_torch.device import resolve_device
     from recnext_tpu_torch.models.mlla import create_mlla
     from recnext_tpu_torch.models.registry import create_model
@@ -192,7 +193,7 @@ def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
                              distillation=teacher is not None, **overrides)
         opt = make_optimizer(model.named_parameters(), cosine_schedule(1e-3, 1000),
                              grad_accum=grad_accum)
-    state = TrainState.create(model, opt)
+    state = TrainState.create(model, opt, ema=ema)
     num_classes = model.cfg.num_classes
     teacher_apply = None
     if teacher is not None:
@@ -206,20 +207,27 @@ def train_bench_step(model_name: str, batch: int, *, dtype=torch.bfloat16,
     data = {"image": torch.randn(batch, 3, image_size, image_size, device=dev, generator=g),
             "label": torch.randint(0, num_classes, (batch,), device=dev, generator=g)}
     mix = torch.Generator().manual_seed(0)
-    return (lambda: step(state, data, mix)), dev
+
+    def run():
+        return step(state, data, mix)
+
+    run.state, run.data = state, data  # for the tools that take the step apart
+    return run, dev
 
 
 def train_throughput(model_name: str, batch: int, *, dtype=torch.bfloat16,
                      timed_s: float = 6.0, image_size: int | None = None, repeats: int = 1,
                      device=None, teacher: str | None = None, distillation: str = "hard",
                      grad_accum: int = 1, remat: bool = False, mesa: float = 0.0,
-                     **overrides):
+                     step=None, **overrides):
     """Training-step images per second (``train_bench_step``, distilled from
     ``teacher`` where given, with its step options) at ``batch``: (median over
-    ``repeats`` timed windows, batch, spread) with spread = {"min", "max", "runs"}."""
-    fn, dev = train_bench_step(model_name, batch, dtype=dtype, image_size=image_size,
-                               device=device, teacher=teacher, distillation=distillation,
-                               grad_accum=grad_accum, remat=remat, mesa=mesa, **overrides)
+    ``repeats`` timed windows, batch, spread) with spread = {"min", "max", "runs"}.
+    ``step``: a ``train_bench_step`` result to time in place of a new one."""
+    fn, dev = step or train_bench_step(model_name, batch, dtype=dtype, image_size=image_size,
+                                       device=device, teacher=teacher,
+                                       distillation=distillation, grad_accum=grad_accum,
+                                       remat=remat, mesa=mesa, **overrides)
     iters = _calibrated_iters(fn, dev, 0.0, timed_s, most=500)
     runs = [iters * batch / _timed_loop(fn, dev, iters) for _ in range(max(repeats, 1))]
     med = statistics.median(runs)

@@ -484,3 +484,16 @@ def _(x, down_w, conv_ws, level, mode):
 @_rec_conv2d_op.register_fake
 def _(x, down_w, conv_ws, level, mode):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+# the research alternates (eager PyTorch, no kernel), under the JAX module's names
+from recnext_tpu_torch.ops.recconv_variants import (  # noqa: E402,F401
+    depthwise_conv_transpose2d,
+    grouped_conv_transpose2d,
+    rec_conv2d_channel_split,
+    rec_conv2d_group_down,
+    rec_conv2d_maxpool,
+    rec_conv2d_recurrent,
+    rec_conv2d_split_transpose_up,
+    rec_conv2d_transpose_up,
+)

@@ -48,8 +48,10 @@ def _qkvg(bh, n, d, dv, seed=0):
 
 
 def _jax_vjp(fn, q, k, v, g):
-    _, pull = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    return [np.asarray(t) for t in pull(jnp.asarray(g))]
+    """``jax.vjp`` of ``fn`` at (q, k, v) applied to g, in one compile (op by op, JAX
+    dispatches each of the form's ops on its own, most of a test's time)."""
+    pull = jax.jit(lambda q_, k_, v_, g_: jax.vjp(fn, q_, k_, v_)[1](g_))
+    return [np.asarray(t) for t in pull(*map(jnp.asarray, (q, k, v, g)))]
 
 
 def _close(got, want, name):
@@ -435,7 +437,7 @@ def _compare_gradients(jax_module, port_module, x):
                                   training=True, mutable=["batch_stats"])
         return jnp.sum(out * jnp.asarray(r))
 
-    gp, gx = jax.grad(loss, argnums=(0, 1))(variables["params"], jnp.asarray(x))
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(variables["params"], jnp.asarray(x))
     want = jax_to_torch({"params": gp, "batch_stats": stats}, port_module)
     xt = _nchw(x).requires_grad_()
     (port_module(xt) * _nchw(r)).sum().backward()

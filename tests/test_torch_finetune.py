@@ -5,6 +5,9 @@ own checkpoint, each held against ``recnext_tpu.train.finetune`` on the same see
 weights carried across with jax_to_torch; and the model's logits at 384^2 against
 the JAX model's, for the M and A families."""
 
+import copy
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -21,8 +24,19 @@ from tests.test_torch_models import (
     _nchw,
     _port_model,
     check_logits_and_features,
-    init_jax_variables,
 )
+from tests.test_torch_models import init_jax_variables as _init_jax_variables
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(name):
+    return _init_jax_variables(name)
+
+
+def init_jax_variables(name):
+    """The JAX init of ``name`` (a jitted init, its compile most of a test's time),
+    made once a model for the file; each caller gets its own copy."""
+    return copy.deepcopy(_jax_init(name))
 
 
 @pytest.fixture(scope="module", autouse=True)

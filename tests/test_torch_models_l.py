@@ -6,7 +6,10 @@ converters' keys at full width for all six names, the drop-path rates, the
 variant-3 attention (LA3) on its own and on a channel slice of its input, and the
 share-channel blocks under remat."""
 
+import functools
 import json
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -85,10 +88,35 @@ def calibrated_jax_variables(name, overrides, side=SIDE):
     return {"params": params, "batch_stats": stats}
 
 
+def _jax_side(key):
+    """The JAX side of a config, in a process of its own: the calibrated variables,
+    the logits and features on ``_image(2, SIDE, 0)`` and the fused model's logits
+    on ``_image(2, SIDE, 1)``, as numpy."""
+    name, ovr = CONFIGS[key]
+    variables = calibrated_jax_variables(name, ovr)
+    jm = jax_create_model(name, **ovr)
+    want, want_feats = jax.jit(lambda v, x: (jm.apply(v, x), jm.apply(v, x, method=jm.features)))(
+        variables, jnp.asarray(_image(2, SIDE, 0)))
+    fused = jax.jit(jax_create_model(name, fused=True, **ovr).apply)(
+        jax_fuse_params(variables), jnp.asarray(_image(2, SIDE, 1)))
+    return jax.device_get(dict(variables=variables, logits=want, features=want_feats,
+                               fused_logits=fused))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_refs():
+    """Every config's JAX side at once, each in a spawned process (their inits, train
+    applies and jitted applies compile; in threads they would share one interpreter's
+    lock), by model name."""
+    keys = sorted(CONFIGS)
+    with ProcessPoolExecutor(len(keys), mp_context=multiprocessing.get_context("spawn")) as pool:
+        return {CONFIGS[k][0]: out for k, out in zip(keys, pool.map(_jax_side, keys))}
+
+
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def config(request):
     name, ovr = CONFIGS[request.param]
-    return name, ovr, calibrated_jax_variables(name, ovr)
+    return name, ovr, _jax_refs()[name]["variables"]
 
 
 def _port(name, ovr, variables=None, fused=False):
@@ -102,10 +130,7 @@ def _port(name, ovr, variables=None, fused=False):
 def test_l_logits_and_features_match_jax(config):
     name, ovr, variables = config
     x = _image(2, SIDE, 0)
-    jm = jax_create_model(name, **ovr)
-    want, want_feats = jax.jit(lambda v, x: (jm.apply(v, x), jm.apply(v, x, method=jm.features)))(
-        variables, jnp.asarray(x))
-    want = np.asarray(want)
+    want, want_feats = _jax_refs()[name]["logits"], _jax_refs()[name]["features"]
     model = _port(name, ovr, variables)
     with torch.no_grad():
         got = model(_nchw(x)).numpy()
@@ -143,8 +168,7 @@ def test_l_fused_model_matches_jax_fused_apply(config):
     name, ovr, variables = config
     jfused = jax_fuse_params(variables)
     x = _image(2, SIDE, 1)
-    want = np.asarray(jax.jit(jax_create_model(name, fused=True, **ovr).apply)(
-        jfused, jnp.asarray(x)))
+    want = _jax_refs()[name]["fused_logits"]
     model = _port(name, ovr, fused=True)
     model.load_state_dict(fuse_params(jax_to_torch(variables)), strict=True)
     direct = _port(name, ovr, jfused, fused=True)  # the JAX fused tree carried across

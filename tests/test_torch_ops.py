@@ -3,6 +3,7 @@ RecConv2d pyramid (plain version, the peeled composition that large planes take 
 the GPU, and the CPU path of the fused entry point).
 Inputs are made with numpy and handed to both; NHWC <-> NCHW is explicit."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,9 +74,13 @@ def test_rec_conv2d_matches_jax_and_pallas(h, c, level):
     x, dw, cws = _recconv_inputs(h, c, level)
     got = _nhwc(rec_conv2d(_nchw(x), _oihw(dw), [_oihw(w) for w in cws], level=level))
     jx, jdw, jcws = jnp.asarray(x), jnp.asarray(dw), tuple(jnp.asarray(w) for w in cws)
-    want = np.asarray(jax_rec_conv2d(jx, jdw, jcws, level=level, mode="bilinear"))
+    # each JAX function in one compile (op by op, JAX dispatches the pyramid's ops, and
+    # the interpreted kernel's, one at a time)
+    want = np.asarray(jax.jit(lambda *a: jax_rec_conv2d(*a, level=level, mode="bilinear"))(
+        jx, jdw, jcws))
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * np.abs(want).max())
-    pallas = np.asarray(pallas_rec_conv2d(jx, jdw, jcws, level=level, interpret=True))
+    pallas = np.asarray(jax.jit(lambda *a: pallas_rec_conv2d(*a, level=level, interpret=True))(
+        jx, jdw, jcws))
     np.testing.assert_allclose(got, pallas, rtol=2e-5, atol=2e-5 * np.abs(pallas).max())
 
 

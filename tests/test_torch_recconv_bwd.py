@@ -50,8 +50,10 @@ def test_plain_backward_matches_jax_vjp(side, c, level, mode):
     def f(xx, dw, *cws):
         return jax_rec_conv2d(xx, dw, cws, level=level, mode=mode)
 
-    _, vjp = jax.vjp(f, jnp.asarray(x.transpose(0, 2, 3, 1)), *hwio)
-    want = vjp(jnp.asarray(g.transpose(0, 2, 3, 1)))
+    # one compile of the forward and its vjp: op by op, JAX dispatches the pyramid's
+    # gathers and lerps one at a time, most of this test's time
+    want = jax.jit(lambda gg, xx, *ws_: jax.vjp(f, xx, *ws_)[1](gg))(
+        jnp.asarray(g.transpose(0, 2, 3, 1)), jnp.asarray(x.transpose(0, 2, 3, 1)), *hwio)
     dx, dd, dcs = rec_conv2d_backward_plain(torch.from_numpy(x), torch.from_numpy(ws[0]),
                                             [torch.from_numpy(w) for w in ws[1:]],
                                             torch.from_numpy(g), level=level, mode=mode)

@@ -93,8 +93,10 @@ def _jax_vjp(x, ws, g, level, mode):
     def f(xx, dw, *cws):
         return jax_rec_conv2d(xx, dw, cws, level=level, mode=mode)
 
-    _, vjp = jax.vjp(f, jnp.asarray(x.transpose(0, 2, 3, 1)), *hwio)
-    return vjp(jnp.asarray(g.transpose(0, 2, 3, 1)))
+    # one compile of the forward and its vjp (op by op, JAX dispatches the pyramid's
+    # gathers and lerps one at a time)
+    return jax.jit(lambda gg, xx, *ws_: jax.vjp(f, xx, *ws_)[1](gg))(
+        jnp.asarray(g.transpose(0, 2, 3, 1)), jnp.asarray(x.transpose(0, 2, 3, 1)), *hwio)
 
 
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])

@@ -9,6 +9,8 @@ ops, NMS, the post-process and the losses are in ``tests/test_torch_tasks_boxes.
 
 import functools
 import json
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -77,8 +79,25 @@ def _random_boxes(rng, n, span=80.0, max_wh=30.0):
     return np.concatenate([xy, xy + wh], axis=1)
 
 
+def _jax_reference_numpy(family):
+    """``_jax_reference`` as numpy, in a process of its own (``jax_reference``)."""
+    return jax.device_get(_jax_reference(family))
+
+
 @functools.lru_cache(maxsize=None)
+def _references():
+    """Both families' references at once, each in a spawned process: their jitted
+    functions' tracing and compiling are most of the file's time."""
+    families = ("m", "a")
+    with ProcessPoolExecutor(len(families), mp_context=multiprocessing.get_context("spawn")) as pool:
+        return dict(zip(families, pool.map(_jax_reference_numpy, families)))
+
+
 def jax_reference(family):
+    return _references()[family]
+
+
+def _jax_reference(family):
     """The JAX RetinaNet (backbone BN training, as the JAX CLI builds it) on the tiny
     ``family`` backbone: variables, batch, eval and train-mode outputs and statistics,
     and one train step as ``make_detection_train_step`` takes it (its per-image loss,

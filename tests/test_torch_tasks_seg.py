@@ -10,6 +10,8 @@ are given the same mask."""
 
 import copy
 import functools
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -94,8 +96,25 @@ def _port_mask(shape, keep, device, generator):
     return torch.from_numpy(_mask(shape[0], shape[1]).reshape(shape))
 
 
+def _jax_reference_numpy(family):
+    """``_jax_reference`` as numpy, in a process of its own (``jax_reference``)."""
+    return jax.device_get(_jax_reference(family))
+
+
 @functools.lru_cache(maxsize=None)
+def _references():
+    """Both families' references at once, each in a spawned process: their jitted
+    functions' tracing and compiling are most of the file's time."""
+    families = ("m", "a")
+    with ProcessPoolExecutor(len(families), mp_context=multiprocessing.get_context("spawn")) as pool:
+        return dict(zip(families, pool.map(_jax_reference_numpy, families)))
+
+
 def jax_reference(family):
+    return _references()[family]
+
+
+def _jax_reference(family):
     """The JAX SemanticFPN on the tiny ``family`` backbone, from one jitted function:
     its variables (statistics moved off (0, 1)), the input and labels, the eval logits,
     and one train step's train-mode logits and statistics, loss, gradients and

@@ -7,7 +7,8 @@ and after its start step, and the JSD loss on given views. After every step: the
 loss, the BN running statistics, the parameters and the EMA."""
 
 import functools
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -117,17 +118,29 @@ RUNS = {"grad_accum": (NAME, dict(count=2), dict(grad_accum=2)),
         "jsd": (NAME, dict(count=1, views=3), dict(jsd_splits=3))}
 
 
+def _run_alone(name, batch_kw, kw):
+    """``_run`` in a process of its own, the port's side on one thread as here."""
+    torch.set_num_threads(1)
+    return _run(name, _batches(**batch_kw), **kw)
+
+
 @functools.lru_cache(maxsize=None)
 def _runs():
-    """Every run once, all at once in threads: the JAX steps' compiles (most of the
-    file's time) overlap where they release the interpreter's lock and cores are
-    free."""
-    for name, side in {(name, kw.get("side", 32)) for name, _, kw in RUNS.values()}:
-        _init(name, side)
-    with ThreadPoolExecutor(len(RUNS)) as pool:
-        futures = {k: pool.submit(_run, name, _batches(**b), **kw)
-                   for k, (name, b, kw) in RUNS.items()}
-        return {k: f.result() for k, f in futures.items()}
+    """Every run once, all at once: each run with a JAX side (its steps' tracing and
+    compiling are most of the file's time) in a spawned process of its own, since in
+    threads they would share one interpreter's lock; the port-only runs here, in
+    threads."""
+    with_jax = [k for k, (_, _, kw) in RUNS.items() if kw.get("jax_side", True)]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(with_jax), mp_context=ctx) as procs:
+        futures = {k: procs.submit(_run_alone, *RUNS[k]) for k in with_jax}
+        here = {k: v for k, v in RUNS.items() if k not in futures}
+        for name, side in {(name, kw.get("side", 32)) for name, _, kw in here.values()}:
+            _init(name, side)
+        with ThreadPoolExecutor(len(here)) as pool:
+            futures |= {k: pool.submit(_run, name, _batches(**b), **kw)
+                        for k, (name, b, kw) in here.items()}
+            return {k: f.result() for k, f in futures.items()}
 
 
 def _check(step, updates):

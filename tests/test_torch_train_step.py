@@ -9,7 +9,8 @@ fused eval step against JAX's (M and L), and the L model's weight-decay labels."
 
 import copy
 import functools
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -64,35 +65,46 @@ TEACHER = dict(name="tiny", w0=24, wa=24.0, wm=2.0, depth=4, group_width=8, stem
                num_classes=11)
 
 
-def _teacher():
-    """The teacher on both sides: (JAX apply, the port's module), on the same weights
-    with BN statistics moved off (0, 1)."""
+def _jax_teacher(variables=None):
+    """The teacher's JAX apply, and its variables: a seeded init with BN statistics
+    moved off (0, 1), unless ``variables`` are given."""
     model = jregnet.RegNetY(cfg=jregnet.RegNetConfig(**TEACHER))
-    variables = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3)))
-    rng = np.random.default_rng(5)
-    variables = {"params": variables["params"], "batch_stats": jax.tree.map(
-        lambda v: v + 0.3 * np.abs(rng.normal(size=v.shape)).astype(v.dtype),
-        variables["batch_stats"])}
+    if variables is None:
+        variables = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3)))
+        rng = np.random.default_rng(5)
+        variables = {"params": variables["params"], "batch_stats": jax.tree.map(
+            lambda v: v + 0.3 * np.abs(rng.normal(size=v.shape)).astype(v.dtype),
+            variables["batch_stats"])}
+    return (lambda xb: model.apply(variables, xb, training=False)), variables
+
+
+def _port_teacher(variables):
+    """The port's teacher on the JAX teacher's weights."""
     port = tregnet.RegNetY(tregnet.RegNetConfig(**TEACHER))
     port.load_state_dict(jax_regnet_to_torch(variables, port), strict=True)
-    return (lambda xb: model.apply(variables, xb, training=False)), port
+    return port
 
 
-def _run_step(name, distillation="none", alpha=0.5, tau=1.0, side=32):
-    """Both packages' train step, once, on a batch of ``side``^2 images: the states
-    before and after, the gradients."""
+def _jax_parts(name, distillation):
+    model = jax_create_model(name, distillation=distillation != "none", **OVR)
+    tx = jopt.make_optimizer(_sched(jopt), weight_decay=0.025, agc_clip=0.02)
+    return model, tx
+
+
+def _jax_step(name, distillation="none", alpha=0.5, tau=1.0, side=32):
+    """The JAX package's side of a step, run in a process of its own: the init (BN
+    running statistics moved off (0, 1), so that the momentum update is exercised),
+    the teacher's variables, the state after the step (its leaves), the metrics, the
+    raw gradient and that gradient after AGC; all as numpy arrays."""
     distill = distillation != "none"
-    model = jax_create_model(name, distillation=distill, **OVR)
+    model, tx = _jax_parts(name, distillation)
     variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
-    # the init's weights; BN running statistics moved off (0, 1), so that the
-    # momentum update is exercised
     variables = {"params": variables["params"], "batch_stats": jax.tree.map(
         lambda v: v + 0.05 * np.random.default_rng(3).normal(size=v.shape).astype(v.dtype),
         variables["batch_stats"])}
     x, y = _batch(side=side)
-    tx = jopt.make_optimizer(_sched(jopt), weight_decay=0.025, agc_clip=0.02)
     state = JaxTrainState.create(variables, tx)
-    jax_teacher, port_teacher = _teacher() if distill else (None, None)
+    jax_teacher, teacher_vars = _jax_teacher() if distill else (None, None)
     train_step = jstep.make_train_step(model, tx, num_classes=11, mixup=False,
                                        smoothing=0.1, ema_decay=EMA_DECAY,
                                        teacher_apply=jax_teacher, distillation=distillation,
@@ -116,6 +128,32 @@ def _run_step(name, distillation="none", alpha=0.5, tau=1.0, side=32):
         return (*train_step(st, batch, jax.random.PRNGKey(1)), grads, clipped)
 
     new, metrics, grads, clipped = step_and_grads(state)
+    evals = {}
+    if not distill:  # the eval steps on the state after the step (_check_eval_steps)
+        cfg = jax_get_config(name, **OVR)
+        fused = jax_create_model(name, fused=True, **OVR)
+        for ema in (False, True):
+            evals["plain", ema] = jstep.make_eval_step(model, ema=ema)(new, batch)
+            evals["fused", ema] = jstep.make_fused_eval_step(
+                cfg, ema=ema, fused_model=fused, packed=False, dtype=jnp.float32)(new, batch)
+    return jax.device_get(dict(variables=variables, teacher=teacher_vars,
+                               state=jax.tree.leaves(new), metrics=metrics, grads=grads,
+                               clipped=clipped, evals=evals))
+
+
+def _run_step(name, distillation="none", alpha=0.5, tau=1.0, side=32, jax_out=None):
+    """Both packages' train step, once, on a batch of ``side``^2 images: the states
+    before and after, the gradients. ``jax_out``: ``_jax_step``'s result (run here
+    when not given)."""
+    distill = distillation != "none"
+    out = jax_out or _jax_step(name, distillation, alpha, tau, side)
+    variables = out["variables"]
+    model, tx = _jax_parts(name, distillation)
+    template = JaxTrainState.create(variables, tx)
+    new = jax.tree.unflatten(jax.tree.structure(template), out["state"])
+    x, y = _batch(side=side)
+    batch = {"image": jnp.asarray(x), "label": jnp.asarray(y)}
+    port_teacher = _port_teacher(out["teacher"]) if distill else None
 
     tm = create_model(name, device="cpu", distillation=distill, **OVR)
     tm.load_state_dict(jax_to_torch(variables, tm), strict=True)
@@ -138,8 +176,8 @@ def _run_step(name, distillation="none", alpha=0.5, tau=1.0, side=32):
                             teacher_logits=teacher_apply(tb["image"]) if distill else None)
     loss.backward()
     tgrads = {n: p.grad for n, p in before.named_parameters()}
-    return dict(jax_state=new, jax_metrics=metrics, jax_grads=grads, jax_clipped=clipped,
-                variables=variables,
+    return dict(jax_state=new, jax_metrics=out["metrics"], jax_grads=out["grads"],
+                jax_clipped=out["clipped"], jax_evals=out["evals"], variables=variables,
                 state=tstate, metrics=tmetrics, grads=tgrads, model=tm, batch=tb,
                 jax_batch=batch, jax_model=model)
 
@@ -165,13 +203,20 @@ OTHER_STEPS = {"a0": (A0, "none", 1.0, 64), "hard": (A0, "hard", 1.0, 64),
 
 @functools.lru_cache(maxsize=None)
 def _all_steps():
-    """Every step of the file, each once however many fixtures ask for it, all run at
-    once in threads: the JAX side's compiles (most of the file's time) overlap where
-    they release the interpreter's lock and cores are free."""
+    """Every step of the file, each once however many fixtures ask for it. The JAX
+    side of each (its tracing and compiling, most of the file's time) runs in a
+    spawned process of its own, all at once: in threads they would share one
+    interpreter's lock. The port's side then runs here, in threads, as each JAX
+    result arrives."""
     cases = {"m0": (NAME, "none", 1.0, 32)} | OTHER_STEPS
-    with ThreadPoolExecutor(len(cases)) as pool:
-        futures = {k: pool.submit(_run_step, name, distillation, tau=tau, side=side)
-                   for k, (name, distillation, tau, side) in cases.items()}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(cases), mp_context=ctx) as procs, \
+            ThreadPoolExecutor(len(cases)) as threads:
+        jax_outs = {k: procs.submit(_jax_step, name, distillation, 0.5, tau, side)
+                    for k, (name, distillation, tau, side) in cases.items()}
+        futures = {k: threads.submit(lambda k=k, c=c: _run_step(
+            c[0], c[1], tau=c[2], side=c[3], jax_out=jax_outs[k].result()))
+            for k, c in cases.items()}
         return {k: f.result() for k, f in futures.items()}
 
 
@@ -360,12 +405,9 @@ def _check_eval_steps(run, name, ema):
                                                          _sched(topt)))
     state.ema.update({k: v for k, v in _ref(run, new.ema_params, new.ema_batch_stats).items()
                       if k in state.ema})
-    want = jstep.make_eval_step(run["jax_model"], ema=ema)(new, run["jax_batch"])
+    want = run["jax_evals"]["plain", ema]  # JAX's, computed beside its step
     got = tstep.make_eval_step(model, ema=ema, dtype=torch.float32)(state, run["batch"])
-    cfg = jax_get_config(name, **OVR)
-    fused_jax = jax_create_model(name, fused=True, **OVR)
-    want_fused = jstep.make_fused_eval_step(cfg, ema=ema, fused_model=fused_jax, packed=False,
-                                            dtype=jnp.float32)(new, run["jax_batch"])
+    want_fused = run["jax_evals"]["fused", ema]
     got_fused = tstep.make_fused_eval_step(get_config(name, **OVR), ema=ema,
                                            dtype=torch.float32)(state, run["batch"])
     for w, g in ((want, got), (want_fused, got_fused)):
@@ -400,7 +442,7 @@ def test_distillation_needs_a_teacher_and_a_known_kind():
 
 
 def test_teacher_apply_is_eval_mode_without_gradient_in_the_compute_dtype():
-    _, teacher = _teacher()
+    teacher = _port_teacher(_jax_teacher()[1])
     teacher.train()
     apply = tstep.make_teacher_apply(teacher, torch.bfloat16)
     assert not teacher.training
