@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
 source, started together; the checks that time nothing on the host and need no
 peeled level, phases 2, 4 for a1 and the L models, 7, 7l, 11, 12, 15, 16 and 18l-19l's
 gradients, run while the peeled level's library, the longest build, is compiled),
-then drives ten paths, each with every kernel launch
+then drives eleven paths (the packed executor's the eleventh), each with every kernel launch
 count set to 0 just before its main phase (serving; for training, the trainer)
 and read just after:
 
@@ -49,6 +49,18 @@ and read just after:
               the kernel and (for scale) with the mixers on the plain version; a
               profiler trace of the kernel path: device busy time and idle share,
               the kernel's time in the forward, the kernels by device time;
+6p. packed     the packed executor (models/packed_infer.py, PackedRecNext) on the
+              serving phase's fused bf16 m1 at batch 256 and 8: in f32 (batch 256 and
+              8, g = 2 and 4 at every stage) the logits within atol 2e-4, rtol 2e-5 of
+              the unpacked fused model's; in bf16 at default_groups, g = 2 and g = 4, each
+              forward's distance from the f32 logits at most the unpacked bf16
+              forward's plus 1e-2 max|ref| (the distance between the two bf16 forwards
+              printed), and exactly 23 K1 launches a forward (no other kernel); the
+              packed and the unpacked forward's ms at batch 256; one request through
+              ServingModel(packed=None) with g = 2 in the policy table; the packing
+              sweep (tools/sweep_packing.py: 1,1,1,1 / 2,1,1,1 / 1,2,1,1 / 1,1,2,1 /
+              1,1,1,2 at batch 256); micro.bench_stage2_packed and bench_eval's packed
+              step;
    recnext_a1 (the A family, kernel K2 = linear attention):
 7. attention  the linear-attention kernel against its plain version (kv-first) at
               tests/test_pallas.py's four shapes (odd n, odd d, dv != d), at
@@ -61,6 +73,11 @@ and read just after:
               a1's shapes at batch 256 bf16, as phase 2 does;
 8-10.         phases 4-6 for recnext_a1 (at 224^2): exactly 23 linear-attention and
               0 RecConv2d launches per forward, and 23 per batch served;
+10p.          phase 6p for recnext_a1 (23 K2 launches a packed forward, K2 on the
+              (B, 2c, H, W) views of the packed qk), with tools/attn_breakdown.py at
+              stages 1-2 (default_groups and g = 2); the packed path's kernels do the
+              work of the unpacked path's on the same planes and heads, so phases 2
+              and 7 time both;
    the L family (recnext_t/b/t_share_channel; K2 at one head per image, D up to 96,
    DV != D in LA3, whose v is a channel slice of the block's input; no RecConv2d):
 7l. attention_l  K2 at the seven L shapes (L_ATTENTION) through the NCHW entry (the
@@ -272,8 +289,9 @@ and read just after:
               model card of its m1 row naming the card; analyze_logs over phase 13's
               log.txt.
 Then each phase's seconds, the L path's launch counts and K2 / K2' totals, the
-MLLA path's (the mlla_path line), the tasks' (the tasks_path line) and the tools'
-roofline shares (the tools_path line).
+MLLA path's (the mlla_path line), the tasks' (the tasks_path line), the tools'
+roofline shares (the tools_path line) and the packed executor's launches and sweeps
+(the packed_path line).
 
 Every phase prints one JSON line. Any failure raises and the exit code is not 0.
 In the kernel record, "launches" counts the launches of the kernel's serving
@@ -290,7 +308,8 @@ call). The peeled level's backward kernels (rec_conv2d_level_dgrad, _wgrad,
 rec_conv2d_up_adjoint) run only where a plane's backward is too large for K1': their
 launches are those of phase 20's kernel path (m1 at 512^2, batch 2), and their times
 the sums over that step's launches (3 peeled mixers, each 2 input-gradient, 2
-weight-gradient and 1 adjoint launches at 128^2, batch 2, C 48). The L path's K2 and
+weight-gradient and 1 adjoint launches at 128^2, batch 2, C 48). The packed
+executor's K1 and K2 launches a forward are on the packed_path line. The L path's K2 and
 K2' numbers are on the l_path line, the MLLA path's on the mlla_path line, not in
 the kernel record. The last lines are
 the kernel record, the card's name and power limit, and
@@ -1247,7 +1266,8 @@ def phase_serving(name, unfused):
             ping = json.loads(r.read())
         with urllib.request.urlopen(f"{base}/models/{name}", timeout=30) as r:
             info = json.loads(r.read())
-        if ping != {"status": "Healthy"} or info["model"] != name:
+        if ping != {"status": "Healthy"} or info["model"] != name \
+                or info["packed"] != (serving.cfg.family in ("m", "a")):
             raise AssertionError(f"bad /ping or /models answer: {ping} {info}")
 
         rng = np.random.default_rng(3)
@@ -3689,6 +3709,130 @@ def phase_tools(rows, forward_ips, train_ips, train_log: Path, work_dir: Path):
     return {k: r["roofline_utilization_pct"] for k, r in shares.items()}
 
 
+# the packed phase: the packed executor (models/packed_infer.py) on fused m1 (K1) and a1
+# (K2), bf16, at batch 256 and serving's max_batch 8, at default_groups, g = 2 and g = 4
+# at every stage; its sweep's tuples (tools/sweep_packing.py)
+PACKED_FORCED = ((2, 2, 2, 2), (4, 4, 4, 4))
+PACKED_SWEEP = ((1, 1, 1, 1), (2, 1, 1, 1), (1, 2, 1, 1), (1, 1, 2, 1), (1, 1, 1, 2))
+
+
+def phase_packed(name, serving):
+    """The packed executor on fused ``name`` (``serving``'s bf16 model): in f32 at batch
+    256 and 8, g = 2 and 4 at every stage, the logits within atol 2e-4, rtol 2e-5 of the unpacked
+    fused model's; in bf16 at batch 256 and 8, at ``default_groups`` and g = 2 and 4,
+    each forward no further from the f32 logits than the unpacked bf16 forward plus 1e-2
+    max|ref|, and exactly 23 launches of the family's kernel (and none of any other) a
+    forward; the packed forward's ms against the unpacked one's at batch 256; one
+    request served through ``ServingModel(packed=None)`` with g = 2 at every stage in
+    the policy table; tools/sweep_packing.py over ``PACKED_SWEEP`` (a1: and
+    tools/attn_breakdown.py at stages 1-2; m1: micro.bench_stage2_packed and
+    bench_eval's packed step). Returns the launches of the g = 2 forward at batch 256
+    and the sweep's summary."""
+    from recnext_tpu_torch.models import packed_infer
+    from recnext_tpu_torch.tools import attn_breakdown, bench_eval, micro, sweep_packing
+
+    model = serving.model
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(12)
+    x256 = torch.randn(256, 3, 224, 224, generator=gen).to("cuda", torch.bfloat16)
+    inputs = {256: x256, 8: x256[:8].contiguous()}
+    expected = EXPECTED[name]
+    out = {"phase": "packed", "model": name, "dtype": "bf16", "card": nvidia_smi(),
+           "serving_groups": serving.groups, "forwards": []}
+    g2_launches = None
+    with torch.inference_mode():
+        # f32: the packed executor computes the fused model's function (the 1x1 convs
+        # grouped, the rest the same per-plane work): within atol 2e-4, rtol 2e-5, at
+        # the main path's batch 256 as at serving's 8
+        f32 = create_model(name, fused=True, device="cuda", dtype=torch.float32)
+        f32.load_state_dict(model.state_dict(), strict=True)
+        exact = {b: f32(x.float()) for b, x in inputs.items()}
+        for groups in PACKED_FORCED:
+            packed = packed_infer.PackedRecNext(f32, groups)
+            for batch, x in inputs.items():
+                diff = (packed(x.float()) - exact[batch]).abs()
+                bad = diff > 2e-4 + 2e-5 * exact[batch].abs()
+                out[f"f32_batch{batch}_g{groups[0]}_max_abs_err"] = diff.max().item()
+                if bad.any():
+                    raise AssertionError(f"packed f32 {name} {groups} at batch {batch}: "
+                                         f"{int(bad.sum())} logits beyond atol 2e-4, "
+                                         "rtol 2e-5")
+        del f32, packed
+        refs = {b: model(x).float() for b, x in inputs.items()}
+        for batch, x in inputs.items():
+            scale = refs[batch].abs().max().item()
+            unpacked_vs_f32 = (refs[batch] - exact[batch]).abs().max().item()
+            for groups in (packed_infer.default_groups(cfg, batch), *PACKED_FORCED):
+                packed = packed_infer.PackedRecNext(model, groups)
+                for fn in COUNTERS.values():  # the packed path starts here
+                    fn.launches = 0
+                got = packed(x).float()
+                torch.cuda.synchronize()
+                launches = counts()  # ... and ends here
+                err = (got - refs[batch]).abs().max().item()
+                row = {"batch": batch, "groups": list(groups), "launches": launches,
+                       "max_abs_err_vs_unpacked_bf16": err, "max_abs_ref": scale,
+                       "max_abs_err_vs_f32": (got - exact[batch]).abs().max().item(),
+                       "unpacked_bf16_max_abs_err_vs_f32": unpacked_vs_f32,
+                       "tol_vs_f32": unpacked_vs_f32 + 1e-2 * scale}
+                if launches != expected:
+                    raise AssertionError(f"packed {name} {groups} at batch {batch}: launches "
+                                         f"{launches}, expected {expected}")
+                # each bf16 forward is 2.5-3% of max|ref| from the f32 one (its order of
+                # summation its own): the packed one may be no further from it than the
+                # unpacked one by more than 1e-2 max|ref|
+                if got.shape != (batch, 1000) or not torch.isfinite(got).all() or not \
+                        row["max_abs_err_vs_f32"] <= unpacked_vs_f32 + 1e-2 * scale:
+                    raise AssertionError(f"packed {name} {groups} at batch {batch}: {row}")
+                if batch == 256:
+                    row["ms"] = cuda_ms(lambda: packed(x), iters=10)
+                    if groups == PACKED_FORCED[0]:
+                        g2_launches = launches
+                out["forwards"].append(row)
+                del packed
+        out["unpacked_ms_batch_256"] = cuda_ms(lambda: model(x256), iters=10)
+    # one request through ServingModel(packed=None), g = 2 at every stage in the table
+    build = Path(__file__).resolve().parent / "recnext_tpu_torch" / "_build"
+    saved = packed_infer.MEASURED_GROUPS.get(name)
+    packed_infer.MEASURED_GROUPS[name] = PACKED_FORCED[0]
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as archive:
+            publish_fused(name, model.state_dict(), archive)
+            served = ServingModel(archive, name, max_batch=8)
+    finally:
+        if saved is None:
+            del packed_infer.MEASURED_GROUPS[name]
+        else:
+            packed_infer.MEASURED_GROUPS[name] = saved
+    request = np.random.default_rng(13).normal(size=(1, 3, 224, 224)).astype(np.float32)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    probs = served.predict(request)
+    launches = counts()
+    direct = serving.predict(request)
+    out["served"] = {"groups": served.groups, "launches": launches,
+                     "max_abs_prob_diff_vs_serving_phase": float(np.abs(probs - direct).max())}
+    if not served.packed or served.groups != PACKED_FORCED[0] or launches != expected \
+            or probs.argmax() != direct.argmax() or not np.abs(probs - direct).max() <= 1e-2:
+        raise AssertionError(f"packed serving of {name}: {out['served']}")
+    del served
+    # the tools
+    sweep = sweep_packing.sweep(name, PACKED_SWEEP, batch=256, iters=10)
+    out["sweep"] = sweep
+    if name == "recnext_a1":
+        out["attn_breakdown"] = [
+            attn_breakdown.breakdown_stage(name, stage, 256, groups, iters=20)
+            for groups in (None, PACKED_FORCED[0]) for stage in (1, 2)]
+        per_block = [r["k2_launches_per_block"] for r in out["attn_breakdown"]]
+        if per_block != [1] * len(per_block):
+            raise AssertionError(f"attn_breakdown: K2 launches a block {per_block}")
+    else:
+        out["stage2_packed"] = micro.bench_stage2_packed(256, iters=10)
+        out["bench_eval"] = bench_eval.bench_eval(name, 256, iters=3, groups=PACKED_FORCED[0])
+    emit(out)
+    return g2_launches, sweep["summary"]
+
+
 def run_tasks():
     """The downstream tasks' phases; returns the tasks_path line and each phase's
     seconds. Run in a process of its own (``tasks_process``)."""
@@ -3865,6 +4009,8 @@ def main() -> int:
     serving, m1_launches = timed("serving", phase_serving, "recnext_m1", unfused)
     ips = {"recnext_m1": timed("throughput", phase_throughput, "recnext_m1", serving.model,
                                "recconv_kernel", m1_total["kernel_ms"])}
+    # the packed executor on m1 (K1)
+    m1_packed, m1_sweep = timed("packed", phase_packed, "recnext_m1", serving)
     del unfused, serving
 
     # recnext_a1: kernel K2
@@ -3872,6 +4018,8 @@ def main() -> int:
     serving, a1_launches = timed("serving", phase_serving, "recnext_a1", a1_unfused)
     ips["recnext_a1"] = timed("throughput", phase_throughput, "recnext_a1", serving.model,
                               "linear_attention_kernel", a1_total["kernel_ms"])
+    # the packed executor on a1 (K2)
+    a1_packed, a1_sweep = timed("packed", phase_packed, "recnext_a1", serving)
     del a1_unfused, serving
 
     # the L family (recnext_t, recnext_b, recnext_t_share_channel): K2 at one head per
@@ -3935,6 +4083,9 @@ def main() -> int:
     emit({"phase": "mlla_path", **mlla})
     emit({"phase": "tasks_path", **tasks})
     emit({"phase": "tools_path", "roofline_utilization_pct": shares})
+    emit({"phase": "packed_path", "launches_g2_batch_256": {"recnext_m1": m1_packed,
+                                                             "recnext_a1": a1_packed},
+          "sweep": {"recnext_m1": m1_sweep, "recnext_a1": a1_sweep}})
 
     emit({"kernels": [
         kernel_record("rec_conv2d", "recnext_tpu_torch/csrc/recconv.cu",

@@ -7,7 +7,11 @@ reference's upload.py), at 224^2 only. Three modes:
 
 * default: BN-fused inference throughput in bf16 (recnext_m1, batch 256): a warm-up
   of ``--warmup`` seconds, then a timed window of about ``--timed`` seconds, timed
-  with CUDA events;
+  with CUDA events. The M and A families run through the packed executor
+  (``models/packed_infer.py`` at ``default_groups``), as the JAX scoreboard does,
+  unless ``--no-packed``; ``--attn-impl`` takes ``headbatch`` only (JAX's
+  ``blockdiag`` forms are TPU layouts, not ported). The JSON line says which ran
+  (``packed``, ``groups``);
 * ``--latency``: the fused model at batch 1, device time per forward (CUDA events
   around ``--latency-iters`` forwards);
 * ``--train``: training throughput (``train_throughput``): the port's train step
@@ -121,16 +125,34 @@ def inference_model(model_name: str, dtype, device, **overrides):
                         **overrides)
 
 
+def packed_groups(model_name: str, batch: int, packed: bool = True, **overrides):
+    """The packed executor's per-stage factors for ``model_name`` at ``batch``
+    (``default_groups``), or None where it does not run: not ``packed``, MLLA, the L
+    family."""
+    from recnext_tpu_torch.models.packed_infer import default_groups
+    from recnext_tpu_torch.models.registry import get_config
+
+    if not packed or is_mlla(model_name):
+        return None
+    cfg = get_config(model_name, **overrides)
+    return default_groups(cfg, batch) if cfg.family in ("m", "a") else None
+
+
 def throughput(model_name: str, batch: int, *, dtype=torch.bfloat16, warmup_s: float = 5.0,
                timed_s: float = 10.0, image_size: int | None = None, device=None,
-               **overrides) -> float:
-    """Inference images per second at ``batch`` (``inference_model``), at
-    ``image_size`` (default ``native_size``)."""
+               packed: bool = True, **overrides) -> float:
+    """Inference images per second at ``batch`` (``inference_model``, through the
+    packed executor at ``packed_groups``), at ``image_size`` (default
+    ``native_size``)."""
     from recnext_tpu_torch.device import resolve_device
+    from recnext_tpu_torch.models.packed_infer import PackedRecNext
 
     dev = resolve_device(device)
     image_size = image_size or native_size(model_name)
     model = inference_model(model_name, dtype, dev, **overrides)
+    groups = packed_groups(model_name, batch, packed, **overrides)
+    if groups:
+        model = PackedRecNext(model, groups)
     x = torch.randn(batch, 3, image_size, image_size, device=dev,
                     generator=torch.Generator(dev).manual_seed(0)).to(dtype)
     with torch.inference_mode():
@@ -341,6 +363,8 @@ def main(argv=None):
                    help="default: 256 for MLLA, 224 otherwise (--loader: 224)")
     p.add_argument("--timed", type=float, default=10.0)
     p.add_argument("--warmup", type=float, default=5.0)
+    p.add_argument("--no-packed", action="store_true",
+                   help="the M and A families' fused model as it is, not packed")
     p.add_argument("--model-kwargs", default="",
                    help="RecNextConfig overrides, e.g. embed_dim=16:32:64:128,depth=1:1:2:1")
     p.add_argument("--device", default=None, help="default: the GPU (cuda)")
@@ -388,11 +412,14 @@ def main(argv=None):
                               else [round(r, 1) for r in v]) for k, v in spread.items()}}
     else:
         ips = throughput(args.model, args.batch, warmup_s=args.warmup,
-                         timed_s=args.timed, image_size=size, device=args.device, **kw)
+                         timed_s=args.timed, image_size=size, device=args.device,
+                         packed=not args.no_packed, **kw)
+        groups = packed_groups(args.model, args.batch, not args.no_packed, **kw)
         base = BASELINES.get(args.model) if size == 224 else None
         rec = {"metric": f"{args.model}_{form}_{size}_images_per_sec",
                "value": round(ips, 2), "unit": "images/sec",
-               "vs_baseline": round(ips / base, 3) if base else None, "batch": args.batch}
+               "vs_baseline": round(ips / base, 3) if base else None, "batch": args.batch,
+               "packed": groups is not None, "groups": list(groups) if groups else None}
     rec["device"] = _device_name(args.device)
     print(json.dumps(rec), flush=True)
     return rec

@@ -13,7 +13,10 @@ bf16, of the M family (each RecConv2d mixer one launch of the RecConv2d kernel),
 the A family (each RecAttn2d mixer one launch of the linear-attention kernel) or
 the L family (each block's attention, a RecAttn2d or a variant-3 LinearAttention,
 one launch of the linear-attention kernel; its RepVGGDW one fused depthwise conv);
-the kernel library its family launches is built before the first request.
+the kernel library its family launches is built before the first request. The M and
+A families run through the packed executor (``models/packed_infer.py``) at
+``default_groups(cfg, max_batch)``, as the JAX server does, unless ``packed=False``;
+``GET /models/<name>`` reports it and the groups.
 
 CLI:
     python -m recnext_tpu_torch.serve --archive published/ --model recnext_m1 --port 8080
@@ -38,6 +41,7 @@ import torch
 from recnext_tpu_torch.data.transforms import EvalTransform
 from recnext_tpu_torch.device import resolve_device
 from recnext_tpu_torch.export import load_published
+from recnext_tpu_torch.models.packed_infer import PackedRecNext, default_groups
 from recnext_tpu_torch.models.registry import create_model, get_config
 
 
@@ -45,13 +49,16 @@ class ServingModel:
     """A published archive loaded as a fused model on one device.
 
     ``predict(batch)`` pads (n, 3, S, S) to ``max_batch`` rows, runs one forward,
-    and returns fp32 softmax probabilities for the real rows only.
+    and returns fp32 softmax probabilities for the real rows only. ``packed``: None
+    packs the M and A families (``models/packed_infer.py:PackedRecNext`` at
+    ``default_groups(cfg, max_batch)``, built once); False runs the fused model as it
+    is. ``self.groups`` holds the per-stage factors, or None unpacked.
     """
 
     def __init__(self, archive: str, model_name: str, *,
                  max_batch: int = 8, input_size: int = 224,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device | None = None,
+                 device: str | torch.device | None = None, packed: Optional[bool] = None,
                  cfg_overrides: Optional[Dict[str, Any]] = None):
         self.device = resolve_device(device)
         self.model_name = model_name
@@ -60,10 +67,15 @@ class ServingModel:
         self.dtype = dtype
         self.cfg = get_config(model_name, **(cfg_overrides or {}))
         self.transform = EvalTransform(size=self.input_size)
-        self.packed = False  # the TPU lane-packing executor is not part of the port
         self.model = create_model(model_name, fused=True, device=self.device, dtype=dtype,
                                   **(cfg_overrides or {}))
         self.model.load_state_dict(load_published(model_name, archive), strict=True)
+        if packed is None:
+            packed = self.cfg.family in ("m", "a")
+        self.packed = bool(packed and self.cfg.family in ("m", "a"))
+        self.groups = default_groups(self.cfg, self.max_batch) if self.packed else None
+        self.forward = (PackedRecNext(self.model, self.groups) if self.packed
+                        else self.model)
         if self.device.type == "cuda":
             # build the family's kernel now, not inside the first request
             if self.cfg.family == "m":
@@ -94,7 +106,7 @@ class ServingModel:
         with torch.inference_mode():
             x = torch.zeros((self.max_batch,) + want, dtype=self.dtype, device=self.device)
             x[:n] = torch.from_numpy(np.asarray(batch, np.float32)).to(x.device, x.dtype)
-            probs = torch.softmax(self.model(x).float(), dim=-1)[:n].cpu().numpy()
+            probs = torch.softmax(self.forward(x).float(), dim=-1)[:n].cpu().numpy()
         with self._lock:
             self.batches_run += 1
             self.requests_served += n
@@ -186,7 +198,9 @@ def make_server(model: ServingModel, host: str = "127.0.0.1", port: int = 8080,
                 self._json(200, {
                     "model": model.model_name, "family": model.cfg.family,
                     "input_size": model.input_size, "max_batch": model.max_batch,
-                    "packed": model.packed, "device": str(model.device),
+                    "packed": model.packed,
+                    "groups": model.groups,
+                    "device": str(model.device),
                     "num_classes": model.cfg.num_classes,
                     "requests_served": model.requests_served,
                     "batches_run": model.batches_run,
@@ -249,6 +263,8 @@ def main(argv=None):
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--input-size", type=int, default=224)
     p.add_argument("--window-ms", type=float, default=5.0)
+    p.add_argument("--no-packed", action="store_true",
+                   help="run the fused model as it is, not through the packed executor")
     p.add_argument("--topk", type=int, default=5)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain path in f32)")
@@ -265,7 +281,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = ServingModel(args.archive, args.model, max_batch=args.max_batch,
-                         input_size=args.input_size, dtype=dtype, device=device)
+                         input_size=args.input_size, dtype=dtype, device=device,
+                         packed=False if args.no_packed else None)
     if args.check:
         raise SystemExit(0 if check_server(args.check, model, args.image) else 1)
 
@@ -273,7 +290,7 @@ def main(argv=None):
     srv = make_server(model, args.host, args.port,
                       window_ms=args.window_ms, topk=args.topk)
     print(f"serving {args.model} on http://{args.host}:{srv.server_address[1]} "
-          f"({device}, {dtype})", flush=True)
+          f"({device}, {dtype}, packed {model.groups})", flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

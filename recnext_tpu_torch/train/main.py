@@ -14,8 +14,8 @@ mixup/cutmix and label smoothing, hard or soft distillation from a teacher
 (``--distillation-type``, ``--teacher-model`` regnety_160/040/016 or a registry model,
 ``--teacher-ckpt``), AGC (or ``--clip-mode norm``) + AdamW with the reference cosine
 schedule, EMA, bf16 compute with fp32 parameters (``--dtype``), a per-epoch BN-fused
-eval of the model and of its EMA (unfused with ``--no-fused-eval``, and always for
-MLLA), a checkpoint each epoch (``torch.save``; the last 3 and the best kept) and
+eval of the model and of its EMA (the M and A families through the packed executor;
+unfused with ``--no-fused-eval``, and always for MLLA), a checkpoint each epoch (``torch.save``; the last 3 and the best kept) and
 auto-resume from the newest. The
 per-epoch JSON line and ``log.txt`` keep the JAX CLI's key names, and add the train
 loop's seconds and images per second, the seconds it waited on the loader (and on its
@@ -423,12 +423,14 @@ def _train(args):
         alpha=args.distillation_alpha, tau=args.distillation_tau, remat=args.remat,
         jsd_splits=splits, grad_accum=k, mesa=args.mesa,
         mesa_start_step=int(args.mesa_start_ratio * args.epochs * steps_per_epoch))
-    # MLLA has no fused form: its eval is the unfused model's, as with --no-fused-eval
+    # MLLA has no fused form: its eval is the unfused model's, as with --no-fused-eval;
+    # the M and A families' fused eval runs the packed executor, as the JAX trainer's
     if mlla or args.no_fused_eval:
         make_eval = lambda ema: make_eval_step(model, ema=ema, dtype=dtype)  # noqa: E731
     else:
         cfg = get_config(args.model, **overrides)
-        make_eval = lambda ema: make_fused_eval_step(cfg, ema=ema, dtype=dtype)  # noqa: E731
+        make_eval = lambda ema: make_fused_eval_step(  # noqa: E731
+            cfg, ema=ema, packed=True, dtype=dtype)
     eval_step = make_eval(args.eval_ema)
     eval_ema = (make_eval(True) if not (args.no_model_ema or args.eval_ema or args.eval)
                 else None)

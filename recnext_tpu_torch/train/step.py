@@ -43,7 +43,7 @@ gradient would be reduced. The loss reported is the global batch's mean.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -51,13 +51,12 @@ from torch.func import functional_call
 
 from recnext_tpu_torch.data.mixup import mixup_cutmix
 from recnext_tpu_torch.fusion import fuse_params
+from recnext_tpu_torch.models.packed_infer import PackedRecNext, default_groups
 from recnext_tpu_torch.models.recnext import RecNext, RecNextConfig
 from recnext_tpu_torch.parallel.sharding import all_reduce_gradients, all_reduce_sum, world_size
 from recnext_tpu_torch.train import losses as L
 from recnext_tpu_torch.train.optim import global_norm
 from recnext_tpu_torch.train.state import TrainState, ema_update
-
-PACKED_ITEM = "ROADMAP.md Queue 1 item 12 (models/packed_infer.py)"
 
 
 def compute_params(model: nn.Module, dtype: torch.dtype,
@@ -259,16 +258,19 @@ def make_eval_step(model: nn.Module, *, ema: bool = False,
 
 
 def make_fused_eval_step(cfg: RecNextConfig, *, ema: bool = False,
-                         fused_model: Optional[nn.Module] = None, packed: bool = False,
+                         fused_model: Optional[nn.Module] = None, packed: bool = True,
+                         groups: Optional[Tuple[int, ...]] = None,
                          dtype: torch.dtype = torch.bfloat16):
     """Eval through BN-fused weights: each call folds the state's weights (or its
     EMA copy) with ``fusion.fuse_params`` into a fused model in ``dtype`` (built
     from ``cfg`` on the batch's device at first use, unless ``fused_model`` is
-    given) and scores the batch with it, through the kernels on a CUDA tensor. The
-    lane-packed executor of the JAX package is not ported (``packed`` raises)."""
-    if packed:
-        raise NotImplementedError(f"the packed executor is not ported; see {PACKED_ITEM}")
+    given) and scores the batch with it, through the kernels on a CUDA tensor. For
+    the M and A families with ``packed`` (the default, as the JAX step's), through
+    the packed executor (``models/packed_infer.py``) at ``groups`` (default:
+    ``default_groups`` of the batch's size), its packed weights rebuilt from the
+    fused state at each call."""
     holder = [fused_model]
+    use_packed = packed and cfg.family in ("m", "a")
 
     def eval_step(state: TrainState, batch):
         x = batch["image"]
@@ -276,8 +278,11 @@ def make_fused_eval_step(cfg: RecNextConfig, *, ema: bool = False,
             holder[0] = RecNext(cfg, fused=True).to(device=x.device, dtype=dtype).eval()
         fused = holder[0]
         fused.load_state_dict(fuse_params(state.variables(ema=ema)), strict=True)
+        forward = fused
+        if use_packed:
+            forward = PackedRecNext(fused, groups or default_groups(cfg, x.shape[0]))
         with torch.inference_mode():
-            logits = fused(x.to(dtype))
+            logits = forward(x.to(dtype))
         return eval_metrics(logits, batch["label"])
 
     return eval_step

@@ -2,7 +2,9 @@
 
 Counterpart of ``recnext_tpu/validate.py`` (the reference's ``moganet_valid.py``):
 score a checkpoint on a data set, with the crop-pct, a CSV results row and, with
-``--fused``, the BN-fused model (``fuse_eval.py``'s role). Checkpoints are those of
+``--fused``, the BN-fused model (``fuse_eval.py``'s role); ``--fused --packed`` runs
+it through the packed executor (``models/packed_infer.py``, the M and A families, at
+``default_groups`` of each batch's size, as the JAX CLI does). Checkpoints are those of
 ``train/finetune.py:read_weights``: a reference ``.pth``, this trainer's checkpoint
 (``--ema`` takes its EMA weights) or a fused archive (a directory holding
 ``<model>_fused.pt``, or the file; ``--fused`` needed). Without ``--checkpoint`` the
@@ -18,11 +20,11 @@ The MLLA graft family (``--model mlla_*``) is LayerNorm-based: it evaluates unfu
 reference MLLA layout (its ``rope.rotations`` buffers are dropped: the port computes
 its own) or the trainer's checkpoint.
 
-Not here: ``--packed`` (the TPU's lane-packed executor, ``PACKED_ITEM``); the JAX
-CLI's ``--compile-cache`` is XLA's and has no counterpart.
+Not here: the JAX CLI's ``--compile-cache``, which is XLA's and has no counterpart.
 
   python -m recnext_tpu_torch.validate --model recnext_m1 --checkpoint runs/m1_384/pub \\
       --fused --data-set FAKE --input-size 384 --crop-pct 1.0 --results-file results.csv
+  python -m recnext_tpu_torch.validate --model recnext_a1 --fused --packed --data-set FAKE
   python -m recnext_tpu_torch.validate --model mlla_mini_recconv --checkpoint \\
       runs/mlla_mini/ckpt/epoch_0001.pt --ema --data-set FAKE --input-size 256
 """
@@ -50,7 +52,7 @@ def parse_args(argv=None):
                    help=".pth/.pt state dict or train checkpoint, or a fused archive")
     p.add_argument("--fused", action="store_true", help="evaluate the BN-fused model")
     p.add_argument("--packed", action="store_true",
-                   help="the JAX package's lane-packed executor (not ported)")
+                   help="the packed executor (needs --fused; M and A families)")
     p.add_argument("--ema", action="store_true",
                    help="evaluate the EMA weights of a train checkpoint")
     p.add_argument("--data-set", default="IMNET",
@@ -136,14 +138,12 @@ def main(argv=None):
     from recnext_tpu_torch.data.loader import eval_loader
     from recnext_tpu_torch.data.transforms import EvalTransform
     from recnext_tpu_torch.device import resolve_device
+    from recnext_tpu_torch.models.packed_infer import PackedRecNext, default_groups
     from recnext_tpu_torch.models.registry import create_model, parse_kv_overrides
-    from recnext_tpu_torch.train.step import PACKED_ITEM
 
     mlla = args.model.startswith("mlla")
     if mlla and (args.fused or args.packed or args.test_pool):
         raise SystemExit("mlla models have no fused/packed/test-pool path")
-    if args.packed:
-        raise NotImplementedError(f"the packed executor is not ported; see {PACKED_ITEM}")
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     ds, nb_classes = build_dataset(False, args.data_set, args.data_path, args.input_size,
@@ -167,6 +167,8 @@ def main(argv=None):
     # apply_test_time_pool); where active, crop_pct 1.0
     test_pool = False
     if args.test_pool:
+        if args.packed:
+            raise SystemExit("--test-pool is incompatible with --packed")
         if not args.fused:
             raise SystemExit("--test-pool requires --fused (single-linear head)")
         if args.input_size > 224:
@@ -175,9 +177,17 @@ def main(argv=None):
         else:
             print(f"test-pool inactive: input {args.input_size} <= native 224")
 
+    if args.packed and (not args.fused or net.cfg.family not in ("m", "a")):
+        raise SystemExit("--packed requires --fused and an m/a-family model")
+    packed = {}  # the packed executor at each batch size's groups (a ragged last batch)
     pool = 224 // 32  # the model's native final feature size
 
     def forward(x: torch.Tensor) -> torch.Tensor:
+        if args.packed:
+            groups = default_groups(net.cfg, x.shape[0])
+            if groups not in packed:
+                packed[groups] = PackedRecNext(net, groups)
+            return packed[groups](x).float()
         if not test_pool:
             return net(x).float()
         feats = net.forward_features(x).float()
@@ -226,7 +236,9 @@ def main(argv=None):
     result = {"model": args.model, "top1": round(top1, 3), "top5": round(top5_acc, 3),
               "img_size": args.input_size, "crop_pct": args.crop_pct, "count": n,
               "images_per_sec": round(n / max(dt, 1e-9), 1), "fused": args.fused,
-              "ema": args.ema, "packed": args.packed, "test_pool": test_pool,
+              "ema": args.ema, "packed": args.packed,
+              "groups": list(default_groups(net.cfg, args.batch_size)) if args.packed else None,
+              "test_pool": test_pool,
               "real_labels": real is not None, "loader_route": loader.route,
               "native_fallback_batches": loader.native_fallback_batches,
               "device": str(device)}

@@ -172,4 +172,4 @@ def test_logits_and_features_at_384_match_jax(name):
     """The 384^2 finetune recipe's resolution: stage planes 96/48/24/12, RecConv levels
     down to 6x6 and 3x3 at stage 3 (tests/test_models.py:test_parity_at_384)."""
     check_logits_and_features(init_jax_variables(name), name, 384,
-                              scale_logit_atol=name.startswith("recnext_a"))
+                              scale_logit_atol=name.startswith("recnext_a"), jit=True)

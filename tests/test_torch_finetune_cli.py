@@ -142,8 +142,12 @@ def test_validate_test_pool_and_valid_labels(pretrained, tmp_path):
 
 
 def test_validate_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _validate("--fused", "--packed")
+    # --packed (once a raise naming its item) scores through the packed executor, and
+    # needs --fused
+    rec = _validate("--fused", "--packed", "--input-size", "32")
+    assert rec["packed"] is True and rec["count"] == 32 and len(rec["groups"]) == 4
+    with pytest.raises(SystemExit, match="requires --fused"):
+        _validate("--packed", "--input-size", "32")
     # --native-loader (once a raise naming the data pipeline's item) scores FAKE data on
     # the PIL route, as the JAX CLI does for a data set that is not on disk
     rec = _validate("--native-loader", "--input-size", "32")

@@ -39,8 +39,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  ("flops", "roofline", "micro", "bwd_micro", "stage_breakdown",
                   "train_breakdown", "bench_eval", "bench_all", "merge_results",
                   "occupancy_scan", "modelcard", "analyze_logs", "flops_attn",
-                  "profile_attn")} | {"recnext_tpu_torch.ops." + m for m in
-                                      ("conv", "winograd", "recconv_variants")}
+                  "profile_attn", "sweep_packing", "attn_breakdown")} | {
+            "recnext_tpu_torch.ops." + m for m in ("conv", "winograd", "recconv_variants")} | {
+            "recnext_tpu_torch.models.packed_infer"}
         assert tools <= set(names), tools - set(names)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "recnext_tpu"))
@@ -50,7 +51,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 45  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 48  # every module was imported
 
 
 @pytest.fixture
@@ -95,14 +96,15 @@ def test_training_and_bench_entry_points_raise_without_a_gpu(no_gpu, tmp_path):
 
 
 def test_tools_that_run_a_model_raise_without_a_gpu(no_gpu, tmp_path):
-    from recnext_tpu_torch.tools import (bench_all, bench_eval, bwd_micro, micro,
-                                         occupancy_scan, profile_attn, stage_breakdown,
-                                         train_breakdown)
+    from recnext_tpu_torch.tools import (attn_breakdown, bench_all, bench_eval, bwd_micro,
+                                         micro, occupancy_scan, profile_attn, stage_breakdown,
+                                         sweep_packing, train_breakdown)
 
     out = str(tmp_path / "out.json")
     for main, argv in ((micro.main, []), (bwd_micro.main, []), (stage_breakdown.main, []),
                        (train_breakdown.main, []), (bench_eval.main, []),
                        (profile_attn.main, ["--time"]), (bench_all.main, ["--out", out]),
-                       (occupancy_scan.main, ["--out", out])):
+                       (occupancy_scan.main, ["--out", out]), (sweep_packing.main, []),
+                       (attn_breakdown.main, [])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)

@@ -53,13 +53,19 @@ def _nhwc(t):
     return t.detach().numpy().transpose(0, 2, 3, 1)
 
 
-def check_logits_and_features(jax_variables, name, size, scale_logit_atol=False):
+def check_logits_and_features(jax_variables, name, size, scale_logit_atol=False, jit=False):
+    """``jit``: the JAX logits and maps from one jitted call (op by op otherwise: a
+    jitted m0 rounds one logit at 60^2 beyond ATOL)."""
     model = _port_model(name=name)
     model.load_state_dict(jax_to_torch(jax_variables, model), strict=True)
     x = _image(size)
     jm = jax_create_model(name, **OVR)
-    want = np.asarray(jm.apply(jax_variables, jnp.asarray(x)))
-    want_feats = jm.apply(jax_variables, jnp.asarray(x), method=jm.features)
+
+    def reference(v, x):
+        return jm.apply(v, x), jm.apply(v, x, method=jm.features)
+
+    want, want_feats = (jax.jit(reference) if jit else reference)(jax_variables, jnp.asarray(x))
+    want = np.asarray(want)
     with torch.no_grad():
         got = model(_nchw(x)).numpy()
         feats = model.features(_nchw(x))
@@ -114,13 +120,14 @@ def test_fuse_params_equals_jax_fusion(jax_variables):
     check_fuse_params(jax_variables, "recnext_m0")
 
 
-def check_fused_model(jax_variables, name):
+def check_fused_model(jax_variables, name, jit=False):
+    """``jit``: the JAX fused logits from a jitted call (op by op otherwise)."""
     jfused = jax_fuse_params(jax_variables)
     model = _port_model(fused=True, name=name)
     model.load_state_dict(fuse_params(jax_to_torch(jax_variables)), strict=True)
     x = _image(64, seed=1)
-    want = np.asarray(jax_create_model(name, fused=True, **OVR).apply(
-        jfused, jnp.asarray(x)))
+    apply = jax_create_model(name, fused=True, **OVR).apply
+    want = np.asarray((jax.jit(apply) if jit else apply)(jfused, jnp.asarray(x)))
     with torch.no_grad():
         got = model(_nchw(x)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)

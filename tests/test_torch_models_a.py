@@ -30,8 +30,8 @@ def jax_variables():
 def test_a_logits_and_features_match_jax(jax_variables, size):
     # the A logits reach ~1.5e3 and some cancel to ~1: fp32 sums in another order
     # (the JAX package's block-diagonal attention, other conv orders) differ there by
-    # ~4e-7 of the largest logit, so atol scales with it
-    check_logits_and_features(jax_variables, NAME, size, scale_logit_atol=True)
+    # ~4e-7 of the largest logit, so atol scales with it; the JAX side is jitted
+    check_logits_and_features(jax_variables, NAME, size, scale_logit_atol=True, jit=True)
 
 
 def test_a_jax_to_torch_equals_flax_to_torch(jax_variables):
@@ -43,7 +43,7 @@ def test_a_fuse_params_equals_jax_fusion(jax_variables):
 
 
 def test_a_fused_model_matches_jax_fused_apply(jax_variables):
-    check_fused_model(jax_variables, NAME)
+    check_fused_model(jax_variables, NAME, jit=True)
 
 
 def test_a1_builds_as_the_jax_package_defines_it():

@@ -4,6 +4,8 @@ weights (JAX -> port through ``jax_regnet_to_torch``, port -> JAX through the JA
 package's ``regnety_torch_to_flax``), and every state-dict key against the JAX
 package's timm key map."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,7 +47,9 @@ def test_regnety_160_has_83_59m_parameters():
     assert tregnet.REGNET_CONFIGS["regnety_160"].stages()[0] == [224, 448, 1232, 3024]
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_tiny():
+    """The tiny JAX RegNetY and its variables, made once for every test that asks."""
     model = jregnet.RegNetY(cfg=jregnet.RegNetConfig(**TINY))
     variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
     rng = np.random.default_rng(3)
@@ -57,6 +61,11 @@ def _jax_tiny():
     return model, {"params": params, "batch_stats": stats}
 
 
+def _eval_apply(model):
+    """``model.apply(variables, x, training=False)``, jitted."""
+    return jax.jit(functools.partial(model.apply, training=False))
+
+
 def _x(seed=0):
     return np.random.default_rng(seed).normal(size=(2, 32, 32, 3)).astype(np.float32)
 
@@ -66,7 +75,7 @@ def test_logits_match_jax_on_carried_weights():
     port = tregnet.RegNetY(tregnet.RegNetConfig(**TINY)).eval()
     port.load_state_dict(jax_regnet_to_torch(variables, port), strict=True)
     x = _x()
-    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), training=False))
+    want = np.asarray(_eval_apply(jmodel)(variables, jnp.asarray(x)))
     with torch.no_grad():
         got = port(torch.from_numpy(x.transpose(0, 3, 1, 2).copy())).numpy()
     assert got.shape == want.shape == (2, 11)
@@ -88,6 +97,7 @@ def test_teacher_in_bf16_matches_jax_in_bf16_with_an_fp32_classifier():
     port.head.register_forward_hook(lambda mod, args, out: feats.append(args[0]))
     for seed in range(3):
         x = _x(seed)
+        # op by op: JAX's bf16 model jitted rounds otherwise, beyond the bound
         want = np.asarray(jmodel.apply(variables, jnp.asarray(x), training=False))
         got = make_teacher_apply(port, torch.bfloat16)(
             torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
@@ -142,7 +152,7 @@ def test_port_weights_give_the_same_logits_in_jax():
         want = model(torch.from_numpy(x.transpose(0, 3, 1, 2).copy())).numpy()
     fvars = regnety_torch_to_flax({k: v.numpy() for k, v in model.state_dict().items()})
     jmodel = jregnet.RegNetY(cfg=jregnet.RegNetConfig(**TINY))
-    got = np.asarray(jmodel.apply(fvars, jnp.asarray(x), training=False))
+    got = np.asarray(_eval_apply(jmodel)(fvars, jnp.asarray(x)))
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 

@@ -20,6 +20,7 @@ from recnext_tpu.data.transforms import EvalTransform as JaxEvalTransform
 from recnext_tpu.fusion import fuse_params as jax_fuse_params
 from recnext_tpu.models.registry import create_model as jax_create_model
 from recnext_tpu_torch.export import load_published, publish_fused
+from recnext_tpu_torch.models.packed_infer import default_groups
 from recnext_tpu_torch.models.registry import create_model
 from recnext_tpu_torch.serve import ServingModel, check_server, make_server, topk_json
 
@@ -117,13 +118,15 @@ def server(serving):
     srv.batcher.close()
 
 
-def test_ping_and_info(server):
+def test_ping_and_info(server, serving):
     with urllib.request.urlopen(f"{server}/ping", timeout=30) as r:
         assert json.loads(r.read())["status"] == "Healthy"
     with urllib.request.urlopen(f"{server}/models/recnext_m0", timeout=30) as r:
         info = json.loads(r.read())
     assert info["input_size"] == SIZE and info["max_batch"] == 4
-    assert info["packed"] is False and info["device"] == "cpu"
+    # the M family serves through the packed executor, at default_groups(cfg, max_batch)
+    assert info["packed"] is True and info["device"] == "cpu"
+    assert info["groups"] == list(default_groups(serving.cfg, 4))
     with pytest.raises(urllib.error.HTTPError):
         urllib.request.urlopen(f"{server}/models/nope", timeout=30)
 

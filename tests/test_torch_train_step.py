@@ -430,8 +430,17 @@ def test_unported_options_raise_naming_their_item(tmp_path, capsys):
                       "--output-dir", str(tmp_path)])
     assert res["state"].step == 1
     assert '"loader_route": "pil"' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tstep.make_fused_eval_step(get_config(NAME, **OVR), packed=True)
+    # the fused eval through the packed executor (once a raise naming its item) scores
+    # the trained state as the unpacked fused eval does
+    cfg = get_config(NAME, **OVR)
+    batch = {"image": torch.randn(8, 3, 32, 32, generator=torch.Generator().manual_seed(5)),
+             "label": torch.arange(8) % 11}
+    want = tstep.make_fused_eval_step(cfg, packed=False, dtype=torch.float32)(res["state"], batch)
+    got = tstep.make_fused_eval_step(cfg, packed=True, groups=(2, 4, 2, 8),
+                                     dtype=torch.float32)(res["state"], batch)
+    for k in ("correct1", "correct5", "count"):
+        assert int(got[k]) == int(want[k]), k
+    assert float(got["loss_sum"]) == pytest.approx(float(want["loss_sum"]), rel=1e-5)
 
 
 def test_distillation_needs_a_teacher_and_a_known_kind():
